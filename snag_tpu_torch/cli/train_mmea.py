@@ -1,0 +1,39 @@
+"""MMEA entry point (reference: SNAG_MMEA/main.py:502-529), inference only.
+
+    python -m snag_tpu_torch.cli.train_mmea --only_test 1 --model_name SNAG \
+        --data_choice SYNTH --csls --csls_k 3 [--model_name_save ckpt.pkl] \
+        [--device cuda|cpu]
+
+embeds every entity, runs full-rank (CSLS) evaluation both ways, logs
+Hits@1/10/50, MR and MRR, and writes the top-3 retrieval CSV.  Training
+is not ported yet.
+"""
+
+from __future__ import annotations
+
+from snag_tpu_torch.config import (build_argparser, config_from_args,
+                                   finalize_config)
+from snag_tpu_torch.train.runner import Runner
+from snag_tpu_torch.utils.logging import initialize_exp
+from snag_tpu_torch.utils.seed import set_seed
+
+
+def main(argv=None) -> Runner:
+    args = build_argparser().parse_args(argv)
+    cfg = finalize_config(config_from_args(args))
+    set_seed(cfg.random_seed)
+    logger = initialize_exp(cfg)
+
+    runner = Runner(cfg, logger)
+    if cfg.model_name_save:
+        runner.load_model(cfg.model_name_save)
+    if cfg.only_test:
+        runner.evaluate(last_epoch=True, save_name=f"{cfg.exp_id}_only_test")
+    else:
+        runner.run()
+    logger.info("done!")
+    return runner
+
+
+if __name__ == "__main__":
+    main()

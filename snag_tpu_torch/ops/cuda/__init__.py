@@ -1,0 +1,21 @@
+"""Hand-written Hopper kernels and their plain-PyTorch twins.
+
+Each module here wraps one ``csrc/*.cu`` source.  Its wrappers launch the
+kernel for CUDA tensors and use the twin only for CPU tensors; a kernel
+that fails to build or launch raises.  Every kernel keeps a
+``KernelStats`` with a launch count, and every twin a count of its CPU
+dispatches.
+"""
+
+
+def all_stats():
+    """{name: KernelStats} of every kernel of the package."""
+    from snag_tpu_torch.ops.cuda import gat_attention, rank_eval
+    return {s.name: s for s in (gat_attention.STATS, rank_eval.STATS_TOPK,
+                                rank_eval.STATS_RANKS)}
+
+
+def reset_stats() -> None:
+    for s in all_stats().values():
+        s.launches = 0
+        s.twin_calls = 0

@@ -1,0 +1,88 @@
+"""Graph encoder: multi-head sparse GAT over the CSR edge list.
+
+Port of the diag hot path of ``snag_tpu/ops/gnn.py``
+(``MultiHeadGraphAttention`` :95-132 and ``GAT`` :177-218), following the
+reference layers (SNAG_MMEA/model/layers.py:35-100, model/Tool_model.py:61-110).
+Parameter names are the reference's: ``layer_stack.{i}.w`` (H, 1, F) and
+``layer_stack.{i}.a_src_dst`` (H, 2F, 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from snag_tpu_torch.data.graph import DeviceGraph
+from snag_tpu_torch.ops import inits
+from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
+
+
+class MultiHeadGraphAttention(nn.Module):
+    """Sparse GAT layer, all heads at once (layers.py:35-100), diag mode:
+    the projection is an elementwise per-head scale ``w`` (ones-initialized)
+    and the attention vector a ~ U(-1/sqrt(2F), 1/sqrt(2F))
+    (layers.py:60-63)."""
+
+    def __init__(self, n_head: int, f_in: int, f_out: int,
+                 generator: torch.Generator, attn_dropout: float = 0.0,
+                 diag: bool = True):
+        super().__init__()
+        if not diag:
+            raise NotImplementedError("non-diag GAT is not ported")
+        if f_in != f_out:
+            raise ValueError(f"diag GAT needs f_in == f_out, got {f_in}, {f_out}")
+        self.n_head, self.f_out = n_head, f_out
+        self.attn_dropout = attn_dropout
+        self.w = nn.Parameter(torch.ones(n_head, 1, f_out))
+        self.a_src_dst = nn.Parameter(inits.uniform_stdv(
+            (n_head, 2 * f_out, 1), 1.0 / math.sqrt(2 * f_out), generator))
+
+    def forward(self, x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
+        if self.training and self.attn_dropout > 0:
+            raise NotImplementedError("GAT attention dropout is not ported")
+        f = self.f_out
+        wh = self.w[:, 0, :]                                  # (H, F)
+        a_src = self.a_src_dst[:, :f, 0]
+        a_dst = self.a_src_dst[:, f:, 0]
+        # score of edge (i <- j) is h_i.a_src + h_j.a_dst; with the diag
+        # projection both halves reduce to x @ (w_h * a_h)
+        s_src = x @ (wh * a_src).T                            # (N, H)
+        s_dst = x @ (wh * a_dst).T
+        agg, rowsum = gat_attention(x, s_src, s_dst, graph)
+        # the diag projection commutes out of the neighbour sum
+        agg = agg * wh[None, :, :]                            # (N, H, F)
+        return agg / rowsum[:, :, None]
+
+
+class GAT(nn.Module):
+    """Stacked diag GAT with head-mean and ELU between layers
+    (Tool_model.py:61-110)."""
+
+    def __init__(self, n_units: List[int], n_heads: List[int],
+                 generator: torch.Generator, dropout: float = 0.0,
+                 attn_dropout: float = 0.0,
+                 instance_normalization: bool = False, diag: bool = True):
+        super().__init__()
+        if instance_normalization:
+            raise NotImplementedError("GAT instance normalization is not ported")
+        self.dropout = dropout
+        num_layer = len(n_units) - 1
+        self.layer_stack = nn.ModuleList(
+            MultiHeadGraphAttention(
+                n_heads[i], n_units[i], n_units[i + 1], generator,
+                attn_dropout=attn_dropout, diag=diag)
+            for i in range(num_layer))
+
+    def forward(self, x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
+        if self.training and self.dropout > 0:
+            raise NotImplementedError("GAT dropout is not ported")
+        last = len(self.layer_stack) - 1
+        for i, layer in enumerate(self.layer_stack):
+            x = layer(x, graph).mean(dim=1)
+            if i < last:
+                x = F.elu(x)
+        return x

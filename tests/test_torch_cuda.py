@@ -1,0 +1,105 @@
+"""The port's CUDA kernels vs their plain-PyTorch twins, on the card.
+
+Marked ``cuda``: these skip where torch sees no GPU.  On a GPU machine
+(which need not have JAX) run them without the JAX test set-up:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the GAT kernel sums a row's edges in a fixed order and the
+twin with ``index_add_``: rtol = atol = 1e-5.  The rank kernels sum the
+dot products in another order than cuBLAS, so a near-tie may flip: ranks
+must agree on >= 99 % of queries; tie rules are checked on the kernel's
+own exact ties.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from snag_tpu_torch.data.graph import build_graph
+from snag_tpu_torch.ops.cuda import gat_attention as ga
+from snag_tpu_torch.ops.cuda import rank_eval as rk
+from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gat_inputs(dev, n=300, n_tri=900, c=48, h=2, seed=0):
+    rng = np.random.default_rng(seed)
+    tri = [(int(rng.integers(n)), 0, int(rng.integers(n)))
+           for _ in range(n_tri)]
+    tri += [(int(rng.integers(n)), 0, 7) for _ in range(200)]   # a hub row
+    g = build_graph(n, tri).to_torch(dev)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    return g, t(n, c), t(n, h), t(n, h)
+
+
+@pytest.mark.parametrize("c,h", [(48, 2), (30, 1), (300, 2), (64, 4)])
+def test_gat_kernel_matches_twin(dev, c, h):
+    g, x, s_src, s_dst = _gat_inputs(dev, c=c, h=h)
+    agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
+    torch.cuda.synchronize()
+    want_agg, want_rs = ga.gat_attention_twin(x, s_src, s_dst, g)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+
+
+def test_gat_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    g, x, s_src, s_dst = _gat_inputs(dev)
+    with pytest.raises(TypeError):
+        ga.gat_attention_cuda(x.double(), s_src, s_dst, g)
+    with pytest.raises(ValueError):
+        ga.gat_attention_cuda(x.t().contiguous().t(), s_src, s_dst, g)
+    with pytest.raises(ValueError):
+        ga.gat_attention_cuda(x, s_src.cpu(), s_dst, g)
+    with pytest.raises(NotImplementedError, match="gat_bwd"):
+        gat_attention(x.requires_grad_(), s_src, s_dst, g)
+    before = ga.STATS.launches
+    with torch.no_grad():
+        gat_attention(x, s_src, s_dst, g)
+    assert ga.STATS.launches == before + 1
+
+
+def _embs(dev, n, d, seed, noise=0.5):
+    rng = np.random.default_rng(seed)
+    l = rng.normal(size=(n, d)).astype(np.float32)
+    r = l + noise * rng.normal(size=(n, d)).astype(np.float32)
+    l /= np.linalg.norm(l, axis=1, keepdims=True)
+    r /= np.linalg.norm(r, axis=1, keepdims=True)
+    return torch.as_tensor(l, device=dev), torch.as_tensor(r, device=dev)
+
+
+@pytest.mark.parametrize("n,d,use_csls,k", [(150, 32, False, 3),
+                                             (301, 64, True, 3),
+                                             (77, 20, True, 10)])
+def test_rank_kernels_match_twin(dev, n, d, use_csls, k):
+    x, y = _embs(dev, n, d, seed=n)
+    got = rk.streaming_rank_eval(x, y, k, use_csls, True)
+    torch.cuda.synchronize()
+    want = rk.eval_core(x, y, k, use_csls, True)
+    for a, b in zip(got, want):
+        assert (a.long() == b).float().mean().item() >= 0.99
+
+
+def test_rank_kernel_tie_rules(dev):
+    x, y = _embs(dev, 120, 16, seed=11)
+    x[9], y[9] = x[5], y[5]      # query 9 == query 5, column 9 == column 5
+    for use_csls in (False, True):
+        ranks, _, top3 = rk.streaming_rank_eval(x, y, 3, use_csls, True)
+        # rows 5 and 9 see the same distances; for query 9 the equal
+        # column 5 comes first, so its gold sits one place further back
+        assert ranks[9].item() == ranks[5].item() + 1
+        row = top3[9].tolist()
+        if 9 in row:
+            assert 5 in row and row.index(5) < row.index(9)

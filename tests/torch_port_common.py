@@ -1,0 +1,56 @@
+"""Shared set-up of the ``test_torch_*`` files: one small SNAG geometry,
+built as a JAX-package config and as a port config from the same fields."""
+
+import torch
+
+SMALL = dict(
+    data_choice="SYNTH", model_name="SNAG", hidden_units="32,32,32",
+    heads="2,2", attr_dim=32, img_dim=32, name_dim=32, char_dim=32,
+    hidden_size=32, intermediate_size=64, num_attention_heads=2,
+    num_hidden_layers=1, structure_encoder="gat", use_surface=0,
+    inner_view_num=4, random_seed=7, synth_ents=200, synth_rels=10,
+    synth_triples=700, synth_img_dim=24, exp_name="torchport", csls=True,
+    csls_k=3, no_tensorboard=True, add_noise=0)
+
+
+def configs(data_root: str, **overrides):
+    """(JAX-package Config, port Config) for the same fields."""
+    from snag_tpu.config import Config as JaxConfig
+    from snag_tpu.config import finalize_config as jax_finalize
+    from snag_tpu_torch.config import Config as TorchConfig
+    from snag_tpu_torch.config import finalize_config as torch_finalize
+    kw = {**SMALL, **overrides}
+    return (jax_finalize(JaxConfig(**kw), data_root=data_root),
+            torch_finalize(TorchConfig(device="cpu", **kw),
+                           data_root=data_root))
+
+
+def jax_snag_params(model, feats, graph, key):
+    """The JAX package's SNAG param tree for an inference run: the encoder
+    from a jitted init of ``joint_emb`` plus the Kendall layer's zero
+    log-variances.  That is the tree ``create_train_state`` builds without
+    ``--awloss``, made without tracing the training loss."""
+    import jax
+    import jax.numpy as jnp
+    from snag_tpu.models.snag import SNAG
+    params = jax.jit(lambda k: model.init(
+        {"params": k}, feats, graph, method=SNAG.joint_emb))(key)["params"]
+    return {**params, "multi_loss_layer": {"log_vars": jnp.zeros((6,))}}
+
+
+def fast_create_train_state(cfg, model, feats, graph, tx, seed,
+                            extra_init_kwargs=None):
+    """Drop-in for ``snag_tpu.train.step.create_train_state`` with the
+    same key split, built on ``jax_snag_params``."""
+    import jax
+    import jax.numpy as jnp
+    from snag_tpu.train.step import TrainState
+    init_rng, _, base_key = jax.random.split(jax.random.PRNGKey(seed), 3)
+    params = jax_snag_params(model, feats, graph, init_rng)
+    return TrainState(params=params, opt_state=tx.init(params),
+                      step=jnp.zeros((), jnp.int32), base_key=base_key)
+
+
+def single_thread():
+    # tier-1 runs several xdist workers; one intra-op thread each
+    torch.set_num_threads(1)

@@ -1,12 +1,13 @@
-"""MMEA entry point (reference: SNAG_MMEA/main.py:502-529), inference only.
+"""MMEA entry point (reference: SNAG_MMEA/main.py:502-529).
 
-    python -m snag_tpu_torch.cli.train_mmea --only_test 1 --model_name SNAG \
-        --data_choice SYNTH --csls --csls_k 3 [--model_name_save ckpt.pkl] \
-        [--device cuda|cpu]
+    python -m snag_tpu_torch.cli.train_mmea --model_name SNAG \
+        --data_choice SYNTH --fused_snag_loss 0 --il ... [--device cuda|cpu]
 
-embeds every entity, runs full-rank (CSLS) evaluation both ways, logs
-Hits@1/10/50, MR and MRR, and writes the top-3 retrieval CSV.  Training
-is not ported yet.
+trains SNAG (two stages, iterative learning, eval every --eval_epoch) and
+ends with a full-rank test from the best weights and the top-3 retrieval
+CSV.  With ``--only_test 1 [--model_name_save ckpt.pkl]`` it only embeds
+every entity, runs the full-rank (CSLS) evaluation both ways, logs
+Hits@1/10/50, MR and MRR, and writes the CSV.
 """
 
 from __future__ import annotations

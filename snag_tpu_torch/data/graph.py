@@ -13,6 +13,11 @@ The JAX package pads the edge list to a static capacity and builds tile
 and spill structures for its TPU grid.  Here the kernels walk
 ``row_ptr`` directly, so only the real edges are kept and nothing is
 padded.
+
+``symmetric`` records, at build time, that the (row, col) edge multiset
+equals the (col, row) multiset.  The GAT backward kernel relies on it
+(every in-edge of a node is one of its out-edges reversed,
+snag_tpu/ops/pallas/gat_bwd.py:17-32) and refuses a graph without it.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ class DeviceGraph(NamedTuple):
     row_ptr: torch.Tensor   # (N+1,) int32
     row: torch.Tensor       # (E,) int64, sorted ascending
     col: torch.Tensor       # (E,) int32
+    symmetric: bool         # (row, col) multiset == (col, row) multiset
 
 
 @dataclass
@@ -47,13 +53,22 @@ class Graph:
     w: np.ndarray         # (E,) float32, sym-normalised
     mask: np.ndarray      # (E,) bool, all True (no padding)
     row_ptr: np.ndarray   # (N+1,) int32
+    symmetric: bool       # (row, col) multiset == (col, row) multiset
 
     def to_torch(self, device) -> DeviceGraph:
         return DeviceGraph(
             n_nodes=self.n_nodes, n_edges=self.n_edges,
             row_ptr=torch.as_tensor(self.row_ptr, device=device),
             row=torch.as_tensor(self.row.astype(np.int64), device=device),
-            col=torch.as_tensor(self.col, device=device))
+            col=torch.as_tensor(self.col, device=device),
+            symmetric=self.symmetric)
+
+
+def is_symmetric(n_nodes: int, rows: np.ndarray, cols: np.ndarray) -> bool:
+    """True when the (row, col) multiset equals the (col, row) multiset."""
+    fwd = np.sort(rows.astype(np.int64) * n_nodes + cols)
+    rev = np.sort(cols.astype(np.int64) * n_nodes + rows)
+    return bool(np.array_equal(fwd, rev))
 
 
 def build_graph(n_nodes: int,
@@ -104,4 +119,5 @@ def build_graph(n_nodes: int,
                  row=rows.astype(np.int32), col=cols.astype(np.int32),
                  w=norm_vals.astype(np.float32),
                  mask=np.ones(n_real, dtype=bool),
-                 row_ptr=row_ptr.astype(np.int32))
+                 row_ptr=row_ptr.astype(np.int32),
+                 symmetric=is_symmetric(n_nodes, rows, cols))

@@ -1,4 +1,4 @@
-"""Shared multi-modal encoder (eval mode).
+"""Shared multi-modal encoder.
 
 Port of ``snag_tpu/models/encoder.py::MultiModalEncoder`` (:70-210) with the
 GAT structure encoder and Mformer fusion (reference
@@ -7,8 +7,11 @@ torch names (``entity_emb``, ``img_fc``, ``rel_fc``, ``att_fc``,
 ``cross_graph_model.layer_stack.{i}``, ``fusion.fusion_layer.{i}``,
 ``fusion.weight_raw``), so a reference state dict loads strictly.
 
-Training-time parts (feature and entity noise, dropout, batch-row
-encoding) are not ported yet: the encoder refuses training mode.
+Training inputs of the forward: ``entity_noise_gen`` (entity-embedding
+noise at half rates, :151-153), ``dropout_gen`` (None = deterministic) and
+``rows`` (encode only a batch's entities after the graph encoder,
+:155-167).  Feature-table noise is applied by the caller, once per epoch
+(``apply_feature_noise``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops import inits
+from snag_tpu_torch.ops import noise as noise_ops
 from snag_tpu_torch.ops.fusion import MformerFusion, tlinear
 from snag_tpu_torch.ops.gnn import GAT
 
@@ -34,6 +38,13 @@ class FeaturePack(NamedTuple):
     att: Optional[torch.Tensor]
     name: Optional[torch.Tensor]
     char: Optional[torch.Tensor]
+
+
+class FeatureStats(NamedTuple):
+    """Column statistics for noise-masking (img over image-bearing rows)."""
+    img: noise_ops.TableStats
+    rel: noise_ops.TableStats
+    att: noise_ops.TableStats
 
 
 class EncoderOutput(NamedTuple):
@@ -89,21 +100,34 @@ class MultiModalEncoder(nn.Module):
             cfg.hidden_size, cfg.num_attention_heads, cfg.num_hidden_layers,
             cfg.intermediate_size, bool(cfg.use_intermediate), generator)
 
-    def forward(self, feats: FeaturePack, graph: DeviceGraph) -> EncoderOutput:
-        if self.training:
-            raise NotImplementedError(
-                "training mode (noise, dropout) is not ported; call .eval()")
+    def forward(self, feats: FeaturePack, graph: DeviceGraph,
+                entity_noise_gen: Optional[torch.Generator] = None,
+                dropout_gen: Optional[torch.Generator] = None,
+                rows: Optional[torch.Tensor] = None) -> EncoderOutput:
         cfg = self.cfg
-        gph = (self.cross_graph_model(self.entity_emb.weight, graph)
-               if cfg.w_gcn else None)
-        img = self.img_fc(feats.img) if cfg.w_img else None
-        rel = self.rel_fc(feats.rel) if cfg.w_rel else None
-        att = self.att_fc(feats.att) if cfg.w_attr else None
-        name = self.name_fc(feats.name) if (cfg.w_name and feats.name is not None) else None
-        char = self.char_fc(feats.char) if (cfg.w_char and feats.char is not None) else None
+        gph = None
+        if cfg.w_gcn:
+            ent = self.entity_emb.weight
+            if entity_noise_gen is not None:
+                ent = noise_ops.entity_noise(entity_noise_gen, ent,
+                                             cfg.noise_ratio, cfg.mask_ratio)
+            gph = self.cross_graph_model(ent, graph, dropout_gen)
+            if rows is not None:
+                gph = gph[rows]
+
+        # the projections and fusion are per entity: with ``rows`` they run
+        # on the batch's entities only, with the same gradients
+        def sel(t):
+            return t if rows is None else t[rows]
+
+        img = self.img_fc(sel(feats.img)) if cfg.w_img else None
+        rel = self.rel_fc(sel(feats.rel)) if cfg.w_rel else None
+        att = self.att_fc(sel(feats.att)) if cfg.w_attr else None
+        name = self.name_fc(sel(feats.name)) if (cfg.w_name and feats.name is not None) else None
+        char = self.char_fc(sel(feats.char)) if (cfg.w_char and feats.char is not None) else None
 
         joint, joint_fz, hidden, weight_norm, weight_fz = self.fusion(
-            [img, att, rel, gph, name, char])
+            [img, att, rel, gph, name, char], dropout_gen)
         return EncoderOutput(gph=gph, img=img, rel=rel, att=att, name=name,
                              char=char, joint=joint, joint_fz=joint_fz,
                              hidden=hidden, weight_norm=weight_norm,
@@ -124,3 +148,34 @@ def prepare_features(cfg: Config, data, device) -> FeaturePack:
         img=put(img), rel=put(data.rel_features), att=put(data.att_features),
         name=put(data.name_features) if cfg.w_name else None,
         char=put(data.char_features) if cfg.w_char else None)
+
+
+def batch_rows(links: torch.Tensor):
+    """(rows, local_links) for batch-subset encoding: rows stacks the left
+    then the right link entities; local_links index into that stack."""
+    b = links.shape[0]
+    rows = torch.cat([links[:, 0], links[:, 1]])
+    ar = torch.arange(b, dtype=links.dtype, device=links.device)
+    return rows, torch.stack([ar, b + ar], dim=1)
+
+
+def prepare_stats(feats: FeaturePack, ent_w_img) -> FeatureStats:
+    """Noise statistics (SNAG.py:77-84): image stats over the image-bearing
+    rows of the normalised table; rel/att over all rows."""
+    w_img = torch.as_tensor(np.asarray(ent_w_img, dtype=np.int64),
+                            device=feats.img.device)
+    return FeatureStats(img=noise_ops.table_stats(feats.img, valid_rows=w_img),
+                        rel=noise_ops.table_stats(feats.rel),
+                        att=noise_ops.table_stats(feats.att))
+
+
+def apply_feature_noise(gen: torch.Generator, feats: FeaturePack,
+                        stats: FeatureStats, noise_ratio: float,
+                        mask_ratio: float) -> FeaturePack:
+    """Per-epoch noisy views of img/rel/att (update_noise, SNAG.py:86-91);
+    name/char features are never noised in the reference."""
+    def noised(x, st):
+        return noise_ops.noise_mask_table(gen, x, st, noise_ratio, mask_ratio)
+    return feats._replace(img=noised(feats.img, stats.img),
+                          rel=noised(feats.rel, stats.rel),
+                          att=noised(feats.att, stats.att))

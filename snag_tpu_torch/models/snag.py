@@ -1,22 +1,52 @@
 """SNAG — the paper's model (reference: SNAG_MMEA/model/SNAG.py).
 
-Port of ``snag_tpu/models/snag.py``: the encoder, the Kendall multi-task
-layer's parameters (so the state dict has the JAX package's keys) and
-``joint_emb``, the frozen-weight joint path that eval embeds with
-(SNAG.py:178-179).  The training loss bundle (GMI + ECIA + IIR) is not
-ported yet.
+Port of ``snag_tpu/models/snag.py``.  Loss bundle (SNAG.py:101-122):
+
+* GMI  — ICL on both joint paths (attention-weighted + frozen-weight);
+* ECIA — per-modality ICL weighted by each entity pair's min attention
+  weight (SNAG.py:109, 143-162; SNAG_loss.py:65-71);
+* IIR  — per-modality ICL on the post-transformer hidden slices
+  (SNAG.py:112, 124-141; the slice labels follow the reference's hardcoded
+  index order, including its gph/img swap against the fusion input order).
+
+ECIA and IIR each run through the shared Kendall multi-task layer; an
+optional AWL head combines the three (``--awloss``).  Eval embeds with the
+frozen-weight joint path (SNAG.py:178-179).
+
+The port computes GMI and ECIA as separate batched NT-Xent calls
+(``--fused_snag_loss 0``, the same loss as the JAX package's fused bundle,
+tests/test_snag_bundle.py:100).  The fused bundle needs the
+``snag_loss_kernel`` kernels (ROADMAP B3), which are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
+from snag_tpu_torch.losses.contrastive import icl_loss_multi, icl_loss_stacked
 from snag_tpu_torch.losses.multitask import (AutomaticWeightedLoss,
                                              KendallLossLayer)
-from snag_tpu_torch.models.encoder import FeaturePack, MultiModalEncoder
+from snag_tpu_torch.models.encoder import (FeaturePack, MultiModalEncoder,
+                                           batch_rows)
+from snag_tpu_torch.ops.fusion import l2norm
+
+# fusion input order (SNAG_tools.py:154)
+FUSION_ORDER = ("img", "att", "rel", "gph", "name", "char")
+
+
+def weight_column(cfg: Config, modality: str) -> Optional[int]:
+    """Column of ``weight_norm`` holding ``modality``'s attention weight:
+    weight_norm columns follow the active fusion-input order, which reduces
+    to the reference's hardcoded indices (SNAG.py:147-152)."""
+    active = [m for m in FUSION_ORDER
+              if {"img": cfg.w_img, "att": cfg.w_attr, "rel": cfg.w_rel,
+                  "gph": cfg.w_gcn, "name": cfg.w_name, "char": cfg.w_char}[m]]
+    return active.index(modality) if modality in active else None
 
 
 class SNAG(nn.Module):
@@ -39,8 +69,90 @@ class SNAG(nn.Module):
                    rel_input_dim=int(data.rel_features.shape[1]),
                    char_feature_dim=data.char_dim, generator=generator)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError("SNAG training loss: not ported yet")
+    def generate_hidden_emb(self, hidden: torch.Tensor):
+        """Fixed-slice extraction (SNAG.py:124-141)."""
+        gph = l2norm(hidden[:, 0, :])
+        rel = l2norm(hidden[:, 1, :])
+        att = l2norm(hidden[:, 2, :])
+        img = l2norm(hidden[:, 3, :]) if self.cfg.w_img else None
+        if hidden.shape[1] >= 6:
+            name = l2norm(hidden[:, 4, :])
+            char = l2norm(hidden[:, 5, :])
+        else:
+            name = char = None
+        return gph, rel, att, img, name, char
+
+    def inner_view_loss(self, gph, rel, att, img, name, char, links, valid,
+                        weight_norm: Optional[torch.Tensor] = None):
+        """Per-modality ICL through the Kendall layer (SNAG.py:143-162), as
+        one batched call over the active modalities (all share the hidden
+        width in every supported config)."""
+        cfg = self.cfg
+        named = [("gph", gph), ("rel", rel), ("att", att), ("img", img),
+                 ("name", name), ("char", char)]
+        active = [(m, e) for m, e in named if e is not None]
+        if len({e.shape[-1] for _, e in active}) != 1:
+            raise NotImplementedError(
+                "modalities of different widths need the sequential icl_loss "
+                "path of snag_tpu/models/snag.py:127-141, not ported")
+        stack = torch.stack([l2norm(e) for _, e in active], dim=0)
+        w_min = None
+        if weight_norm is not None:
+            # weight_norm: (N_ent, mod_num); the reference scales the
+            # min weights by mod_num (SNAG.py:146)
+            mod_num = weight_norm.shape[1]
+            cols = [weight_column(cfg, m) for m, _ in active]
+            wi = weight_norm[links[:, 0]][:, cols].T                 # (M, B)
+            wj = weight_norm[links[:, 1]][:, cols].T
+            w_min = torch.minimum(wi, wj) * mod_num
+        per = icl_loss_multi(stack, links, tau=cfg.tau,
+                             ab_weight=cfg.ab_weight, w_min=w_min,
+                             valid=valid)
+        it = iter(per)
+        return self.multi_loss_layer(
+            [0.0 if e is None else next(it) for _, e in named])
+
+    def forward(self, links: torch.Tensor, valid: Optional[torch.Tensor],
+                feats: FeaturePack, graph: DeviceGraph,
+                entity_noise_gen: Optional[torch.Generator] = None,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training loss (SNAG.py:101-122) and its aux terms."""
+        cfg = self.cfg
+        if cfg.fused_snag_loss:
+            # the fused bundle (JAX snag.py:143-195) is not run in its place
+            raise NotImplementedError(
+                "--fused_snag_loss 1 computes GMI + ECIA with the mixture "
+                "kernels of snag_tpu/ops/pallas/snag_loss_kernel.py "
+                "(mixture_lse, mixture_grad), which are not ported yet "
+                "(ROADMAP A2 / B3); train with --fused_snag_loss 0, the same "
+                "loss")
+        rows = None
+        if cfg.batch_encode:
+            rows, links = batch_rows(links)
+        enc = self.multimodal_encoder(feats, graph, entity_noise_gen,
+                                      dropout_gen, rows=rows)
+        gph_h, rel_h, att_h, img_h, name_h, char_h = \
+            self.generate_hidden_emb(enc.hidden)
+
+        gmi = icl_loss_stacked((enc.joint, enc.joint_fz), links,
+                               tau=cfg.tau, ab_weight=cfg.ab_weight,
+                               valid=valid)
+        ecia = self.inner_view_loss(enc.gph, enc.rel, enc.att, enc.img,
+                                    enc.name, enc.char, links, valid,
+                                    weight_norm=enc.weight_norm)
+        iir = self.inner_view_loss(gph_h, rel_h, att_h, img_h, name_h,
+                                   char_h, links, valid)
+
+        loss_list = [gmi, ecia, iir]
+        if cfg.awloss:
+            loss_all = self.multi_loss_layer_2(loss_list)
+        else:
+            loss_all = gmi + ecia + iir
+        aux = {"joint_Intra_modal": gmi, "Intra_modal": ecia,
+               "IIR_loss": iir,
+               "weight_norm": enc.weight_norm.mean(dim=0).detach()}
+        return loss_all, aux
 
     def joint_emb(self, feats: FeaturePack, graph: DeviceGraph):
         """Eval/IL embedding: (joint_emb_fz (N, M*d), weight_norm (N, M))."""

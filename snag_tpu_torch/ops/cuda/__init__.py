@@ -10,9 +10,10 @@ dispatches.
 
 def all_stats():
     """{name: KernelStats} of every kernel of the package."""
-    from snag_tpu_torch.ops.cuda import gat_attention, rank_eval
-    return {s.name: s for s in (gat_attention.STATS, rank_eval.STATS_TOPK,
-                                rank_eval.STATS_RANKS)}
+    from snag_tpu_torch.ops.cuda import gat_attention, gat_bwd, ntxent, rank_eval
+    return {s.name: s for s in (gat_attention.STATS, gat_bwd.STATS,
+                                ntxent.STATS_LSE, ntxent.STATS_GRAD,
+                                rank_eval.STATS_TOPK, rank_eval.STATS_RANKS)}
 
 
 def reset_stats() -> None:

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>_<hash>.so`` beside the
 package at first use, and loaded with ``ctypes``.  The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Nothing here runs at import time.
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -68,8 +69,10 @@ def load_library(name: str) -> BuiltLibrary:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}_{digest}.so"
     seconds, log = 0.0, ""
     if not so.exists():

@@ -1,0 +1,123 @@
+"""Sparse-GAT attention + aggregation backward: CUDA kernel and its twin.
+
+Kernel: ``csrc/gat_bwd.cu``, replacing
+``snag_tpu/ops/pallas/gat_bwd.py::fused_gat_backward_row``.  From the
+cotangents G of ``agg`` (N, H, C) and r of ``rowsum`` (N, H), for every
+edge i <- j of the CSR graph:
+
+    e        = exp(-leakyrelu_0.2(s_src[i] + s_dst[j]))
+    d_e      = <x[j], G[i, h]> + r[i, h]
+    d_score  = -d_e * e * leaky'(s_src[i] + s_dst[j])
+    d_x[j]     += sum_h e_h * G[i, h]
+    d_s_dst[j] += d_score
+    d_s_src[i] += d_score
+
+The kernel reads each node's in-edges as its out-edges reversed, so it
+needs the symmetric edge multiset that ``build_graph`` records.
+
+Twin: ``gat_backward_twin``, the same sums in ``index_add_`` form over the
+edge list (no symmetry needed).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from snag_tpu_torch.data.graph import DeviceGraph
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
+                                          ptr, require, stream_of)
+
+STATS = KernelStats("gat_bwd")
+MAX_HEADS = 4
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def gat_backward_twin(x: torch.Tensor, s_src: torch.Tensor,
+                      s_dst: torch.Tensor, g_agg: torch.Tensor,
+                      g_rs: torch.Tensor, graph: DeviceGraph) -> Grads:
+    """Plain-PyTorch version: per-edge terms, ``index_add_`` over the
+    edge's column (d_x, d_s_dst) and row (d_s_src)."""
+    n, c = x.shape
+    row = graph.row
+    col = graph.col.long()
+    score = s_src[row] + s_dst[col]                             # (E, H)
+    e = torch.exp(-F.leaky_relu(score, negative_slope=0.2))
+    g_row = g_agg[row]                                          # (E, H, C)
+    d_e = (x[col][:, None, :] * g_row).sum(dim=2) + g_rs[row]
+    d_score = -d_e * e * torch.where(score > 0, 1.0, 0.2)
+    d_x = torch.zeros_like(x).index_add_(
+        0, col, (e[:, :, None] * g_row).sum(dim=1))
+    d_s_dst = torch.zeros_like(s_dst).index_add_(0, col, d_score)
+    d_s_src = torch.zeros_like(s_src).index_add_(0, row, d_score)
+    return d_x, d_s_src, d_s_dst
+
+
+def _library():
+    built = load_library("gat_bwd")
+    fn = built.lib.gat_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return built
+
+
+def gat_backward_cuda(x: torch.Tensor, s_src: torch.Tensor,
+                      s_dst: torch.Tensor, g_agg: torch.Tensor,
+                      g_rs: torch.Tensor, graph: DeviceGraph) -> Grads:
+    """Launch the CUDA kernel; every input must be f32/int32, contiguous
+    and on the same CUDA device, and the graph symmetric."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"gat_backward_cuda needs CUDA tensors, got {dev}")
+    if not graph.symmetric:
+        raise ValueError("the GAT backward kernel needs a symmetric edge "
+                         "multiset (build_graph's undirected graph)")
+    n, c = x.shape
+    h = s_src.shape[1]
+    if not 1 <= h <= MAX_HEADS:
+        raise ValueError(f"{h} heads; the kernel takes 1..{MAX_HEADS}")
+    if n != graph.n_nodes:
+        raise ValueError(f"x has {n} rows, the graph {graph.n_nodes} nodes")
+    require(x, "x", torch.float32, (n, c), dev)
+    require(s_src, "s_src", torch.float32, (n, h), dev)
+    require(s_dst, "s_dst", torch.float32, (n, h), dev)
+    require(g_agg, "g_agg", torch.float32, (n, h, c), dev)
+    require(g_rs, "g_rs", torch.float32, (n, h), dev)
+    require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
+    require(graph.col, "col", torch.int32, (graph.n_edges,), dev)
+
+    d_x = torch.empty(n, c, dtype=torch.float32, device=dev)
+    d_s_src = torch.empty(n, h, dtype=torch.float32, device=dev)
+    d_s_dst = torch.empty(n, h, dtype=torch.float32, device=dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g_agg, d_x))
+    vec = 4 if (c % 4 == 0 and aligned) else 1
+    if max(-(-c // vec), 32) > 1024:
+        raise ValueError(f"C = {c} is too wide for one block per row")
+    built = _library()
+    with torch.cuda.device(dev):
+        err = built.lib.gat_bwd(
+            ptr(x), ptr(s_src), ptr(s_dst), ptr(g_agg), ptr(g_rs),
+            ptr(graph.row_ptr), ptr(graph.col), ptr(d_x), ptr(d_s_src),
+            ptr(d_s_dst), n, c, h, vec, stream_of(x))
+    check(built, err, "gat_bwd")
+    STATS.launches += 1
+    return d_x, d_s_src, d_s_dst
+
+
+def fused_gat_backward(x: torch.Tensor, s_src: torch.Tensor,
+                       s_dst: torch.Tensor, g_agg: torch.Tensor,
+                       g_rs: torch.Tensor, graph: DeviceGraph) -> Grads:
+    """Returns (d_x (N, C), d_s_src (N, H), d_s_dst (N, H)) f32: the kernel
+    for CUDA tensors, the twin for CPU tensors."""
+    if x.device.type == "cuda":
+        return gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, graph)
+    if x.device.type != "cpu":
+        raise ValueError(f"no GAT backward path for device {x.device}")
+    STATS.twin_calls += 1
+    return gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, graph)

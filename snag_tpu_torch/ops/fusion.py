@@ -1,14 +1,16 @@
-"""Modality fusion (eval mode): port of ``snag_tpu/ops/fusion.py``.
+"""Modality fusion: port of ``snag_tpu/ops/fusion.py``.
 
 ``MformerFusion`` is the SNAG fusion transformer over per-entity modality
 tokens (reference SNAG_MMEA/model/SNAG_tools.py:23-51 fusion head,
 :158-298 BertLayer stack).  Module and parameter names are the reference's
 torch names, so a reference state dict loads without renaming.
 
-Dropout is not applied: the port runs inference only for now, and every
-dropout of the stack is inactive there.  The token axis is tiny (M = 3-6),
-so the attention core is plain batched ``torch.matmul``, which the JAX
-package also leaves to its compiler.
+Training-mode dropout (rate 0.1, hardcoded in the reference) acts at the
+sites of JAX fusion.py:157/162 (attention probabilities), :195 (attention
+output) and :211 (intermediate output), with masks drawn from the
+``dropout_gen`` a forward is given; ``dropout_gen=None`` is deterministic.
+The token axis is tiny (M = 3-6), so the attention core is plain batched
+``torch.matmul``, which the JAX package also leaves to its compiler.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from snag_tpu_torch.ops import inits
+from snag_tpu_torch.ops.noise import dropout
+
+DROPOUT = 0.1   # every dropout of the reference's BertLayer (SNAG_tools.py)
 
 
 def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -60,7 +65,8 @@ class BertSelfAttention(nn.Module):
         self.key = tlinear(hidden_size, hidden_size, generator)
         self.value = tlinear(hidden_size, hidden_size, generator)
 
-    def forward(self, hidden: torch.Tensor):
+    def forward(self, hidden: torch.Tensor,
+                dropout_gen: Optional[torch.Generator] = None):
         n, m, d = hidden.shape
         h = self.num_heads
         dh = d // h
@@ -73,7 +79,7 @@ class BertSelfAttention(nn.Module):
         v = split(self.value(hidden))
         scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
         probs = torch.softmax(scores, dim=-1)                 # (N, H, M, M)
-        ctx = torch.matmul(probs, v)                          # (N, H, M, dh)
+        ctx = torch.matmul(dropout(probs, DROPOUT, dropout_gen), v)
         return ctx.transpose(1, 2).reshape(n, m, d), probs
 
 
@@ -84,8 +90,9 @@ class BertSelfOutput(nn.Module):
         self.dense = tlinear(in_size, hidden_size, generator)
         self.LayerNorm = nn.LayerNorm(hidden_size, eps=1e-12)
 
-    def forward(self, x, residual):
-        return self.LayerNorm(self.dense(x) + residual)
+    def forward(self, x, residual, dropout_gen=None):
+        out = dropout(self.dense(x), DROPOUT, dropout_gen)
+        return self.LayerNorm(out + residual)
 
 
 class BertAttention(nn.Module):
@@ -95,9 +102,9 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(hidden_size, num_heads, generator)
         self.output = BertSelfOutput(hidden_size, hidden_size, generator)
 
-    def forward(self, hidden):
-        ctx, probs = self.self(hidden)
-        return self.output(ctx, hidden), probs
+    def forward(self, hidden, dropout_gen=None):
+        ctx, probs = self.self(hidden, dropout_gen)
+        return self.output(ctx, hidden, dropout_gen), probs
 
 
 class BertIntermediate(nn.Module):
@@ -126,12 +133,12 @@ class BertLayer(nn.Module):
             self.output = BertSelfOutput(intermediate_size, hidden_size,
                                          generator)
 
-    def forward(self, hidden):
-        attention_output, probs = self.attention(hidden)
+    def forward(self, hidden, dropout_gen=None):
+        attention_output, probs = self.attention(hidden, dropout_gen)
         if not self.use_intermediate:
             return attention_output, probs
         out = self.output(self.intermediate(attention_output),
-                          attention_output)
+                          attention_output, dropout_gen)
         return out, probs
 
 
@@ -158,13 +165,14 @@ class MformerFusion(nn.Module):
             for _ in range(num_layers))
         self.weight_raw = nn.Parameter(torch.ones(6))
 
-    def forward(self, embs: List[Optional[torch.Tensor]]):
+    def forward(self, embs: List[Optional[torch.Tensor]],
+                dropout_gen: Optional[torch.Generator] = None):
         active = [e for e in embs if e is not None]
         modal_num = len(active)
         hidden = torch.stack(active, dim=1)                   # (N, M, d)
         probs = None
         for layer in self.fusion_layer:
-            hidden, probs = layer(hidden)
+            hidden, probs = layer(hidden, dropout_gen)
 
         attention_pro = probs.sum(dim=1)                      # (N, M, M)
         attention_pro_comb = attention_pro.sum(dim=-2) / math.sqrt(

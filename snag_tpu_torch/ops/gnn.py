@@ -5,12 +5,16 @@ Port of the diag hot path of ``snag_tpu/ops/gnn.py``
 reference layers (SNAG_MMEA/model/layers.py:35-100, model/Tool_model.py:61-110).
 Parameter names are the reference's: ``layer_stack.{i}.w`` (H, 1, F) and
 ``layer_stack.{i}.a_src_dst`` (H, 2F, 1).
+
+Dropout is drawn from an explicit ``torch.Generator``: a forward given
+``dropout_gen=None`` is deterministic (the JAX package's
+``deterministic=True``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +23,7 @@ from torch import nn
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
+from snag_tpu_torch.ops.noise import dropout
 
 
 class MultiHeadGraphAttention(nn.Module):
@@ -41,9 +46,13 @@ class MultiHeadGraphAttention(nn.Module):
         self.a_src_dst = nn.Parameter(inits.uniform_stdv(
             (n_head, 2 * f_out, 1), 1.0 / math.sqrt(2 * f_out), generator))
 
-    def forward(self, x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
-        if self.training and self.attn_dropout > 0:
-            raise NotImplementedError("GAT attention dropout is not ported")
+    def forward(self, x: torch.Tensor, graph: DeviceGraph,
+                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if dropout_gen is not None and self.attn_dropout > 0:
+            raise NotImplementedError(
+                "GAT attention dropout (--attn_dropout > 0) needs the "
+                "edge-segment path of snag_tpu/ops/gnn.py:160-174, whose "
+                "kernel tile_segment is ROADMAP B6 (queue A item 6)")
         f = self.f_out
         wh = self.w[:, 0, :]                                  # (H, F)
         a_src = self.a_src_dst[:, :f, 0]
@@ -77,12 +86,14 @@ class GAT(nn.Module):
                 attn_dropout=attn_dropout, diag=diag)
             for i in range(num_layer))
 
-    def forward(self, x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
-        if self.training and self.dropout > 0:
-            raise NotImplementedError("GAT dropout is not ported")
+    def forward(self, x: torch.Tensor, graph: DeviceGraph,
+                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         last = len(self.layer_stack) - 1
         for i, layer in enumerate(self.layer_stack):
-            x = layer(x, graph).mean(dim=1)
+            # input dropout of every layer but the last (gnn.py:202-203)
+            if i < last:
+                x = dropout(x, self.dropout, dropout_gen)
+            x = layer(x, graph, dropout_gen).mean(dim=1)
             if i < last:
                 x = F.elu(x)
         return x

@@ -1,0 +1,82 @@
+"""Gaussian noise-masking, the paper's robustness mechanism.
+
+Port of ``snag_tpu/ops/noise.py`` (reference SNAG_MMEA/model/SNAG.py:66-99):
+once per epoch, each feature-table row is selected w.p. ``noise_ratio`` and
+blended with a sample of N(col_mean, col_std):
+x' = (1 - mask_ratio) x + mask_ratio (mu + sigma eps).  Entity embeddings
+get half rates inside the encoder forward (SNAG_tools.py:127-128).
+
+``dropout`` (the GAT's and the fusion stack's) lives here too.
+Randomness comes from explicit ``torch.Generator``s on the tensor's device,
+seeded from (seed, epoch) by ``derive_seed``.  ``jax.random`` streams cannot
+be reproduced, so the port matches the JAX package in distribution, not in
+the drawn values.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class TableStats(NamedTuple):
+    mean: torch.Tensor  # (d,)
+    std: torch.Tensor   # (d,)
+
+
+def derive_seed(*ints: int) -> int:
+    """A 63-bit generator seed from a tuple of non-negative integers
+    (distinct tuples give independent streams)."""
+    state = np.random.SeedSequence([int(i) for i in ints]).generate_state(
+        2, np.uint32)
+    return int((int(state[0]) << 31) ^ int(state[1]))
+
+
+def generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+def table_stats(x: torch.Tensor,
+                valid_rows: Optional[torch.Tensor] = None) -> TableStats:
+    """Column mean/std; ``valid_rows`` restricts the statistics (the image
+    table only counts entities that have an image, SNAG.py:77-80).  The
+    variance divides by n - 1, torch.std's unbiased default."""
+    if valid_rows is not None:
+        x = x[valid_rows]
+    mean = x.mean(dim=0)
+    n = x.shape[0]
+    var = torch.sum((x - mean) ** 2, dim=0) / max(n - 1, 1)
+    return TableStats(mean=mean, std=torch.sqrt(var))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``gen`` (flax
+    ``nn.Dropout``: keep w.p. 1 - rate, scale kept values by 1/(1-rate));
+    the identity when ``gen`` is None or the rate is 0."""
+    if gen is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def noise_mask_table(gen: torch.Generator, x: torch.Tensor,
+                     stats: TableStats, noise_ratio: float,
+                     mask_ratio: float) -> torch.Tensor:
+    """Row-masked Gaussian blend (add_noise_to_embeddings, SNAG.py:66-75)."""
+    rows = torch.rand(x.shape[0], generator=gen, device=x.device) < noise_ratio
+    eps = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+    noise = stats.mean + stats.std * eps
+    blended = (1.0 - mask_ratio) * x + mask_ratio * noise
+    return torch.where(rows[:, None], blended, x)
+
+
+def entity_noise(gen: torch.Generator, emb: torch.Tensor, noise_ratio: float,
+                 mask_ratio: float) -> torch.Tensor:
+    """Entity-embedding noise at half rates (SNAG.py:94-98 +
+    SNAG_tools.py:127-128); statistics over the current table, without
+    gradient (the reference reads ``.weight.data``)."""
+    return noise_mask_table(gen, emb, table_stats(emb.detach()),
+                            noise_ratio * 0.5, mask_ratio * 0.5)

@@ -1,10 +1,17 @@
-"""Inference runner: the parts of ``snag_tpu/train/runner.py::Runner`` that
-``--only_test`` runs (reference SNAG_MMEA/main.py:31-529).
+"""Training and evaluation orchestrator.
 
-Data, features and model are built once on ``cfg.device``; ``evaluate``
-embeds every entity, L2-normalizes, gathers the test rows and runs the
-full-rank evaluation, logging the reference's ``Ep ... | l2r/r2l`` lines
-and writing the top-3 retrieval CSV.  Training is not ported yet.
+Port of ``snag_tpu/train/runner.py::Runner`` (reference
+SNAG_MMEA/main.py:31-529): the two-stage schedule with the il_start
+transition (LR/5, 3x horizon, reload of the best weights, a mid-run test,
+main.py:158-175), pseudo-label mining every ``semi_learn_step`` epochs and
+promotion every ``semi_learn_step * 10`` (:178-183), eval every
+``eval_epoch`` with best-by-MRR-l2r tracking and a 200-eval early-stop
+counter (:148-149, 197-199, 447-455), and a final test from the best
+weights with the top-3 CSV (:203-206, 395-420).
+
+Data, features and model live on ``cfg.device``; the growing ``train_ill``
+stays a host numpy array and batches are fed capacity-padded with a
+validity mask.  ``train_epoch`` reads the device once, at its end.
 """
 
 from __future__ import annotations
@@ -12,8 +19,9 @@ from __future__ import annotations
 import csv
 import os
 import os.path as osp
+import statistics
 import time
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -22,10 +30,15 @@ from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.dataset import KGData, load_data
 from snag_tpu_torch.eval.ranking import RankResult, full_rank_eval
 from snag_tpu_torch.models import build_model
-from snag_tpu_torch.models.encoder import prepare_features
+from snag_tpu_torch.models.encoder import prepare_features, prepare_stats
 from snag_tpu_torch.ops.fusion import l2norm
+from snag_tpu_torch.train import il as il_mod
+from snag_tpu_torch.train.step import TrainStep, make_noise_fn
 from snag_tpu_torch.utils.import_reference import load_reference_checkpoint
+from snag_tpu_torch.utils.loss_log import LossLog
 from snag_tpu_torch.utils.seed import set_seed
+
+CHECKPOINTS = "ROADMAP A5 (checkpoints and resume)"
 
 
 def _sync(device: torch.device) -> None:
@@ -44,29 +57,131 @@ class Runner:
                                "plain PyTorch twins)")
         if cfg.dtype != "float32":
             raise NotImplementedError(f"--dtype {cfg.dtype}: only float32 "
-                                      "is ported")
+                                      "is ported (bf16 is ROADMAP A7)")
         if cfg.mesh_shape:
-            raise NotImplementedError("--mesh_shape: multi-GPU is not ported")
+            raise NotImplementedError("--mesh_shape: multi-GPU is not "
+                                      "ported (ROADMAP A6)")
+        for flag, on in (("--save_model", cfg.save_model),
+                         ("--checkpoint_every", cfg.checkpoint_every),
+                         ("--resume_from", cfg.resume_from)):
+            if on:
+                raise NotImplementedError(f"{flag}: train-state checkpoints "
+                                          f"are not ported yet, {CHECKPOINTS}")
+        if cfg.profile_dir:
+            raise NotImplementedError("--profile_dir: the port has no "
+                                      "profiler hook yet")
         set_seed(cfg.random_seed)
 
         self.data = data if data is not None else load_data(cfg, logger)
+        self.train_ill = np.asarray(self.data.train_ill, dtype=np.int32)
         self.test_left = torch.as_tensor(
             self.data.test_ill[:, 0].astype(np.int64), device=self.device)
         self.test_right = torch.as_tensor(
             self.data.test_ill[:, 1].astype(np.int64), device=self.device)
         self.feats = prepare_features(cfg, self.data, self.device)
+        self.stats = (prepare_stats(self.feats, self.data.ent_w_img)
+                      if cfg.add_noise else None)
         self.graph = self.data.graph.to_torch(self.device)
 
         generator = torch.Generator().manual_seed(cfg.random_seed)
         self.model = build_model(cfg, self.data, generator).to(self.device)
-        self.model.eval()
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info(f"total params num: {n_params}  device: {self.device}")
 
+        # stage-0 optimizer horizon (main.py:51-56)
+        if cfg.il and cfg.il_start >= cfg.epoch:
+            raise ValueError(f"--il_start {cfg.il_start} must be below "
+                             f"--epoch {cfg.epoch}")
+        self._lr = cfg.lr
+        self._build_optimizer(cfg.il_start if cfg.il else cfg.epoch)
+        self.noise_fn = (make_noise_fn(cfg, self.stats) if cfg.add_noise
+                         else None)
+
+        # run state
         self.epoch = 0
+        self.stage = 0
+        self.loss_log = LossLog()
+        self.best_state: Optional[Dict[str, torch.Tensor]] = None
+        self.best_mrr = 0.0
+        self.early_stop_init = 200
+        self.early_stop_count = self.early_stop_init
+        self.il_state = (il_mod.ILState.init(self.data.left_non_train,
+                                             self.data.right_non_train,
+                                             self.device)
+                         if cfg.il else None)
+        self.promoted: List[int] = []       # pairs added per promotion
+        self.step_ms: List[float] = []      # device ms per train step (CUDA)
+        self.history = []
+        self._last_aux: Dict[str, float] = {}
         self.timings = {}
         self.last_result: Optional[RankResult] = None
         self.pred_path: Optional[str] = None
+
+    # ------------------------------------------------------------------
+    def _steps_per_epoch(self) -> int:
+        return max(1, -(-len(self.train_ill) // self.cfg.batch_size))
+
+    def _build_optimizer(self, total_epochs: int) -> None:
+        """A fresh optimizer and schedule over ``total_epochs`` epochs
+        (runner.py:176-206); the step count restarts at 0."""
+        total_steps = self._steps_per_epoch() * total_epochs
+        warmup = int(total_steps * 0.15)
+        self.logger.info(f"total_steps: {total_steps}  warmup_steps: {warmup}"
+                         f"  lr: {self._lr}  weight_decay: "
+                         f"{self.cfg.weight_decay}")
+        self.train_step = TrainStep(self.cfg, self.model, self._lr,
+                                    total_steps, warmup)
+
+    def _batches(self):
+        """Shuffled, capacity-padded batches (DataLoader equivalent)."""
+        b = self.cfg.batch_size
+        perm = np.random.permutation(len(self.train_ill))
+        data = self.train_ill[perm]
+        for i in range(0, len(data), b):
+            chunk = data[i:i + b]
+            n = len(chunk)
+            if n < b:
+                chunk = np.vstack([chunk, np.zeros((b - n, 2), chunk.dtype)])
+            valid = np.zeros((b,), dtype=bool)
+            valid[:n] = True
+            yield (torch.as_tensor(chunk.astype(np.int64), device=self.device),
+                   torch.as_tensor(valid, device=self.device))
+
+    def train_epoch(self) -> float:
+        if len(self.train_ill) == 0:
+            raise RuntimeError("train_ill is empty: no training pairs; check "
+                               "--data_rate")
+        feats = self.feats
+        if self.noise_fn is not None:
+            # per-epoch noisy tables (update_noise, main.py:253-254)
+            with torch.no_grad():
+                feats = self.noise_fn(self.feats, self.epoch)
+        cuda = self.device.type == "cuda"
+        losses, events, aux = [], [], {}
+        for links, valid in self._batches():
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            loss, aux = self.train_step(links, valid, feats, self.graph,
+                                        self.epoch)
+            losses.append(loss)
+            if cuda:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                events.append((start, end))
+
+        # the one device read of the epoch
+        mean_loss = float(torch.stack(losses).mean())
+        self.step_ms += [s.elapsed_time(e) for s, e in events]
+        self._last_aux = {}
+        for k, v in aux.items():
+            if v.dim() == 0:
+                self._last_aux[k] = float(v)
+            elif k == "weight_norm":
+                names = self.cfg.active_modalities()
+                for mi, m in enumerate(names[:v.shape[0]]):
+                    self._last_aux[f"w_{m}"] = float(v[mi])
+        return mean_loss
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -113,7 +228,19 @@ class Runner:
             self.pred_path = self._dump_predictions(res, save_name)
             t1, t2, _ = res.acc_l2r
             self.logger.info(f"Res:[{t1}\t{t2}\t{res.mrr_l2r:.3f}]")
+        self.history.append({"epoch": self.epoch, "mrr_l2r": res.mrr_l2r,
+                             "hits1_l2r": float(res.acc_l2r[0])})
         self.last_result = res
+
+        self.early_stop_count -= 1
+        if res.mrr_l2r > self.best_mrr and not last_epoch:
+            self.logger.info(
+                f"Best model update in Ep {self.epoch}: MRR from "
+                f"[{self.best_mrr}] --> [{res.mrr_l2r}] ...")
+            self.best_mrr = res.mrr_l2r
+            self.early_stop_count = self.early_stop_init
+            self.best_state = {k: v.detach().clone()
+                               for k, v in self.model.state_dict().items()}
         return res
 
     def _dump_predictions(self, res: RankResult, save_name: str):
@@ -137,11 +264,107 @@ class Runner:
         return out
 
     # ------------------------------------------------------------------
-    def train_epoch(self) -> float:
-        raise NotImplementedError("training: not ported yet")
+    def _il_mine(self):
+        """il_for_ea (main.py:214-223)."""
+        sls = self.cfg.semi_learn_step
+        joint, _ = self._joint_emb()
+        emb = l2norm(joint)
+        fresh = ((self.epoch + 1) % (sls * 5)) == sls
+        il = self.il_state
+        with torch.no_grad():
+            new_cand = il_mod.mine_new_links(
+                emb, il.left_cand, il.left_valid, il.right_cand,
+                il.right_valid, il.cand_right, fresh)
+        il.cand_right = new_cand
+        if (self.epoch + 1) % (sls * 5) == 0:
+            n = int(((new_cand >= 0) & il.left_valid).sum())
+            self.logger.info(f"[epoch {self.epoch}] #links in candidate set: {n}")
 
-    def run(self):
-        raise NotImplementedError("training: not ported yet")
+    def _il_refresh(self):
+        """il_for_data_ref (main.py:226-237)."""
+        self.il_state, self.train_ill, n_new = il_mod.promote_candidates(
+            self.il_state, self.train_ill, self.data.test_ill_set,
+            self.logger)
+        self.promoted.append(n_new)
+        if n_new:
+            set_seed(self.cfg.random_seed)
+
+    def _load_best(self):
+        self.model.load_state_dict(self.best_state)
+
+    # ------------------------------------------------------------------
+    def run(self) -> RankResult:
+        cfg = self.cfg
+        writer = None
+        if not cfg.no_tensorboard:
+            from snag_tpu_torch.utils.logging import get_dump_path
+            from snag_tpu_torch.utils.metrics_writer import MetricsWriter
+            writer = MetricsWriter(get_dump_path(cfg))
+        try:
+            return self._run(writer)
+        finally:
+            if writer is not None:
+                writer.close()
+
+    def _run(self, writer) -> RankResult:
+        cfg = self.cfg
+        t0 = time.time()
+        for i in range(cfg.epoch):
+            self.epoch = i
+            if cfg.il and ((i == cfg.il_start and self.stage == 0)
+                           or (self.early_stop_count <= 0
+                               and i <= cfg.il_start)):
+                if self.early_stop_count <= 0:
+                    self.logger.info(
+                        f"Early stop in epoch {i}... Begin iteration....")
+                self.stage = 1
+                self.early_stop_count = self.early_stop_init
+                self._lr = self._lr / 5
+                self._build_optimizer((cfg.epoch - cfg.il_start) * 3)
+                if self.best_state is not None:
+                    self.logger.info("load from the best model before IL... ")
+                    self._load_best()
+                self.evaluate(last_epoch=True,
+                              save_name=f"{cfg.exp_id}_test_ep{cfg.epoch}_no_iter")
+
+            if self.stage == 1 and cfg.il \
+                    and (i + 1) % cfg.semi_learn_step == 0:
+                self._il_mine()
+            if self.stage == 1 and cfg.il \
+                    and (i + 1) % (cfg.semi_learn_step * 10) == 0:
+                self._il_refresh()
+
+            epoch_loss = self.train_epoch()
+            self.loss_log.update(epoch_loss)
+            if (i + 1) % cfg.log_every == 0 or i == 0:
+                step = self.train_step.count
+                lr_now = self.train_step.lr()
+                self.logger.info(
+                    f"Ep [{i}/{cfg.epoch}] Step [{step}] LR [{lr_now:.6f}] "
+                    f"Loss {epoch_loss:.5f} ({time.time() - t0:.1f}s)")
+                if writer is not None:
+                    writer.scalars("loss", {"train_loss": epoch_loss}, step)
+                    writer.scalars("lr", {"lr": lr_now}, step)
+                    if self._last_aux:
+                        writer.scalars("loss_terms", self._last_aux, step)
+
+            if (i + 1) % cfg.eval_epoch == 0:
+                self.evaluate()
+            if self.stage == 1 and self.early_stop_count <= 0:
+                self.logger.info(f"Early stop in epoch {i}")
+                break
+
+        if self.best_state is not None:
+            self.logger.info("load from the best model before final testing ... ")
+            self._load_best()
+        self.logger.info(" --------------------- Test result --------------------- ")
+        res = self.evaluate(last_epoch=True,
+                            save_name=f"{cfg.exp_id}_test_ep{cfg.epoch}")
+        self.logger.info(f"min loss {self.loss_log.get_min_loss()}")
+        if self.step_ms:
+            self.logger.info(f"train step: median {statistics.median(self.step_ms):.3f}"
+                             f" ms over {len(self.step_ms)} steps ({self.device})")
+        return res
 
     # ------------------------------------------------------------------
     def load_model(self, name: str) -> bool:
@@ -151,7 +374,8 @@ class Runner:
         cfg = self.cfg
         if not name.endswith(".pkl"):
             raise NotImplementedError(
-                f"{name}: only reference .pkl checkpoints load in the port")
+                f"{name}: only reference .pkl checkpoints load in the port "
+                f"({CHECKPOINTS})")
         path = name if osp.isabs(name) else osp.join(
             cfg.data_path, cfg.model_name, "save", name)
         if not osp.exists(path):

@@ -6,10 +6,13 @@ Marked ``cuda``: these skip where torch sees no GPU.  On a GPU machine
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the GAT kernel sums a row's edges in a fixed order and the
-twin with ``index_add_``: rtol = atol = 1e-5.  The rank kernels sum the
-dot products in another order than cuBLAS, so a near-tie may flip: ranks
-must agree on >= 99 % of queries; tie rules are checked on the kernel's
-own exact ties.
+twin with ``index_add_``: rtol = atol = 1e-5; the GAT backward adds
+per-edge dot products over C and heads, rtol = atol = 1e-4.  The NT-Xent
+kernels sum 2B * d products per row in another order than cuBLAS: lse
+rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|.  The rank
+kernels sum the dot products in another order than cuBLAS, so a near-tie
+may flip: ranks must agree on >= 99 % of queries; tie rules are checked on
+the kernel's own exact ties.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ import torch
 
 from snag_tpu_torch.data.graph import build_graph
 from snag_tpu_torch.ops.cuda import gat_attention as ga
+from snag_tpu_torch.ops.cuda import gat_bwd as gb
+from snag_tpu_torch.ops.cuda import ntxent as nx
 from snag_tpu_torch.ops.cuda import rank_eval as rk
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 
@@ -63,12 +68,71 @@ def test_gat_wrappers_refuse_what_the_kernel_does_not_take(dev):
         ga.gat_attention_cuda(x.t().contiguous().t(), s_src, s_dst, g)
     with pytest.raises(ValueError):
         ga.gat_attention_cuda(x, s_src.cpu(), s_dst, g)
-    with pytest.raises(NotImplementedError, match="gat_bwd"):
-        gat_attention(x.requires_grad_(), s_src, s_dst, g)
     before = ga.STATS.launches
     with torch.no_grad():
         gat_attention(x, s_src, s_dst, g)
     assert ga.STATS.launches == before + 1
+    # the backward kernel needs the symmetric multiset
+    g_agg = torch.ones(x.shape[0], 2, x.shape[1], device=dev)
+    with pytest.raises(ValueError, match="symmetric"):
+        gb.gat_backward_cuda(x, s_src, s_dst, g_agg, s_src,
+                             g._replace(symmetric=False))
+
+
+@pytest.mark.parametrize("c,h", [(48, 2), (30, 1), (300, 2), (64, 4)])
+def test_gat_backward_kernel_matches_twin(dev, c, h):
+    g, x, s_src, s_dst = _gat_inputs(dev, c=c, h=h, seed=c)
+    rng = np.random.default_rng(h)
+    g_agg = torch.as_tensor(rng.normal(size=(x.shape[0], h, c)).astype(
+        np.float32), device=dev)
+    g_rs = torch.as_tensor(rng.normal(size=(x.shape[0], h)).astype(
+        np.float32), device=dev)
+    got = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
+    torch.cuda.synchronize()
+    want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_gat_autograd_launches_both_kernels(dev):
+    g, x, s_src, s_dst = _gat_inputs(dev)
+    before = (ga.STATS.launches, gb.STATS.launches)
+    xs = [t.clone().requires_grad_() for t in (x, s_src, s_dst)]
+    agg, rs = gat_attention(*xs, g)
+    (agg.sum() + rs.sum()).backward()
+    torch.cuda.synchronize()
+    assert (ga.STATS.launches, gb.STATS.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = gb.gat_backward_twin(x, s_src, s_dst, torch.ones_like(agg),
+                                torch.ones_like(rs), g)
+    for t, w in zip(xs, want):
+        torch.testing.assert_close(t.grad, w, rtol=1e-4, atol=1e-4)
+
+
+def _ntxent_inputs(dev, m, b, d, n_valid, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(m, 2 * b, d)).astype(np.float32)
+    z[:, b:] = z[:, :b] + 0.5 * z[:, b:]
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    z[0, 1] = 0.0                                   # an all-zero row
+    v = np.concatenate([np.arange(b) < n_valid] * 2).astype(np.float32)
+    coef = rng.uniform(0.1, 1.0, size=(m, 2 * b)).astype(np.float32) * v
+    return [torch.as_tensor(a, device=dev) for a in (z, v, coef)]
+
+
+@pytest.mark.parametrize("m,b,d,n_valid", [(2, 9, 8, 9), (3, 130, 48, 100),
+                                           (2, 257, 300, 257),
+                                           (1, 70, 1200, 64)])
+def test_ntxent_kernels_match_twins(dev, m, b, d, n_valid):
+    z, v, coef = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
+    lse = nx.streaming_lse_cuda(z, v, 0.1)
+    torch.cuda.synchronize()
+    want_lse = nx.streaming_lse_twin(z, v, 0.1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    dz = nx.ntxent_grad_cuda(z, want_lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    want = nx.ntxent_grad_twin(z, want_lse, coef, v, 0.1)
+    assert (dz - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 def _embs(dev, n, d, seed, noise=0.5):

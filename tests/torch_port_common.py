@@ -54,3 +54,47 @@ def fast_create_train_state(cfg, model, feats, graph, tx, seed,
 def single_thread():
     # tier-1 runs several xdist workers; one intra-op thread each
     torch.set_num_threads(1)
+
+
+def snag_pair(data_root: str, **overrides):
+    """The same small SNAG in both packages, weights carried across.
+
+    Returns a dict with the JAX side (``jcfg``, ``jmodel``, ``jdata``,
+    ``jfeats``, ``params`` as numpy) and the port side (``tcfg``,
+    ``tmodel`` on the CPU holding ``params``, ``tdata``, ``tfeats``,
+    ``tgraph``).  The Kendall log-variances are set away from zero so
+    that they weigh the loss terms."""
+    import jax
+    import numpy as np
+    from snag_tpu.data.dataset import load_data as jax_load_data
+    from snag_tpu.models import build_model as jax_build_model
+    from snag_tpu.models.encoder import prepare_features as jax_features
+    from snag_tpu_torch.data.dataset import load_data
+    from snag_tpu_torch.models import build_model
+    from snag_tpu_torch.models.encoder import prepare_features
+    from snag_tpu_torch.utils.import_reference import state_dict_from_flax
+
+    jcfg, tcfg = configs(data_root, **overrides)
+    jdata = jax_load_data(jcfg)
+    jmodel = jax_build_model(jcfg, jdata)
+    jfeats = jax_features(jcfg, jdata)
+    params = jax.device_get(jax_snag_params(
+        jmodel, jfeats, jdata.graph, jax.random.PRNGKey(jcfg.random_seed)))
+    params["multi_loss_layer"]["log_vars"] = np.linspace(
+        -0.3, 0.4, 6).astype(np.float32)
+    tdata = load_data(tcfg)
+    tmodel = build_model(tcfg, tdata, torch.Generator().manual_seed(0))
+    tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
+    return dict(jcfg=jcfg, jmodel=jmodel, jdata=jdata, jfeats=jfeats,
+                params=params, tcfg=tcfg, tmodel=tmodel, tdata=tdata,
+                tfeats=prepare_features(tcfg, tdata, "cpu"),
+                tgraph=tdata.graph.to_torch("cpu"))
+
+
+def padded_batch(train_ill, b: int, n_valid: int):
+    """The first ``n_valid`` train pairs padded to ``b`` rows, the runner's
+    way: (links (b, 2) int64, valid (b,) bool) as numpy."""
+    import numpy as np
+    links = np.zeros((b, 2), dtype=np.int64)
+    links[:n_valid] = train_ill[:n_valid]
+    return links, np.arange(b) < n_valid

@@ -7,28 +7,35 @@ Phases, each printing its result on its own line; any failure raises and
 the exit code is non-zero:
 
 1. the card's name and power limit (nvidia-smi) and the CUDA version;
-2. build the four kernel sources of ``snag_tpu_torch/csrc/*.cu`` with nvcc
+2. build the six kernel sources of ``snag_tpu_torch/csrc/*.cu`` with nvcc
    for sm_90a (into the git-ignored ``build/kernels``), one nvcc each, in
    parallel;
-3. each of the six kernels against its plain-PyTorch twin on the card, at
+3. each of the nine kernels against its plain-PyTorch twin on the card, at
    the shapes the bench geometry gives it, with max errors and median times
-   (CUDA events, 5 runs);
+   (CUDA events, 5 runs), beside its bound (bytes over 3.35 TB/s or flops
+   over fp32's 67 TFLOP/s, the larger) and, where one PyTorch call computes
+   the same function, that call's time;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
-   from the same init: losses and parameters must agree;
+   from the same init, with the fused loss, without it, and with the GCN
+   encoder: losses and parameters must agree, and the fused and unfused
+   losses too;
 5. serving: ``snag_tpu_torch.cli.train_mmea.main`` with ``--only_test 1``
    at the bench geometry (30,000 entities, 2 x 2 GAT at d = 300, CSLS k = 3,
    10,500 test pairs) from a seeded random init saved as a reference
    ``.pkl``; its three kernels must have launched and no twin may have run;
 6. training: ``main`` at the same geometry with batch 3500, 12 epochs, IL
-   from epoch 2 (promotion at epoch 9), noise 0.2/0.7 and
-   ``--fused_snag_loss 0``; all six kernels must have launched, no twin may
-   have run, the losses must be finite and fall, promotion must add pairs
-   and the final metrics lie in [0, 1].
+   from epoch 2 (promotion at epoch 9), noise 0.2/0.7 and the default fused
+   loss; every kernel but the weighted segment sum must have launched, no
+   twin may have run, the losses must be finite and fall, promotion must
+   add pairs and the final metrics lie in [0, 1];
+7. the GCN encoder (``--structure_encoder gcn``) at the same geometry:
+   serving, then 6 training epochs; the segment sum, mixture, NT-Xent and
+   rank kernels must have launched and the GAT kernels not.
 
-The line before last is the per-kernel JSON record (launches from the
-training run); the last line is ``{"ok": true, "device": {...}}``.  Needs
-CUDA; exits non-zero without it.
+The line before last is the per-kernel JSON record (launches summed over
+the runs of phases 5-7); the last line is ``{"ok": true, "device": {...}}``.
+Needs CUDA; exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 SEED = 3408
 REPS = 5
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 
 BENCH_ARGS = [
     "--model_name", "SNAG", "--data_choice", "SYNTH", "--data_rate", "0.3",
@@ -72,16 +81,29 @@ TRAIN_ARGS = [
     "--epoch", "12", "--il", "--il_start", "2", "--semi_learn_step", "1",
     "--eval_epoch", "4", "--batch_size", "3500", "--lr", "5e-4",
     "--scheduler", "cos", "--add_noise", "1", "--noise_ratio", "0.2",
-    "--mask_ratio", "0.7", "--fused_snag_loss", "0",
+    "--mask_ratio", "0.7",
 ]
-KERNELS = ("gat_attention", "rank_eval", "gat_bwd", "ntxent")
-SERVING_KERNELS = ("gat_attention_fwd", "rank_topk_mean", "rank_counts")
-# (name, M, B, d, valid rows) of the NT-Xent calls of one training step at
-# the bench geometry: IIR and ECIA over the 4 modalities' hidden / encoder
-# rows, GMI over the two 1200-wide joint paths; ECIA is shown with the
-# padded last batch (1,000 of 3,500 rows valid)
+GCN_TRAIN_ARGS = [
+    "--epoch", "6", "--eval_epoch", "3", "--batch_size", "3500",
+    "--lr", "5e-4", "--scheduler", "cos", "--add_noise", "1",
+    "--noise_ratio", "0.2", "--mask_ratio", "0.7",
+]
+KERNELS = ("gat_attention", "rank_eval", "gat_bwd", "ntxent", "snag_loss",
+           "tile_segment")
+SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
+GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
+SEGMENT_KERNEL = "weighted_segment_sum"
+# (name, M, B, d, valid rows) of the NT-Xent calls at the bench geometry:
+# the default fused loss runs IIR only (4 modalities' hidden rows); with
+# --fused_snag_loss 0 ECIA (shown with the padded last batch, 1,000 of 3,500
+# rows valid) and GMI (the two 1200-wide joint paths) run too
 NTXENT_SHAPES = (("IIR", 4, 3500, 300, 3500), ("ECIA", 4, 3500, 300, 1000),
                  ("GMI", 2, 3500, 1200, 3500))
+# (name, M, B, d, valid rows) of the mixture kernels: the bundle of a full
+# training batch, the padded last batch, and six modalities
+# (--use_surface 1)
+MIXTURE_SHAPES = (("M4", 4, 3500, 300, 3500), ("M4 padded", 4, 3500, 300, 1000),
+                  ("M6", 6, 3500, 300, 3500))
 
 
 def say(phase: str, msg: str) -> None:
@@ -92,6 +114,52 @@ def cfg_from(argv):
     from snag_tpu_torch.config import (build_argparser, config_from_args,
                                        finalize_config)
     return finalize_config(config_from_args(build_argparser().parse_args(argv)))
+
+
+def gcn_args(args):
+    """``args`` with the GCN structure encoder in place of the GAT."""
+    i = args.index("--structure_encoder")
+    return args[:i + 1] + ["gcn"] + args[i + 2:]
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, what bounds it): the bytes the
+    function must move over device memory's rate, or its flops over fp32's
+    peak, whichever takes longer."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_flops = 1e3 * flops / FP32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def symmetric_gram_flops(m, n2, d):
+    """(flops of the M Gram matrices K_m = z_m z_m^T, flops of the M
+    products W_m z_m) at z (m, n2, d).  K_m and every channel built from it
+    are symmetric, so a row-LSE needs K_m once per unordered pair of rows,
+    each exp added to both its row's and its column's sum; W_m is not
+    symmetric, so W_m z_m is a full product."""
+    return m * n2 * (n2 + 1) * d, 2 * m * n2 * n2 * d
+
+
+def row(name, err, ms, plain_ms, nbytes, flops, library_ms=None):
+    """One kernel's record for the JSON line."""
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"name": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def kernel_stats():
+    from snag_tpu_torch.ops import cuda as kernels
+    return {name: (s.launches, s.twin_calls)
+            for name, s in kernels.all_stats().items()}
+
+
+def check_launches(phase, stats, expected):
+    """Every kernel in ``expected`` launched, no other did, no twin ran."""
+    for name, (launches, twin_calls) in stats.items():
+        if (launches > 0) != (name in expected) or twin_calls != 0:
+            raise AssertionError(f"{name}: {launches} launches, {twin_calls} "
+                                 f"twin calls in {phase}")
 
 
 def median_ms(fn) -> float:
@@ -164,8 +232,10 @@ def phase_gat(graph_np):
     say("gat", f"N={n} E={g.n_edges} C={c} H={h}: max|agg err| {err_agg:.3e}"
         f" max|rowsum err| {err_rs:.3e} (rtol=atol=1e-5) | kernel {ms:.4f} ms"
         f" twin {plain:.4f} ms")
-    return {"name": ga.STATS.name, "max_abs_err": max(err_agg, err_rs),
-            "ms": ms, "plain_ms": plain}
+    e = g.n_edges
+    return row(ga.STATS.name, max(err_agg, err_rs), ms, plain,
+               4 * (n * c + 2 * n * h + n + 1 + e + n * h * c + n * h),
+               2 * e * h * (c + 1))
 
 
 def phase_gat_bwd(graph_np):
@@ -197,8 +267,11 @@ def phase_gat_bwd(graph_np):
     say("gat_bwd", f"N={n} E={g.n_edges} C={c} H={h}: max|err| d_x "
         f"{errs[0]:.3e} d_s_src {errs[1]:.3e} d_s_dst {errs[2]:.3e} "
         f"(rtol=atol=1e-4) | kernel {ms:.4f} ms twin {plain:.4f} ms")
-    return {"name": gb.STATS.name, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain}
+    e = g.n_edges
+    # in: x, s_src, s_dst, G, r, row_ptr, col; out: d_x, d_s_src, d_s_dst
+    return row(gb.STATS.name, max(errs), ms, plain,
+               4 * (2 * n * c + 5 * n * h + n * h * c + n + 1 + e),
+               4 * e * h * c)
 
 
 def _eval_inputs(n, d):
@@ -276,10 +349,13 @@ def phase_rank(n=10500, d=1200, k=3):
     if agree < 0.999 or agree_b < 0.999 or dm > 1e-4:
         raise AssertionError(f"rank eval disagrees with its twin: {agree} "
                              f"{agree_b} {dm}")
-    return [{"name": rk.STATS_TOPK.name, "max_abs_err": err_a, "ms": ms_a,
-             "plain_ms": plain_a},
-            {"name": rk.STATS_RANKS.name, "max_abs_err": float(err_b),
-             "ms": ms_b, "plain_ms": plain_b}]
+    flops = 2 * n * n * d
+    # sweep A: in x, y and their norms, out mean and diagonal; sweep B: in
+    # the same and the CSLS terms, out two rank counts and the top-3
+    return [row(rk.STATS_TOPK.name, err_a, ms_a, plain_a,
+                4 * (2 * n * d + 4 * n), flops),
+            row(rk.STATS_RANKS.name, float(err_b), ms_b, plain_b,
+                4 * (2 * n * d + 5 * n) + 8 * 2 * n + 8 * 3 * n, flops)]
 
 
 def _ntxent_inputs(m, b, d, n_valid, seed):
@@ -299,13 +375,12 @@ def _ntxent_inputs(m, b, d, n_valid, seed):
 
 def phase_ntxent(tau=0.1):
     """Both NT-Xent kernels against their dense twins at the three (M, B, d)
-    shapes of a training step.  lse: atol 1e-5 (rtol 1e-5); gradient:
-    max |err| <= 1e-4 * max |twin|.  The ms of the JSON record are the sums
-    over the three shapes, i.e. one full-batch training step's calls."""
+    shapes of an unfused training step.  lse: atol 1e-5 (rtol 1e-5);
+    gradient: max |err| <= 1e-4 * max |twin|.  The JSON record has the IIR
+    shape, the only one the default fused loss runs."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     err_lse = err_grad = 0.0
-    tot = {"lse": 0.0, "lse_twin": 0.0, "grad": 0.0, "grad_twin": 0.0}
     for i, (label, m, b, d, n_valid) in enumerate(NTXENT_SHAPES):
         z, v, coef = _ntxent_inputs(m, b, d, n_valid, SEED + i)
         lse = nx.streaming_lse_cuda(z, v, tau)
@@ -327,8 +402,14 @@ def phase_ntxent(tau=0.1):
                   z, want, coef, v, tau)),
               "grad_twin": median_ms(lambda: nx.ntxent_grad_twin(
                   z, want, coef, v, tau))}
-        for k in tot:
-            tot[k] += ms[k]
+        if i == 0:
+            n2 = 2 * b
+            k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+            first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_twin"],
+                      4 * (m * n2 * d + n2 + m * n2), k_flops),
+                     (nx.STATS_GRAD.name, ms["grad"], ms["grad_twin"],
+                      4 * (2 * m * n2 * d + 2 * m * n2 + n2),
+                      k_flops + wz_flops)]
         err_lse = max(err_lse, e_lse)
         err_grad = max(err_grad, e_dz)
         say("ntxent", f"{label} (M={m}, B={b}, d={d}, {n_valid} valid): "
@@ -338,10 +419,142 @@ def phase_ntxent(tau=0.1):
             f"{ms['grad_twin']:.3f} ms")
         del z, v, coef, lse, want, dz, want_dz
         torch.cuda.empty_cache()
-    return [{"name": nx.STATS_LSE.name, "max_abs_err": err_lse,
-             "ms": tot["lse"], "plain_ms": tot["lse_twin"]},
-            {"name": nx.STATS_GRAD.name, "max_abs_err": err_grad,
-             "ms": tot["grad"], "plain_ms": tot["grad_twin"]}]
+    return [row(name, err, *rest)
+            for (name, *rest), err in zip(first, (err_lse, err_grad))]
+
+
+def _mixture_inputs(m, b, d, n_valid, seed):
+    """Unit rows with near-copy positives and one all-zero modality row,
+    unit mixture coefficients, validity of the first n_valid pairs, channel
+    coefficients zero on invalid rows."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(m, 2 * b, d)).astype(np.float32)
+    z[:, b:] = z[:, :b] + 0.5 * z[:, b:]
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    z[1, 5] = 0.0                                   # an all-zero row
+    alpha = np.abs(rng.normal(size=(2 * b, m))).astype(np.float32)
+    alpha /= np.linalg.norm(alpha, axis=1, keepdims=True)
+    u = rng.uniform(0.2, 1.0, size=m).astype(np.float32)
+    beta = u * u / np.sum(u * u)
+    v = np.concatenate([np.arange(b) < n_valid] * 2).astype(np.float32)
+    coef = rng.uniform(0.1, 1.0, size=(m + 2, 2 * b)).astype(np.float32) * v
+    coef /= max(n_valid, 1)
+    return [torch.as_tensor(a, device="cuda") for a in (z, alpha, beta, v, coef)]
+
+
+def phase_mixture(tau=0.1):
+    """Both mixture kernels against their dense twins at the bundle's
+    shapes.  lse: atol 1e-5 (rtol 1e-5); dz, dalpha and dbeta: max |err| <=
+    1e-4 * max |twin| each; two gradient runs give the same bits.  The
+    JSON record has the full M = 4 batch, the main path's shape."""
+    import torch
+    from snag_tpu_torch.ops.cuda import snag_loss as sl
+    err_lse = err_grad = 0.0
+    for i, (label, m, b, d, n_valid) in enumerate(MIXTURE_SHAPES):
+        z, alpha, beta, v, coef = _mixture_inputs(m, b, d, n_valid, SEED + i)
+        lse = sl.mixture_lse_cuda(z, alpha, beta, v, tau)
+        torch.cuda.synchronize()
+        want = sl.mixture_lse_twin(z, alpha, beta, v, tau)
+        e_lse = (lse - want).abs().max().item()
+        if not torch.isfinite(lse).all():
+            raise AssertionError(f"mixture_lse {label}: non-finite values")
+        torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+        got = sl.mixture_grad_cuda(z, alpha, beta, want, coef, v, tau)
+        again = sl.mixture_grad_cuda(z, alpha, beta, want, coef, v, tau)
+        torch.cuda.synchronize()
+        wants = sl.mixture_grad_twin(z, alpha, beta, want, coef, v, tau)
+        errs = []
+        for part, a, a2, w in zip(("dz", "dalpha", "dbeta"), got, again,
+                                  wants):
+            e, scale = (a - w).abs().max().item(), w.abs().max().item()
+            if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
+                raise AssertionError(f"mixture_grad {label} {part}: max|err| "
+                                     f"{e} > 1e-4 * max|twin| {scale}")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"mixture_grad {label} {part}: two runs "
+                                     "differ")
+            errs.append(e)
+        ms = {"lse": median_ms(lambda: sl.mixture_lse_cuda(
+                  z, alpha, beta, v, tau)),
+              "lse_twin": median_ms(lambda: sl.mixture_lse_twin(
+                  z, alpha, beta, v, tau)),
+              "grad": median_ms(lambda: sl.mixture_grad_cuda(
+                  z, alpha, beta, want, coef, v, tau)),
+              "grad_twin": median_ms(lambda: sl.mixture_grad_twin(
+                  z, alpha, beta, want, coef, v, tau))}
+        if i == 0:
+            n2 = 2 * b
+            k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+            # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
+            first = [(sl.STATS_LSE.name, ms["lse"], ms["lse_twin"],
+                      4 * (m * n2 * d + n2 * m + m + n2 + (m + 2) * n2),
+                      k_flops),
+                     (sl.STATS_GRAD.name, ms["grad"], ms["grad_twin"],
+                      4 * (2 * m * n2 * d + 2 * n2 * m + 2 * m + n2
+                           + 2 * (m + 2) * n2), k_flops + wz_flops)]
+        err_lse = max(err_lse, e_lse)
+        err_grad = max(err_grad, *errs)
+        say("mixture", f"{label} (M={m}, B={b}, d={d}, {n_valid} valid): "
+            f"max|lse err| {e_lse:.3e} | max|err| dz {errs[0]:.3e} dalpha "
+            f"{errs[1]:.3e} dbeta {errs[2]:.3e} of max|twin| "
+            f"{[round(w.abs().max().item(), 6) for w in wants]} (bitwise "
+            f"repeat) | lse kernel {ms['lse']:.3f} ms twin "
+            f"{ms['lse_twin']:.3f} ms | grad kernel {ms['grad']:.3f} ms twin "
+            f"{ms['grad_twin']:.3f} ms")
+        del z, alpha, beta, v, coef, lse, want, got, again, wants
+        torch.cuda.empty_cache()
+    return [row(name, err, *rest)
+            for (name, *rest), err in zip(first, (err_lse, err_grad))]
+
+
+def phase_segment(graph_np):
+    """The weighted segment sum at the bench graph with the GCN's weights
+    (H = 1): forward against its ``index_add_`` twin and the backward's
+    reverse-edge launch against the plain column reduction, rtol = atol =
+    1e-5; ``torch.sparse.mm`` of the CSR adjacency with x, which computes
+    the same aggregate, is the library yardstick."""
+    import numpy as np
+    import torch
+    from snag_tpu_torch.ops.cuda import tile_segment as ts
+    n, c = graph_np.n_nodes, 300
+    rng = np.random.default_rng(SEED + 2)
+    dev = torch.device("cuda")
+    g = graph_np.to_torch(dev)
+    x = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32), device=dev)
+    g_agg = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32),
+                            device=dev)
+    e = g.w[:, None].contiguous()
+    agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
+    e_rev = e[g.rev].contiguous()
+    d_x, _ = ts.weighted_segment_sum_cuda(g_agg, e_rev, g)
+    torch.cuda.synchronize()
+    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    want_dx = torch.zeros_like(x).index_add_(0, g.col.long(),
+                                             e * g_agg[g.row])
+    errs = [(agg - want_agg).abs().max().item(),
+            (rs - want_rs).abs().max().item(),
+            (d_x[:, 0] - want_dx).abs().max().item()]
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d_x[:, 0], want_dx, rtol=1e-5, atol=1e-5)
+    adj = torch.sparse_csr_tensor(g.row_ptr, g.col, g.w, (n, n))
+    lib = torch.sparse.mm(adj, x)
+    torch.testing.assert_close(lib, agg[:, 0], rtol=1e-5, atol=1e-5)
+    ms = median_ms(lambda: ts.weighted_segment_sum_cuda(x, e, g))
+    ms_bwd = median_ms(lambda: ts.weighted_segment_sum_cuda(g_agg, e_rev, g))
+    plain = median_ms(lambda: ts.weighted_segment_sum_twin(x, e, g))
+    library = median_ms(lambda: torch.sparse.mm(adj, x))
+    say("segment", f"N={n} E={g.n_edges} C={c} H=1: max|err| agg "
+        f"{errs[0]:.3e} rowsum {errs[1]:.3e} d_x {errs[2]:.3e} "
+        f"(rtol=atol=1e-5) | kernel {ms:.4f} ms (backward launch "
+        f"{ms_bwd:.4f} ms) twin {plain:.4f} ms torch.sparse.mm {library:.4f}"
+        f" ms")
+    m_e = g.n_edges
+    return row(ts.STATS.name, max(errs), ms, plain,
+               4 * (n * c + m_e + n + 1 + m_e + n * c + n), 2 * m_e * c,
+               library)
 
 
 def phase_small():
@@ -373,13 +586,13 @@ def phase_small():
         raise AssertionError("GPU and CPU evaluation disagree")
 
 
-def phase_train_small():
+def phase_train_small(label, extra):
     """Three deterministic train steps (no noise, no dropout) from the same
     init and batches on the GPU (kernels) and on the CPU (twins): losses
     within rel 1e-4, parameters within atol 1e-5.  All six modalities are
     active: with four, two weight_raw slots have a gradient that is zero
     in exact arithmetic and Adam turns its rounding noise into a step of
-    either sign."""
+    either sign.  Returns the CPU losses."""
     import numpy as np
     import torch
     from snag_tpu_torch.data.dataset import load_data
@@ -388,8 +601,8 @@ def phase_train_small():
     from snag_tpu_torch.train.step import TrainStep
     cfg = cfg_from(SMALL_ARGS + ["--use_surface", "1", "--char_dim", "64",
                                  "--name_dim", "64", "--add_noise", "0",
-                                 "--fused_snag_loss", "0", "--lr", "5e-4",
-                                 "--scheduler", "cos", "--device", "cpu"])
+                                 "--lr", "5e-4", "--scheduler", "cos",
+                                 "--device", "cpu"] + extra)
     data = load_data(cfg)
     b = 128
     batches = []
@@ -414,35 +627,55 @@ def phase_train_small():
     (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
     rel = max(abs(a - c) / abs(c) for a, c in zip(lg, lc))
     perr = max((pg[k] - pc[k]).abs().max().item() for k in pc)
-    say("train_small", f"{data.ent_num} entities, 3 steps of {b}: losses gpu "
-        f"{lg} cpu {lc} (max rel diff {rel:.2e}, limit 1e-4) | max|param "
-        f"gpu-cpu| {perr:.2e} (limit 1e-5)")
+    say("train_small", f"{label}: {data.ent_num} entities, 3 steps of {b}: "
+        f"losses gpu {lg} cpu {lc} (max rel diff {rel:.2e}, limit 1e-4) | "
+        f"max|param gpu-cpu| {perr:.2e} (limit 1e-5)")
     if rel > 1e-4 or perr > 1e-5:
-        raise AssertionError("GPU and CPU training steps disagree")
+        raise AssertionError(f"{label}: GPU and CPU training steps disagree")
+    return lc
 
 
-def phase_slice(data):
+def phase_train_small_all():
+    """The fused and the unfused loss, and the GCN encoder; the fused and
+    unfused losses must agree within rel 1e-4."""
+    fused = phase_train_small("fused loss", ["--fused_snag_loss", "1"])
+    unfused = phase_train_small("unfused loss", ["--fused_snag_loss", "0"])
+    phase_train_small("gcn", ["--structure_encoder", "gcn",
+                              "--fused_snag_loss", "1"])
+    rel = max(abs(a - c) / abs(c) for a, c in zip(fused, unfused))
+    say("train_small", f"fused vs unfused losses: max rel diff {rel:.2e} "
+        "(limit 1e-4)")
+    if rel > 1e-4:
+        raise AssertionError(f"fused and unfused losses differ: {fused} "
+                             f"{unfused}")
+
+
+def _seeded_checkpoint(args, data, name):
+    """A seeded random init of the model ``args`` builds, saved as a
+    reference ``.pkl``."""
+    import torch
+    from snag_tpu_torch.models import build_model
+    from snag_tpu_torch.utils.import_reference import save_reference_checkpoint
+    model = build_model(cfg_from(args + ["--device", "cpu"]), data,
+                        torch.Generator().manual_seed(SEED))
+    return save_reference_checkpoint(model, str(WORK / name))
+
+
+def _serve(phase, args, pkl, expected):
+    """``main`` with ``--only_test 1`` from ``pkl``; then a second request.
+    Returns the launches of the first."""
     import torch
     from snag_tpu_torch.cli.train_mmea import main
-    from snag_tpu_torch.models import build_model
     from snag_tpu_torch.ops import cuda as kernels
-    from snag_tpu_torch.utils.import_reference import save_reference_checkpoint
-
-    cfg = cfg_from(BENCH_ARGS + ["--device", "cpu"])
-    model = build_model(cfg, data, torch.Generator().manual_seed(SEED))
-    pkl = save_reference_checkpoint(model, str(WORK / "seeded_init.pkl"))
-    del model
-    argv = BENCH_ARGS + ["--only_test", "1", "--device", "cuda",
-                         "--model_name_save", pkl, "--data_path",
-                         str(WORK / "slice"), "--exp_name", "chip_smoke"]
-
+    argv = args + ["--only_test", "1", "--device", "cuda",
+                   "--model_name_save", pkl, "--data_path",
+                   str(WORK / phase), "--exp_name", f"chip_smoke_{phase}"]
     kernels.reset_stats()
     t0 = time.perf_counter()
     runner = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = {name: (s.launches, s.twin_calls)
-             for name, s in kernels.all_stats().items()}
+    stats = kernel_stats()
     cold = dict(runner.timings)
     res = runner.last_result
     n_test = len(runner.test_left)
@@ -451,43 +684,45 @@ def phase_slice(data):
     runner.evaluate(last_epoch=True, save_name="warm")   # a second request
     warm = dict(runner.timings)
     metrics = [*res.acc_l2r, *res.acc_r2l, res.mrr_l2r, res.mrr_r2l]
-    say("slice", f"{runner.data.ent_num} entities, {runner.graph.n_edges} "
+    say(phase, f"{runner.data.ent_num} entities, {runner.graph.n_edges} "
         f"edges, {n_test} test pairs | first request: embed "
         f"{cold['embed_s']:.4f} s eval {cold['eval_s']:.4f} s | second: embed "
         f"{warm['embed_s']:.4f} s eval {warm['eval_s']:.4f} s | main() "
         f"{wall:.1f} s")
-    say("slice", f"Hits@1/10/50 l2r {list(res.acc_l2r)} r2l "
+    say(phase, f"Hits@1/10/50 l2r {list(res.acc_l2r)} r2l "
         f"{list(res.acc_r2l)} MRR l2r {res.mrr_l2r:.6f} r2l "
         f"{res.mrr_r2l:.6f} | launches/twin calls {stats}")
     if (runner.data.ent_num, runner.graph.n_edges, n_test) != (30000, 329862, 10500):
-        raise AssertionError("slice geometry differs from the bench geometry")
+        raise AssertionError(f"{phase} geometry differs from the bench geometry")
     if not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in metrics):
         raise AssertionError(f"metrics out of range: {metrics}")
     if len(lines) != n_test + 1:
         raise AssertionError(f"top-3 CSV has {len(lines)} lines")
-    # serving runs the forward and eval kernels; the training kernels
-    # must stay idle, and no twin may run
-    for name, (launches, twin_calls) in stats.items():
-        if (launches > 0) != (name in SERVING_KERNELS) or twin_calls != 0:
-            raise AssertionError(f"{name}: {launches} launches, "
-                                 f"{twin_calls} twin calls in the slice")
+    check_launches(phase, stats, expected)
+    return {name: launches for name, (launches, _) in stats.items()}
 
 
-def phase_train():
-    """The training path at the bench geometry through the CLI entry."""
+def phase_slice(data):
+    """Serving from a seeded init: the GAT forward and the rank kernels."""
+    pkl = _seeded_checkpoint(BENCH_ARGS, data, "seeded_init.pkl")
+    return _serve("slice", BENCH_ARGS, pkl, SERVING_KERNELS)
+
+
+def _train(phase, argv, expected, promotion):
+    """``main`` training run: losses finite and falling, metrics in [0, 1],
+    IL promotion adding pairs when ``promotion``; the kernels of
+    ``expected`` launched and no other.  Returns the launches."""
     import torch
     from snag_tpu_torch.cli.train_mmea import main
     from snag_tpu_torch.ops import cuda as kernels
-    argv = BENCH_ARGS + TRAIN_ARGS + [
-        "--device", "cuda", "--data_path", str(WORK / "train"),
-        "--exp_name", "chip_smoke_train", "--no_tensorboard"]
+    argv = argv + ["--device", "cuda", "--data_path", str(WORK / phase),
+                   "--exp_name", f"chip_smoke_{phase}", "--no_tensorboard"]
     kernels.reset_stats()
     t0 = time.perf_counter()
     runner = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = {name: (s.launches, s.twin_calls)
-             for name, s in kernels.all_stats().items()}
+    stats = kernel_stats()
     losses = runner.loss_log.loss[1:]
     res = runner.last_result
     metrics = [*res.acc_l2r, *res.acc_r2l, res.mrr_l2r, res.mrr_r2l]
@@ -496,28 +731,47 @@ def phase_train():
     # taken over the steps after it
     per_epoch0 = -(-len(runner.data.train_ill) // runner.cfg.batch_size)
     warm = steps[per_epoch0:]
-    say("train", f"{len(losses)} epochs, {len(steps)} steps, main() "
+    say(phase, f"{len(losses)} epochs, {len(steps)} steps, main() "
         f"{wall:.1f} s | epoch losses {[round(x, 4) for x in losses]}")
-    say("train", f"promoted {runner.promoted} pairs, train pairs "
+    say(phase, f"promoted {runner.promoted} pairs, train pairs "
         f"{len(runner.data.train_ill)} -> {len(runner.train_ill)} | final "
         f"Hits@1/10/50 l2r {res.acc_l2r.tolist()} MRR l2r {res.mrr_l2r:.6f} "
         f"r2l {res.mrr_r2l:.6f}")
-    say("train", f"step ms (device, CUDA events): median warm "
+    say(phase, f"step ms (device, CUDA events): median warm "
         f"{statistics.median(warm):.3f} over {len(warm)} steps, first "
         f"{steps[0]:.3f} | launches/twin calls {stats}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if not runner.promoted or sum(runner.promoted) <= 0:
+    if promotion and (not runner.promoted or sum(runner.promoted) <= 0):
         raise AssertionError(f"IL promotion added no pairs: {runner.promoted}")
     if not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in metrics):
         raise AssertionError(f"metrics out of range: {metrics}")
-    for name, (launches, twin_calls) in stats.items():
-        if launches <= 0 or twin_calls != 0:
-            raise AssertionError(f"{name}: {launches} launches, "
-                                 f"{twin_calls} twin calls in training")
+    check_launches(phase, stats, expected)
     return {name: launches for name, (launches, _) in stats.items()}
+
+
+def phase_train():
+    """The training path at the bench geometry through the CLI entry, with
+    the default fused loss: every kernel but the segment sum launches."""
+    from snag_tpu_torch.ops import cuda as kernels
+    expected = set(kernels.all_stats()) - {SEGMENT_KERNEL}
+    return _train("train", BENCH_ARGS + TRAIN_ARGS, expected, promotion=True)
+
+
+def phase_gcn(data):
+    """The GCN encoder at the bench geometry: serving from a seeded init,
+    then training; the segment sum, mixture, NT-Xent and rank kernels
+    launch, the GAT kernels do not."""
+    from snag_tpu_torch.ops import cuda as kernels
+    args = gcn_args(BENCH_ARGS)
+    pkl = _seeded_checkpoint(args, data, "seeded_init_gcn.pkl")
+    served = _serve("gcn_serve", args, pkl,
+                    {SEGMENT_KERNEL, "rank_topk_mean", "rank_counts"})
+    trained = _train("gcn_train", args + GCN_TRAIN_ARGS,
+                     set(kernels.all_stats()) - GAT_KERNELS, promotion=False)
+    return {k: served[k] + trained[k] for k in served}
 
 
 def main() -> int:
@@ -535,11 +789,12 @@ def main() -> int:
     rows = [phase_gat(data.graph), phase_gat_bwd(data.graph)]
     rows += phase_rank()
     rows += phase_ntxent()
+    rows += phase_mixture()
+    rows.append(phase_segment(data.graph))
     phase_small()
-    phase_train_small()
-    phase_slice(data)
+    phase_train_small_all()
+    runs = [phase_slice(data), phase_train(), phase_gcn(data)]
     del data
-    launches = phase_train()
 
     meta = {
         "gat_attention_fwd": ("snag_tpu_torch/csrc/gat_attention.cu",
@@ -554,12 +809,23 @@ def main() -> int:
                        "snag_tpu/ops/pallas/ntxent_kernel.py:162"),
         "ntxent_grad": ("snag_tpu_torch/csrc/ntxent.cu",
                         "snag_tpu/ops/pallas/ntxent_kernel.py:191"),
+        "mixture_lse": ("snag_tpu_torch/csrc/snag_loss.cu",
+                        "snag_tpu/ops/pallas/snag_loss_kernel.py:231"),
+        "mixture_grad": ("snag_tpu_torch/csrc/snag_loss.cu",
+                         "snag_tpu/ops/pallas/snag_loss_kernel.py:259"),
+        SEGMENT_KERNEL: ("snag_tpu_torch/csrc/tile_segment.cu",
+                         "snag_tpu/ops/pallas/tile_segment.py:242"),
     }
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],
-                "launches": launches[r["name"]],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]} for r in rows]
+                "launches": sum(run[r["name"]] for run in runs),
+                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}
+               for r in rows]
+    if {k["name"] for k in kernels} != set(meta) or \
+            not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel is missing or never launched: "
+                             f"{kernels}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,16 @@
     python3 profile_train.py
 
 Builds the ``chip_smoke.py`` training configuration (the bench geometry:
-30,000 entities, batch 3500, GAT 300 x 2 x 2, ``--fused_snag_loss 0``,
+30,000 entities, batch 3500, GAT 300 x 2 x 2, the default fused loss,
 noise 0.2 / 0.7) through ``Runner``, runs three epochs untraced, then
 traces two more with ``torch.profiler`` and prints:
 
 * the traced wall time per step, the kernels' device time, and the device's
   busy and idle shares of the wall time;
-* device ms per step by kind: the NT-Xent gradient and lse kernels, the
-  GAT backward and forward kernels, cuBLAS GEMMs and everything else
-  (elementwise, index, reduce, optimizer);
+* device ms per step by kind: the mixture gradient and lse kernels, the
+  NT-Xent gradient and lse kernels, the GAT backward and forward kernels,
+  cuBLAS GEMMs and everything else (elementwise, index, reduce,
+  optimizer);
 * the 15 kernels with the most device time;
 * the median step of the untraced epochs after the first (CUDA events,
   ``step_ms``).
@@ -32,7 +33,9 @@ ROOT = Path(__file__).resolve().parent
 WARM_EPOCHS = 3
 TRACED_EPOCHS = 2
 # (label, substring of the kernel name), first match wins
-KINDS = (("ntxent_grad", "ntxent_grad"), ("ntxent_lse", "ntxent_lse"),
+KINDS = (("mixture_grad", "mixture_grad"), ("mixture_lse", "mixture_lse"),
+         ("mixture_grad", "mixture_dbeta"),
+         ("ntxent_grad", "ntxent_grad"), ("ntxent_lse", "ntxent_lse"),
          ("gat_bwd", "gat_bwd"), ("gat_attention_fwd", "gat_attention_fwd"),
          ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"))
 

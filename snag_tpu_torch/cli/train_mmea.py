@@ -1,7 +1,7 @@
 """MMEA entry point (reference: SNAG_MMEA/main.py:502-529).
 
     python -m snag_tpu_torch.cli.train_mmea --model_name SNAG \
-        --data_choice SYNTH --fused_snag_loss 0 --il ... [--device cuda|cpu]
+        --data_choice SYNTH --il ... [--device cuda|cpu]
 
 trains SNAG (two stages, iterative learning, eval every --eval_epoch) and
 ends with a full-rank test from the best weights and the top-3 retrieval

@@ -32,7 +32,7 @@
 // (153.6 KB at BM = 32; the kernel takes up to ~1500 columns): for each
 // column tile the block computes S and W (W staged in shared memory), then
 // streams z[cols] in 16 x 128 slices and adds W z into the shared
-// accumulator, each element owned by one thread.  The alternative, a grid
+// accumulator, each element owned by one thread (tile_wz, tile_dot.cuh).  The alternative, a grid
 // over d-chunks, would recompute S once per chunk (4x the S work at
 // d = 1200 with 300-wide chunks).
 
@@ -92,8 +92,6 @@ ntxent_lse_kernel(const float* __restrict__ z, const float* __restrict__ v,
     }
   }
 }
-
-constexpr size_t W_BYTES = sizeof(float) * BM * (BN + PAD);
 
 size_t grad_smem_bytes(int d) {
   return sizeof(Smem) + W_BYTES + sizeof(float) * BM * (size_t)d;
@@ -161,46 +159,8 @@ ntxent_grad_kernel(const float* __restrict__ z, const float* __restrict__ lse,
     }
     __syncthreads();
 
-    // accs[rows, :] += W (BM x BN) @ z[col0 : col0 + BN, :], streamed in
-    // (BK columns of W) x (BN features) slices through sm.b[0]
-    for (int dc0 = 0; dc0 < d; dc0 += BN) {
-      float part[TM][TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) part[r][c] = 0.f;
-      for (int c0 = 0; c0 < BN; c0 += BK) {
-#pragma unroll
-        for (int e = 0; e < B_PER; ++e) {
-          const int idx = threadIdx.x + e * THREADS;
-          const int cc = idx / BN, dd = idx % BN;
-          const int gc = col0 + c0 + cc, gd = dc0 + dd;
-          sm.b[0][cc][dd] = (gc < n2 && gd < d) ? zm[(size_t)gc * d + gd] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int cc = 0; cc < BK; ++cc) {
-          const float4 z0 = *reinterpret_cast<const float4*>(&sm.b[0][cc][tx * 4]);
-          const float4 z1 = *reinterpret_cast<const float4*>(&sm.b[0][cc][HALF + tx * 4]);
-          const float zv[TN] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const float w = ws[ty * TM + r][c0 + cc];
-#pragma unroll
-            for (int c = 0; c < TN; ++c) part[r][c] = fmaf(w, zv[c], part[r][c]);
-          }
-        }
-        __syncthreads();
-      }
-      // every (row, feature) of the chunk belongs to exactly one thread
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) {
-          const int gd = dc0 + tile_col(tx, c);
-          if (gd < d) accs[(ty * TM + r) * d + gd] += part[r][c];
-        }
-    }
+    // accs[rows, :] += W (BM x BN) @ z[col0 : col0 + BN, :]
+    tile_wz(ws, zm, n2, d, col0, sm, accs);
     // the next tile_dot writes sm only after its own loads, and every
     // thread passed the last barrier above after its final read of sm and
     // ws; accs entries are thread-private until the write-out barrier

@@ -14,16 +14,21 @@ and spill structures for its TPU grid.  Here the kernels walk
 ``row_ptr`` directly, so only the real edges are kept and nothing is
 padded.
 
-``symmetric`` records, at build time, that the (row, col) edge multiset
-equals the (col, row) multiset.  The GAT backward kernel relies on it
-(every in-edge of a node is one of its out-edges reversed,
-snag_tpu/ops/pallas/gat_bwd.py:17-32) and refuses a graph without it.
+``rev``, recorded at build time, pairs every edge with its reverse
+(``row[rev[k]] == col[k]``, ``col[rev[k]] == row[k]``); it exists exactly
+when the (row, col) edge multiset equals the (col, row) multiset, which
+``symmetric`` reports.  On such a graph every in-edge of a node is one of
+its out-edges reversed, so a reduction over a node's in-edges is one over
+its CSR row: the GAT backward kernel relies on it
+(snag_tpu/ops/pallas/gat_bwd.py:17-32) and refuses a graph without it, and
+the backward of the weighted segment sum (``ops/gat_agg.py``) walks rows
+with the weights ``e[rev]``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +41,13 @@ class DeviceGraph(NamedTuple):
     row_ptr: torch.Tensor   # (N+1,) int32
     row: torch.Tensor       # (E,) int64, sorted ascending
     col: torch.Tensor       # (E,) int32
-    symmetric: bool         # (row, col) multiset == (col, row) multiset
+    w: torch.Tensor         # (E,) f32, sym-normalised adjacency values
+    rev: Optional[torch.Tensor]   # (E,) int64 reverse edge, None if asymmetric
+
+    @property
+    def symmetric(self) -> bool:
+        """(row, col) multiset == (col, row) multiset."""
+        return self.rev is not None
 
 
 @dataclass
@@ -53,7 +64,12 @@ class Graph:
     w: np.ndarray         # (E,) float32, sym-normalised
     mask: np.ndarray      # (E,) bool, all True (no padding)
     row_ptr: np.ndarray   # (N+1,) int32
-    symmetric: bool       # (row, col) multiset == (col, row) multiset
+    rev: Optional[np.ndarray] = None   # (E,) int64, when symmetric
+
+    @property
+    def symmetric(self) -> bool:
+        """(row, col) multiset == (col, row) multiset."""
+        return self.rev is not None
 
     def to_torch(self, device) -> DeviceGraph:
         return DeviceGraph(
@@ -61,14 +77,29 @@ class Graph:
             row_ptr=torch.as_tensor(self.row_ptr, device=device),
             row=torch.as_tensor(self.row.astype(np.int64), device=device),
             col=torch.as_tensor(self.col, device=device),
-            symmetric=self.symmetric)
+            w=torch.as_tensor(self.w, device=device),
+            rev=None if self.rev is None
+            else torch.as_tensor(self.rev, device=device))
 
 
 def is_symmetric(n_nodes: int, rows: np.ndarray, cols: np.ndarray) -> bool:
     """True when the (row, col) multiset equals the (col, row) multiset."""
-    fwd = np.sort(rows.astype(np.int64) * n_nodes + cols)
-    rev = np.sort(cols.astype(np.int64) * n_nodes + rows)
-    return bool(np.array_equal(fwd, rev))
+    return reverse_edges(n_nodes, rows, cols) is not None
+
+
+def reverse_edges(n_nodes: int, rows: np.ndarray,
+                  cols: np.ndarray) -> Optional[np.ndarray]:
+    """rev (E,) int64 with (row, col)[rev[k]] == (col, row)[k], or None
+    when the (row, col) multiset differs from the (col, row) multiset."""
+    fwd_key = rows.astype(np.int64) * n_nodes + cols
+    rev_key = cols.astype(np.int64) * n_nodes + rows
+    by_fwd = np.argsort(fwd_key, kind="stable")
+    by_rev = np.argsort(rev_key, kind="stable")
+    if not np.array_equal(fwd_key[by_fwd], rev_key[by_rev]):
+        return None
+    rev = np.empty(rows.shape[0], dtype=np.int64)
+    rev[by_rev] = by_fwd
+    return rev
 
 
 def build_graph(n_nodes: int,
@@ -120,4 +151,4 @@ def build_graph(n_nodes: int,
                  w=norm_vals.astype(np.float32),
                  mask=np.ones(n_real, dtype=bool),
                  row_ptr=row_ptr.astype(np.int32),
-                 symmetric=is_symmetric(n_nodes, rows, cols))
+                 rev=reverse_edges(n_nodes, rows, cols))

@@ -2,8 +2,9 @@
 
 Port of the NT-Xent part of ``snag_tpu/losses/contrastive.py``: the batched
 core ``_icl_xent_batched`` (:77-201, its streaming branch), ``icl_loss``'s
-simple route (:269-278), ``icl_loss_multi`` (:343) and ``icl_loss_stacked``
-(:370).  Reference: SNAG_MMEA/model/SNAG_loss.py:31-128.
+simple route (:269-278), ``icl_loss_multi`` (:343), ``icl_loss_stacked``
+(:370) and SNAG's fused bundle ``snag_bundle_losses`` (:411-533, its
+streaming branch).  Reference: SNAG_MMEA/model/SNAG_loss.py:31-128.
 
 An optional ``valid`` mask lets capacity-padded batches compute the value
 the reference gets from its ragged last batch: invalid rows leave the
@@ -12,7 +13,8 @@ numerator and the denominator, and their columns leave the negative pool.
 The core is a ``torch.autograd.Function`` whose forward is the streaming
 row-logsumexp and whose backward the streaming gradient
 (``ops/cuda/ntxent.py``): kernels for CUDA tensors, dense twins for CPU
-tensors.  Only the (M, B) row statistics are kept for the backward.
+tensors.  Only the (M, B) row statistics are kept for the backward.  The
+bundle is the same over the mixture kernels (``ops/cuda/snag_loss.py``).
 Rows must be L2-normalised (the kernels' static max).
 """
 
@@ -22,8 +24,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from snag_tpu_torch.ops.cuda.ntxent import (streaming_lse,
+from snag_tpu_torch.ops.cuda.ntxent import (stack, streaming_lse,
                                             streaming_ntxent_grad)
+from snag_tpu_torch.ops.cuda.snag_loss import mixture_grad, mixture_lse
 from snag_tpu_torch.ops.fusion import l2norm
 
 
@@ -131,3 +134,83 @@ def icl_loss_stacked(emb_list: Sequence[torch.Tensor], links: torch.Tensor,
     zis = torch.stack([l2norm(e[links[:, 0]]) for e in emb_list])
     zjs = torch.stack([l2norm(e[links[:, 1]]) for e in emb_list])
     return icl_xent_batched(zis, zjs, None, valid, tau, ab_weight).sum()
+
+
+def _bundle_pos(zis, zjs, a_i, a_j, beta, tau):
+    """(M + 2, B) positive-pair logits of every channel."""
+    posk = torch.einsum("mbd,mbd->mb", zis, zjs)
+    pos_a = torch.einsum("bm,bm,mb->b", a_i, a_j, posk)
+    pos_f = torch.einsum("m,mb->b", beta, posk)
+    return torch.cat([posk, pos_a[None], pos_f[None]], dim=0) / tau
+
+
+def _bundle_weights(w_min, valid, m, b, device):
+    """(row weights (M + 2, B), validity (B,) f32, denominator)."""
+    if valid is None:
+        vf = torch.ones(b, dtype=torch.float32, device=device)
+        denom = torch.tensor(float(b), device=device)
+    else:
+        vf = valid.to(torch.float32)
+        denom = torch.clamp(vf.sum(), min=1.0)
+    wm = torch.ones(m, b, device=device) if w_min is None else w_min
+    wt = torch.cat([wm * vf[None, :], vf[None, :], vf[None, :]], dim=0)
+    return wt, vf, denom
+
+
+class _BundleStreamed(torch.autograd.Function):
+    """(M + 2,) bundle losses (contrastive.py:443-512): forward
+    ``mixture_lse``, backward ``mixture_grad``; d w_min outside the kernel
+    (:501-506)."""
+
+    @staticmethod
+    def forward(ctx, zis, zjs, a_i, a_j, beta, w_min, valid, tau, ab_weight):
+        m, b, _ = zis.shape
+        z, v = stack(zis, zjs, valid)
+        alpha = torch.cat([a_i, a_j], dim=0).contiguous()      # (2B, M)
+        lse = mixture_lse(z, alpha, beta, v, tau)              # (M + 2, 2B)
+        pos = _bundle_pos(zis, zjs, a_i, a_j, beta, tau)
+        per_a, per_b = lse[:, :b] - pos, lse[:, b:] - pos
+        wt, vf, denom = _bundle_weights(w_min, valid, m, b, zis.device)
+        loss = (ab_weight * (per_a * wt).sum(dim=1)
+                + (1 - ab_weight) * (per_b * wt).sum(dim=1)) / denom
+        ctx.tau, ctx.ab_weight = tau, ab_weight
+        ctx.save_for_backward(z, v, alpha, beta, lse, per_a, per_b, wt, vf,
+                              denom)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        z, v, alpha, beta, lse, per_a, per_b, wt, vf, denom = \
+            ctx.saved_tensors
+        tau, ab = ctx.tau, ctx.ab_weight
+        m = beta.shape[0]
+        b = per_a.shape[1]
+        ca = (g[:, None] * ab) * wt / denom                    # (M + 2, B)
+        cb = (g[:, None] * (1 - ab)) * wt / denom
+        coef = torch.cat([ca, cb], dim=1).contiguous()
+        dz, dalpha, dbeta = mixture_grad(z, alpha, beta, lse, coef, v, tau)
+        d_w = None
+        if ctx.needs_input_grad[5]:
+            base = (ab * per_a[:m] + (1 - ab) * per_b[:m]) * vf[None, :]
+            d_w = g[:m, None] * base / denom
+        return (dz[:, :b], dz[:, b:], dalpha[:b], dalpha[b:], dbeta, d_w,
+                None, None, None)
+
+
+def snag_bundle_losses(zis: torch.Tensor, zjs: torch.Tensor,
+                       a_i: torch.Tensor, a_j: torch.Tensor,
+                       beta: torch.Tensor,
+                       w_min: Optional[torch.Tensor] = None,
+                       valid: Optional[torch.Tensor] = None,
+                       tau: float = 0.1, ab_weight: float = 0.5
+                       ) -> torch.Tensor:
+    """(M + 2,) NT-Xent losses over the shared modality similarities:
+    per-modality ICL (ECIA channels, weighted by ``w_min``) and SNAG's two
+    joint-path ICLs (GMI) from the factored similarities (reference math
+    SNAG.py:106, SNAG_tools.py:44-49, SNAG_loss.py:58-128).
+
+    zis/zjs: (M, B, d) unit rows; a_i/a_j: (B, M) L2-normalised per-row
+    attention weights; beta: (M,) fz mixture (sums to 1); w_min: (M, B)."""
+    return _BundleStreamed.apply(zis.contiguous(), zjs.contiguous(), a_i, a_j,
+                                 beta.contiguous(), w_min, valid, tau,
+                                 ab_weight)

@@ -1,10 +1,11 @@
 """Shared multi-modal encoder.
 
-Port of ``snag_tpu/models/encoder.py::MultiModalEncoder`` (:70-210) with the
-GAT structure encoder and Mformer fusion (reference
-SNAG_MMEA/model/SNAG_tools.py:53-156).  Submodules carry the reference's
-torch names (``entity_emb``, ``img_fc``, ``rel_fc``, ``att_fc``,
-``cross_graph_model.layer_stack.{i}``, ``fusion.fusion_layer.{i}``,
+Port of ``snag_tpu/models/encoder.py::MultiModalEncoder`` (:70-210) with
+the GAT or GCN structure encoder (``--structure_encoder``, :99-109) and
+Mformer fusion (reference SNAG_MMEA/model/SNAG_tools.py:53-156).
+Submodules carry the reference's torch names (``entity_emb``, ``img_fc``,
+``rel_fc``, ``att_fc``, ``cross_graph_model.layer_stack.{i}`` or
+``cross_graph_model.gc{1,2}``, ``fusion.fusion_layer.{i}``,
 ``fusion.weight_raw``), so a reference state dict loads strictly.
 
 Training inputs of the forward: ``entity_noise_gen`` (entity-embedding
@@ -28,7 +29,7 @@ from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops import noise as noise_ops
 from snag_tpu_torch.ops.fusion import MformerFusion, tlinear
-from snag_tpu_torch.ops.gnn import GAT
+from snag_tpu_torch.ops.gnn import GAT, GCN
 
 
 class FeaturePack(NamedTuple):
@@ -66,8 +67,6 @@ class MultiModalEncoder(nn.Module):
                  attr_input_dim: int, rel_input_dim: int,
                  char_feature_dim: int, generator: torch.Generator):
         super().__init__()
-        if cfg.structure_encoder != "gat":
-            raise NotImplementedError("the GCN structure encoder is not ported")
         if cfg.use_project_head:
             raise NotImplementedError("projection heads are not ported")
         self.cfg = cfg
@@ -91,7 +90,11 @@ class MultiModalEncoder(nn.Module):
         if cfg.w_char:
             self.char_fc = tlinear(char_feature_dim, cfg.char_dim, generator)
 
-        if cfg.w_gcn:
+        if cfg.w_gcn and cfg.structure_encoder == "gcn":
+            u = cfg.n_units()
+            self.cross_graph_model = GCN(u[0], u[1], u[2], generator,
+                                         dropout=cfg.dropout)
+        elif cfg.w_gcn:
             self.cross_graph_model = GAT(
                 cfg.n_units(), cfg.n_heads(), generator, dropout=cfg.dropout,
                 attn_dropout=cfg.attn_dropout,

@@ -13,10 +13,14 @@ ECIA and IIR each run through the shared Kendall multi-task layer; an
 optional AWL head combines the three (``--awloss``).  Eval embeds with the
 frozen-weight joint path (SNAG.py:178-179).
 
-The port computes GMI and ECIA as separate batched NT-Xent calls
-(``--fused_snag_loss 0``, the same loss as the JAX package's fused bundle,
-tests/test_snag_bundle.py:100).  The fused bundle needs the
-``snag_loss_kernel`` kernels (ROADMAP B3), which are not ported yet.
+With ``--fused_snag_loss 1`` (the default) GMI and ECIA come from one
+fused bundle (``_fused_bundle``, JAX snag.py:143-195): the joint
+similarities factor over the per-modality blocks ECIA computes, so the
+mixture kernels (``losses/contrastive.snag_bundle_losses``) derive all
+M + 2 channels from K_m = z_m z_m^T and the (B, M*d) joint products never
+run.  With ``--fused_snag_loss 0``, or where the modalities differ in
+width, GMI and ECIA are separate batched NT-Xent calls: the same loss
+(tests/test_snag_bundle.py:100).
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from torch import nn
 
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
-from snag_tpu_torch.losses.contrastive import icl_loss_multi, icl_loss_stacked
+from snag_tpu_torch.losses.contrastive import (icl_loss_multi,
+                                               icl_loss_stacked,
+                                               snag_bundle_losses)
 from snag_tpu_torch.losses.multitask import (AutomaticWeightedLoss,
                                              KendallLossLayer)
 from snag_tpu_torch.models.encoder import (FeaturePack, MultiModalEncoder,
@@ -112,6 +118,41 @@ class SNAG(nn.Module):
         return self.multi_loss_layer(
             [0.0 if e is None else next(it) for _, e in named])
 
+    def _fused_bundle(self, enc, links, valid):
+        """(gmi, ecia) from the shared per-modality similarity blocks, or
+        None where the factorisation does not apply (JAX snag.py:143-195).
+        The joint rows are unit modality rows scaled by a = w / ||w|| (the
+        attention path) and sqrt(beta), beta = u^2 / sum u^2 (the frozen
+        path), so the factorisation is exact unless a modality row is all
+        zeros."""
+        cfg = self.cfg
+        named = [("gph", enc.gph), ("rel", enc.rel), ("att", enc.att),
+                 ("img", enc.img), ("name", enc.name), ("char", enc.char)]
+        active = [(m, e) for m, e in named if e is not None]
+        if len({e.shape[-1] for _, e in active}) != 1:
+            return None
+        stack = torch.stack([l2norm(e) for _, e in active], dim=0)
+        zis = stack[:, links[:, 0], :]
+        zjs = stack[:, links[:, 1], :]
+        mod_num = enc.weight_norm.shape[1]
+        cols = [weight_column(cfg, m) for m, _ in active]
+        wi = enc.weight_norm[links[:, 0]][:, cols]                  # (B, M)
+        wj = enc.weight_norm[links[:, 1]][:, cols]
+        w_min = (torch.minimum(wi, wj) * mod_num).T                 # (M, B)
+        a_i = wi / torch.linalg.norm(wi, dim=1, keepdim=True)
+        a_j = wj / torch.linalg.norm(wj, dim=1, keepdim=True)
+        u = enc.weight_fz[cols]
+        beta = u * u / torch.sum(u * u)
+        per = snag_bundle_losses(zis, zjs, a_i, a_j, beta, w_min=w_min,
+                                 valid=valid, tau=cfg.tau,
+                                 ab_weight=cfg.ab_weight)
+        m_act = len(active)
+        gmi = per[m_act] + per[m_act + 1]
+        it = iter(per[:m_act])
+        ecia = self.multi_loss_layer(
+            [0.0 if e is None else next(it) for _, e in named])
+        return gmi, ecia
+
     def forward(self, links: torch.Tensor, valid: Optional[torch.Tensor],
                 feats: FeaturePack, graph: DeviceGraph,
                 entity_noise_gen: Optional[torch.Generator] = None,
@@ -119,14 +160,6 @@ class SNAG(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training loss (SNAG.py:101-122) and its aux terms."""
         cfg = self.cfg
-        if cfg.fused_snag_loss:
-            # the fused bundle (JAX snag.py:143-195) is not run in its place
-            raise NotImplementedError(
-                "--fused_snag_loss 1 computes GMI + ECIA with the mixture "
-                "kernels of snag_tpu/ops/pallas/snag_loss_kernel.py "
-                "(mixture_lse, mixture_grad), which are not ported yet "
-                "(ROADMAP A2 / B3); train with --fused_snag_loss 0, the same "
-                "loss")
         rows = None
         if cfg.batch_encode:
             rows, links = batch_rows(links)
@@ -135,12 +168,17 @@ class SNAG(nn.Module):
         gph_h, rel_h, att_h, img_h, name_h, char_h = \
             self.generate_hidden_emb(enc.hidden)
 
-        gmi = icl_loss_stacked((enc.joint, enc.joint_fz), links,
-                               tau=cfg.tau, ab_weight=cfg.ab_weight,
-                               valid=valid)
-        ecia = self.inner_view_loss(enc.gph, enc.rel, enc.att, enc.img,
-                                    enc.name, enc.char, links, valid,
-                                    weight_norm=enc.weight_norm)
+        bundle = self._fused_bundle(enc, links, valid) \
+            if cfg.fused_snag_loss else None
+        if bundle is not None:
+            gmi, ecia = bundle
+        else:
+            gmi = icl_loss_stacked((enc.joint, enc.joint_fz), links,
+                                   tau=cfg.tau, ab_weight=cfg.ab_weight,
+                                   valid=valid)
+            ecia = self.inner_view_loss(enc.gph, enc.rel, enc.att, enc.img,
+                                        enc.name, enc.char, links, valid,
+                                        weight_norm=enc.weight_norm)
         iir = self.inner_view_loss(gph_h, rel_h, att_h, img_h, name_h,
                                    char_h, links, valid)
 

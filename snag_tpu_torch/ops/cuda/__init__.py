@@ -10,10 +10,13 @@ dispatches.
 
 def all_stats():
     """{name: KernelStats} of every kernel of the package."""
-    from snag_tpu_torch.ops.cuda import gat_attention, gat_bwd, ntxent, rank_eval
+    from snag_tpu_torch.ops.cuda import (gat_attention, gat_bwd, ntxent,
+                                         rank_eval, snag_loss, tile_segment)
     return {s.name: s for s in (gat_attention.STATS, gat_bwd.STATS,
                                 ntxent.STATS_LSE, ntxent.STATS_GRAD,
-                                rank_eval.STATS_TOPK, rank_eval.STATS_RANKS)}
+                                rank_eval.STATS_TOPK, rank_eval.STATS_RANKS,
+                                snag_loss.STATS_LSE, snag_loss.STATS_GRAD,
+                                tile_segment.STATS)}
 
 
 def reset_stats() -> None:

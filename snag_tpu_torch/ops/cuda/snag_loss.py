@@ -1,0 +1,219 @@
+"""SNAG's fused loss bundle: CUDA kernels and their dense twins.
+
+Kernels: ``csrc/snag_loss.cu``, replacing
+``snag_tpu/ops/pallas/snag_loss_kernel.py::mixture_lse`` and
+``::mixture_grad``.  For M modality batches of paired unit rows,
+z = [zis ; zjs] (M, 2B, d), K_m = z_m z_m^T, alpha (2B, M) and beta (M,)
+unit mixture coefficients, the M + 2 channels are
+[K_0 .. K_{M-1} | mix_a | mix_f] with mix_a = sum_m a_r,m a_c,m K_m and
+mix_f = sum_m beta_m K_m, and S = channel / tau:
+
+* lse[ch, r] = log(sum_{c != r} v[c] exp(S - 1/tau) + 1e-30) + 1/tau (a
+  static max: |S| <= 1/tau);
+* with W_ch the G + G^T weight of ``_w_channel`` (snag_loss_kernel.py
+  :149-157): dz_m = (W_m + W_a a_r,m a_c,m + W_f beta_m) z_m,
+  dalpha[r, m] = sum_c W_a a_c,m K_m, dbeta_m = 1/2 sum W_f K_m.
+
+The port's shapes: alpha (2B, M), beta (M,), lse and coef (M + 2, 2B); B
+is not padded, the positive partner of row r is r +/- B.
+
+Twins: ``mixture_lse_twin`` and ``mixture_grad_twin``, the same formulas
+on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
+(snag_tpu/losses/contrastive.py:390-408).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
+                                          ptr, require, stream_of)
+
+STATS_LSE = KernelStats("mixture_lse")
+STATS_GRAD = KernelStats("mixture_grad")
+LSE_EPS = 1e-30
+MAX_MOD = 6
+ROWS_PER_BLOCK = 32                 # BM of csrc/tile_dot.cuh
+_GRAD_CAP: Dict[int, int] = {}      # device index -> modalities x d limit
+
+
+def _channels(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor
+              ) -> torch.Tensor:
+    """The dense (M + 2, 2B, 2B) channels [K_m | mix_a | mix_f], unscaled."""
+    k = torch.einsum("mrd,mcd->mrc", z, z)
+    mix_a = torch.einsum("rm,cm,mrc->rc", alpha, alpha, k)
+    mix_f = torch.einsum("m,mrc->rc", beta, k)
+    return torch.cat([k, mix_a[None], mix_f[None]], dim=0)
+
+
+def _off_diagonal(n2: int, device) -> torch.Tensor:
+    return (~torch.eye(n2, dtype=torch.bool, device=device)).to(torch.float32)
+
+
+def mixture_lse_twin(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                     v: torch.Tensor, tau: float) -> torch.Tensor:
+    """Plain version of ``mixture_lse``: (M + 2, 2B)."""
+    inv_tau = 1.0 / tau
+    s = _channels(z, alpha, beta) * inv_tau
+    mask = _off_diagonal(z.shape[1], z.device)[None] * v[None, None, :]
+    return torch.log(torch.sum(torch.exp(s - inv_tau) * mask, dim=2)
+                     + LSE_EPS) + inv_tau
+
+
+def mixture_grad_twin(z: torch.Tensor, alpha: torch.Tensor,
+                      beta: torch.Tensor, lse: torch.Tensor,
+                      coef: torch.Tensor, v: torch.Tensor, tau: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``mixture_grad``: (dz (M, 2B, d), dalpha (2B, M),
+    dbeta (M,))."""
+    inv_tau = 1.0 / tau
+    m, n2, _ = z.shape
+    ch = _channels(z, alpha, beta)
+    k = ch[:m]
+    s = ch * inv_tau
+    neq = _off_diagonal(n2, z.device)
+    rows = torch.arange(n2, device=z.device)
+    half = n2 // 2
+    pos = torch.where(rows < half, rows + half, rows - half)
+    onehot = (rows[None, :] == pos[:, None]).to(torch.float32)
+    p_row = torch.exp(torch.clamp(s - lse[:, :, None], max=0.0))
+    p_col = torch.exp(torch.clamp(s - lse[:, None, :], max=0.0))
+    coef_r, coef_c = coef[:, :, None], coef[:, None, :]
+    w = (neq[None] * (coef_r * p_row * v[None, None, :]
+                      + p_col * coef_c * v[None, :, None])
+         - onehot[None] * (coef_r + coef_c)) * inv_tau      # (M + 2, 2B, 2B)
+    w_a, w_f = w[m], w[m + 1]
+    aa = alpha.T[:, :, None] * alpha.T[:, None, :]           # (M, 2B, 2B)
+    w_tot = w[:m] + w_a[None] * aa + w_f[None] * beta[:, None, None]
+    dz = torch.bmm(w_tot, z)
+    dalpha = torch.einsum("rc,cm,mrc->rm", w_a, alpha, k)
+    dbeta = 0.5 * torch.einsum("rc,mrc->m", w_f, k)
+    return dz, dalpha, dbeta
+
+
+def _library():
+    built = load_library("snag_loss")
+    lib = built.lib
+    if lib.mixture_lse.argtypes is None:
+        lib.mixture_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        lib.mixture_lse.restype = ctypes.c_int
+        lib.mixture_grad.argtypes = [ctypes.c_void_p] * 10 \
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        lib.mixture_grad.restype = ctypes.c_int
+        lib.mixture_grad_init.argtypes = []
+        lib.mixture_grad_init.restype = ctypes.c_int
+    return built
+
+
+def _grad_cap(built, device: torch.device) -> int:
+    """The largest (modalities per block) x d of the gradient kernel's
+    shared row accumulator on ``device``, set up there at the first call."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _GRAD_CAP:
+        cap = built.lib.mixture_grad_init()
+        if cap < 0:
+            check(built, -cap, "mixture_grad_init")
+        _GRAD_CAP[index] = cap
+    return _GRAD_CAP[index]
+
+
+def modality_group(m: int, d: int, cap: int) -> int:
+    """Modalities per block of the gradient kernel: as few groups as the
+    accumulator allows, of balanced size."""
+    most = min(m, cap // d)
+    if most < 1:
+        raise ValueError(f"d = {d} exceeds the {cap} columns the mixture "
+                         "gradient kernel's shared accumulator holds")
+    groups = -(-m // most)
+    return -(-m // groups)
+
+
+def _check(z, alpha, beta, v):
+    dev = z.device
+    if dev.type != "cuda":
+        raise ValueError(f"the mixture kernels need CUDA tensors, got {dev}")
+    if z.dim() != 3 or z.shape[1] % 2:
+        raise ValueError(f"z must be (M, 2B, d), got {tuple(z.shape)}")
+    m, n2, d = z.shape
+    if not 1 <= m <= MAX_MOD:
+        raise ValueError(f"{m} modalities; the mixture kernels take "
+                         f"1..{MAX_MOD}")
+    require(z, "z", torch.float32, (m, n2, d), dev)
+    require(alpha, "alpha", torch.float32, (n2, m), dev)
+    require(beta, "beta", torch.float32, (m,), dev)
+    require(v, "v", torch.float32, (n2,), dev)
+    return m, n2, d
+
+
+def mixture_lse_cuda(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                     v: torch.Tensor, tau: float) -> torch.Tensor:
+    """Launch ``mixture_lse``: lse (M + 2, 2B) f32."""
+    m, n2, d = _check(z, alpha, beta, v)
+    lse = torch.empty(m + 2, n2, dtype=torch.float32, device=z.device)
+    built = _library()
+    with torch.cuda.device(z.device):
+        err = built.lib.mixture_lse(ptr(z), ptr(alpha), ptr(beta), ptr(v),
+                                    ptr(lse), m, n2, d, 1.0 / tau,
+                                    stream_of(z))
+    check(built, err, "mixture_lse")
+    STATS_LSE.launches += 1
+    return lse
+
+
+def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
+                      beta: torch.Tensor, lse: torch.Tensor,
+                      coef: torch.Tensor, v: torch.Tensor, tau: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``mixture_grad``: (dz (M, 2B, d), dalpha (2B, M), dbeta (M,))."""
+    m, n2, d = _check(z, alpha, beta, v)
+    require(lse, "lse", torch.float32, (m + 2, n2), z.device)
+    require(coef, "coef", torch.float32, (m + 2, n2), z.device)
+    built = _library()
+    with torch.cuda.device(z.device):
+        mg = modality_group(m, d, _grad_cap(built, z.device))
+        dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
+        dalpha = torch.empty(n2, m, dtype=torch.float32, device=z.device)
+        dbeta = torch.empty(m, dtype=torch.float32, device=z.device)
+        part = torch.empty(-(-n2 // ROWS_PER_BLOCK), m, dtype=torch.float32,
+                           device=z.device)
+        err = built.lib.mixture_grad(
+            ptr(z), ptr(alpha), ptr(beta), ptr(lse), ptr(coef), ptr(v),
+            ptr(dz), ptr(dalpha), ptr(dbeta), ptr(part), m, mg, n2, d,
+            1.0 / tau, stream_of(z))
+    check(built, err, "mixture_grad")
+    STATS_GRAD.launches += 1
+    return dz, dalpha, dbeta
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no mixture-loss path for device {t.device}")
+    return False
+
+
+def mixture_lse(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                v: torch.Tensor, tau: float) -> torch.Tensor:
+    """(M + 2, 2B) channel row-logsumexps: the kernel for CUDA tensors, the
+    twin for CPU tensors."""
+    if _on_cpu(z):
+        STATS_LSE.twin_calls += 1
+        return mixture_lse_twin(z, alpha, beta, v, tau)
+    return mixture_lse_cuda(z, alpha, beta, v, tau)
+
+
+def mixture_grad(z, alpha, beta, lse, coef, v, tau
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of sum_ch sum_r coef[ch, r] (lse[ch, r] - pos[ch, r]); coef
+    folds the cotangent, ab_weight, row weights and 1/denom.  Returns
+    (dz, dalpha, dbeta)."""
+    if _on_cpu(z):
+        STATS_GRAD.twin_calls += 1
+        return mixture_grad_twin(z, alpha, beta, lse, coef, v, tau)
+    return mixture_grad_cuda(z, alpha, beta, lse, coef, v, tau)

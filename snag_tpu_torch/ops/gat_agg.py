@@ -1,0 +1,62 @@
+"""Weighted neighbour aggregation with its own backward.
+
+Port of ``snag_tpu/ops/gat_agg.py::gat_aggregate`` (:62-115).  For every
+head h and edge i <- j of the CSR graph:
+
+    agg[i, h, :] = sum_j e[edge, h] * x[j, :]
+    rowsum[i, h] = sum_j e[edge, h]
+
+The forward is ``ops/cuda/tile_segment.py``'s weighted segment sum.  The
+backward's d_x[j] = sum over edges i <- j of sum_h e[edge, h] g_agg[i, h]
+is a reduction over j's in-edges; on the symmetric edge multiset those are
+j's CSR row reversed (``DeviceGraph.rev``), so it is the same row kernel
+run on g_agg with the weights e[rev], one launch per head.  The JAX
+package instead reduces over a col-sorted copy of the edges (:89-112).
+
+The GCN's edge weights are the constant adjacency ``graph.w``, so no path
+needs d_e: an ``e`` that requires a gradient is refused.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from snag_tpu_torch.data.graph import DeviceGraph
+from snag_tpu_torch.ops.cuda.tile_segment import weighted_segment_sum
+
+
+class _GatAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, e, graph):
+        ctx.graph = graph
+        ctx.save_for_backward(e)
+        return weighted_segment_sum(x, e, graph)
+
+    @staticmethod
+    def backward(ctx, g_agg, g_rs):
+        (e,) = ctx.saved_tensors
+        graph = ctx.graph
+        e_rev = e[graph.rev]
+        d_x = None
+        for h in range(e.shape[1]):
+            part, _ = weighted_segment_sum(g_agg[:, h].contiguous(),
+                                           e_rev[:, h:h + 1].contiguous(),
+                                           graph)
+            d_x = part[:, 0] if d_x is None else d_x + part[:, 0]
+        return d_x, None, None
+
+
+def gat_aggregate(x: torch.Tensor, e: torch.Tensor, graph: DeviceGraph
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (N, C); e: (E, H) edge weights in CSR order, constant.
+    Returns (agg (N, H, C) f32, rowsum (N, H) f32)."""
+    if e.requires_grad:
+        raise ValueError("gat_aggregate has no gradient for the edge weights "
+                         "e; pass a constant (the GCN's adjacency)")
+    if graph.rev is None:
+        raise ValueError("gat_aggregate's backward needs the reverse-edge "
+                         "permutation of a symmetric edge multiset "
+                         "(Graph.rev); this graph has none")
+    return _GatAggregate.apply(x.contiguous(), e.contiguous(), graph)

@@ -1,10 +1,12 @@
-"""Graph encoder: multi-head sparse GAT over the CSR edge list.
+"""Graph encoders over the CSR edge list: GCN and multi-head sparse GAT.
 
-Port of the diag hot path of ``snag_tpu/ops/gnn.py``
-(``MultiHeadGraphAttention`` :95-132 and ``GAT`` :177-218), following the
-reference layers (SNAG_MMEA/model/layers.py:35-100, model/Tool_model.py:61-110).
-Parameter names are the reference's: ``layer_stack.{i}.w`` (H, 1, F) and
-``layer_stack.{i}.a_src_dst`` (H, 2F, 1).
+Port of ``snag_tpu/ops/gnn.py``: ``GraphConvolution`` and ``GCN`` (:30-75)
+and the diag hot path of the GAT (``MultiHeadGraphAttention`` :95-132 and
+``GAT`` :177-218), following the reference layers
+(SNAG_MMEA/model/layers.py:35-133, model/Tool_model.py:61-110,
+EVA_tools.py:52-63).  Parameter names are the reference's:
+``gc{1,2}.weight`` (in, out) and ``gc{1,2}.bias``;
+``layer_stack.{i}.w`` (H, 1, F) and ``layer_stack.{i}.a_src_dst`` (H, 2F, 1).
 
 Dropout is drawn from an explicit ``torch.Generator``: a forward given
 ``dropout_gen=None`` is deterministic (the JAX package's
@@ -22,8 +24,45 @@ from torch import nn
 
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops import inits
+from snag_tpu_torch.ops.gat_agg import gat_aggregate
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 from snag_tpu_torch.ops.noise import dropout
+
+
+class GraphConvolution(nn.Module):
+    """One GCN layer: out = A_norm (x W) + b (layers.py:102-133); weight
+    and bias ~ U(-1/sqrt(out), 1/sqrt(out))."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator):
+        super().__init__()
+        stdv = 1.0 / math.sqrt(out_features)
+        self.weight = nn.Parameter(inits.uniform_stdv(
+            (in_features, out_features), stdv, generator))
+        self.bias = nn.Parameter(inits.uniform_stdv(
+            (out_features,), stdv, generator))
+
+    def forward(self, x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
+        support = x @ self.weight
+        agg, _ = gat_aggregate(support, graph.w[:, None], graph)
+        return agg[:, 0, :] + self.bias
+
+
+class GCN(nn.Module):
+    """2-layer GCN: relu -> dropout -> layer (EVA_tools.py:52-63)."""
+
+    def __init__(self, nfeat: int, nhid: int, nout: int,
+                 generator: torch.Generator, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.gc1 = GraphConvolution(nfeat, nhid, generator)
+        self.gc2 = GraphConvolution(nhid, nout, generator)
+
+    def forward(self, x: torch.Tensor, graph: DeviceGraph,
+                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.relu(self.gc1(x, graph))
+        x = dropout(x, self.dropout, dropout_gen)
+        return self.gc2(x, graph)
 
 
 class MultiHeadGraphAttention(nn.Module):
@@ -50,9 +89,10 @@ class MultiHeadGraphAttention(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         if dropout_gen is not None and self.attn_dropout > 0:
             raise NotImplementedError(
-                "GAT attention dropout (--attn_dropout > 0) needs the "
-                "edge-segment path of snag_tpu/ops/gnn.py:160-174, whose "
-                "kernel tile_segment is ROADMAP B6 (queue A item 6)")
+                "GAT attention dropout (--attn_dropout > 0) takes the "
+                "segment_sum path of snag_tpu/ops/gnn.py:160-174, plain "
+                "module work with no Pallas kernel, not ported yet "
+                "(ROADMAP A6)")
         f = self.f_out
         wh = self.w[:, 0, :]                                  # (H, F)
         a_src = self.a_src_dst[:, :f, 0]

@@ -6,7 +6,8 @@ The port's modules carry the reference SNAG torch names, so:
   of numpy arrays, e.g. after ``jax.device_get``) onto the port's state
   dict with the rules of ``snag_tpu/utils/import_reference.py::_ref_key_for``
   (:57-100): Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in),
-  LayerNorm ``scale`` -> ``weight``; ``rel_fc`` keeps the JAX table width;
+  LayerNorm ``scale`` -> ``weight``, the GCN's ``gc1``/``gc2`` weights
+  (in, out) as they are; ``rel_fc`` keeps the JAX table width;
 * ``load_reference_checkpoint`` reads a reference ``.pkl``
   (``torch.save(model.state_dict())``, SNAG_MMEA/main.py:481-500) and
   truncates ``rel_fc.weight`` to our relation-table width: both sides use
@@ -72,6 +73,8 @@ def _ref_key_for(keys: Tuple[str, ...]):
         if name.startswith("gat_"):     # gat_{i} -> layer_stack.{i}
             i = name.split("_", 1)[1]
             return f"{prefix}cross_graph_model.layer_stack.{i}.{leaf}", _ID
+        if name.startswith("gc"):       # gc1/gc2: weight is (in, out) in both
+            return f"{prefix}cross_graph_model.{name}.{leaf}", _ID
     if rest[0] == "fusion":
         if rest[1] == "weight_raw":
             return f"{prefix}fusion.weight_raw", _ID

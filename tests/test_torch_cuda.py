@@ -9,7 +9,11 @@ Tolerances: the GAT kernel sums a row's edges in a fixed order and the
 twin with ``index_add_``: rtol = atol = 1e-5; the GAT backward adds
 per-edge dot products over C and heads, rtol = atol = 1e-4.  The NT-Xent
 kernels sum 2B * d products per row in another order than cuBLAS: lse
-rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|.  The rank
+rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|; so do the
+mixture kernels, under the same limits for lse, dz, dalpha and dbeta, and
+two runs of the mixture gradient give the same bits.  The weighted segment
+sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
+atol = 1e-5.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
 may flip: ranks must agree on >= 99 % of queries; tie rules are checked on
 the kernel's own exact ties.
@@ -24,6 +28,9 @@ from snag_tpu_torch.ops.cuda import gat_attention as ga
 from snag_tpu_torch.ops.cuda import gat_bwd as gb
 from snag_tpu_torch.ops.cuda import ntxent as nx
 from snag_tpu_torch.ops.cuda import rank_eval as rk
+from snag_tpu_torch.ops.cuda import snag_loss as sl
+from snag_tpu_torch.ops.cuda import tile_segment as ts
+from snag_tpu_torch.ops.gat_agg import gat_aggregate
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 
 pytestmark = pytest.mark.cuda
@@ -76,7 +83,7 @@ def test_gat_wrappers_refuse_what_the_kernel_does_not_take(dev):
     g_agg = torch.ones(x.shape[0], 2, x.shape[1], device=dev)
     with pytest.raises(ValueError, match="symmetric"):
         gb.gat_backward_cuda(x, s_src, s_dst, g_agg, s_src,
-                             g._replace(symmetric=False))
+                             g._replace(rev=None))
 
 
 @pytest.mark.parametrize("c,h", [(48, 2), (30, 1), (300, 2), (64, 4)])
@@ -133,6 +140,90 @@ def test_ntxent_kernels_match_twins(dev, m, b, d, n_valid):
     torch.cuda.synchronize()
     want = nx.ntxent_grad_twin(z, want_lse, coef, v, 0.1)
     assert (dz - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _mixture_inputs(dev, m, b, d, n_valid, seed):
+    """Unit rows with near-copy positives, one all-zero modality row, unit
+    mixture coefficients, coefficients zero on invalid rows."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(m, 2 * b, d)).astype(np.float32)
+    z[:, b:] = z[:, :b] + 0.5 * z[:, b:]
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    z[min(1, m - 1), 2] = 0.0                       # an all-zero row
+    alpha = np.abs(rng.normal(size=(2 * b, m))).astype(np.float32)
+    alpha /= np.linalg.norm(alpha, axis=1, keepdims=True)
+    u = rng.uniform(0.2, 1.0, size=m).astype(np.float32)
+    beta = u * u / np.sum(u * u)
+    v = np.concatenate([np.arange(b) < n_valid] * 2).astype(np.float32)
+    coef = rng.uniform(0.1, 1.0, size=(m + 2, 2 * b)).astype(np.float32) * v
+    return [torch.as_tensor(a, device=dev) for a in (z, alpha, beta, v, coef)]
+
+
+@pytest.mark.parametrize("m,b,d,n_valid", [(1, 9, 8, 9), (4, 130, 48, 100),
+                                           (4, 257, 300, 257),
+                                           (6, 70, 300, 64), (3, 40, 30, 40)])
+def test_mixture_kernels_match_twins(dev, m, b, d, n_valid):
+    z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, n_valid, seed=b)
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    torch.cuda.synchronize()
+    want_lse = sl.mixture_lse_twin(z, alpha, beta, v, 0.1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    got = sl.mixture_grad_cuda(z, alpha, beta, want_lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    want = sl.mixture_grad_twin(z, alpha, beta, want_lse, coef, v, 0.1)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    again = sl.mixture_grad_cuda(z, alpha, beta, want_lse, coef, v, 0.1)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+def test_mixture_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    z, alpha, beta, v, coef = _mixture_inputs(dev, 4, 20, 16, 20, seed=0)
+    with pytest.raises(ValueError, match="modalities"):
+        sl.mixture_lse_cuda(torch.zeros(7, 40, 16, device=dev),
+                            torch.zeros(40, 7, device=dev),
+                            torch.zeros(7, device=dev), v, 0.1)
+    with pytest.raises(TypeError):
+        sl.mixture_lse_cuda(z.double(), alpha, beta, v, 0.1)
+    with pytest.raises(ValueError, match="exceeds"):
+        big = torch.zeros(4, 40, 4000, device=dev)
+        sl.mixture_grad_cuda(big, alpha, beta, torch.zeros(6, 40, device=dev),
+                             coef, v, 0.1)
+
+
+def _segment_inputs(dev, c, h, seed=0, n=300):
+    g, x, _, _ = _gat_inputs(dev, c=c, h=1, seed=seed)
+    rng = np.random.default_rng(seed)
+    e = torch.as_tensor(rng.uniform(0.1, 2.0, size=(g.n_edges, h)).astype(
+        np.float32), device=dev)
+    return g, x, e
+
+
+@pytest.mark.parametrize("c,h", [(48, 1), (30, 2), (300, 1), (64, 5)])
+def test_weighted_segment_sum_matches_twin(dev, c, h):
+    g, x, e = _segment_inputs(dev, c, h, seed=c)
+    agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
+    torch.cuda.synchronize()
+    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+
+
+def test_gat_aggregate_backward_launches_the_kernel(dev):
+    g, x, e = _segment_inputs(dev, 48, 2, seed=3)
+    before = ts.STATS.launches
+    xg = x.clone().requires_grad_()
+    agg, _ = gat_aggregate(xg, e, g)
+    g_agg = torch.randn_like(agg)
+    (agg * g_agg).sum().backward()
+    torch.cuda.synchronize()
+    # one forward launch, one backward launch per head
+    assert ts.STATS.launches == before + 3
+    want = torch.zeros_like(x).index_add_(
+        0, g.col.long(), (e[:, :, None] * g_agg[g.row]).sum(dim=1))
+    torch.testing.assert_close(xg.grad, want, rtol=1e-5, atol=1e-5)
 
 
 def _embs(dev, n, d, seed, noise=0.5):

@@ -1,0 +1,238 @@
+"""Port GCN structure encoder vs the JAX package.
+
+``weighted_segment_sum_twin`` (``snag_tpu_torch/ops/cuda/tile_segment.py``)
+is what CPU tensors run in ``gat_aggregate``'s forward and backward; the
+CUDA kernel is held against it on the card (``chip_smoke.py``,
+``test_torch_cuda.py``).  References: the JAX package's
+``tile_weighted_segment_sum`` in interpret mode (as
+tests/test_tile_segment.py:40-75 runs it), ``jax.vjp`` of its
+``gat_aggregate``, its ``GCN`` and its SNAG with ``structure_encoder="gcn"``
+(weights carried across, noise and dropout off).
+
+Tolerances: the segment sum and ``gat_aggregate`` rtol = atol = 1e-5 (f32
+sums in another order); the SNAG loss, ``joint_emb`` and every parameter
+gradient rtol = 1e-4, atol = 1e-5 (a whole encoder of f32 sums).
+"""
+
+import dataclasses
+import unittest.mock as mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import snag_tpu.ops.pallas.tile_segment as tsg
+from snag_tpu.data.graph import build_graph as jax_build_graph
+from snag_tpu.models import build_model as jax_build_model
+from snag_tpu.models.snag import SNAG as JaxSNAG
+from snag_tpu.ops.gat_agg import gat_aggregate as jax_gat_aggregate
+from snag_tpu.ops.gnn import GCN as JaxGCN
+from snag_tpu_torch.data.graph import build_graph
+from snag_tpu_torch.ops.cuda import tile_segment as tts
+from snag_tpu_torch.ops.gat_agg import gat_aggregate
+from snag_tpu_torch.ops.gnn import GCN
+from snag_tpu_torch.utils.import_reference import state_dict_from_flax
+from torch_port_common import (padded_batch, single_thread, small_argv,
+                               snag_pair)
+
+single_thread()
+TOL = dict(rtol=1e-5, atol=1e-5)
+SNAG_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _triples(n, n_tri, seed, hubs=False):
+    rng = np.random.default_rng(seed)
+    tri = [(int(rng.integers(n)), 0, int(rng.integers(n)))
+           for _ in range(n_tri)]
+    if hubs:   # a hub row past the tiled grid's chunk cap
+        tri += [(7, 0, int(rng.integers(n))) for _ in range(300)]
+    return tri
+
+
+def _padded(jg, e):
+    """Port edge values (E, H) in the JAX graph's padded edge order."""
+    out = np.zeros((jg.e_pad, e.shape[1]), np.float32)
+    out[jg.mask] = e
+    return out
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_segment_sum_twin_matches_jax_pallas_interpret(flat):
+    n, c, h = 200, 40, 3
+    tri = _triples(n, 500, seed=3, hubs=True)
+    jg, tg = jax_build_graph(n, tri), build_graph(n, tri)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    e = rng.uniform(0.1, 2.0, size=(tg.n_edges, h)).astype(np.float32)
+    ts = tsg.TileStructure(
+        chunk_base=jg.rt_chunk_base, nc=jg.rt_nc, spill_sel=jg.rt_spill_sel,
+        spill_row=jg.rt_spill_row, n_tiles=jg.rt_n_tiles,
+        max_chunks=jg.rt_max_chunks, n_spill=jg.rt_n_spill,
+        flat_tile=jg.rt_flat_tile, flat_chunk=jg.rt_flat_chunk,
+        flat_first=jg.rt_flat_first, n_flat=jg.rt_n_flat)
+    orig = pl.pallas_call
+
+    def interp(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+    with mock.patch.object(pl, "pallas_call", interp), \
+            mock.patch.object(tsg, "FLAT_GRID", flat):
+        want_agg, want_rs = tsg.tile_weighted_segment_sum(
+            jnp.asarray(x)[jnp.asarray(jg.col)], jnp.asarray(_padded(jg, e)),
+            jnp.asarray(jg.row), ts, n)
+
+    before = (tts.STATS.launches, tts.STATS.twin_calls)
+    agg, rs = tts.weighted_segment_sum(torch.from_numpy(x),
+                                       torch.from_numpy(e), tg.to_torch("cpu"))
+    assert (tts.STATS.launches, tts.STATS.twin_calls) == (before[0],
+                                                          before[1] + 1)
+    np.testing.assert_allclose(agg.numpy(), np.asarray(want_agg), **TOL)
+    np.testing.assert_allclose(rs.numpy(), np.asarray(want_rs), **TOL)
+
+
+@pytest.mark.parametrize("h", [1, 2])
+def test_gat_aggregate_forward_and_dx_match_jax_vjp(h):
+    """Forward outputs and d_x; the backward walks the reverse edges."""
+    n, c = 150, 24
+    tri = _triples(n, 450, seed=h)
+    jg, tg = jax_build_graph(n, tri), build_graph(n, tri)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    e = rng.uniform(0.5, 1.5, size=(tg.n_edges, h)).astype(np.float32)
+    g_agg = rng.normal(size=(n, h, c)).astype(np.float32)
+    g_rs = rng.normal(size=(n, h)).astype(np.float32)
+
+    @jax.jit
+    def jrun(xx, ee, ga, gr):
+        out, vjp = jax.vjp(lambda a: jax_gat_aggregate(a, ee, jg), xx)
+        return out, vjp((ga, gr))[0]
+    (want_agg, want_rs), want_dx = jrun(
+        jnp.asarray(x), jnp.asarray(_padded(jg, e)), jnp.asarray(g_agg),
+        jnp.asarray(g_rs))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    agg, rs = gat_aggregate(xt, torch.from_numpy(e), tg.to_torch("cpu"))
+    ((agg * torch.from_numpy(g_agg)).sum()
+     + (rs * torch.from_numpy(g_rs)).sum()).backward()
+    np.testing.assert_allclose(agg.detach().numpy(), np.asarray(want_agg), **TOL)
+    np.testing.assert_allclose(rs.detach().numpy(), np.asarray(want_rs), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), **TOL)
+
+
+def test_reverse_edges_and_refusals():
+    n = 60
+    tri = _triples(n, 150, seed=4) + [(3, 1, 5), (5, 2, 3), (3, 1, 5)]
+    g = build_graph(n, tri)
+    assert g.symmetric and g.rev is not None
+    np.testing.assert_array_equal(g.row[g.rev], g.col)
+    np.testing.assert_array_equal(g.col[g.rev], g.row)
+    np.testing.assert_array_equal(g.w[g.rev], g.w)
+    dg = g.to_torch("cpu")
+    x = torch.ones(n, 4)
+    e = dg.w[:, None]
+    with pytest.raises(ValueError, match="reverse-edge"):
+        gat_aggregate(x, e, dg._replace(rev=None))
+    with pytest.raises(ValueError, match="edge weights"):
+        gat_aggregate(x, e.clone().requires_grad_(), dg)
+    gcn = GCN(4, 4, 4, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="reverse-edge"):
+        gcn(x, dg._replace(rev=None))
+    assert not dg._replace(rev=None).symmetric
+    with pytest.raises(ValueError, match="CUDA"):
+        tts.weighted_segment_sum_cuda(x, e, dg)
+
+
+def test_gcn_module_and_param_grads_match_jax():
+    n, c = 120, 16
+    tri = _triples(n, 400, seed=6)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    wout = rng.normal(size=(n, c)).astype(np.float32)
+    params = {f"gc{i}": {
+        "weight": (0.3 * rng.normal(size=(c, c))).astype(np.float32),
+        "bias": (0.1 * rng.normal(size=(c,))).astype(np.float32)}
+        for i in (1, 2)}
+    jgcn = JaxGCN(c, c, c)
+    jg = jax_build_graph(n, tri)
+
+    def jloss(p, xx):
+        out = jgcn.apply({"params": p}, xx, jg)
+        return (out * wout).sum(), out
+    (_, want), (want_p, want_x) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+
+    gcn = GCN(c, c, c, torch.Generator().manual_seed(0))
+    gcn.load_state_dict({f"gc{i}.{k}": torch.from_numpy(v)
+                         for i in (1, 2) for k, v in params[f"gc{i}"].items()},
+                        strict=True)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = gcn(xt, build_graph(n, tri).to_torch("cpu"))
+    (out * torch.from_numpy(wout)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), **TOL)
+    for name, p in gcn.named_parameters():
+        i, k = name.split(".")
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_p[i][k]),
+                                   err_msg=name, **TOL)
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    return snag_pair(str(tmp_path_factory.mktemp("gcn")),
+                     structure_encoder="gcn", fused_snag_loss=1, use_surface=1)
+
+
+def test_snag_gcn_joint_emb_matches_jax(pair):
+    want, _ = jax.jit(lambda p: pair["jmodel"].apply(
+        {"params": p}, pair["jfeats"], pair["jdata"].graph,
+        method=JaxSNAG.joint_emb))(pair["params"])
+    with torch.no_grad():
+        got, _ = pair["tmodel"].joint_emb(pair["tfeats"], pair["tgraph"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SNAG_TOL)
+
+
+def test_snag_gcn_loss_and_param_grads_match_jax(pair):
+    links, valid = padded_batch(pair["tdata"].train_ill, 24, 20)
+    model = jax_build_model(pair["jcfg"], pair["jdata"])
+
+    def f(p):
+        return model.apply({"params": p}, jnp.asarray(links),
+                           jnp.asarray(valid), pair["jfeats"],
+                           pair["jdata"].graph, deterministic=True)
+    (want, _), want_g = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        pair["params"])
+
+    tmodel = pair["tmodel"]
+    tmodel.zero_grad()
+    before = tts.STATS.twin_calls
+    loss, _ = tmodel(torch.from_numpy(links), torch.from_numpy(valid),
+                     pair["tfeats"], pair["tgraph"])
+    loss.backward()
+    # two layers forward, two backward
+    assert tts.STATS.twin_calls == before + 4
+    np.testing.assert_allclose(loss.item(), float(want), **SNAG_TOL)
+    want_sd = state_dict_from_flax(jax.device_get(want_g))
+    named = dict(tmodel.named_parameters())
+    assert set(want_sd) == set(named)
+    assert "multimodal_encoder.cross_graph_model.gc1.weight" in named
+    for k, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), want_sd[k].numpy(),
+                                   err_msg=k, **SNAG_TOL)
+
+
+def test_cpu_train_mmea_with_the_gcn_encoder(tmp_path):
+    from snag_tpu_torch.cli.train_mmea import main
+    before = tts.STATS.twin_calls
+    runner = main(small_argv(tmp_path, structure_encoder="gcn", epoch=6,
+                             eval_epoch=3, batch_size=32, lr=5e-4,
+                             scheduler="cos"))
+    assert tts.STATS.twin_calls > before
+    losses = runner.loss_log.loss[1:]
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    res = runner.last_result
+    for v in (*res.acc_l2r, *res.acc_r2l, res.mrr_l2r, res.mrr_r2l):
+        assert 0.0 <= v <= 1.0

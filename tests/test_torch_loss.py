@@ -187,15 +187,3 @@ def test_unfused_port_loss_equals_jax_fused_bundle(pair):
                                  torch.from_numpy(valid), pair["tfeats"],
                                  pair["tgraph"])
     np.testing.assert_allclose(loss.item(), want, rtol=1e-4)
-
-
-def test_fused_snag_loss_raises_naming_the_kernel(pair):
-    model = pair["tmodel"]
-    links, valid = padded_batch(pair["tdata"].train_ill, 8, 8)
-    model.cfg = dataclasses.replace(model.cfg, fused_snag_loss=1)
-    try:
-        with pytest.raises(NotImplementedError, match="snag_loss_kernel"):
-            model(torch.from_numpy(links), torch.from_numpy(valid),
-                  pair["tfeats"], pair["tgraph"])
-    finally:
-        model.cfg = dataclasses.replace(model.cfg, fused_snag_loss=0)

@@ -42,7 +42,7 @@ from snag_tpu_torch.utils.import_reference import (_leaves, _ref_key_for,
                                                    state_dict_from_flax)
 from snag_tpu_torch.utils.logging import create_logger
 from torch_port_common import (SMALL, padded_batch, single_thread,
-                               snag_pair)
+                               small_argv, snag_pair)
 
 single_thread()
 
@@ -221,25 +221,13 @@ def test_table_stats_exactly_and_noise_statistically():
     assert torch.all((keep == 0) | ((keep - 1 / 0.9).abs() < 1e-6))
 
 
-def _small_argv(tmp_path, **extra):
-    argv = ["--device", "cpu", "--data_path", str(tmp_path), "--csls",
-            "--no_tensorboard"]
-    for k, v in {**SMALL, **extra}.items():
-        if k in ("csls", "no_tensorboard"):
-            continue
-        argv += [f"--{k}", str(v)]
-    return argv
-
-
 def test_cpu_train_mmea_run_with_il_promotion(tmp_path):
     """``train_mmea`` without ``--only_test`` on the CPU (twins): two
     stages, mining, promotion at epoch 9, best reload, final test."""
-    argv = _small_argv(
+    runner = port_main(small_argv(
         tmp_path, epoch=12, il="", il_start=2, semi_learn_step=1,
         eval_epoch=4, batch_size=32, lr=5e-4, scheduler="cos", add_noise=1,
-        noise_ratio=0.2, mask_ratio=0.7, fused_snag_loss=0)
-    argv = [a for a in argv if a != ""]
-    runner = port_main(argv)
+        noise_ratio=0.2, mask_ratio=0.7, fused_snag_loss=0))
     losses = runner.loss_log.loss[1:]
     assert len(losses) == 12 and all(np.isfinite(losses))
     assert losses[-1] < losses[0]

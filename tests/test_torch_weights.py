@@ -82,3 +82,48 @@ def test_pkl_roundtrip_and_jax_import(setup, tmp_path):
     for k, v in src.state_dict().items():
         np.testing.assert_array_equal(back[k].numpy(), v.numpy(), err_msg=k)
 
+
+@pytest.fixture(scope="module")
+def gcn_setup(tmp_path_factory):
+    jcfg, tcfg = configs(str(tmp_path_factory.mktemp("weights_gcn")),
+                         structure_encoder="gcn")
+    jdata = jax_load_data(jcfg)
+    model = jax_build_model(jcfg, jdata)
+    params = jax.device_get(jax_snag_params(
+        model, jax_prepare_features(jcfg, jdata), jdata.graph,
+        jax.random.PRNGKey(jcfg.random_seed)))
+    return tcfg, load_data(tcfg), params
+
+
+def test_gcn_state_dict_from_flax_matches_export_and_loads(gcn_setup):
+    """The GCN's gc1/gc2 weights are (in, out) in the JAX tree, the
+    reference and the port alike."""
+    tcfg, data, params = gcn_setup
+    ours = state_dict_from_flax(params)
+    exported = export_reference_state_dict(params)
+    assert set(ours) == set(exported)
+    for i in (1, 2):
+        key = f"multimodal_encoder.cross_graph_model.gc{i}.weight"
+        np.testing.assert_array_equal(
+            ours[key].numpy(),
+            params["multimodal_encoder"]["cross_graph_model"][f"gc{i}"]["weight"])
+        np.testing.assert_array_equal(ours[key].numpy(), exported[key])
+    model = _port_model(tcfg, data)
+    assert set(ours) == set(model.state_dict())
+    model.load_state_dict(ours, strict=True)
+
+
+def test_gcn_pkl_roundtrip_and_jax_import(gcn_setup, tmp_path):
+    tcfg, data, params = gcn_setup
+    src = _port_model(tcfg, data, seed=1)
+    path = save_reference_checkpoint(src, str(tmp_path / "gcn.pkl"))
+    width = src.multimodal_encoder.rel_fc.in_features
+    dst = _port_model(tcfg, data, seed=2)
+    dst.load_state_dict(load_reference_checkpoint(path, rel_in_dim=width),
+                        strict=True)
+    for k, v in src.state_dict().items():
+        torch.testing.assert_close(dst.state_dict()[k], v, rtol=0, atol=0)
+    back = state_dict_from_flax(jax.device_get(
+        import_reference_checkpoint(params, path)))
+    for k, v in src.state_dict().items():
+        np.testing.assert_array_equal(back[k].numpy(), v.numpy(), err_msg=k)

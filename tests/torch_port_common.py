@@ -98,3 +98,15 @@ def padded_batch(train_ill, b: int, n_valid: int):
     links = np.zeros((b, 2), dtype=np.int64)
     links[:n_valid] = train_ill[:n_valid]
     return links, np.arange(b) < n_valid
+
+
+def small_argv(data_path, **extra):
+    """``train_mmea`` arguments for the ``SMALL`` geometry on the CPU;
+    ``extra`` adds or overrides flags (a value of "" passes the bare flag)."""
+    argv = ["--device", "cpu", "--data_path", str(data_path), "--csls",
+            "--no_tensorboard"]
+    for k, v in {**SMALL, **extra}.items():
+        if k in ("csls", "no_tensorboard"):
+            continue
+        argv += [f"--{k}"] + ([] if v == "" else [str(v)])
+    return argv

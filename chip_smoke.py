@@ -13,8 +13,12 @@ the exit code is non-zero:
 3. each of the nine kernels against its plain-PyTorch twin on the card, at
    the shapes the bench geometry gives it, with max errors and median times
    (CUDA events, 5 runs), beside its bound (bytes over 3.35 TB/s or flops
-   over fp32's 67 TFLOP/s, the larger) and, where one PyTorch call computes
-   the same function, that call's time;
+   over the rate of its route, the larger: the loss kernels, NT-Xent and
+   mixture, at the 3xTF32 tensor-core rate of 495 / 3 TFLOP/s, whose
+   limits 3xTF32 meets; the rank sweeps at fp32's 67 TFLOP/s, as exact
+   ranks need fp32 in a fixed order) and, where one PyTorch call computes
+   the same function, that call's time; the mixture gradient's executed
+   and least TFLOP/s;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -56,6 +60,7 @@ SEED = 3408
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3  # H100 SXM TF32 tensor cores, 3 products
 
 BENCH_ARGS = [
     "--model_name", "SNAG", "--data_choice", "SYNTH", "--data_rate", "0.3",
@@ -122,12 +127,13 @@ def gcn_args(args):
     return args[:i + 1] + ["gcn"] + args[i + 2:]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
     """(least ms the card could take, what bounds it): the bytes the
-    function must move over device memory's rate, or its flops over fp32's
-    peak, whichever takes longer."""
+    function must move over device memory's rate, or its flops over the
+    peak of its route (fp32, or 3xTF32 for the loss kernels), whichever
+    takes longer."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_flops = 1e3 * flops / FP32_FLOP_PER_S
+    t_flops = 1e3 * flops / flop_per_s
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
 
 
@@ -140,9 +146,10 @@ def symmetric_gram_flops(m, n2, d):
     return m * n2 * (n2 + 1) * d, 2 * m * n2 * n2 * d
 
 
-def row(name, err, ms, plain_ms, nbytes, flops, library_ms=None):
+def row(name, err, ms, plain_ms, nbytes, flops, library_ms=None,
+        flop_per_s=FP32_FLOP_PER_S):
     """One kernel's record for the JSON line."""
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, flop_per_s)
     return {"name": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -419,7 +426,7 @@ def phase_ntxent(tau=0.1):
             f"{ms['grad_twin']:.3f} ms")
         del z, v, coef, lse, want, dz, want_dz
         torch.cuda.empty_cache()
-    return [row(name, err, *rest)
+    return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
 
 
@@ -447,10 +454,14 @@ def _mixture_inputs(m, b, d, n_valid, seed):
 def phase_mixture(tau=0.1):
     """Both mixture kernels against their dense twins at the bundle's
     shapes.  lse: atol 1e-5 (rtol 1e-5); dz, dalpha and dbeta: max |err| <=
-    1e-4 * max |twin| each; two gradient runs give the same bits.  The
-    JSON record has the full M = 4 batch, the main path's shape."""
+    1e-4 * max |twin| each; two gradient runs give the same bits.  Prints
+    the gradient's fp32-equivalent TFLOP/s, executed (each group of
+    modalities computes every K_m once, then its W z) and least (K_m once
+    per unordered pair of rows, then W z).  The JSON record has the full
+    M = 4 batch, the main path's shape."""
     import torch
     from snag_tpu_torch.ops.cuda import snag_loss as sl
+    cap = sl._grad_cap(sl._library(), torch.device("cuda"))
     err_lse = err_grad = 0.0
     for i, (label, m, b, d, n_valid) in enumerate(MIXTURE_SHAPES):
         z, alpha, beta, v, coef = _mixture_inputs(m, b, d, n_valid, SEED + i)
@@ -484,9 +495,13 @@ def phase_mixture(tau=0.1):
                   z, alpha, beta, want, coef, v, tau)),
               "grad_twin": median_ms(lambda: sl.mixture_grad_twin(
                   z, alpha, beta, want, coef, v, tau))}
+        n2 = 2 * b
+        k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+        groups = -(-m // sl.modality_group(m, d, cap))
+        executed = 2 * n2 * n2 * d * (groups * m + m)
+        rates = (f"{executed / ms['grad'] / 1e9:.1f} executed, "
+                 f"{(k_flops + wz_flops) / ms['grad'] / 1e9:.1f} least")
         if i == 0:
-            n2 = 2 * b
-            k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
             # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
             first = [(sl.STATS_LSE.name, ms["lse"], ms["lse_twin"],
                       4 * (m * n2 * d + n2 * m + m + n2 + (m + 2) * n2),
@@ -501,11 +516,11 @@ def phase_mixture(tau=0.1):
             f"{errs[1]:.3e} dbeta {errs[2]:.3e} of max|twin| "
             f"{[round(w.abs().max().item(), 6) for w in wants]} (bitwise "
             f"repeat) | lse kernel {ms['lse']:.3f} ms twin "
-            f"{ms['lse_twin']:.3f} ms | grad kernel {ms['grad']:.3f} ms twin "
-            f"{ms['grad_twin']:.3f} ms")
+            f"{ms['lse_twin']:.3f} ms | grad kernel {ms['grad']:.3f} ms "
+            f"({rates} TFLOP/s) twin {ms['grad_twin']:.3f} ms")
         del z, alpha, beta, v, coef, lse, want, got, again, wants
         torch.cuda.empty_cache()
-    return [row(name, err, *rest)
+    return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
 
 

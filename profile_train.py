@@ -34,7 +34,7 @@ WARM_EPOCHS = 3
 TRACED_EPOCHS = 2
 # (label, substring of the kernel name), first match wins
 KINDS = (("mixture_grad", "mixture_grad"), ("mixture_lse", "mixture_lse"),
-         ("mixture_grad", "mixture_dbeta"),
+         ("mixture_grad", "mixture_dbeta"), ("mixture_grad", "mixture_sum"),
          ("ntxent_grad", "ntxent_grad"), ("ntxent_lse", "ntxent_lse"),
          ("gat_bwd", "gat_bwd"), ("gat_attention_fwd", "gat_attention_fwd"),
          ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"))

@@ -17,6 +17,18 @@ mix_f = sum_m beta_m K_m, and S = channel / tau:
 The port's shapes: alpha (2B, M), beta (M,), lse and coef (M + 2, 2B); B
 is not padded, the positive partner of row r is r +/- B.
 
+``mixture_lse`` runs fp32 SIMT tiles: one TF32 product is far from its
+1e-5 tolerance.  ``mixture_grad`` is bound by operations at the 3xTF32
+tensor-core rate (495 / 3 TFLOP/s on an H100 SXM): both of its products,
+K = z z^T and W z, are ``mma.sync`` on hi = rna_tf32(x), lo = rna_tf32(x -
+hi) as lo hi + hi lo + hi hi in fp32, as close to the twin as fp32
+products; one TF32 product misses the 1e-4 gradient limit on dz by 8-17x
+(tests/test_torch_tf32x3.py).  Each K tile is computed once into
+registers, the (modalities x 32 rows x d) row accumulator lives in shared
+memory (``modality_group`` splits the modalities where it would not
+fit), and the kernel's scratch (``mixture_grad_scratch``) holds the
+partials of blocks that share a row tile's columns.
+
 Twins: ``mixture_lse_twin`` and ``mixture_grad_twin``, the same formulas
 on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
 (snag_tpu/losses/contrastive.py:390-408).
@@ -36,7 +48,7 @@ STATS_LSE = KernelStats("mixture_lse")
 STATS_GRAD = KernelStats("mixture_grad")
 LSE_EPS = 1e-30
 MAX_MOD = 6
-ROWS_PER_BLOCK = 32                 # BM of csrc/tile_dot.cuh
+FEATURE_TILE = 8                    # the accumulator's n8 feature tiles
 _GRAD_CAP: Dict[int, int] = {}      # device index -> modalities x d limit
 
 
@@ -106,6 +118,8 @@ def _library():
         lib.mixture_grad.restype = ctypes.c_int
         lib.mixture_grad_init.argtypes = []
         lib.mixture_grad_init.restype = ctypes.c_int
+        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 4
+        lib.mixture_grad_scratch.restype = ctypes.c_long
     return built
 
 
@@ -124,8 +138,9 @@ def _grad_cap(built, device: torch.device) -> int:
 
 def modality_group(m: int, d: int, cap: int) -> int:
     """Modalities per block of the gradient kernel: as few groups as the
-    accumulator allows, of balanced size."""
-    most = min(m, cap // d)
+    accumulator (``cap`` columns, d rounded up to its feature tiles) allows,
+    of balanced size."""
+    most = min(m, cap // (-(-d // FEATURE_TILE) * FEATURE_TILE))
     if most < 1:
         raise ValueError(f"d = {d} exceeds the {cap} columns the mixture "
                          "gradient kernel's shared accumulator holds")
@@ -179,8 +194,10 @@ def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         dalpha = torch.empty(n2, m, dtype=torch.float32, device=z.device)
         dbeta = torch.empty(m, dtype=torch.float32, device=z.device)
-        part = torch.empty(-(-n2 // ROWS_PER_BLOCK), m, dtype=torch.float32,
-                           device=z.device)
+        floats = built.lib.mixture_grad_scratch(m, mg, n2, d)
+        if floats < 0:
+            check(built, -floats, "mixture_grad_scratch")
+        part = torch.empty(floats, dtype=torch.float32, device=z.device)
         err = built.lib.mixture_grad(
             ptr(z), ptr(alpha), ptr(beta), ptr(lse), ptr(coef), ptr(v),
             ptr(dz), ptr(dalpha), ptr(dbeta), ptr(part), m, mg, n2, d,

@@ -159,9 +159,18 @@ def _mixture_inputs(dev, m, b, d, n_valid, seed):
     return [torch.as_tensor(a, device=dev) for a in (z, alpha, beta, v, coef)]
 
 
+# the gradient kernel's tiles: 32 rows, 64 columns, n8 feature tiles in
+# passes of 320 features; (6, 100, 300) splits into two groups of three.
+# At M = 1 dalpha is a difference of terms ~50x its size: at d = 1,200 and
+# B = 50 even exact fp32 products miss the limit (2.1e-4; 3xTF32 1.9e-4,
+# tests/test_torch_tf32x3.py::rel_errors), so that case runs at B = 500
+# (2.4e-5 and 2.6e-5).
 @pytest.mark.parametrize("m,b,d,n_valid", [(1, 9, 8, 9), (4, 130, 48, 100),
                                            (4, 257, 300, 257),
-                                           (6, 70, 300, 64), (3, 40, 30, 40)])
+                                           (6, 70, 300, 64), (3, 40, 30, 40),
+                                           (4, 75, 37, 70), (2, 33, 340, 33),
+                                           (6, 100, 300, 100),
+                                           (1, 500, 1200, 500)])
 def test_mixture_kernels_match_twins(dev, m, b, d, n_valid):
     z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, n_valid, seed=b)
     lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
@@ -191,6 +200,17 @@ def test_mixture_wrappers_refuse_what_the_kernels_do_not_take(dev):
         big = torch.zeros(4, 40, 4000, device=dev)
         sl.mixture_grad_cuda(big, alpha, beta, torch.zeros(6, 40, device=dev),
                              coef, v, 0.1)
+    # one modality takes every d up to the accumulator's limit, which is at
+    # least 1,486
+    cap = sl._grad_cap(sl._library(), dev)
+    assert cap >= 1486
+    one = [torch.zeros(40, 1, device=dev), torch.ones(1, device=dev),
+           torch.zeros(3, 40, device=dev), torch.zeros(3, 40, device=dev)]
+    sl.mixture_grad_cuda(torch.zeros(1, 40, cap, device=dev), one[0], one[1],
+                         one[2], one[3], v, 0.1)
+    with pytest.raises(ValueError, match="exceeds"):
+        sl.mixture_grad_cuda(torch.zeros(1, 40, cap + 1, device=dev), *one,
+                             v, 0.1)
 
 
 def _segment_inputs(dev, c, h, seed=0, n=300):

@@ -17,8 +17,9 @@ the exit code is non-zero:
    mixture, at the 3xTF32 tensor-core rate of 495 / 3 TFLOP/s, whose
    limits 3xTF32 meets; the rank sweeps at fp32's 67 TFLOP/s, as exact
    ranks need fp32 in a fixed order) and, where one PyTorch call computes
-   the same function, that call's time; the mixture gradient's executed
-   and least TFLOP/s;
+   the same function, that call's time; for both loss gradients (one
+   kernel, ``csrc/gram_grad.cuh``) the executed and least TFLOP/s and a
+   bitwise repeat, for NT-Xent's also its launch plan;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -101,9 +102,11 @@ SEGMENT_KERNEL = "weighted_segment_sum"
 # (name, M, B, d, valid rows) of the NT-Xent calls at the bench geometry:
 # the default fused loss runs IIR only (4 modalities' hidden rows); with
 # --fused_snag_loss 0 ECIA (shown with the padded last batch, 1,000 of 3,500
-# rows valid) and GMI (the two 1200-wide joint paths) run too
+# rows valid) and GMI (the two 1200-wide joint paths) run too, and GMI6
+# with --use_surface 1 (six modalities: 1800-wide joint rows, two feature
+# chunks of the gradient)
 NTXENT_SHAPES = (("IIR", 4, 3500, 300, 3500), ("ECIA", 4, 3500, 300, 1000),
-                 ("GMI", 2, 3500, 1200, 3500))
+                 ("GMI", 2, 3500, 1200, 3500), ("GMI6", 2, 3500, 1800, 3500))
 # (name, M, B, d, valid rows) of the mixture kernels: the bundle of a full
 # training batch, the padded last batch, and six modalities
 # (--use_surface 1)
@@ -381,10 +384,14 @@ def _ntxent_inputs(m, b, d, n_valid, seed):
 
 
 def phase_ntxent(tau=0.1):
-    """Both NT-Xent kernels against their dense twins at the three (M, B, d)
+    """Both NT-Xent kernels against their dense twins at the four (M, B, d)
     shapes of an unfused training step.  lse: atol 1e-5 (rtol 1e-5);
-    gradient: max |err| <= 1e-4 * max |twin|.  The JSON record has the IIR
-    shape, the only one the default fused loss runs."""
+    gradient: max |err| <= 1e-4 * max |twin|, two runs give the same bits.
+    Prints the gradient's plan (feature chunks, ring depth, column splits,
+    blocks per SM) and its fp32-equivalent TFLOP/s, executed (K once per
+    feature chunk, then W z) and least (K once per unordered pair of rows,
+    then W z).  The JSON record has the IIR shape, the only one the default
+    fused loss runs."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     err_lse = err_grad = 0.0
@@ -396,22 +403,27 @@ def phase_ntxent(tau=0.1):
         e_lse = (lse - want).abs().max().item()
         torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
         dz = nx.ntxent_grad_cuda(z, want, coef, v, tau)
+        again = nx.ntxent_grad_cuda(z, want, coef, v, tau)
         torch.cuda.synchronize()
         want_dz = nx.ntxent_grad_twin(z, want, coef, v, tau)
         e_dz = (dz - want_dz).abs().max().item()
         scale = want_dz.abs().max().item()
-        if not e_dz <= 1e-4 * scale:
+        if not (torch.isfinite(dz).all() and e_dz <= 1e-4 * scale):
             raise AssertionError(f"ntxent_grad {label}: max|err| {e_dz} > "
                                  f"1e-4 * max|twin| {scale}")
+        if not torch.equal(dz, again):
+            raise AssertionError(f"ntxent_grad {label}: two runs differ")
+        plan = nx.grad_plan(m, 2 * b, d, z.device)
         ms = {"lse": median_ms(lambda: nx.streaming_lse_cuda(z, v, tau)),
               "lse_twin": median_ms(lambda: nx.streaming_lse_twin(z, v, tau)),
               "grad": median_ms(lambda: nx.ntxent_grad_cuda(
                   z, want, coef, v, tau)),
               "grad_twin": median_ms(lambda: nx.ntxent_grad_twin(
                   z, want, coef, v, tau))}
+        n2 = 2 * b
+        k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+        executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
         if i == 0:
-            n2 = 2 * b
-            k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
             first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_twin"],
                       4 * (m * n2 * d + n2 + m * n2), k_flops),
                      (nx.STATS_GRAD.name, ms["grad"], ms["grad_twin"],
@@ -421,10 +433,14 @@ def phase_ntxent(tau=0.1):
         err_grad = max(err_grad, e_dz)
         say("ntxent", f"{label} (M={m}, B={b}, d={d}, {n_valid} valid): "
             f"max|lse err| {e_lse:.3e} | max|dz err| {e_dz:.3e} of "
-            f"max|dz| {scale:.3e} | lse kernel {ms['lse']:.3f} ms twin "
-            f"{ms['lse_twin']:.3f} ms | grad kernel {ms['grad']:.3f} ms twin "
-            f"{ms['grad_twin']:.3f} ms")
-        del z, v, coef, lse, want, dz, want_dz
+            f"max|dz| {scale:.3e} (bitwise repeat) | lse kernel "
+            f"{ms['lse']:.3f} ms twin {ms['lse_twin']:.3f} ms | grad kernel "
+            f"{ms['grad']:.3f} ms ({executed / ms['grad'] / 1e9:.1f} "
+            f"executed, {(k_flops + wz_flops) / ms['grad'] / 1e9:.1f} least "
+            f"TFLOP/s; {plan['chunks']} chunk(s), depth {plan['depth']}, "
+            f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM)"
+            f" twin {ms['grad_twin']:.3f} ms")
+        del z, v, coef, lse, want, dz, again, want_dz
         torch.cuda.empty_cache()
     return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
@@ -822,11 +838,11 @@ def main() -> int:
                         "snag_tpu/ops/pallas/rank_eval.py:202"),
         "ntxent_lse": ("snag_tpu_torch/csrc/ntxent.cu",
                        "snag_tpu/ops/pallas/ntxent_kernel.py:162"),
-        "ntxent_grad": ("snag_tpu_torch/csrc/ntxent.cu",
+        "ntxent_grad": ("snag_tpu_torch/csrc/gram_grad.cuh",
                         "snag_tpu/ops/pallas/ntxent_kernel.py:191"),
         "mixture_lse": ("snag_tpu_torch/csrc/snag_loss.cu",
                         "snag_tpu/ops/pallas/snag_loss_kernel.py:231"),
-        "mixture_grad": ("snag_tpu_torch/csrc/snag_loss.cu",
+        "mixture_grad": ("snag_tpu_torch/csrc/gram_grad.cuh",
                          "snag_tpu/ops/pallas/snag_loss_kernel.py:259"),
         SEGMENT_KERNEL: ("snag_tpu_torch/csrc/tile_segment.cu",
                          "snag_tpu/ops/pallas/tile_segment.py:242"),

@@ -32,7 +32,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WARM_EPOCHS = 3
 TRACED_EPOCHS = 2
-# (label, substring of the kernel name), first match wins
+# (label, substring of the kernel name), first match wins; the two
+# instantiations of csrc/gram_grad.cuh are named apart
+# (mixture_grad_kernel, ntxent_grad_mma_kernel and ntxent_grad_sum_kernel)
 KINDS = (("mixture_grad", "mixture_grad"), ("mixture_lse", "mixture_lse"),
          ("mixture_grad", "mixture_dbeta"), ("mixture_grad", "mixture_sum"),
          ("ntxent_grad", "ntxent_grad"), ("ntxent_lse", "ntxent_lse"),

@@ -22,24 +22,29 @@
 // batch, the gradient twice that (S recomputed, then W z); at the slice
 // shapes (M, B, d) in {(4, 3500, 300), (2, 3500, 1200)} a training step's
 // three losses come to ~1.4e12 flops, against O(n2 d) bytes per block read
-// from L2.  TF32 keeps 10 mantissa bits, far from the 1e-5 lse tolerance,
-// so this first version is a plain fp32 SIMT tile product (tile_dot.cuh,
-// shared with rank_eval.cu): each block owns BM rows of one batch and walks every
+// from L2.
+//
+// ntxent_lse: TF32 keeps 10 mantissa bits, far from the 1e-5 lse
+// tolerance, so it is a plain fp32 SIMT tile product (tile_dot.cuh, shared
+// with rank_eval.cu): each block owns BM rows of one batch and walks every
 // column tile, the S tile lives in a TM x TN register tile per thread.
 //
-// The gradient's row accumulator is BM x d.  At d = 1200 that is 38,400
-// floats per block, too many for registers, so it lives in shared memory
-// (153.6 KB at BM = 32; the kernel takes up to ~1500 columns): for each
-// column tile the block computes S and W (W staged in shared memory), then
-// streams z[cols] in 16 x 128 slices and adds W z into the shared
-// accumulator, each element owned by one thread (tile_wz, tile_dot.cuh).  The alternative, a grid
-// over d-chunks, would recompute S once per chunk (4x the S work at
-// d = 1200 with 300-wide chunks).
+// ntxent_grad: the shared 3xTF32 tensor-core gradient of gram_grad.cuh
+// with MIX = false, the mixture gradient without its mixtures.  One TF32
+// product misses the 1e-4 dz limit 4-16x, 3xTF32 holds it as fp32 products
+// do (tests/test_torch_tf32x3.py).  A block owns 32 rows of one batch and
+// one feature chunk: its accumulator (32 rows x the chunk's features, 38 KB
+// at d = 300) and a four-slot ring take 107 KB, so two blocks share an SM
+// and one block's loads run under the other's products.  d takes any
+// value: where the accumulator of all of d does not fit beside the
+// shallowest ring (d > 1,504 on the H100), blockIdx.y also walks balanced
+// feature chunks, each recomputing S over the whole d.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "gram_grad.cuh"
 #include "tile_dot.cuh"
 
 namespace {
@@ -93,84 +98,31 @@ ntxent_lse_kernel(const float* __restrict__ z, const float* __restrict__ v,
   }
 }
 
-size_t grad_smem_bytes(int d) {
-  return sizeof(Smem) + W_BYTES + sizeof(float) * BM * (size_t)d;
+// out[i] += part[0][i] + part[1][i] + ..., in that order: the dz partials
+// of the gradient's column splits.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+ntxent_grad_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
+                       size_t n, int parts) {
+  add_partials(out, part, n, parts);
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-ntxent_grad_kernel(const float* __restrict__ z, const float* __restrict__ lse,
-                   const float* __restrict__ coef,
-                   const float* __restrict__ v, float* __restrict__ dz,
-                   int n2, int d, float inv_tau) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  float(*ws)[BN + PAD] =
-      reinterpret_cast<float(*)[BN + PAD]>(smem_raw + sizeof(Smem));
-  float* accs = reinterpret_cast<float*>(smem_raw + sizeof(Smem) + W_BYTES);
-
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int row0 = blockIdx.x * BM;
-  const int half = n2 / 2;
-  const size_t mo = (size_t)blockIdx.y * n2;
-  const float* zm = z + mo * d;
-
-  for (int i = threadIdx.x; i < BM * d; i += THREADS) accs[i] = 0.f;
-
-  int gr[TM], pos[TM];
-  float lse_r[TM], coef_r[TM], v_r[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    gr[r] = row0 + ty * TM + r;
-    const bool ok = gr[r] < n2;
-    pos[r] = gr[r] < half ? gr[r] + half : gr[r] - half;
-    lse_r[r] = ok ? lse[mo + gr[r]] : 0.f;
-    coef_r[r] = ok ? coef[mo + gr[r]] : 0.f;
-    v_r[r] = ok ? v[gr[r]] : 0.f;
-  }
-
-  for (int col0 = 0; col0 < n2; col0 += BN) {
-    float acc[TM][TN];
-    tile_dot<VEC>(zm, zm, n2, d, row0, col0, sm, acc);
-
-    // W tile into shared memory (zero outside the matrix)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int lc = tile_col(tx, c);
-      const int gc = col0 + lc;
-      const bool okc = gc < n2;
-      const float lse_c = okc ? lse[mo + gc] : 0.f;
-      const float coef_c = okc ? coef[mo + gc] : 0.f;
-      const float v_c = okc ? v[gc] : 0.f;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        float w = 0.f;
-        if (okc && gr[r] < n2) {
-          const float s = acc[r][c] * inv_tau;
-          const float p_row = expf(fminf(s - lse_r[r], 0.f));
-          const float p_col = expf(fminf(s - lse_c, 0.f));
-          if (gc != gr[r]) w = coef_r[r] * p_row * v_c + p_col * coef_c * v_r[r];
-          if (gc == pos[r]) w -= coef_r[r] + coef_c;
-          w *= inv_tau;
-        }
-        ws[ty * TM + r][lc] = w;
-      }
-    }
-    __syncthreads();
-
-    // accs[rows, :] += W (BM x BN) @ z[col0 : col0 + BN, :]
-    tile_wz(ws, zm, n2, d, col0, sm, accs);
-    // the next tile_dot writes sm only after its own loads, and every
-    // thread passed the last barrier above after its final read of sm and
-    // ws; accs entries are thread-private until the write-out barrier
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < BM * d; i += THREADS) {
-    const int r = row0 + i / d;
-    if (r < n2) dz[(mo + r) * d + i % d] = accs[i];
-  }
+// Lets the gradient kernel take all the shared memory a block may opt in
+// to on the current device, then plans a launch (gram_grad.cuh).
+int ntxent_plan(int m, int n2, int d, GradPlan& plan) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grad::ntxent_grad_mma_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grad::ntxent_grad_mma_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return grad_plan<false>(
+      reinterpret_cast<const void*>(grad::ntxent_grad_mma_kernel<true>), m, 1,
+      n2, d, plan);
 }
 
 bool vec_ok(const float* z, int d) {
@@ -205,39 +157,46 @@ int ntxent_lse(const float* z, const float* v, float* lse, int m, int n2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Once per device, before the first ntxent_grad on it: lets the gradient
-// kernel take all the shared memory a block may opt in to, and returns the
-// largest d its shared-memory row accumulator then holds, or a negative
-// CUDA error.
-int ntxent_grad_init(void) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntxent_grad_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ntxent_grad_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  const long room = (long)optin - (long)(sizeof(Smem) + W_BYTES);
-  return room > 0 ? static_cast<int>(room / (sizeof(float) * BM)) : 0;
+// How ntxent_grad runs at this shape on the current device: returns the
+// floats of scratch it needs (the dz partials of the column splits past the
+// first), or a negative CUDA error; if out is not null, writes {feature
+// chunks, ring depth, column splits, blocks per SM} to it.
+long ntxent_grad_plan(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  GradPlan plan;
+  const int err = ntxent_plan(m, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.chunks;
+    out[1] = plan.depth;
+    out[2] = plan.splits;
+    out[3] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
 }
 
-// z (m, n2, d), lse and coef (m, n2), v (n2,); writes dz (m, n2, d) in full.
-// d must not exceed what ntxent_grad_init returned for this device.
+// z (m, n2, d), lse and coef (m, n2), v (n2,); writes dz (m, n2, d) in
+// full, using part (ntxent_grad_plan floats) as scratch.
 int ntxent_grad(const float* z, const float* lse, const float* coef,
-                const float* v, float* dz, int m, int n2, int d,
+                const float* v, float* dz, float* part, int m, int n2, int d,
                 float inv_tau, void* stream) {
   if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = grad_smem_bytes(d);
-  const dim3 grid((n2 + BM - 1) / BM, m);
+  GradPlan plan;
+  int err = ntxent_plan(m, n2, d, plan);
+  if (err) return err;
+  const dim3 grid((n2 + grad::ROWS - 1) / grad::ROWS, m * plan.chunks,
+                  plan.splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    ntxent_grad_kernel<true><<<grid, THREADS, bytes, s>>>(z, lse, coef, v, dz, n2, d, inv_tau);
+    grad::ntxent_grad_mma_kernel<true><<<grid, grad::THREADS, plan.bytes, s>>>(
+        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
   else
-    ntxent_grad_kernel<false><<<grid, THREADS, bytes, s>>>(z, lse, coef, v, dz, n2, d, inv_tau);
+    grad::ntxent_grad_mma_kernel<false><<<grid, grad::THREADS, plan.bytes, s>>>(
+        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || plan.splits == 1) return err;
+  ntxent_grad_sum_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
+      dz, part, (size_t)m * n2 * d, plan.splits - 1);
   return static_cast<int>(cudaGetLastError());
 }
 

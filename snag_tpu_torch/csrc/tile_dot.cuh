@@ -1,5 +1,5 @@
-// The fp32 SIMT tile products shared by rank_eval.cu, ntxent.cu and
-// snag_loss.cu: tile_dot (S = x y^T, one tile) and tile_wz (acc += W y).
+// The fp32 SIMT tile product shared by rank_eval.cu, ntxent.cu and
+// snag_loss.cu: tile_dot (S = x y^T, one tile).
 //
 // A block of THREADS threads owns BM rows and walks column tiles of BN;
 // each tile is the (BM x BN) product of row and column slices over the
@@ -155,59 +155,6 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ x,
     if (more) store_stage<VEC>(sm, buf ^ 1, st);
     __syncthreads();
     buf ^= 1;
-  }
-}
-
-constexpr size_t W_BYTES = sizeof(float) * BM * (BN + PAD);
-
-// acc[ty*TM + r][gd] += sum_{c < BN} w[ty*TM + r][c] * y[col0 + c][gd] for
-// every feature gd < d: the block's (BM x BN) tile w, in shared memory,
-// times BN rows of y streamed through sm.b[0] in (BK x BN) slices.  Rows
-// >= n and features >= d read as 0.  acc has row stride d and each of its
-// (row, feature) elements belongs to one thread.  Call after a barrier
-// that publishes w; ends with a barrier, after the last read of w and sm.
-__device__ __forceinline__ void tile_wz(const float (*w)[BN + PAD],
-                                        const float* __restrict__ y, int n,
-                                        int d, int col0, Smem& sm,
-                                        float* acc) {
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  for (int dc0 = 0; dc0 < d; dc0 += BN) {
-    float part[TM][TN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) part[r][c] = 0.f;
-    for (int c0 = 0; c0 < BN; c0 += BK) {
-#pragma unroll
-      for (int e = 0; e < B_PER; ++e) {
-        const int idx = threadIdx.x + e * THREADS;
-        const int cc = idx / BN, dd = idx % BN;
-        const int gc = col0 + c0 + cc, gd = dc0 + dd;
-        sm.b[0][cc][dd] = (gc < n && gd < d) ? y[(size_t)gc * d + gd] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int cc = 0; cc < BK; ++cc) {
-        const float4 z0 = *reinterpret_cast<const float4*>(&sm.b[0][cc][tx * 4]);
-        const float4 z1 = *reinterpret_cast<const float4*>(&sm.b[0][cc][HALF + tx * 4]);
-        const float zv[TN] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float wv = w[ty * TM + r][c0 + cc];
-#pragma unroll
-          for (int c = 0; c < TN; ++c) part[r][c] = fmaf(wv, zv[c], part[r][c]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int gd = dc0 + tile_col(tx, c);
-        if (gd < d) acc[(ty * TM + r) * d + gd] += part[r][c];
-      }
   }
 }
 

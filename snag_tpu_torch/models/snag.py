@@ -19,8 +19,9 @@ similarities factor over the per-modality blocks ECIA computes, so the
 mixture kernels (``losses/contrastive.snag_bundle_losses``) derive all
 M + 2 channels from K_m = z_m z_m^T and the (B, M*d) joint products never
 run.  With ``--fused_snag_loss 0``, or where the modalities differ in
-width, GMI and ECIA are separate batched NT-Xent calls: the same loss
-(tests/test_snag_bundle.py:100).
+width, GMI and ECIA are separate NT-Xent calls: the same loss
+(tests/test_snag_bundle.py:100).  ECIA and IIR batch their modalities
+into one call where they share a width, else run one per modality.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from torch import nn
 
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
-from snag_tpu_torch.losses.contrastive import (icl_loss_multi,
+from snag_tpu_torch.losses.contrastive import (icl_loss, icl_loss_multi,
                                                icl_loss_stacked,
                                                snag_bundle_losses)
 from snag_tpu_torch.losses.multitask import (AutomaticWeightedLoss,
@@ -90,17 +91,27 @@ class SNAG(nn.Module):
 
     def inner_view_loss(self, gph, rel, att, img, name, char, links, valid,
                         weight_norm: Optional[torch.Tensor] = None):
-        """Per-modality ICL through the Kendall layer (SNAG.py:143-162), as
-        one batched call over the active modalities (all share the hidden
-        width in every supported config)."""
+        """Per-modality ICL through the Kendall layer (SNAG.py:143-162): one
+        batched call over the active modalities where they share a width
+        (every shipped config), else one ``icl_loss`` per modality."""
         cfg = self.cfg
         named = [("gph", gph), ("rel", rel), ("att", att), ("img", img),
                  ("name", name), ("char", char)]
         active = [(m, e) for m, e in named if e is not None]
         if len({e.shape[-1] for _, e in active}) != 1:
-            raise NotImplementedError(
-                "modalities of different widths need the sequential icl_loss "
-                "path of snag_tpu/models/snag.py:127-141, not ported")
+            def one(modality, emb):
+                if emb is None:
+                    return 0.0
+                w = None
+                col = None if weight_norm is None \
+                    else weight_column(cfg, modality)
+                if col is not None:
+                    # the reference scales the weights by mod_num (SNAG.py:146)
+                    w = weight_norm[:, col] * weight_norm.shape[1]
+                return icl_loss(emb, links, tau=cfg.tau,
+                                ab_weight=cfg.ab_weight, weight_norm=w,
+                                valid=valid)
+            return self.multi_loss_layer([one(m, e) for m, e in named])
         stack = torch.stack([l2norm(e) for _, e in active], dim=0)
         w_min = None
         if weight_norm is not None:

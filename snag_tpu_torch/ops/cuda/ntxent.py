@@ -16,6 +16,14 @@ The JAX package pads B to its TPU tile; padded rows there carry zero
 validity and zero coefficients, so the port keeps B as it is and the
 positive partner sits at r +/- B.
 
+``ntxent_lse`` runs fp32 SIMT tiles: one TF32 product is far from its
+1e-5 tolerance.  ``ntxent_grad`` is the 3xTF32 tensor-core gradient kernel
+it shares with the mixture gradient (``csrc/gram_grad.cuh``), bound by
+operations at 495 / 3 TFLOP/s on an H100 SXM; it takes any d, in feature
+chunks where one accumulator of d columns would not fit, and its scratch
+(``ntxent_grad_plan``) holds the partials of blocks that share a row
+tile's columns.
+
 Twins: ``streaming_lse_twin`` and ``ntxent_grad_twin``, the same formulas
 on the dense (M, 2B, 2B) matrix.
 """
@@ -33,7 +41,6 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
 STATS_LSE = KernelStats("ntxent_lse")
 STATS_GRAD = KernelStats("ntxent_grad")
 LSE_EPS = 1e-30
-_GRAD_MAX_D: Dict[int, int] = {}     # device index -> gradient column limit
 
 
 def stack(zis: torch.Tensor, zjs: torch.Tensor,
@@ -91,25 +98,27 @@ def _library():
         lib.ntxent_lse.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.ntxent_lse.restype = ctypes.c_int
-        lib.ntxent_grad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        lib.ntxent_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.ntxent_grad.restype = ctypes.c_int
-        lib.ntxent_grad_init.argtypes = []
-        lib.ntxent_grad_init.restype = ctypes.c_int
+        lib.ntxent_grad_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ntxent_grad_plan.restype = ctypes.c_long
     return built
 
 
-def _grad_max_d(built, device: torch.device) -> int:
-    """The gradient kernel's column limit on ``device``, set up there at
-    the first call (``ntxent_grad_init``)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _GRAD_MAX_D:
-        max_d = built.lib.ntxent_grad_init()
-        if max_d < 0:
-            check(built, -max_d, "ntxent_grad_init")
-        _GRAD_MAX_D[index] = max_d
-    return _GRAD_MAX_D[index]
+def grad_plan(m: int, n2: int, d: int,
+              device: torch.device) -> Dict[str, int]:
+    """How ``ntxent_grad`` runs at (m, n2, d) on ``device``: its feature
+    chunks, ring depth, column splits, blocks per SM and floats of
+    scratch."""
+    built = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        floats = built.lib.ntxent_grad_plan(m, n2, d, out)
+    if floats < 0:
+        check(built, -floats, "ntxent_grad_plan")
+    return dict(zip(("chunks", "depth", "splits", "blocks_per_sm"), out),
+                scratch=floats)
 
 
 def _check_z(z: torch.Tensor, v: torch.Tensor):
@@ -145,14 +154,13 @@ def ntxent_grad_cuda(z: torch.Tensor, lse: torch.Tensor, coef: torch.Tensor,
     require(lse, "lse", torch.float32, (m, n2), z.device)
     require(coef, "coef", torch.float32, (m, n2), z.device)
     built = _library()
+    plan = grad_plan(m, n2, d, z.device)
     with torch.cuda.device(z.device):
-        max_d = _grad_max_d(built, z.device)
-        if d > max_d:
-            raise ValueError(f"d = {d} exceeds the {max_d} columns the "
-                             "gradient kernel's shared accumulator holds")
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
+        part = torch.empty(plan["scratch"], dtype=torch.float32,
+                           device=z.device)
         err = built.lib.ntxent_grad(ptr(z), ptr(lse), ptr(coef), ptr(v),
-                                    ptr(dz), m, n2, d, 1.0 / tau,
+                                    ptr(dz), ptr(part), m, n2, d, 1.0 / tau,
                                     stream_of(z))
     check(built, err, "ntxent_grad")
     STATS_GRAD.launches += 1

@@ -11,7 +11,7 @@ per-edge dot products over C and heads, rtol = atol = 1e-4.  The NT-Xent
 kernels sum 2B * d products per row in another order than cuBLAS: lse
 rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|; so do the
 mixture kernels, under the same limits for lse, dz, dalpha and dbeta, and
-two runs of the mixture gradient give the same bits.  The weighted segment
+two runs of either gradient give the same bits.  The weighted segment
 sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
 atol = 1e-5.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
@@ -127,9 +127,15 @@ def _ntxent_inputs(dev, m, b, d, n_valid, seed):
     return [torch.as_tensor(a, device=dev) for a in (z, v, coef)]
 
 
+# the gradient kernel's tiles (gram_grad.cuh): 32 rows, 64 columns, n8
+# feature tiles in passes of 320 features; d = 1,800 takes two feature
+# chunks (the accumulator holds 1,504 columns on the H100), d = 37 the
+# scalar loads (d % 4 != 0)
 @pytest.mark.parametrize("m,b,d,n_valid", [(2, 9, 8, 9), (3, 130, 48, 100),
                                            (2, 257, 300, 257),
-                                           (1, 70, 1200, 64)])
+                                           (1, 70, 1200, 64),
+                                           (2, 300, 1800, 290),
+                                           (4, 75, 37, 70)])
 def test_ntxent_kernels_match_twins(dev, m, b, d, n_valid):
     z, v, coef = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
     lse = nx.streaming_lse_cuda(z, v, 0.1)
@@ -139,7 +145,21 @@ def test_ntxent_kernels_match_twins(dev, m, b, d, n_valid):
     dz = nx.ntxent_grad_cuda(z, want_lse, coef, v, 0.1)
     torch.cuda.synchronize()
     want = nx.ntxent_grad_twin(z, want_lse, coef, v, 0.1)
+    assert torch.isfinite(dz).all()
     assert (dz - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    again = nx.ntxent_grad_cuda(z, want_lse, coef, v, 0.1)
+    assert torch.equal(dz, again)
+
+
+def test_ntxent_grad_plan(dev):
+    """Two blocks per SM at the IIR shape; one feature chunk up to the
+    accumulator's 1,504 columns, balanced chunks past it."""
+    iir = nx.grad_plan(4, 7000, 300, dev)
+    assert iir["chunks"] == 1 and iir["blocks_per_sm"] == 2, iir
+    assert nx.grad_plan(2, 7000, 1504, dev)["chunks"] == 1
+    assert nx.grad_plan(2, 7000, 1505, dev)["chunks"] == 2
+    assert nx.grad_plan(2, 7000, 1800, dev)["chunks"] == 2
+    assert nx.grad_plan(1, 600, 4000, dev)["chunks"] == 3
 
 
 def _mixture_inputs(dev, m, b, d, n_valid, seed):

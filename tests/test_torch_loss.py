@@ -177,6 +177,43 @@ def test_snag_loss_aux_and_param_grads_match_jax(pair):
                                    err_msg=k, **SNAG_TOL)
 
 
+@pytest.mark.parametrize("with_w", [True, False])
+def test_inner_view_loss_unequal_widths_matches_jax(pair, with_w):
+    """gph/rel/att 32 wide and img 16 wide: one ``icl_loss`` per modality
+    on both sides (JAX snag.py:127-141).  Loss rtol 1e-5; the gradients of
+    the four tables and of weight_norm rtol 1e-4 (atol 1e-7 for entries
+    that cancel to ~0)."""
+    from snag_tpu.models.snag import SNAG as JaxSNAG
+    n = pair["tdata"].ent_num
+    rng = np.random.default_rng(11)
+    embs = [rng.normal(size=(n, d)).astype(np.float32)
+            for d in (32, 32, 32, 16)]
+    wn = rng.uniform(0.1, 1.0, size=(n, 4)).astype(np.float32) \
+        if with_w else None
+    links, valid = padded_batch(pair["tdata"].train_ill, 24, 20)
+
+    def jloss(gph, rel, att, img, w):
+        return pair["jmodel"].apply(
+            {"params": pair["params"]}, gph, rel, att, img, None, None,
+            jnp.asarray(links), jnp.asarray(valid), weight_norm=w,
+            method=JaxSNAG.inner_view_loss)
+    argnums = (0, 1, 2, 3, 4) if with_w else (0, 1, 2, 3)
+    want, want_g = jax.value_and_grad(jloss, argnums=argnums)(
+        *[jnp.asarray(e) for e in embs],
+        None if wn is None else jnp.asarray(wn))
+
+    ts = [torch.from_numpy(e).requires_grad_() for e in embs]
+    tw = None if wn is None else torch.from_numpy(wn).requires_grad_()
+    got = pair["tmodel"].inner_view_loss(
+        *ts, None, None, torch.from_numpy(links), torch.from_numpy(valid),
+        weight_norm=tw)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    for t, g in zip(ts + ([tw] if with_w else []), want_g):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4,
+                                   atol=1e-7)
+
+
 def test_unfused_port_loss_equals_jax_fused_bundle(pair):
     """The port's GMI + ECIA as separate NT-Xent calls give the JAX
     package's fused mixture bundle (``_bundle_dense`` on the CPU)."""

@@ -1,21 +1,23 @@
-"""Why the mixture gradient kernel takes three TF32 products per fp32 one.
+"""Why the gradient kernel takes three TF32 products per fp32 one.
 
-``csrc/snag_loss.cu`` computes both products of the mixture gradient, K =
-z z^T and W_tot z, on the tensor cores in 3xTF32: each fp32 operand x is
-split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a b is taken as
-hi hi + (hi lo + lo hi) with fp32 accumulation.  Here the TF32 rounding of
-``cvt.rna.tf32.f32`` is emulated on the CPU (add 0x1000 to the bit pattern,
-clear the low 13 bits) inside the twin's formulas
-(``ops/cuda/snag_loss.py::mixture_grad_twin``), and dz, dalpha and dbeta
-are held against an f64 evaluation with the card's limit, max |err| <=
-1e-4 x max |ref|: exact fp32 and 3xTF32 meet it, one TF32 product misses
-it on dz (1/tau = 10 multiplies K's error before the exp).
+``csrc/gram_grad.cuh`` computes both products of the mixture gradient (K =
+z z^T and W_tot z) and of the NT-Xent gradient (K and W z) on the tensor
+cores in 3xTF32: each fp32 operand x is split into hi = rna_tf32(x) and
+lo = rna_tf32(x - hi), and a b is taken as hi hi + (hi lo + lo hi) with
+fp32 accumulation.  Here the TF32 rounding of ``cvt.rna.tf32.f32`` is
+emulated on the CPU (add 0x1000 to the bit pattern, clear the low 13 bits)
+inside the twins' formulas (``ops/cuda/snag_loss.py::mixture_grad_twin``,
+``ops/cuda/ntxent.py::ntxent_grad_twin``), and the gradients are held
+against an f64 evaluation with the card's limit, max |err| <= 1e-4 x
+max |ref|: exact fp32 and 3xTF32 meet it, one TF32 product misses it on dz
+(1/tau = 10 multiplies K's error before the exp).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from snag_tpu_torch.ops.cuda import ntxent as tnx
 from snag_tpu_torch.ops.cuda import snag_loss as tsl
 from torch_port_common import single_thread
 
@@ -50,16 +52,9 @@ def mm_tf32(a, b):
     return torch.bmm(rna_tf32(a), rna_tf32(b))
 
 
-def grad_with(z, alpha, beta, lse, coef, v, tau, mm):
-    """The formulas of ``mixture_grad_twin`` with its two products, K =
-    z z^T and W_tot z, taken by ``mm`` in z's dtype and everything else in
-    lse's."""
-    inv_tau = 1.0 / tau
-    m, n2, _ = z.shape
-    k = mm(z, z.transpose(1, 2)).to(lse.dtype)
-    mix_a = torch.einsum("rm,cm,mrc->rc", alpha, alpha, k)
-    mix_f = torch.einsum("m,mrc->rc", beta, k)
-    s = torch.cat([k, mix_a[None], mix_f[None]]) * inv_tau
+def _weights(s, lse, coef, v, inv_tau):
+    """The G + G^T weight W of every channel of s (C, 2B, 2B)."""
+    n2 = s.shape[1]
     rows = torch.arange(n2)
     neq = (rows[:, None] != rows[None, :]).to(lse.dtype)
     pos = torch.where(rows < n2 // 2, rows + n2 // 2, rows - n2 // 2)
@@ -67,9 +62,22 @@ def grad_with(z, alpha, beta, lse, coef, v, tau, mm):
     p_row = torch.exp(torch.clamp(s - lse[:, :, None], max=0.0))
     p_col = torch.exp(torch.clamp(s - lse[:, None, :], max=0.0))
     coef_r, coef_c = coef[:, :, None], coef[:, None, :]
-    w = (neq[None] * (coef_r * p_row * v[None, None, :]
-                      + p_col * coef_c * v[None, :, None])
-         - onehot[None] * (coef_r + coef_c)) * inv_tau
+    return (neq[None] * (coef_r * p_row * v[None, None, :]
+                         + p_col * coef_c * v[None, :, None])
+            - onehot[None] * (coef_r + coef_c)) * inv_tau
+
+
+def grad_with(z, alpha, beta, lse, coef, v, tau, mm):
+    """The formulas of ``mixture_grad_twin`` with its two products, K =
+    z z^T and W_tot z, taken by ``mm`` in z's dtype and everything else in
+    lse's."""
+    inv_tau = 1.0 / tau
+    m = z.shape[0]
+    k = mm(z, z.transpose(1, 2)).to(lse.dtype)
+    mix_a = torch.einsum("rm,cm,mrc->rc", alpha, alpha, k)
+    mix_f = torch.einsum("m,mrc->rc", beta, k)
+    s = torch.cat([k, mix_a[None], mix_f[None]]) * inv_tau
+    w = _weights(s, lse, coef, v, inv_tau)
     w_a, w_f = w[m], w[m + 1]
     aa = alpha.T[:, :, None] * alpha.T[:, None, :]
     w_tot = w[:m] + w_a[None] * aa + w_f[None] * beta[:, None, None]
@@ -77,6 +85,16 @@ def grad_with(z, alpha, beta, lse, coef, v, tau, mm):
     dalpha = torch.einsum("rc,cm,mrc->rm", w_a, alpha, k)
     dbeta = 0.5 * torch.einsum("rc,mrc->m", w_f, k)
     return dz, dalpha, dbeta
+
+
+def ntxent_grad_with(z, lse, coef, v, tau, mm):
+    """The formulas of ``ntxent_grad_twin`` with its two products, K =
+    z z^T and W z, taken by ``mm`` in z's dtype and everything else in
+    lse's."""
+    inv_tau = 1.0 / tau
+    s = mm(z, z.transpose(1, 2)).to(lse.dtype) * inv_tau
+    w = _weights(s, lse, coef, v, inv_tau)
+    return mm(w.to(z.dtype), z).to(lse.dtype)
 
 
 def _inputs(m=4, b=64, d=48, seed=5):
@@ -142,3 +160,55 @@ def test_fp32_and_3xtf32_products_hold_the_limit(mm):
 def test_one_tf32_product_misses_the_limit_on_dz():
     errs = rel_errors(mm_tf32)
     assert errs[0] > LIMIT, errs
+
+
+def _ntxent_inputs(m, b, d, n_valid, seed):
+    """The recipe of test_torch_cuda.py's NT-Xent cases: unit rows with
+    near-copy positives and one all-zero row, validity of the first
+    n_valid pairs, row coefficients zero on invalid rows."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(m, 2 * b, d)).astype(np.float32)
+    z[:, b:] = z[:, :b] + 0.5 * z[:, b:]
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    z[0, 1] = 0.0
+    v = np.concatenate([np.arange(b) < n_valid] * 2).astype(np.float32)
+    coef = rng.uniform(0.1, 1.0, size=(m, 2 * b)).astype(np.float32) * v
+    coef /= max(n_valid, 1)
+    return [torch.from_numpy(a) for a in (z, v, coef)]
+
+
+def ntxent_rel_error(mm, m, b, d, n_valid):
+    """max |err| / max |ref| of dz with the two products in f32 inputs
+    through ``mm`` and the rest in f64, against f64."""
+    z, v, coef = _ntxent_inputs(m, b, d, n_valid, seed=b)
+    v, coef = v.double(), coef.double()
+    lse = tnx.streaming_lse_twin(z.double(), v, TAU)
+    ref = ntxent_grad_with(z.double(), lse, coef, v, TAU, mm_fp32)
+    got = ntxent_grad_with(z, lse, coef, v, TAU, mm)
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+# the IIR shape cut to B = 257, the card's d = 1,200 case, and the 1,800
+# wide GMI rows of six modalities (two feature chunks on the card)
+NTXENT_SHAPES = [(4, 257, 300, 257), (1, 70, 1200, 64), (2, 64, 1800, 64)]
+
+
+def test_ntxent_grad_with_exact_products_is_the_twin():
+    z, v, coef = _ntxent_inputs(3, 10, 6, 8, seed=1)
+    lse = tnx.streaming_lse_twin(z, v, TAU)
+    got = ntxent_grad_with(z, lse, coef, v, TAU, mm_fp32)
+    want = tnx.ntxent_grad_twin(z, lse, coef, v, TAU)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", NTXENT_SHAPES, ids=str)
+@pytest.mark.parametrize("mm", [mm_fp32, mm_tf32x3], ids=["fp32", "3xtf32"])
+def test_ntxent_fp32_and_3xtf32_products_hold_the_limit(mm, shape):
+    err = ntxent_rel_error(mm, *shape)
+    assert err <= LIMIT, err
+
+
+@pytest.mark.parametrize("shape", NTXENT_SHAPES, ids=str)
+def test_ntxent_one_tf32_product_misses_the_limit(shape):
+    err = ntxent_rel_error(mm_tf32, *shape)
+    assert err > LIMIT, err

@@ -18,8 +18,9 @@ the exit code is non-zero:
    limits 3xTF32 meets; the rank sweeps at fp32's 67 TFLOP/s, as exact
    ranks need fp32 in a fixed order) and, where one PyTorch call computes
    the same function, that call's time; for both loss gradients (one
-   kernel, ``csrc/gram_grad.cuh``) the executed and least TFLOP/s and a
-   bitwise repeat, for NT-Xent's also its launch plan;
+   kernel, ``csrc/gram_grad.cuh``) and both loss lse kernels (one kernel,
+   ``csrc/gram_lse.cuh``) the executed and least TFLOP/s and a bitwise
+   repeat, and the launch plans of NT-Xent's gradient and of both lse;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -386,22 +387,26 @@ def _ntxent_inputs(m, b, d, n_valid, seed):
 def phase_ntxent(tau=0.1):
     """Both NT-Xent kernels against their dense twins at the four (M, B, d)
     shapes of an unfused training step.  lse: atol 1e-5 (rtol 1e-5);
-    gradient: max |err| <= 1e-4 * max |twin|, two runs give the same bits.
-    Prints the gradient's plan (feature chunks, ring depth, column splits,
-    blocks per SM) and its fp32-equivalent TFLOP/s, executed (K once per
-    feature chunk, then W z) and least (K once per unordered pair of rows,
-    then W z).  The JSON record has the IIR shape, the only one the default
-    fused loss runs."""
+    gradient: max |err| <= 1e-4 * max |twin|; two runs of either give the
+    same bits.  Prints the plans (lse: tile, tile pairs, blocks per SM;
+    gradient: feature chunks, ring depth, column splits, blocks per SM) and
+    the fp32-equivalent TFLOP/s, executed (lse: every tile pair's T^2
+    products; gradient: K once per feature chunk, then W z) and least (K
+    once per unordered pair of rows, then W z for the gradient).  The JSON
+    record has the IIR shape, the only one the default fused loss runs."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     err_lse = err_grad = 0.0
     for i, (label, m, b, d, n_valid) in enumerate(NTXENT_SHAPES):
         z, v, coef = _ntxent_inputs(m, b, d, n_valid, SEED + i)
         lse = nx.streaming_lse_cuda(z, v, tau)
+        lse_again = nx.streaming_lse_cuda(z, v, tau)
         torch.cuda.synchronize()
         want = nx.streaming_lse_twin(z, v, tau)
         e_lse = (lse - want).abs().max().item()
         torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+        if not torch.equal(lse, lse_again):
+            raise AssertionError(f"ntxent_lse {label}: two runs differ")
         dz = nx.ntxent_grad_cuda(z, want, coef, v, tau)
         again = nx.ntxent_grad_cuda(z, want, coef, v, tau)
         torch.cuda.synchronize()
@@ -414,6 +419,7 @@ def phase_ntxent(tau=0.1):
         if not torch.equal(dz, again):
             raise AssertionError(f"ntxent_grad {label}: two runs differ")
         plan = nx.grad_plan(m, 2 * b, d, z.device)
+        lp = nx.lse_plan(m, 2 * b, d, z.device)
         ms = {"lse": median_ms(lambda: nx.streaming_lse_cuda(z, v, tau)),
               "lse_twin": median_ms(lambda: nx.streaming_lse_twin(z, v, tau)),
               "grad": median_ms(lambda: nx.ntxent_grad_cuda(
@@ -423,6 +429,7 @@ def phase_ntxent(tau=0.1):
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
         executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
+        lse_executed = 2 * m * lp["pairs"] * lp["tile"] ** 2 * d
         if i == 0:
             first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_twin"],
                       4 * (m * n2 * d + n2 + m * n2), k_flops),
@@ -433,14 +440,17 @@ def phase_ntxent(tau=0.1):
         err_grad = max(err_grad, e_dz)
         say("ntxent", f"{label} (M={m}, B={b}, d={d}, {n_valid} valid): "
             f"max|lse err| {e_lse:.3e} | max|dz err| {e_dz:.3e} of "
-            f"max|dz| {scale:.3e} (bitwise repeat) | lse kernel "
-            f"{ms['lse']:.3f} ms twin {ms['lse_twin']:.3f} ms | grad kernel "
+            f"max|dz| {scale:.3e} (bitwise repeats) | lse kernel "
+            f"{ms['lse']:.3f} ms ({lse_executed / ms['lse'] / 1e9:.1f} "
+            f"executed, {k_flops / ms['lse'] / 1e9:.1f} least TFLOP/s; tile "
+            f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
+            f"block(s)/SM) twin {ms['lse_twin']:.3f} ms | grad kernel "
             f"{ms['grad']:.3f} ms ({executed / ms['grad'] / 1e9:.1f} "
             f"executed, {(k_flops + wz_flops) / ms['grad'] / 1e9:.1f} least "
             f"TFLOP/s; {plan['chunks']} chunk(s), depth {plan['depth']}, "
             f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM)"
             f" twin {ms['grad_twin']:.3f} ms")
-        del z, v, coef, lse, want, dz, again, want_dz
+        del z, v, coef, lse, lse_again, want, dz, again, want_dz
         torch.cuda.empty_cache()
     return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
@@ -470,11 +480,13 @@ def _mixture_inputs(m, b, d, n_valid, seed):
 def phase_mixture(tau=0.1):
     """Both mixture kernels against their dense twins at the bundle's
     shapes.  lse: atol 1e-5 (rtol 1e-5); dz, dalpha and dbeta: max |err| <=
-    1e-4 * max |twin| each; two gradient runs give the same bits.  Prints
-    the gradient's fp32-equivalent TFLOP/s, executed (each group of
-    modalities computes every K_m once, then its W z) and least (K_m once
-    per unordered pair of rows, then W z).  The JSON record has the full
-    M = 4 batch, the main path's shape."""
+    1e-4 * max |twin| each; two runs of either give the same bits.  Prints
+    the lse's plan (tile, tile pairs, blocks per SM) and both kernels'
+    fp32-equivalent TFLOP/s, executed (lse: every tile pair's T^2 products
+    per modality; gradient: each group of modalities computes every K_m
+    once, then its W z) and least (K_m once per unordered pair of rows, then
+    W z for the gradient).  The JSON record has the full M = 4 batch, the
+    main path's shape."""
     import torch
     from snag_tpu_torch.ops.cuda import snag_loss as sl
     cap = sl._grad_cap(sl._library(), torch.device("cuda"))
@@ -482,12 +494,15 @@ def phase_mixture(tau=0.1):
     for i, (label, m, b, d, n_valid) in enumerate(MIXTURE_SHAPES):
         z, alpha, beta, v, coef = _mixture_inputs(m, b, d, n_valid, SEED + i)
         lse = sl.mixture_lse_cuda(z, alpha, beta, v, tau)
+        lse_again = sl.mixture_lse_cuda(z, alpha, beta, v, tau)
         torch.cuda.synchronize()
         want = sl.mixture_lse_twin(z, alpha, beta, v, tau)
         e_lse = (lse - want).abs().max().item()
         if not torch.isfinite(lse).all():
             raise AssertionError(f"mixture_lse {label}: non-finite values")
         torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+        if not torch.equal(lse, lse_again):
+            raise AssertionError(f"mixture_lse {label}: two runs differ")
         got = sl.mixture_grad_cuda(z, alpha, beta, want, coef, v, tau)
         again = sl.mixture_grad_cuda(z, alpha, beta, want, coef, v, tau)
         torch.cuda.synchronize()
@@ -517,6 +532,8 @@ def phase_mixture(tau=0.1):
         executed = 2 * n2 * n2 * d * (groups * m + m)
         rates = (f"{executed / ms['grad'] / 1e9:.1f} executed, "
                  f"{(k_flops + wz_flops) / ms['grad'] / 1e9:.1f} least")
+        lp = sl.lse_plan(m, n2, d, z.device)
+        lse_executed = 2 * m * lp["pairs"] * lp["tile"] ** 2 * d
         if i == 0:
             # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
             first = [(sl.STATS_LSE.name, ms["lse"], ms["lse_twin"],
@@ -531,10 +548,14 @@ def phase_mixture(tau=0.1):
             f"max|lse err| {e_lse:.3e} | max|err| dz {errs[0]:.3e} dalpha "
             f"{errs[1]:.3e} dbeta {errs[2]:.3e} of max|twin| "
             f"{[round(w.abs().max().item(), 6) for w in wants]} (bitwise "
-            f"repeat) | lse kernel {ms['lse']:.3f} ms twin "
-            f"{ms['lse_twin']:.3f} ms | grad kernel {ms['grad']:.3f} ms "
+            f"repeats) | lse kernel {ms['lse']:.3f} ms "
+            f"({lse_executed / ms['lse'] / 1e9:.1f} executed, "
+            f"{k_flops / ms['lse'] / 1e9:.1f} least TFLOP/s; tile "
+            f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
+            f"block(s)/SM) twin {ms['lse_twin']:.3f} ms | grad kernel "
+            f"{ms['grad']:.3f} ms "
             f"({rates} TFLOP/s) twin {ms['grad_twin']:.3f} ms")
-        del z, alpha, beta, v, coef, lse, want, got, again, wants
+        del z, alpha, beta, v, coef, lse, lse_again, want, got, again, wants
         torch.cuda.empty_cache()
     return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
@@ -836,11 +857,11 @@ def main() -> int:
                            "snag_tpu/ops/pallas/rank_eval.py:177"),
         "rank_counts": ("snag_tpu_torch/csrc/rank_eval.cu",
                         "snag_tpu/ops/pallas/rank_eval.py:202"),
-        "ntxent_lse": ("snag_tpu_torch/csrc/ntxent.cu",
+        "ntxent_lse": ("snag_tpu_torch/csrc/gram_lse.cuh",
                        "snag_tpu/ops/pallas/ntxent_kernel.py:162"),
         "ntxent_grad": ("snag_tpu_torch/csrc/gram_grad.cuh",
                         "snag_tpu/ops/pallas/ntxent_kernel.py:191"),
-        "mixture_lse": ("snag_tpu_torch/csrc/snag_loss.cu",
+        "mixture_lse": ("snag_tpu_torch/csrc/gram_lse.cuh",
                         "snag_tpu/ops/pallas/snag_loss_kernel.py:231"),
         "mixture_grad": ("snag_tpu_torch/csrc/gram_grad.cuh",
                          "snag_tpu/ops/pallas/snag_loss_kernel.py:259"),

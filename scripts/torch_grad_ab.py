@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The two loss-gradient kernels of a checkout of the PyTorch port, timed
-and fingerprinted on one NVIDIA GPU.
+"""The loss kernels of a checkout of the PyTorch port (both gradients and
+both lse), timed and fingerprinted on one NVIDIA GPU.
 
     python3 scripts/torch_grad_ab.py [--root DIR] [--out FILE] [--against FILE]
 
@@ -9,9 +9,10 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
 
 * ``mixture_grad_cuda`` at ``chip_smoke.MIXTURE_SHAPES``: the sha256 of
   the bytes of dz, dalpha and dbeta, and the median ms of 5 runs (CUDA
-  events);
+  events); ``mixture_lse_cuda`` there: the sha256 of lse and the median ms;
 * ``ntxent_grad_cuda`` at ``chip_smoke.NTXENT_SHAPES``: the sha256 of dz
-  and the median ms, or the error the wrapper raised.
+  and the median ms, or the error the wrapper raised; ``streaming_lse_cuda``
+  there: the sha256 of lse and the median ms.
 
 It prints one JSON line with the card's name and power limit, and writes
 it to FILE.  With ``--against`` it fails unless the mixture digests equal
@@ -64,7 +65,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
     out = {"root": args.root, "package": str(Path(nx.__file__).parents[2]),
-           "card": card, "mixture_grad": {}, "ntxent_grad": {}}
+           "card": card, "mixture_grad": {}, "ntxent_grad": {},
+           "mixture_lse": {}, "ntxent_lse": {}}
 
     for i, (label, m, b, d, n_valid) in enumerate(cs.MIXTURE_SHAPES):
         z, alpha, beta, v, coef = cs._mixture_inputs(m, b, d, n_valid,
@@ -74,11 +76,17 @@ def main() -> int:
         ms = cs.median_ms(lambda: sl.mixture_grad_cuda(z, alpha, beta, lse,
                                                        coef, v, TAU))
         out["mixture_grad"][label] = {"sha256": digest(*got), "ms": ms}
+        got = sl.mixture_lse_cuda(z, alpha, beta, v, TAU)
+        ms = cs.median_ms(lambda: sl.mixture_lse_cuda(z, alpha, beta, v, TAU))
+        out["mixture_lse"][label] = {"sha256": digest(got), "ms": ms}
         del z, alpha, beta, v, coef, lse, got
         torch.cuda.empty_cache()
 
     for i, (label, m, b, d, n_valid) in enumerate(cs.NTXENT_SHAPES):
         z, v, coef = cs._ntxent_inputs(m, b, d, n_valid, cs.SEED + i)
+        lse = nx.streaming_lse_cuda(z, v, TAU)
+        ms = cs.median_ms(lambda: nx.streaming_lse_cuda(z, v, TAU))
+        out["ntxent_lse"][label] = {"sha256": digest(lse), "ms": ms}
         lse = nx.streaming_lse_twin(z, v, TAU)
         try:
             dz = nx.ntxent_grad_cuda(z, lse, coef, v, TAU)

@@ -18,16 +18,22 @@
 //     p_row = exp(min(S - lse_r, 0)), p_col = exp(min(S - lse_c, 0)):
 //     the row and column passes of the symmetric S folded into one visit.
 //
-// What bounds it on the H100: arithmetic.  The forward is 2 n2^2 d flops per
-// batch, the gradient twice that (S recomputed, then W z); at the slice
-// shapes (M, B, d) in {(4, 3500, 300), (2, 3500, 1200)} a training step's
-// three losses come to ~1.4e12 flops, against O(n2 d) bytes per block read
-// from L2.
+// What bounds it on the H100: arithmetic.  S is symmetric, so the forward
+// needs n2 (n2 + 1) d flops per batch, the gradient 2 n2^2 d more for
+// W z; against O(n2 d) bytes per block read from L2.
 //
-// ntxent_lse: TF32 keeps 10 mantissa bits, far from the 1e-5 lse
-// tolerance, so it is a plain fp32 SIMT tile product (tile_dot.cuh, shared
-// with rank_eval.cu): each block owns BM rows of one batch and walks every
-// column tile, the S tile lives in a TM x TN register tile per thread.
+// ntxent_lse: the shared 3xTF32 tensor-core lse of gram_lse.cuh with
+// MIX = false, the mixture lse without its mixtures.  A block takes one
+// unordered pair of 128-row tiles of one batch, so each element of S is
+// computed once (IIR (4, 3500, 300): 1,540 pairs a batch, 6.1e10 flops
+// executed against 1.18e11 for the whole S), and adds its exps to its
+// row's and its column's sums.  One TF32 product misses the lse limit
+// 3-20x, 3xTF32 holds it as fp32 products do (tests/test_torch_tf32x3.py).
+// 8 warps of (64 x 32) tiles, 64 accumulators a thread: at two blocks an
+// SM (128 registers) ptxas spills, so one block an SM (221 registers, no
+// spills) with a four-slot ring of 99 KB.  The row partials of every pair
+// go to scratch and ntxent_lse_sum_kernel adds them in a fixed order: no
+// atomics.
 //
 // ntxent_grad: the shared 3xTF32 tensor-core gradient of gram_grad.cuh
 // with MIX = false, the mixture gradient without its mixtures.  One TF32
@@ -45,57 +51,32 @@
 #include <stdint.h>
 
 #include "gram_grad.cuh"
-#include "tile_dot.cuh"
+#include "gram_lse.cuh"
 
 namespace {
 
-constexpr float LSE_EPS = 1e-30f;
+// The lse kernel's tile: 8 warps of (64 x 32) 3xTF32 tiles, 64 fp32
+// accumulators a thread, one block an SM.
+constexpr int LSE_TILE = 128;
 
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-ntxent_lse_kernel(const float* __restrict__ z, const float* __restrict__ v,
-                  float* __restrict__ lse, int n2, int d, float inv_tau) {
-  __shared__ __align__(16) Smem sm;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int row0 = blockIdx.x * BM;
-  const float* zm = z + (size_t)blockIdx.y * n2 * d;
+__global__ void __launch_bounds__(lse::THREADS, 1)
+ntxent_lse_mma_kernel(const float* __restrict__ z, const float* __restrict__ v,
+                      float* __restrict__ part, int n2, int d, float inv_tau) {
+  lse::gram_lse<false, VEC, LSE_TILE>(z, nullptr, nullptr, v, part, 1, n2, d,
+                                      inv_tau);
+}
 
-  float sum[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) sum[r] = 0.f;
+__global__ void __launch_bounds__(lse::SUM_THREADS)
+ntxent_lse_sum_kernel(const float* __restrict__ part, float* __restrict__ lse,
+                      int m, int tiles, int n2, float inv_tau) {
+  lse::sum_partials(part, lse, m, tiles, n2, inv_tau);
+}
 
-  for (int col0 = 0; col0 < n2; col0 += BN) {
-    float acc[TM][TN];
-    tile_dot<VEC>(zm, zm, n2, d, row0, col0, sm, acc);
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int gc = col0 + tile_col(tx, c);
-      if (gc >= n2) continue;
-      const float vc = v[gc];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int gr = row0 + ty * TM + r;
-        if (gc != gr) sum[r] += expf(acc[r][c] * inv_tau - inv_tau) * vc;
-      }
-    }
-  }
-
-  // merge the row's TX partial sums (lanes of one half-warp)
-#pragma unroll
-  for (int off = TX / 2; off >= 1; off >>= 1) {
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int gr = row0 + ty * TM + r;
-      if (gr < n2)
-        lse[(size_t)blockIdx.y * n2 + gr] = logf(sum[r] + LSE_EPS) + inv_tau;
-    }
-  }
+int lse_setup(int m, int n2, LsePlan& plan) {
+  return lse_plan<LSE_TILE>(
+      reinterpret_cast<const void*>(ntxent_lse_mma_kernel<true>),
+      reinterpret_cast<const void*>(ntxent_lse_mma_kernel<false>), m, n2, plan);
 }
 
 // out[i] += part[0][i] + part[1][i] + ..., in that order: the dz partials
@@ -143,17 +124,45 @@ const char* snag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// How ntxent_lse runs at this shape on the current device: returns the
+// floats of scratch it needs (the row partials of every tile pair), or a
+// negative CUDA error; if out is not null, writes {tile, tile pairs,
+// blocks per SM} to it.
+long ntxent_lse_plan(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  LsePlan plan;
+  const int err = lse_setup(m, n2, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.tile;
+    out[1] = plan.pairs;
+    out[2] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
+}
+
 // z (m, n2, d) with unit rows, v (n2,) 0/1 column validity; writes lse
-// (m, n2) in full.
-int ntxent_lse(const float* z, const float* v, float* lse, int m, int n2,
-               int d, float inv_tau, void* stream) {
+// (m, n2) in full, using part (ntxent_lse_plan floats) as scratch.
+int ntxent_lse(const float* z, const float* v, float* part, float* lse, int m,
+               int n2, int d, float inv_tau, void* stream) {
   if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n2 + BM - 1) / BM, m);
+  LsePlan plan;
+  int err = lse_setup(m, n2, plan);
+  if (err) return err;
+  const dim3 grid(plan.pairs, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    ntxent_lse_kernel<true><<<grid, THREADS, 0, s>>>(z, v, lse, n2, d, inv_tau);
+    ntxent_lse_mma_kernel<true><<<grid, lse::THREADS, plan.bytes, s>>>(
+        z, v, part, n2, d, inv_tau);
   else
-    ntxent_lse_kernel<false><<<grid, THREADS, 0, s>>>(z, v, lse, n2, d, inv_tau);
+    ntxent_lse_mma_kernel<false><<<grid, lse::THREADS, plan.bytes, s>>>(
+        z, v, part, n2, d, inv_tau);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long n = (long)m * n2;
+  ntxent_lse_sum_kernel<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
+                          lse::SUM_THREADS, 0, s>>>(part, lse, m, plan.tiles,
+                                                    n2, inv_tau);
   return static_cast<int>(cudaGetLastError());
 }
 

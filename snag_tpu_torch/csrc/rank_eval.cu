@@ -17,7 +17,7 @@
 // (2.6e11 at N = 10,500, d = 1200) and the slice runs four, against
 // O(N*d) bytes read per block from L2.  TF32 and tensor cores would
 // change ranks, so this first version is a plain fp32 SIMT tile product
-// (tile_dot.cuh, shared with ntxent.cu): each block owns BM query rows and
+// (tile_dot.cuh): each block owns BM query rows and
 // walks every column tile, staging (BM x BK) and (BN x BK) slices in shared
 // memory, two stages deep (the next slice is fetched into registers while
 // the current one is multiplied).  Each thread holds a TM x TN register

@@ -25,10 +25,18 @@
 //                   twice for beta; alpha[r,m] sits in row r and column r
 //                   of S, so dalpha needs no halving).
 //
-// mixture_lse: M tile products, 2 n2^2 d M flops (1.18e11 at M = 4,
-// B = 3500, d = 300) plus the mixtures and M + 2 exps per element, in fp32
-// SIMT tiles (tile_dot.cuh), because one TF32 product is far from the 1e-5
-// lse tolerance.
+// mixture_lse: what bounds it on the H100 is arithmetic, M products K_m,
+// each symmetric, so M n2 (n2 + 1) d flops (5.9e10 at M = 4, B = 3500,
+// d = 300) plus the mixtures and M + 2 exps per element.  The kernel is
+// gram_lse.cuh's with MIX = true (NT-Xent shares it with MIX = false): a
+// block takes one unordered pair of 96-row tiles and walks every modality
+// over it, each K_m tile once on the tensor cores in 3xTF32 (one TF32
+// product misses the lse limit 3-20x, tests/test_torch_tf32x3.py), its
+// exps into its channel's row and column sums and into the mixtures'
+// running sums, whose own exps follow after the last modality.  The
+// running sums stay in registers beside the K tile: 8 warps of (48 x 24)
+// tiles, 254 registers without spills, one block an SM.  Row partials per
+// tile pair, added in a fixed order by mixture_lse_sum_kernel: no atomics.
 //
 // mixture_grad: what bounds it on the H100 is arithmetic, M products
 // K_m = z_r z_c^T and M products W z per tile, 4 n2^2 d M flops (2.35e11
@@ -63,112 +71,37 @@
 #include <stdint.h>
 
 #include "gram_grad.cuh"
-#include "tile_dot.cuh"
+#include "gram_lse.cuh"
 
 namespace {
 
-constexpr float LSE_EPS = 1e-30f;
+// The lse kernel's tile: 8 warps of (48 x 24) 3xTF32 tiles, so that the
+// mixtures' running sums fit in registers beside the K tile, one block an
+// SM.
+constexpr int LSE_TILE = 96;
 
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-mixture_lse_kernel(const float* __restrict__ z, const float* __restrict__ alpha,
-                   const float* __restrict__ beta, const float* __restrict__ v,
-                   float* __restrict__ lse, int nm, int n2, int d,
-                   float inv_tau) {
-  __shared__ __align__(16) Smem sm;
-  // thread-private partial row sums of every channel
-  __shared__ float sums[MAX_MOD + 2][TM][THREADS];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int row0 = blockIdx.x * BM;
+__global__ void __launch_bounds__(lse::THREADS, 1)
+mixture_lse_mma_kernel(const float* __restrict__ z,
+                       const float* __restrict__ alpha,
+                       const float* __restrict__ beta,
+                       const float* __restrict__ v, float* __restrict__ part,
+                       int nm, int n2, int d, float inv_tau) {
+  lse::gram_lse<true, VEC, LSE_TILE>(z, alpha, beta, v, part, nm, n2, d,
+                                     inv_tau);
+}
 
-  for (int ch = 0; ch < nm + 2; ++ch)
-#pragma unroll
-    for (int r = 0; r < TM; ++r) sums[ch][r][tid] = 0.f;
+__global__ void __launch_bounds__(lse::SUM_THREADS)
+mixture_lse_sum_kernel(const float* __restrict__ part, float* __restrict__ lse,
+                       int channels, int tiles, int n2, float inv_tau) {
+  lse::sum_partials(part, lse, channels, tiles, n2, inv_tau);
+}
 
-  for (int col0 = 0; col0 < n2; col0 += BN) {
-    float vc[TN];
-    bool neq[TM][TN];
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int gc = col0 + tile_col(tx, c);
-      vc[c] = gc < n2 ? v[gc] : 0.f;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) neq[r][c] = gc != row0 + ty * TM + r;
-    }
-    float mix_a[TM][TN], mix_f[TM][TN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < TN; ++c) mix_a[r][c] = mix_f[r][c] = 0.f;
-
-    for (int m = 0; m < nm; ++m) {
-      const float* zm = z + (size_t)m * n2 * d;
-      float acc[TM][TN];
-      tile_dot<VEC>(zm, zm, n2, d, row0, col0, sm, acc);
-      const float bm = beta[m];
-      float ar[TM], ac[TN], part[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int gr = row0 + ty * TM + r;
-        ar[r] = gr < n2 ? alpha[(size_t)gr * nm + m] : 0.f;
-        part[r] = 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int gc = col0 + tile_col(tx, c);
-        ac[c] = gc < n2 ? alpha[(size_t)gc * nm + m] : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < TN; ++c)
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float k = acc[r][c];
-          if (neq[r][c]) part[r] += expf(k * inv_tau - inv_tau) * vc[c];
-          mix_a[r][c] = fmaf(ar[r] * ac[c], k, mix_a[r][c]);
-          mix_f[r][c] = fmaf(bm, k, mix_f[r][c]);
-        }
-#pragma unroll
-      for (int r = 0; r < TM; ++r) sums[m][r][tid] += part[r];
-    }
-
-    float pa[TM], pf[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) pa[r] = pf[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < TN; ++c)
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        if (!neq[r][c]) continue;
-        pa[r] += expf(mix_a[r][c] * inv_tau - inv_tau) * vc[c];
-        pf[r] += expf(mix_f[r][c] * inv_tau - inv_tau) * vc[c];
-      }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      sums[nm][r][tid] += pa[r];
-      sums[nm + 1][r][tid] += pf[r];
-    }
-  }
-
-  // merge the row's TX partial sums (lanes of one half-warp)
-  for (int ch = 0; ch < nm + 2; ++ch) {
-    float s[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) s[r] = sums[ch][r][tid];
-#pragma unroll
-    for (int off = TX / 2; off >= 1; off >>= 1) {
-#pragma unroll
-      for (int r = 0; r < TM; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
-    }
-    if (tx == 0) {
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int gr = row0 + ty * TM + r;
-        if (gr < n2) lse[(size_t)ch * n2 + gr] = logf(s[r] + LSE_EPS) + inv_tau;
-      }
-    }
-  }
+int lse_setup(int m, int n2, LsePlan& plan) {
+  return lse_plan<LSE_TILE>(
+      reinterpret_cast<const void*>(mixture_lse_mma_kernel<true>),
+      reinterpret_cast<const void*>(mixture_lse_mma_kernel<false>), m + 2, n2,
+      plan);
 }
 
 // ------------------------------------------------------------- mixture_grad
@@ -217,18 +150,46 @@ const char* snag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// How mixture_lse runs at this shape on the current device: returns the
+// floats of scratch it needs (the row partials of every tile pair and
+// channel), or a negative CUDA error; if out is not null, writes {tile,
+// tile pairs, blocks per SM} to it.
+long mixture_lse_plan(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  LsePlan plan;
+  const int err = lse_setup(m, n2, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.tile;
+    out[1] = plan.pairs;
+    out[2] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
+}
+
 // z (m, n2, d) unit rows, alpha (n2, m), beta (m,), v (n2,) 0/1 column
-// validity; writes lse (m + 2, n2) in full.
+// validity; writes lse (m + 2, n2) in full, using part (mixture_lse_plan
+// floats) as scratch.
 int mixture_lse(const float* z, const float* alpha, const float* beta,
-                const float* v, float* lse, int m, int n2, int d,
+                const float* v, float* part, float* lse, int m, int n2, int d,
                 float inv_tau, void* stream) {
   if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n2 + BM - 1) / BM);
+  LsePlan plan;
+  int err = lse_setup(m, n2, plan);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    mixture_lse_kernel<true><<<grid, THREADS, 0, s>>>(z, alpha, beta, v, lse, m, n2, d, inv_tau);
+    mixture_lse_mma_kernel<true><<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
+        z, alpha, beta, v, part, m, n2, d, inv_tau);
   else
-    mixture_lse_kernel<false><<<grid, THREADS, 0, s>>>(z, alpha, beta, v, lse, m, n2, d, inv_tau);
+    mixture_lse_mma_kernel<false><<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
+        z, alpha, beta, v, part, m, n2, d, inv_tau);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long n = (long)(m + 2) * n2;
+  mixture_lse_sum_kernel<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
+                           lse::SUM_THREADS, 0, s>>>(part, lse, m + 2,
+                                                     plan.tiles, n2, inv_tau);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-// The fp32 SIMT tile product shared by rank_eval.cu, ntxent.cu and
-// snag_loss.cu: tile_dot (S = x y^T, one tile).
+// The fp32 SIMT tile product of rank_eval.cu: tile_dot (S = x y^T, one
+// tile).  Exact ranks need fp32 in a fixed order, so it stays off the
+// tensor cores.
 //
 // A block of THREADS threads owns BM rows and walks column tiles of BN;
 // each tile is the (BM x BN) product of row and column slices over the

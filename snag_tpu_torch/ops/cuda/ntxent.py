@@ -16,13 +16,16 @@ The JAX package pads B to its TPU tile; padded rows there carry zero
 validity and zero coefficients, so the port keeps B as it is and the
 positive partner sits at r +/- B.
 
-``ntxent_lse`` runs fp32 SIMT tiles: one TF32 product is far from its
-1e-5 tolerance.  ``ntxent_grad`` is the 3xTF32 tensor-core gradient kernel
-it shares with the mixture gradient (``csrc/gram_grad.cuh``), bound by
-operations at 495 / 3 TFLOP/s on an H100 SXM; it takes any d, in feature
-chunks where one accumulator of d columns would not fit, and its scratch
-(``ntxent_grad_plan``) holds the partials of blocks that share a row
-tile's columns.
+Both run on the tensor cores in 3xTF32 and are bound by operations at
+495 / 3 TFLOP/s on an H100 SXM.  ``ntxent_lse`` is the lse kernel it
+shares with the mixture lse (``csrc/gram_lse.cuh``): a block takes one
+unordered pair of row tiles, so each element of the symmetric S is
+computed once, and its scratch (``lse_plan``) holds the row partials of
+every pair, added in a fixed order.  ``ntxent_grad`` is the gradient
+kernel it shares with the mixture gradient (``csrc/gram_grad.cuh``); it
+takes any d, in feature chunks where one accumulator of d columns would
+not fit, and its scratch (``ntxent_grad_plan``) holds the partials of
+blocks that share a row tile's columns.
 
 Twins: ``streaming_lse_twin`` and ``ntxent_grad_twin``, the same formulas
 on the dense (M, 2B, 2B) matrix.
@@ -95,15 +98,30 @@ def _library():
     built = load_library("ntxent")
     lib = built.lib
     if lib.ntxent_lse.argtypes is None:
-        lib.ntxent_lse.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        lib.ntxent_lse.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.ntxent_lse.restype = ctypes.c_int
+        lib.ntxent_lse_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ntxent_lse_plan.restype = ctypes.c_long
         lib.ntxent_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.ntxent_grad.restype = ctypes.c_int
         lib.ntxent_grad_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.ntxent_grad_plan.restype = ctypes.c_long
     return built
+
+
+def lse_plan(m: int, n2: int, d: int,
+             device: torch.device) -> Dict[str, int]:
+    """How ``ntxent_lse`` runs at (m, n2, d) on ``device``: its tile, tile
+    pairs (blocks per batch), blocks per SM and floats of scratch."""
+    built = _library()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        floats = built.lib.ntxent_lse_plan(m, n2, d, out)
+    if floats < 0:
+        check(built, -floats, "ntxent_lse_plan")
+    return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
 
 
 def grad_plan(m: int, n2: int, d: int,
@@ -137,11 +155,14 @@ def streaming_lse_cuda(z: torch.Tensor, v: torch.Tensor,
                        tau: float) -> torch.Tensor:
     """Launch ``ntxent_lse``: lse (M, 2B) f32."""
     m, n2, d = _check_z(z, v)
-    lse = torch.empty(m, n2, dtype=torch.float32, device=z.device)
     built = _library()
+    plan = lse_plan(m, n2, d, z.device)
     with torch.cuda.device(z.device):
-        err = built.lib.ntxent_lse(ptr(z), ptr(v), ptr(lse), m, n2, d,
-                                   1.0 / tau, stream_of(z))
+        lse = torch.empty(m, n2, dtype=torch.float32, device=z.device)
+        part = torch.empty(plan["scratch"], dtype=torch.float32,
+                           device=z.device)
+        err = built.lib.ntxent_lse(ptr(z), ptr(v), ptr(part), ptr(lse), m, n2,
+                                   d, 1.0 / tau, stream_of(z))
     check(built, err, "ntxent_lse")
     STATS_LSE.launches += 1
     return lse

@@ -17,17 +17,21 @@ mix_f = sum_m beta_m K_m, and S = channel / tau:
 The port's shapes: alpha (2B, M), beta (M,), lse and coef (M + 2, 2B); B
 is not padded, the positive partner of row r is r +/- B.
 
-``mixture_lse`` runs fp32 SIMT tiles: one TF32 product is far from its
-1e-5 tolerance.  ``mixture_grad`` is bound by operations at the 3xTF32
-tensor-core rate (495 / 3 TFLOP/s on an H100 SXM): both of its products,
-K = z z^T and W z, are ``mma.sync`` on hi = rna_tf32(x), lo = rna_tf32(x -
-hi) as lo hi + hi lo + hi hi in fp32, as close to the twin as fp32
-products; one TF32 product misses the 1e-4 gradient limit on dz by 8-17x
-(tests/test_torch_tf32x3.py).  Each K tile is computed once into
-registers, the (modalities x 32 rows x d) row accumulator lives in shared
-memory (``modality_group`` splits the modalities where it would not
-fit), and the kernel's scratch (``mixture_grad_scratch``) holds the
-partials of blocks that share a row tile's columns.
+Both run on the tensor cores in 3xTF32 and are bound by operations at
+495 / 3 TFLOP/s on an H100 SXM: their products are ``mma.sync`` on hi =
+rna_tf32(x), lo = rna_tf32(x - hi) as lo hi + hi lo + hi hi in fp32, as
+close to the twin as fp32 products; one TF32 product misses the 1e-5 lse
+limit and the 1e-4 gradient limit on dz (tests/test_torch_tf32x3.py).
+``mixture_lse`` is the lse kernel it shares with NT-Xent
+(``csrc/gram_lse.cuh``): a block takes one unordered pair of row tiles
+and every modality, so each element of every symmetric channel is
+computed once, and its scratch (``lse_plan``) holds the row partials of
+every pair and channel, added in a fixed order.  ``mixture_grad`` computes
+each K tile once into registers, the (modalities x 32 rows x d) row
+accumulator lives in shared memory (``modality_group`` splits the
+modalities where it would not fit), and its scratch
+(``mixture_grad_scratch``) holds the partials of blocks that share a row
+tile's columns.
 
 Twins: ``mixture_lse_twin`` and ``mixture_grad_twin``, the same formulas
 on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
@@ -110,9 +114,11 @@ def _library():
     built = load_library("snag_loss")
     lib = built.lib
     if lib.mixture_lse.argtypes is None:
-        lib.mixture_lse.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        lib.mixture_lse.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.mixture_lse.restype = ctypes.c_int
+        lib.mixture_lse_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.mixture_lse_plan.restype = ctypes.c_long
         lib.mixture_grad.argtypes = [ctypes.c_void_p] * 10 \
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         lib.mixture_grad.restype = ctypes.c_int
@@ -121,6 +127,19 @@ def _library():
         lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 4
         lib.mixture_grad_scratch.restype = ctypes.c_long
     return built
+
+
+def lse_plan(m: int, n2: int, d: int,
+             device: torch.device) -> Dict[str, int]:
+    """How ``mixture_lse`` runs at (m, n2, d) on ``device``: its tile, tile
+    pairs (blocks), blocks per SM and floats of scratch."""
+    built = _library()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        floats = built.lib.mixture_lse_plan(m, n2, d, out)
+    if floats < 0:
+        check(built, -floats, "mixture_lse_plan")
+    return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
 
 
 def _grad_cap(built, device: torch.device) -> int:
@@ -169,11 +188,14 @@ def mixture_lse_cuda(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                      v: torch.Tensor, tau: float) -> torch.Tensor:
     """Launch ``mixture_lse``: lse (M + 2, 2B) f32."""
     m, n2, d = _check(z, alpha, beta, v)
-    lse = torch.empty(m + 2, n2, dtype=torch.float32, device=z.device)
     built = _library()
+    plan = lse_plan(m, n2, d, z.device)
     with torch.cuda.device(z.device):
+        lse = torch.empty(m + 2, n2, dtype=torch.float32, device=z.device)
+        part = torch.empty(plan["scratch"], dtype=torch.float32,
+                           device=z.device)
         err = built.lib.mixture_lse(ptr(z), ptr(alpha), ptr(beta), ptr(v),
-                                    ptr(lse), m, n2, d, 1.0 / tau,
+                                    ptr(part), ptr(lse), m, n2, d, 1.0 / tau,
                                     stream_of(z))
     check(built, err, "mixture_lse")
     STATS_LSE.launches += 1

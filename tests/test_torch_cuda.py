@@ -11,7 +11,7 @@ per-edge dot products over C and heads, rtol = atol = 1e-4.  The NT-Xent
 kernels sum 2B * d products per row in another order than cuBLAS: lse
 rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|; so do the
 mixture kernels, under the same limits for lse, dz, dalpha and dbeta, and
-two runs of either gradient give the same bits.  The weighted segment
+two runs of any of the four loss kernels give the same bits.  The weighted segment
 sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
 atol = 1e-5.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
@@ -162,6 +162,36 @@ def test_ntxent_grad_plan(dev):
     assert nx.grad_plan(1, 600, 4000, dev)["chunks"] == 3
 
 
+# the lse kernel's tiles (gram_lse.cuh): 128 rows for NT-Xent; ragged n2,
+# n2 under one tile, d not a multiple of 4 (scalar loads) or of 8, 1,000 of
+# 3,500 pairs valid, d = 1,800 in one pass
+@pytest.mark.parametrize("m,b,d,n_valid", [(1, 50, 20, 50), (2, 97, 50, 80),
+                                           (6, 130, 300, 130),
+                                           (1, 3500, 300, 1000),
+                                           (2, 300, 1800, 290),
+                                           (3, 20, 37, 20)])
+def test_ntxent_lse_kernel_matches_twin(dev, m, b, d, n_valid):
+    z, v, _ = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
+    lse = nx.streaming_lse_cuda(z, v, 0.1)
+    again = nx.streaming_lse_cuda(z, v, 0.1)
+    torch.cuda.synchronize()
+    want = nx.streaming_lse_twin(z, v, 0.1)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(lse, again)
+
+
+def test_lse_plans(dev):
+    """One block per unordered pair of tiles: 55 tiles of 128 rows (NT-Xent)
+    and 73 of 96 (mixture) at n2 = 7,000; scratch is channels x tiles x
+    n2."""
+    p = nx.lse_plan(4, 7000, 300, dev)
+    assert (p["tile"], p["pairs"], p["scratch"]) == (128, 1540, 4 * 55 * 7000)
+    q = sl.lse_plan(4, 7000, 300, dev)
+    assert (q["tile"], q["pairs"], q["scratch"]) == (96, 2701, 6 * 73 * 7000)
+    assert p["blocks_per_sm"] >= 1 and q["blocks_per_sm"] >= 1
+
+
 def _mixture_inputs(dev, m, b, d, n_valid, seed):
     """Unit rows with near-copy positives, one all-zero modality row, unit
     mixture coefficients, coefficients zero on invalid rows."""
@@ -206,6 +236,24 @@ def test_mixture_kernels_match_twins(dev, m, b, d, n_valid):
     again = sl.mixture_grad_cuda(z, alpha, beta, want_lse, coef, v, 0.1)
     for a, w in zip(got, again):
         assert torch.equal(a, w)
+
+
+# the lse kernel's tiles: 96 rows for the mixtures; M = 1 and 6, the edge
+# cases of the NT-Xent lse cases above
+@pytest.mark.parametrize("m,b,d,n_valid", [(1, 50, 20, 50), (6, 97, 50, 80),
+                                           (6, 100, 300, 100),
+                                           (4, 3500, 300, 1000),
+                                           (6, 40, 1800, 40),
+                                           (1, 33, 37, 33)])
+def test_mixture_lse_kernel_matches_twin(dev, m, b, d, n_valid):
+    z, alpha, beta, v, _ = _mixture_inputs(dev, m, b, d, n_valid, seed=b)
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    again = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    torch.cuda.synchronize()
+    want = sl.mixture_lse_twin(z, alpha, beta, v, 0.1)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(lse, again)
 
 
 def test_mixture_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -1,4 +1,4 @@
-"""Why the gradient kernel takes three TF32 products per fp32 one.
+"""Why the loss kernels take three TF32 products per fp32 one.
 
 ``csrc/gram_grad.cuh`` computes both products of the mixture gradient (K =
 z z^T and W_tot z) and of the NT-Xent gradient (K and W z) on the tensor
@@ -11,6 +11,14 @@ inside the twins' formulas (``ops/cuda/snag_loss.py::mixture_grad_twin``,
 against an f64 evaluation with the card's limit, max |err| <= 1e-4 x
 max |ref|: exact fp32 and 3xTF32 meet it, one TF32 product misses it on dz
 (1/tau = 10 multiplies K's error before the exp).
+
+The lse kernels (``csrc/gram_lse.cuh``, the mixture's and NT-Xent's) take
+K = z z^T the same way.  Their limit is the card's check,
+``assert_close(rtol=1e-5, atol=1e-5)`` against the twin: |err| <= 1e-5 +
+1e-5 |lse|, about 1.1e-4 at lse ~ 10.  Against an f64 evaluation, fp32 and
+3xTF32 products both stay under 1e-5 absolute and within a tenth of the
+limit (at most 8.5e-6 and 7.0e-6: the rounding of K at the positive
+pair, ~1e-6, times 1/tau), one TF32 product misses the limit 3-20x.
 """
 
 import numpy as np
@@ -212,3 +220,81 @@ def test_ntxent_fp32_and_3xtf32_products_hold_the_limit(mm, shape):
 def test_ntxent_one_tf32_product_misses_the_limit(shape):
     err = ntxent_rel_error(mm_tf32, *shape)
     assert err > LIMIT, err
+
+
+def _lse_of(s, v, inv_tau):
+    """The row-lse of the twins over the channels s (C, 2B, 2B)."""
+    n2 = s.shape[1]
+    neq = (~torch.eye(n2, dtype=torch.bool)).to(v.dtype)
+    mask = neq[None] * v[None, None, :]
+    return torch.log(torch.sum(torch.exp(s - inv_tau) * mask, dim=2)
+                     + tnx.LSE_EPS) + inv_tau
+
+
+def ntxent_lse_with(z, v, tau, mm):
+    """The formula of ``streaming_lse_twin`` with its product K = z z^T
+    taken by ``mm`` in z's dtype and everything else in v's."""
+    inv_tau = 1.0 / tau
+    return _lse_of(mm(z, z.transpose(1, 2)).to(v.dtype) * inv_tau, v, inv_tau)
+
+
+def mixture_lse_with(z, alpha, beta, v, tau, mm):
+    """The formula of ``mixture_lse_twin`` with its product K = z z^T
+    taken by ``mm`` in z's dtype and everything else in v's."""
+    inv_tau = 1.0 / tau
+    k = mm(z, z.transpose(1, 2)).to(v.dtype)
+    mix_a = torch.einsum("rm,cm,mrc->rc", alpha, alpha, k)
+    mix_f = torch.einsum("m,mrc->rc", beta, k)
+    return _lse_of(torch.cat([k, mix_a[None], mix_f[None]]) * inv_tau, v,
+                   inv_tau)
+
+
+# (kind, M, B, d, valid pairs): NT-Xent at the shapes above; the mixture at
+# a small batch, six modalities, and a padded batch
+LSE_SHAPES = [("ntxent", *shape) for shape in NTXENT_SHAPES] + [
+    ("mixture", 4, 64, 48, 64), ("mixture", 6, 300, 300, 300),
+    ("mixture", 4, 200, 300, 150)]
+
+
+def lse_errors(mm, kind, m, b, d, n_valid):
+    """(max |err|, max |err| / (1e-5 + 1e-5 |ref|)) of the lse with K in f32
+    inputs through ``mm`` and the rest in f64, against f64."""
+    if kind == "ntxent":
+        z, v, _ = _ntxent_inputs(m, b, d, n_valid, seed=b)
+        v = v.double()
+        ref = ntxent_lse_with(z.double(), v, TAU, mm_fp32)
+        got = ntxent_lse_with(z, v, TAU, mm)
+    else:
+        z, alpha, beta, _, _ = _inputs(m, b, d)
+        v = torch.cat([torch.arange(b) < n_valid] * 2).double()
+        alpha, beta = alpha.double(), beta.double()
+        ref = mixture_lse_with(z.double(), alpha, beta, v, TAU, mm_fp32)
+        got = mixture_lse_with(z, alpha, beta, v, TAU, mm)
+    err = (got - ref).abs()
+    return err.max().item(), (err / (1e-5 + 1e-5 * ref.abs())).max().item()
+
+
+@pytest.mark.parametrize("kind", ["ntxent", "mixture"])
+def test_lse_with_exact_products_is_the_twin(kind):
+    if kind == "ntxent":
+        z, v, _ = _ntxent_inputs(3, 10, 6, 8, seed=1)
+        got = ntxent_lse_with(z, v, TAU, mm_fp32)
+        want = tnx.streaming_lse_twin(z, v, TAU)
+    else:
+        z, alpha, beta, v, _ = _inputs(m=3, b=10, d=6, seed=1)
+        got = mixture_lse_with(z, alpha, beta, v, TAU, mm_fp32)
+        want = tsl.mixture_lse_twin(z, alpha, beta, v, TAU)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", LSE_SHAPES, ids=str)
+@pytest.mark.parametrize("mm", [mm_fp32, mm_tf32x3], ids=["fp32", "3xtf32"])
+def test_fp32_and_3xtf32_products_hold_the_lse_limit(mm, shape):
+    err, share = lse_errors(mm, *shape)
+    assert err <= 1e-5 and share <= 0.25, (err, share)
+
+
+@pytest.mark.parametrize("shape", LSE_SHAPES, ids=str)
+def test_one_tf32_product_misses_the_lse_limit(shape):
+    err, share = lse_errors(mm_tf32, *shape)
+    assert share > 1.0, (err, share)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The loss kernels of a checkout of the PyTorch port (both gradients and
-both lse), timed and fingerprinted on one NVIDIA GPU.
+"""The loss kernels (both gradients and both lse) and the two rank sweeps
+of a checkout of the PyTorch port, timed and fingerprinted on one NVIDIA
+GPU.
 
     python3 scripts/torch_grad_ab.py [--root DIR] [--out FILE] [--against FILE]
 
@@ -12,13 +13,23 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   events); ``mixture_lse_cuda`` there: the sha256 of lse and the median ms;
 * ``ntxent_grad_cuda`` at ``chip_smoke.NTXENT_SHAPES``: the sha256 of dz
   and the median ms, or the error the wrapper raised; ``streaming_lse_cuda``
-  there: the sha256 of lse and the median ms.
+  there: the sha256 of lse and the median ms;
+* the rank sweeps at ``chip_smoke._eval_inputs(10500, 1200)``:
+  ``topk_mean_cuda`` (sha256 of mean and diag) for each direction at
+  k = 3 and for l2r at k = 1; ``rank_counts_cuda`` (sha256 of counts and
+  top-3) for l2r with CSLS, of counts for r2l with CSLS and for l2r
+  without; the median ms of each; and, where the checkout has them,
+  ``topk_mean_both_cuda`` and ``rank_counts_both_cuda`` (both directions
+  in one launch): their median ms, and it fails unless their outputs have
+  the digests of the one-direction records they reproduce.  In a checkout
+  whose every launch does both directions, the one-direction calls return
+  the row direction of such a launch and take its time.
 
-It prints one JSON line with the card's name and power limit, and writes
-it to FILE.  With ``--against`` it fails unless the mixture digests equal
-those of an earlier run's FILE: the check that two builds compute the same
-bits.  Run each checkout in its own process (two packages of one name
-cannot share one), in turns on one card: A, B, B, A.
+It prints one JSON line with the card's name and power limit, and writes it
+to FILE.  With ``--against`` it fails unless every digest equals that of
+an earlier run's FILE: the check that two builds compute the same bits.
+Run each checkout in its own process (two packages of one name cannot
+share one), in turns on one card: A, B, B, A.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ def main() -> int:
     import chip_smoke as cs
     sys.path.insert(0, str(Path(args.root).resolve()))
     from snag_tpu_torch.ops.cuda import ntxent as nx
+    from snag_tpu_torch.ops.cuda import rank_eval as rk
     from snag_tpu_torch.ops.cuda import snag_loss as sl
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
@@ -65,9 +77,41 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
     out = {"root": args.root, "package": str(Path(nx.__file__).parents[2]),
-           "card": card, "mixture_grad": {}, "ntxent_grad": {},
-           "mixture_lse": {}, "ntxent_lse": {}}
+           "card": card}
+    out.update(loss_records(cs, nx, sl))
+    out["rank"] = rank_records(cs, rk)
 
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    if args.against:
+        other = json.loads(Path(args.against).read_text())
+        same = True
+        for kind in SECTIONS:
+            for label, rec in out.get(kind, {}).items():
+                if "sha256" not in rec:
+                    continue
+                theirs = other.get(kind, {}).get(label, {}).get("sha256")
+                ok = rec["sha256"] == theirs
+                same &= ok
+                verdict = ("bit-identical" if ok else
+                           "MISSING in" if theirs is None else "DIFFERENT")
+                print(f"{kind} {label}: {verdict} to {other['root']}")
+        if not same:
+            return 1
+    return 0
+
+
+SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
+            "rank")
+
+
+def loss_records(cs, nx, sl):
+    import torch
+    out = {"mixture_grad": {}, "ntxent_grad": {}, "mixture_lse": {},
+           "ntxent_lse": {}}
     for i, (label, m, b, d, n_valid) in enumerate(cs.MIXTURE_SHAPES):
         z, alpha, beta, v, coef = cs._mixture_inputs(m, b, d, n_valid,
                                                      cs.SEED + i)
@@ -97,22 +141,48 @@ def main() -> int:
         out["ntxent_grad"][label] = {"sha256": digest(dz), "ms": ms}
         del z, v, coef, lse, dz
         torch.cuda.empty_cache()
+    return out
 
-    line = json.dumps(out)
-    print(line)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
-    if args.against:
-        other = json.loads(Path(args.against).read_text())
-        for label, rec in out["mixture_grad"].items():
-            same = rec["sha256"] == other["mixture_grad"][label]["sha256"]
-            print(f"mixture_grad {label}: "
-                  f"{'bit-identical' if same else 'DIFFERENT'} to "
-                  f"{other['root']}")
-            if not same:
-                return 1
-    return 0
+
+def rank_records(cs, rk, n=10500, d=1200):
+    """Both sweeps at the bench's eval shape, in the calls of ``two_sweeps``
+    (each direction's CSLS terms from its own sweep A)."""
+    import torch
+    x, y = cs._eval_inputs(n, d)
+    xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
+    out = {}
+
+    def record(label, fn):
+        got = [t for t in fn() if t is not None]
+        out[label] = {"sha256": digest(*got), "ms": cs.median_ms(fn)}
+        return got
+
+    mean_l, diag_l = record("A l2r k3", lambda: rk.topk_mean_cuda(
+        x, y, xn, yn, 3))
+    mean_r, diag_r = record("A r2l k3", lambda: rk.topk_mean_cuda(
+        y, x, yn, xn, 3))
+    _, diag_1 = record("A l2r k1", lambda: rk.topk_mean_cuda(x, y, xn, yn, 1))
+    record("B l2r csls top3", lambda: rk.rank_counts_cuda(
+        x, y, xn, yn, mean_l, mean_r, diag_l, True))
+    record("B r2l csls", lambda: rk.rank_counts_cuda(
+        y, x, yn, xn, mean_r, mean_l, diag_r, False))
+    record("B l2r", lambda: rk.rank_counts_cuda(
+        x, y, xn, yn, None, None, diag_1, False))
+    if hasattr(rk, "topk_mean_both_cuda"):
+        # both directions in one launch must give the bits above: their
+        # digests go under the labels they reproduce
+        both = {"A both k3": (lambda: rk.topk_mean_both_cuda(
+                    x, y, xn, yn, 3), ("A l2r k3", (0, 1)), ("A r2l k3", (2, 1))),
+                "B both csls top3": (lambda: rk.rank_counts_both_cuda(
+                    x, y, xn, yn, mean_l, mean_r, diag_l, True),
+                    ("B l2r csls top3", (0, 1)), ("B r2l csls", (2,)))}
+        for label, (fn, *parts) in both.items():
+            got = fn()
+            out[label] = {"ms": cs.median_ms(fn)}
+            for name, idx in parts:
+                if digest(*[got[i] for i in idx]) != out[name]["sha256"]:
+                    raise AssertionError(f"{label} differs from {name}")
+    return out
 
 
 if __name__ == "__main__":

@@ -13,35 +13,57 @@
 //     rank semantics), plus an optional running top-3 of column ids with
 //     ties going to the lowest id.
 //
-// What bounds it on the H100: arithmetic.  One sweep is 2*N^2*d flops
-// (2.6e11 at N = 10,500, d = 1200) and the slice runs four, against
-// O(N*d) bytes read per block from L2.  TF32 and tensor cores would
-// change ranks, so this first version is a plain fp32 SIMT tile product
-// (tile_dot.cuh): each block owns BM query rows and
-// walks every column tile, staging (BM x BK) and (BN x BK) slices in shared
-// memory, two stages deep (the next slice is fetched into registers while
-// the current one is multiplied).  Each thread holds a TM x TN register
-// tile and the per-row state (top-k lists, counts, top-3) for its TM
-// rows, merged across the row's 16 threads with warp shuffles at the end.
-// The ragged edge is masked in-kernel; N is not padded.
+// What bounds it on the H100: fp32 arithmetic, 2 N^2 d flops a sweep
+// (2.6e11 at N = 10,500, d = 1,200; 3.9 ms at 67 TFLOP/s).  Both sweeps
+// run the pipelined tile product of rank_tile.cuh (96 x 256 block tiles,
+// a 4 x 16 register tile a thread, a 4-slot cp.async ring); this file
+// holds their epilogues, the per-row state and the merges.  A block owns
+// 96 rows and one column split (a run of whole column tiles); each thread
+// keeps the state of its 4 rows over its 16 columns of every tile, merges
+// it across the row's 16 threads with warp shuffles at the end, and
+// writes the block's partial to scratch, one slot per (split, row): no
+// atomics.  A second kernel merges the splits' partials in split order.
+// The diagonal is written by the one block whose split holds it.  Sweep
+// A's list is sized to k (K = 1, 3 or MAX_K).
 //
+// Both directions in one launch: the distance of y_j to x_i is the
+// distance of x_i to y_j to the bit (fmaf and the norms' sum commute), so
+// one pass over x y^T also yields the reverse direction's sweep, its
+// per-column state reduced over the block's rows in shared memory and
+// written per (row tile, column), then merged in row-tile order.  The
+// evaluation does its four sweeps' work in two launches; a caller that
+// wants one direction reads the row outputs.
+
 // Rank exactness: both sweeps compute every distance through the same
-// tile_dot/sq_dist code, one fmaf per k in ascending k, and sweep B
-// derives d_true in-kernel from sweep A's diagonal with the same
-// csls_dist.  The gold column's distance in sweep B is therefore
+// tile product and sq_dist, one fmaf per k in ascending k (rank_tile.cuh),
+// and sweep B derives d_true in-kernel from sweep A's diagonal with the
+// same csls_dist.  The gold column's distance in sweep B is therefore
 // bit-identical to d_true, so the gold cannot beat or tie itself.  The
-// epilogue uses __f*_rn intrinsics so no contraction reorders it.
+// epilogue uses __f*_rn intrinsics so no contraction reorders it.  A top-k
+// of values, integer counts, and a top-3 under the total order (value,
+// then lower id) do not depend on the order of the merge, so every output
+// is the same bits for any tiling or number of splits.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
 #include <stdint.h>
 
-#include "tile_dot.cuh"
+#include "rank_tile.cuh"
 
 namespace {
 
+using rank::BM;
+using rank::BN;
+using rank::TM;
+using rank::TN;
+using rank::TX;
+using rank::THREADS;
+using rank::SMEM_BYTES;
+using rank::tile_col;
+
 constexpr int MAX_K = 10;
+constexpr int PART_B = 8;  // ints of one sweep-B partial: 2 counts, 3 + 3 top-3
 
 // max(|x|^2 + |y|^2 - 2 x.y, 0) in the op order of
 // snag_tpu/eval/ranking.py::pairwise_distances.
@@ -56,11 +78,12 @@ __device__ __forceinline__ float csls_dist(float dist, float r_row, float r_col)
   return __fsub_rn(1.0f, __fsub_rn(__fsub_rn(__fmul_rn(2.0f, s), r_row), r_col));
 }
 
-// Keep v[] as the MAX_K largest values seen, descending.
-__device__ __forceinline__ void insert_topk(float (&v)[MAX_K], float x) {
-  if (!(x > v[MAX_K - 1])) return;
+// Keep v[] as the K largest values seen, descending.
+template <int K>
+__device__ __forceinline__ void insert_topk(float (&v)[K], float x) {
+  if (!(x > v[K - 1])) return;
 #pragma unroll
-  for (int q = 0; q < MAX_K; ++q) {
+  for (int q = 0; q < K; ++q) {
     if (x > v[q]) {
       const float t = v[q];
       v[q] = x;
@@ -90,84 +113,156 @@ __device__ __forceinline__ void insert_top3(float (&v)[3], int (&id)[3],
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-topk_mean_kernel(const float* __restrict__ x, const float* __restrict__ y,
+// Block b of the grid: row tile b / S, split b % S (the splits of a row
+// tile run side by side, so they share its x rows in L2).
+struct Place {
+  int row_tile, row0, split, t0, t1;
+};
+
+__device__ __forceinline__ Place place(int n, int splits) {
+  Place p;
+  p.row_tile = blockIdx.x / splits;
+  p.row0 = p.row_tile * BM;
+  p.split = blockIdx.x % splits;
+  rank::split_tiles(p.split, splits, (n + BN - 1) / BN, p.t0, p.t1);
+  return p;
+}
+
+// Sweep A over one split: part[(split * n + row) * K + q], the split's
+// top-K similarities of each row, descending; diag[row] where the split
+// holds column row.  Also the other direction from the same products
+// (y_j . x_i is x_i . y_j to the bit, and so is its distance):
+// col_part[(row tile * n + col) * K + q], the top-K similarities of each
+// column over the block's rows, through a (BM x BN) tile of them in
+// shared memory.
+template <int K>
+__global__ void __launch_bounds__(THREADS, 1)
+topk_mean_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
                  const float* __restrict__ xn, const float* __restrict__ yn,
-                 float* __restrict__ mean, float* __restrict__ diag, int n,
-                 int d, int k) {
-  __shared__ __align__(16) Smem sm;
+                 float* __restrict__ part, float* __restrict__ diag,
+                 float* __restrict__ col_part, int n, int d, int ld,
+                 int splits) {
+  extern __shared__ __align__(16) float smem[];
+  float* sims = smem + SMEM_BYTES / 4;  // BM x BN similarities
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
-  const int row0 = blockIdx.x * BM;
+  const Place p = place(n, splits);
 
   float xr[TM];
-  float top[TM][MAX_K];
+  float top[TM][K];
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
-    const int gr = row0 + ty * TM + r;
+    const int gr = p.row0 + ty * TM + r;
     xr[r] = gr < n ? xn[gr] : 0.f;
 #pragma unroll
-    for (int q = 0; q < MAX_K; ++q) top[r][q] = -INFINITY;
+    for (int q = 0; q < K; ++q) top[r][q] = -INFINITY;
   }
 
-  for (int col0 = 0; col0 < n; col0 += BN) {
-    float acc[TM][TN];
-    tile_dot<VEC>(x, y, n, d, row0, col0, sm, acc);
+  rank::sweep_tiles<1>(
+      xt, yt, n, d, ld, p.row0, p.t0, p.t1, smem,
+      [&](int gc, float (&v)[1]) { v[0] = yn[gc]; },
+      [&](const float (&acc)[TM][TN], int col0, const float* cv) {
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
-      const int gc = col0 + tile_col(tx, c);
+      const int tc = tile_col(tx, c);
+      const int gc = col0 + tc;
       if (gc >= n) continue;
-      const float yc = yn[gc];
+      const float yc = cv[tc];
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
-        const int gr = row0 + ty * TM + r;
+        const int gr = p.row0 + ty * TM + r;
         const float dist = sq_dist(xr[r], yc, acc[r][c]);
-        insert_topk(top[r], __fsub_rn(1.0f, dist));
+        const float sim = __fsub_rn(1.0f, dist);
+        insert_topk<K>(top[r], sim);
         if (gr == gc) diag[gr] = dist;
+        sims[(ty * TM + r) * BN + tc] = sim;
       }
     }
-  }
+    __syncthreads();
+    const int gc = col0 + threadIdx.x;
+    if (threadIdx.x < BN && gc < n) {
+      float ctop[K];
+#pragma unroll
+      for (int q = 0; q < K; ++q) ctop[q] = -INFINITY;
+      const int rows = min(BM, n - p.row0);
+      for (int r = 0; r < rows; ++r)
+        insert_topk<K>(ctop, sims[r * BN + threadIdx.x]);
+      float* out = col_part + ((size_t)p.row_tile * n + gc) * K;
+#pragma unroll
+      for (int q = 0; q < K; ++q) out[q] = ctop[q];
+    }
+  });
 
   // merge the row's TX partial lists (lanes of one half-warp)
 #pragma unroll
   for (int off = TX / 2; off >= 1; off >>= 1) {
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      float theirs[MAX_K];
+      float theirs[K];
 #pragma unroll
-      for (int q = 0; q < MAX_K; ++q)
+      for (int q = 0; q < K; ++q)
         theirs[q] = __shfl_xor_sync(0xffffffffu, top[r][q], off);
 #pragma unroll
-      for (int q = 0; q < MAX_K; ++q) insert_topk(top[r], theirs[q]);
+      for (int q = 0; q < K; ++q) insert_topk<K>(top[r], theirs[q]);
     }
   }
 
   if (tx == 0) {
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      const int gr = row0 + ty * TM + r;
+      const int gr = p.row0 + ty * TM + r;
       if (gr >= n) continue;
-      float sum = 0.f;
+      float* out = part + ((size_t)p.split * n + gr) * K;
 #pragma unroll
-      for (int q = 0; q < MAX_K; ++q)
-        if (q < k) sum = __fadd_rn(sum, top[r][q]);
-      mean[gr] = __fdiv_rn(sum, (float)k);
+      for (int q = 0; q < K; ++q) out[q] = top[r][q];
     }
   }
 }
 
-template <bool VEC, bool CSLS, bool TOP3>
-__global__ void __launch_bounds__(THREADS)
-ranks_kernel(const float* __restrict__ x, const float* __restrict__ y,
+// Merge sweep A's partials in order: mean[row] = the mean of the row's
+// top-k, summed in descending order from 0, over the `parts` partials
+// part[(s * n + row) * K + q].
+template <int K>
+__global__ void topk_merge_kernel(const float* __restrict__ part,
+                                  float* __restrict__ mean, int n, int k,
+                                  int parts) {
+  const int gr = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gr >= n) return;
+  float top[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) top[q] = -INFINITY;
+  for (int s = 0; s < parts; ++s) {
+    const float* in = part + ((size_t)s * n + gr) * K;
+#pragma unroll
+    for (int q = 0; q < K; ++q) insert_topk<K>(top, in[q]);
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int q = 0; q < K; ++q)
+    if (q < k) sum = __fadd_rn(sum, top[q]);
+  mean[gr] = __fdiv_rn(sum, (float)k);
+}
+
+// Sweep B over one split: part[(split * n + row) * PART_B + ...] = the
+// split's two counts, then (with TOP3) its top-3 values (as bits) and ids.
+// Also the other direction's counts from the same products:
+// column j as the query, CSLS 1 - ((2s - rr[j]) - rl[i]) against its own
+// gold distance, col_part[(row tile * n + j) * 2 + ...] over the block's
+// rows, added in shared memory with integer atomics (order-free).
+template <bool CSLS, bool TOP3>
+__global__ void __launch_bounds__(THREADS, 1)
+ranks_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
              const float* __restrict__ xn, const float* __restrict__ yn,
              const float* __restrict__ rl, const float* __restrict__ rr,
-             const float* __restrict__ diag, int* __restrict__ counts,
-             int* __restrict__ top3, int n, int d) {
-  __shared__ __align__(16) Smem sm;
+             const float* __restrict__ diag, int* __restrict__ part,
+             int* __restrict__ col_part, int n, int d, int ld, int splits) {
+  extern __shared__ __align__(16) float smem[];
+  int* col_counts = reinterpret_cast<int*>(smem + SMEM_BYTES / 4);  // 2 x BN
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
-  const int row0 = blockIdx.x * BM;
+  const Place p = place(n, splits);
+  // read first after the sweep's first barrier
+  for (int i = threadIdx.x; i < 2 * BN; i += THREADS) col_counts[i] = 0;
 
   float xr[TM], rrow[TM], dtrue[TM];
   int smaller[TM], tied[TM];
@@ -175,7 +270,7 @@ ranks_kernel(const float* __restrict__ x, const float* __restrict__ y,
   int ti[TM][3];
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
-    const int gr = row0 + ty * TM + r;
+    const int gr = p.row0 + ty * TM + r;
     const bool ok = gr < n;
     xr[r] = ok ? xn[gr] : 0.f;
     rrow[r] = (CSLS && ok) ? rl[gr] : 0.f;
@@ -189,26 +284,59 @@ ranks_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
   }
 
-  for (int col0 = 0; col0 < n; col0 += BN) {
-    float acc[TM][TN];
-    tile_dot<VEC>(x, y, n, d, row0, col0, sm, acc);
+  // per column: yn, rr, and the column's own gold distance
+  rank::sweep_tiles<3>(
+      xt, yt, n, d, ld, p.row0, p.t0, p.t1, smem,
+      [&](int gc, float (&v)[3]) {
+        v[0] = yn[gc];
+        if (CSLS) v[1] = rr[gc];
+        v[2] = CSLS ? csls_dist(diag[gc], rr[gc], rl[gc]) : diag[gc];
+      },
+      [&](const float (&acc)[TM][TN], int col0, const float* cv) {
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
-      const int gc = col0 + tile_col(tx, c);
-      if (gc >= n) continue;
-      const float yc = yn[gc];
-      const float rcol = CSLS ? rr[gc] : 0.f;
+      const int tc = tile_col(tx, c);
+      const int gc = col0 + tc;
+      const bool col_ok = gc < n;
+      const float yc = cv[tc];
+      const float rcol = CSLS ? cv[BN + tc] : 0.f;
+      const float dt_col = cv[2 * BN + tc];
+      int c_smaller = 0, c_tied = 0;
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
-        const int gr = row0 + ty * TM + r;
+        const int gr = p.row0 + ty * TM + r;
         const float dm = sq_dist(xr[r], yc, acc[r][c]);
-        const float dist = CSLS ? csls_dist(dm, rrow[r], rcol) : dm;
-        smaller[r] += (gc != gr && dist < dtrue[r]) ? 1 : 0;
-        tied[r] += (gc < gr && dist == dtrue[r]) ? 1 : 0;
-        if (TOP3) insert_top3(tv[r], ti[r], -dist, gc);
+        if (col_ok) {
+          const float dist = CSLS ? csls_dist(dm, rrow[r], rcol) : dm;
+          smaller[r] += (gc != gr && dist < dtrue[r]) ? 1 : 0;
+          tied[r] += (gc < gr && dist == dtrue[r]) ? 1 : 0;
+          if (TOP3) insert_top3(tv[r], ti[r], -dist, gc);
+        }
+        const float dc = CSLS ? csls_dist(dm, rcol, rrow[r]) : dm;
+        c_smaller += (gr < n && gr != gc && dc < dt_col) ? 1 : 0;
+        c_tied += (gr < gc && dc == dt_col) ? 1 : 0;
+      }
+      // the warp's two row groups share these columns
+      c_smaller += __shfl_xor_sync(0xffffffffu, c_smaller, TX);
+      c_tied += __shfl_xor_sync(0xffffffffu, c_tied, TX);
+      if (ty % 2 == 0 && col_ok) {
+        atomicAdd(&col_counts[tc], c_smaller);
+        atomicAdd(&col_counts[BN + tc], c_tied);
       }
     }
-  }
+    __syncthreads();
+    if (threadIdx.x < BN) {
+      const int gc = col0 + threadIdx.x;
+      if (gc < n) {
+        int* out = col_part + ((size_t)p.row_tile * n + gc) * 2;
+        out[0] = col_counts[threadIdx.x];
+        out[1] = col_counts[BN + threadIdx.x];
+      }
+      // the next tile's atomics come after the next slice's barrier
+      col_counts[threadIdx.x] = 0;
+      col_counts[BN + threadIdx.x] = 0;
+    }
+  });
 
 #pragma unroll
   for (int off = TX / 2; off >= 1; off >>= 1) {
@@ -233,39 +361,129 @@ ranks_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (tx == 0) {
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      const int gr = row0 + ty * TM + r;
+      const int gr = p.row0 + ty * TM + r;
       if (gr >= n) continue;
-      counts[(size_t)gr * 2] = smaller[r];
-      counts[(size_t)gr * 2 + 1] = tied[r];
+      int* out = part + ((size_t)p.split * n + gr) * PART_B;
+      out[0] = smaller[r];
+      out[1] = tied[r];
       if (TOP3) {
 #pragma unroll
-        for (int q = 0; q < 3; ++q) top3[(size_t)gr * 3 + q] = ti[r][q];
+        for (int q = 0; q < 3; ++q) {
+          out[2 + q] = __float_as_int(tv[r][q]);
+          out[5 + q] = ti[r][q];
+        }
       }
     }
   }
 }
 
-// float4 loads need 16-byte aligned rows
-bool vec_ok(const float* x, const float* y, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(y) % 16 == 0;
+// Merge sweep B's partials in order: counts (n, 2) and (with TOP3) top3
+// (n, 3) over the `parts` partials part[(s * n + row) * STRIDE + ...].
+template <bool TOP3, int STRIDE>
+__global__ void ranks_merge_kernel(const int* __restrict__ part,
+                                   int* __restrict__ counts,
+                                   int* __restrict__ top3, int n, int parts) {
+  const int gr = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gr >= n) return;
+  int smaller = 0, tied = 0;
+  float tv[3] = {-INFINITY, -INFINITY, -INFINITY};
+  int ti[3] = {INT_MAX, INT_MAX, INT_MAX};
+  for (int s = 0; s < parts; ++s) {
+    const int* in = part + ((size_t)s * n + gr) * STRIDE;
+    smaller += in[0];
+    tied += in[1];
+    if (TOP3) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        insert_top3(tv, ti, __int_as_float(in[2 + q]), in[5 + q]);
+    }
+  }
+  counts[(size_t)gr * 2] = smaller;
+  counts[(size_t)gr * 2 + 1] = tied;
+  if (TOP3) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) top3[(size_t)gr * 3 + q] = ti[q];
+  }
+}
+
+constexpr int MERGE_THREADS = 256;
+
+int merge_blocks(int n) { return (n + MERGE_THREADS - 1) / MERGE_THREADS; }
+
+int row_tiles(int n) { return (n + BM - 1) / BM; }
+
+// Dynamic shared memory of a block of sweep A / B: the product's, then
+// the other direction's room.
+constexpr int SMEM_A = SMEM_BYTES + BM * BN * 4;
+constexpr int SMEM_B = SMEM_BYTES + 2 * BN * 4;
+
+// The wrapper's contract: xt, yt (d, ld) with 4 | ld, ld >= n, zeros in
+// columns n .. ld-1, 16-byte aligned; 1 <= splits <= the column tiles.
+bool bad_shape(const float* xt, const float* yt, int n, int d, int ld,
+               int splits) {
+  return n <= 0 || d <= 0 || ld < n || ld % 4 != 0 || splits < 1 ||
+         splits > (n + BN - 1) / BN ||
+         reinterpret_cast<uintptr_t>(xt) % 16 != 0 ||
+         reinterpret_cast<uintptr_t>(yt) % 16 != 0;
+}
+
+// Lets a sweep kernel take `bytes` (> 48 KB) of dynamic shared memory on
+// the current device.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Resident blocks per SM of a sweep kernel, or minus a CUDA error.
+template <class Kernel>
+int occupancy(Kernel kernel, int bytes) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, bytes);
+  return err != cudaSuccess ? -static_cast<int>(err) : blocks;
+}
+
+// Sweep A's list length for k: 1, 3 or MAX_K.
+int list_len(int k) { return k == 1 ? 1 : (k <= 3 ? 3 : MAX_K); }
+
+template <int K>
+int launch_topk(const float* xt, const float* yt, const float* xn,
+                const float* yn, float* part, float* mean, float* diag,
+                float* col_part, float* mean_cols, int n, int d, int ld,
+                int k, int splits, cudaStream_t s) {
+  cudaError_t err = allow_smem(topk_mean_kernel<K>, SMEM_A);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_mean_kernel<K><<<row_tiles(n) * splits, THREADS, SMEM_A, s>>>(
+      xt, yt, xn, yn, part, diag, col_part, n, d, ld, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_merge_kernel<K><<<merge_blocks(n), MERGE_THREADS, 0, s>>>(
+      part, mean, n, k, splits);
+  topk_merge_kernel<K><<<merge_blocks(n), MERGE_THREADS, 0, s>>>(
+      col_part, mean_cols, n, k, row_tiles(n));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool CSLS, bool TOP3>
-void launch_ranks(bool vec, int blocks, cudaStream_t s, const float* x,
-                  const float* y, const float* xn, const float* yn,
-                  const float* rl, const float* rr, const float* diag,
-                  int* counts, int* top3, int n, int d) {
-  if (vec)
-    ranks_kernel<true, CSLS, TOP3><<<blocks, THREADS, 0, s>>>(
-        x, y, xn, yn, rl, rr, diag, counts, top3, n, d);
-  else
-    ranks_kernel<false, CSLS, TOP3><<<blocks, THREADS, 0, s>>>(
-        x, y, xn, yn, rl, rr, diag, counts, top3, n, d);
-}
-
-int check_shape(int n, int d) {
-  return (n <= 0 || d <= 0) ? static_cast<int>(cudaErrorInvalidValue) : 0;
+int launch_ranks(const float* xt, const float* yt, const float* xn,
+                 const float* yn, const float* rl, const float* rr,
+                 const float* diag, int* part, int* counts, int* top3,
+                 int* col_part, int* counts_cols, int n, int d, int ld,
+                 int splits, cudaStream_t s) {
+  cudaError_t err = allow_smem(ranks_kernel<CSLS, TOP3>, SMEM_B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ranks_kernel<CSLS, TOP3><<<row_tiles(n) * splits, THREADS, SMEM_B, s>>>(
+      xt, yt, xn, yn, rl, rr, diag, part, col_part, n, d, ld, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ranks_merge_kernel<TOP3, PART_B><<<merge_blocks(n), MERGE_THREADS, 0, s>>>(
+      part, counts, top3, n, splits);
+  ranks_merge_kernel<false, 2><<<merge_blocks(n), MERGE_THREADS, 0, s>>>(
+      col_part, counts_cols, nullptr, n, row_tiles(n));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -276,42 +494,69 @@ const char* snag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Sweep A.  x, y (n, d); xn, yn (n,) squared row norms; writes mean (n,)
-// and diag (n,) in full.
-int rank_topk_mean(const float* x, const float* y, const float* xn,
-                   const float* yn, float* mean, float* diag, int n, int d,
-                   int k, void* stream) {
-  if (check_shape(n, d) || k < 1 || k > MAX_K || k > n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + BM - 1) / BM;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(x, y, d))
-    topk_mean_kernel<true><<<blocks, THREADS, 0, s>>>(x, y, xn, yn, mean, diag, n, d, k);
-  else
-    topk_mean_kernel<false><<<blocks, THREADS, 0, s>>>(x, y, xn, yn, mean, diag, n, d, k);
-  return static_cast<int>(cudaGetLastError());
+// Resident blocks per SM of a sweep's kernel on the current device:
+// sweep 0 is A with list length list_len(key = k), sweep 1 is B with
+// flags (use_csls, with_top3) = (key & 1, key & 2).  A negative value is
+// a CUDA error.
+int rank_blocks_per_sm(int sweep, int key) {
+  if (sweep == 0) {
+    switch (list_len(key)) {
+      case 1: return occupancy(topk_mean_kernel<1>, SMEM_A);
+      case 3: return occupancy(topk_mean_kernel<3>, SMEM_A);
+      default: return occupancy(topk_mean_kernel<MAX_K>, SMEM_A);
+    }
+  }
+  switch (key & 3) {
+    case 0: return occupancy(ranks_kernel<false, false>, SMEM_B);
+    case 1: return occupancy(ranks_kernel<true, false>, SMEM_B);
+    case 2: return occupancy(ranks_kernel<false, true>, SMEM_B);
+    default: return occupancy(ranks_kernel<true, true>, SMEM_B);
+  }
 }
 
-// Sweep B.  rl, rr (n,) CSLS terms (read only when use_csls); diag (n,)
-// from sweep A of the same direction; writes counts (n, 2) and, when
-// with_top3, top3 (n, 3).
-int rank_counts(const float* x, const float* y, const float* xn,
-                const float* yn, const float* rl, const float* rr,
-                const float* diag, int* counts, int* top3, int n, int d,
-                int use_csls, int with_top3, void* stream) {
-  if (check_shape(n, d) || (with_top3 && n < 3))
+// Dynamic shared memory of a block of sweep A (0) or B (1).
+int rank_smem_bytes(int sweep) { return sweep == 0 ? SMEM_A : SMEM_B; }
+
+// Sweep A in both directions.  xt, yt (d, ld): x and y transposed (the
+// wrapper's contract, bad_shape); xn, yn (n,) squared row norms; part
+// (splits, n, list_len(k)) and col_part (row tiles, n, list_len(k))
+// scratch; writes mean (n,) and diag (n,), and mean_cols (n,), the means
+// of sweep A on (y, x).
+int rank_topk_mean(const float* xt, const float* yt, const float* xn,
+                   const float* yn, float* part, float* mean, float* diag,
+                   float* col_part, float* mean_cols, int n, int d, int ld,
+                   int k, int splits, void* stream) {
+  if (bad_shape(xt, yt, n, d, ld, splits) || k < 1 || k > MAX_K || k > n ||
+      !col_part || !mean_cols)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + BM - 1) / BM;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = vec_ok(x, y, d);
-  if (use_csls) {
-    if (with_top3) launch_ranks<true, true>(vec, blocks, s, x, y, xn, yn, rl, rr, diag, counts, top3, n, d);
-    else launch_ranks<true, false>(vec, blocks, s, x, y, xn, yn, rl, rr, diag, counts, top3, n, d);
-  } else {
-    if (with_top3) launch_ranks<false, true>(vec, blocks, s, x, y, xn, yn, rl, rr, diag, counts, top3, n, d);
-    else launch_ranks<false, false>(vec, blocks, s, x, y, xn, yn, rl, rr, diag, counts, top3, n, d);
+  switch (list_len(k)) {
+    case 1: return launch_topk<1>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
+    case 3: return launch_topk<3>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
+    default: return launch_topk<MAX_K>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Sweep B in both directions.  rl, rr (n,) CSLS terms (read only when
+// use_csls); diag (n,) from sweep A; part (splits, n, PART_B) and col_part
+// (row tiles, n, 2) scratch; writes counts (n, 2) and, when with_top3,
+// top3 (n, 3), and counts_cols (n, 2), the counts of sweep B on (y, x)
+// with rr and rl swapped.
+int rank_counts(const float* xt, const float* yt, const float* xn,
+                const float* yn, const float* rl, const float* rr,
+                const float* diag, int* part, int* counts, int* top3,
+                int* col_part, int* counts_cols, int n, int d, int ld,
+                int use_csls, int with_top3, int splits, void* stream) {
+  if (bad_shape(xt, yt, n, d, ld, splits) || (with_top3 && n < 3) ||
+      !col_part || !counts_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_csls) {
+    if (with_top3) return launch_ranks<true, true>(xt, yt, xn, yn, rl, rr, diag, part, counts, top3, col_part, counts_cols, n, d, ld, splits, s);
+    return launch_ranks<true, false>(xt, yt, xn, yn, rl, rr, diag, part, counts, top3, col_part, counts_cols, n, d, ld, splits, s);
+  }
+  if (with_top3) return launch_ranks<false, true>(xt, yt, xn, yn, rl, rr, diag, part, counts, top3, col_part, counts_cols, n, d, ld, splits, s);
+  return launch_ranks<false, false>(xt, yt, xn, yn, rl, rr, diag, part, counts, top3, col_part, counts_cols, n, d, ld, splits, s);
 }
 
 }  // extern "C"

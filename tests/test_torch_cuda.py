@@ -16,7 +16,8 @@ sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
 atol = 1e-5.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
 may flip: ranks must agree on >= 99 % of queries; tie rules are checked on
-the kernel's own exact ties.
+the kernel's own exact ties; two runs, and runs with any number of column
+splits, give the same bits.
 """
 
 import numpy as np
@@ -346,3 +347,75 @@ def test_rank_kernel_tie_rules(dev):
         row = top3[9].tolist()
         if 9 in row:
             assert 5 in row and row.index(5) < row.index(9)
+
+
+# the sweeps' tiles (rank_tile.cuh): 96 rows, 256 columns, depth slices of
+# 16.  Every n is ragged in rows and columns; d = 19 (d % 4 != 0) and 20,
+# 36 (not multiples of 16) end in a partial slice; n = 3,000 takes 4
+# splits on the H100, n = 300 two.  Bits must not depend on the splits.
+@pytest.mark.parametrize("n,d", [(300, 19), (1000, 20), (600, 300),
+                                 (777, 1200), (3000, 36)])
+@pytest.mark.parametrize("k", [1, 3, 10])
+def test_rank_sweeps_bitwise_across_splits_and_repeats(dev, n, d, k):
+    """Every split and every repeat gives the same bits, and a launch's
+    column direction gives the bits of the row direction of the launch on
+    (y, x)."""
+    x, y = _embs(dev, n, d, seed=n + d)
+    xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
+    col_tiles = rk.device_plan(dev, n, d, 0, k)["col_tiles"]
+    operands = rk.kernel_operands(x, y)
+    mean, diag, mean_cols = rk.topk_mean_both_cuda(x, y, xn, yn, k,
+                                                   operands=operands)
+    torch.cuda.synchronize()
+    want = rk.topk_mean_both_twin(x, y, xn, yn, k)
+    for got_, want_ in zip((mean, diag, mean_cols), want):
+        torch.testing.assert_close(got_, want_, rtol=1e-5, atol=1e-5)
+    for splits in (None, 1, col_tiles):
+        again = rk.topk_mean_both_cuda(x, y, xn, yn, k, splits=splits)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(again, (mean, diag, mean_cols)))
+    rr, diag_rl = rk.topk_mean_cuda(y, x, yn, xn, k)
+    assert torch.equal(mean_cols, rr) and torch.equal(diag_rl, diag)
+    assert torch.equal(rk.topk_mean_cuda(x, y, xn, yn, k)[0], mean)
+    for rl_, rr_ in ((mean, rr), (None, None)):
+        c_l, t_l, c_r = rk.rank_counts_both_cuda(x, y, xn, yn, rl_, rr_, diag,
+                                                 True, operands=operands)
+        want_r = rk.rank_counts_both_twin(x, y, xn, yn, rl_, rr_, diag,
+                                          True)[2]
+        agree = (c_r.sum(dim=1) == want_r.sum(dim=1)).float().mean()
+        assert agree.item() >= 0.99
+        assert torch.equal(c_l, rk.rank_counts_cuda(x, y, xn, yn, rl_, rr_,
+                                                    diag, True)[0])
+        assert torch.equal(t_l, rk.rank_counts_cuda(x, y, xn, yn, rl_, rr_,
+                                                    diag, True)[1])
+        assert torch.equal(c_r, rk.rank_counts_cuda(y, x, yn, xn, rr_, rl_,
+                                                    diag_rl, False)[0])
+    for rl_, rr_ in ((mean, rr), (None, None)):
+        for top3 in (True, False):
+            counts, t3 = rk.rank_counts_cuda(x, y, xn, yn, rl_, rr_, diag,
+                                             top3)
+            torch.cuda.synchronize()
+            want, want_t3 = rk.rank_counts_twin(x, y, xn, yn, rl_, rr_, diag,
+                                                top3)
+            agree = (counts.sum(dim=1) == want.sum(dim=1)).float().mean()
+            assert agree.item() >= 0.99
+            for splits in (None, 1, col_tiles):
+                c2, t2 = rk.rank_counts_cuda(x, y, xn, yn, rl_, rr_, diag,
+                                             top3, splits=splits)
+                assert torch.equal(c2, counts)
+                assert (t2 is None) == (not top3)
+                if top3:
+                    assert torch.equal(t2, t3)
+                    assert (t3 == want_t3).all(dim=1).float().mean() >= 0.99
+
+
+def test_rank_plan_on_the_card(dev):
+    """The plan from the card's SM count and the kernels' occupancy: one
+    or two blocks per SM, whole column tiles per split, a full last wave
+    at the bench shape."""
+    for sweep, key in ((0, 1), (0, 3), (0, 10), (1, 0), (1, 3)):
+        p = rk.device_plan(dev, 10500, 1200, sweep, key)
+        assert p["blocks_per_sm"] >= 1 and p["last_wave"] >= 0.9, p
+        assert p["blocks"] == 110 * p["splits"]
+    with pytest.raises(ValueError, match="column tiles"):
+        rk.device_plan(dev, 300, 8, 0, 3, splits=3)

@@ -24,7 +24,9 @@ the exit code is non-zero:
    for the rank sweeps (``csrc/rank_tile.cuh``), each launch over both
    directions as the evaluation runs it, the same, their registers and
    spills, and a column direction that must give the bits of the row
-   direction of the launch on (y, x);
+   direction of the launch on (y, x); for the two GAT kernels (a warp per
+   CSR row) a bitwise repeat, the GB/s of the rows they gather, and the
+   registers and spills of the instantiations at C = 300 and 1,200;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -225,19 +227,80 @@ def phase_build():
             say("build", f"  {ln}")
 
 
-def phase_gat(graph_np):
+def gat_inputs(graph_np, c=300, h=2):
+    """The bench graph on the card and seeded (x, s_src, s_dst) of the GAT
+    forward; ``scripts/torch_grad_ab.py`` times the kernel on these."""
     import numpy as np
     import torch
-    from snag_tpu_torch.ops.cuda import gat_attention as ga
-    n, c, h = graph_np.n_nodes, 300, 2
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    g = graph_np.to_torch(dev)
-    x = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32), device=dev)
-    s_src = torch.as_tensor(rng.normal(size=(n, h)).astype(np.float32), device=dev)
-    s_dst = torch.as_tensor(rng.normal(size=(n, h)).astype(np.float32), device=dev)
-    agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
+    n = graph_np.n_nodes
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    return (graph_np.to_torch(dev), t(n, c), t(n, h), t(n, h))
+
+
+def gat_bwd_inputs(graph_np, c=300, h=2):
+    """The bench graph on the card and seeded (x, s_src, s_dst, G, r) of
+    the GAT backward."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    dev = torch.device("cuda")
+    n = graph_np.n_nodes
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    return (graph_np.to_torch(dev), t(n, c), t(n, h), t(n, h), t(n, h, c),
+            t(n, h))
+
+
+def repeat_bitwise(fn, what):
+    """fn's outputs, after checking that a second run gives the same bits."""
+    import torch
+    first, again = fn(), fn()
     torch.cuda.synchronize()
+    if not all(a is b or torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{what}: two runs differ")
+    return first
+
+
+def gat_ptxas(lib, kernel):
+    """(name, registers, spill store bytes, spill load bytes) of
+    ``kernel<H = 2, VEC = 4, G>`` at G = 3 (C = 300) and G = 10 (C = 1,200),
+    and of any other entry of ``lib`` whose name holds ``_src_kernel`` (the
+    backward's second pass), from the build's ptxas log."""
+    names = (f"{kernel}ILi2ELi4ELi3E", f"{kernel}ILi2ELi4ELi10E",
+             "_src_kernelILi2E")
+    out = []
+    for entry, regs, st, ld in ptxas_usage(lib.compiler_log, names):
+        m = re.search(r"\d(gat_[a-z_]+?_kernel)I(.*?)EEv", entry)
+        name = (f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)', m.group(2)))}>"
+                if m else entry)
+        out.append((name, regs, st, ld))
+    return out
+
+
+def say_gat_ptxas(phase, lib, kernel):
+    for name, regs, st, ld in gat_ptxas(lib, kernel):
+        say(phase, f"ptxas {name}: {regs} registers, spill stores {st} B, "
+            f"loads {ld} B")
+
+
+def phase_gat(graph_np):
+    """The GAT forward kernel against its index_add_ twin at the slice
+    shapes, rtol = atol = 1e-5, with a bitwise repeat and the rate of its
+    x gathers (E C 4 bytes over the kernel's time)."""
+    import torch
+    from snag_tpu_torch.ops.cuda import gat_attention as ga
+    say_gat_ptxas("gat", ga._library(), "gat_attention_fwd_kernel")
+    g, x, s_src, s_dst = gat_inputs(graph_np)
+    (n, c), h, e = x.shape, s_src.shape[1], g.n_edges
+    agg, rs = repeat_bitwise(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g),
+                             "gat")
     want_agg, want_rs = ga.gat_attention_twin(x, s_src, s_dst, g)
     err_agg = (agg - want_agg).abs().max().item()
     err_rs = (rs - want_rs).abs().max().item()
@@ -245,10 +308,10 @@ def phase_gat(graph_np):
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
     ms = median_ms(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g))
     plain = median_ms(lambda: ga.gat_attention_twin(x, s_src, s_dst, g))
-    say("gat", f"N={n} E={g.n_edges} C={c} H={h}: max|agg err| {err_agg:.3e}"
-        f" max|rowsum err| {err_rs:.3e} (rtol=atol=1e-5) | kernel {ms:.4f} ms"
-        f" twin {plain:.4f} ms")
-    e = g.n_edges
+    say("gat", f"N={n} E={e} C={c} H={h}: max|agg err| {err_agg:.3e}"
+        f" max|rowsum err| {err_rs:.3e} (rtol=atol=1e-5), bitwise repeat |"
+        f" kernel {ms:.4f} ms ({e * c * 4 / ms / 1e6:.1f} GB/s of x rows"
+        f" gathered) twin {plain:.4f} ms")
     return row(ga.STATS.name, max(err_agg, err_rs), ms, plain,
                4 * (n * c + 2 * n * h + n + 1 + e + n * h * c + n * h),
                2 * e * h * (c + 1))
@@ -256,22 +319,16 @@ def phase_gat(graph_np):
 
 def phase_gat_bwd(graph_np):
     """The GAT backward kernel against its index_add_ twin at the slice
-    shapes.  Per-edge dot products over C and the heads are summed in
-    another order: rtol = atol = 1e-4."""
-    import numpy as np
+    shapes, with a bitwise repeat and the rate of its G gathers (E H C 4
+    bytes over the kernel's time).  Per-edge dot products over C and the
+    heads are summed in another order: rtol = atol = 1e-4."""
     import torch
     from snag_tpu_torch.ops.cuda import gat_bwd as gb
-    n, c, h = graph_np.n_nodes, 300, 2
-    rng = np.random.default_rng(SEED + 1)
-    dev = torch.device("cuda")
-    g = graph_np.to_torch(dev)
-
-    def t(*shape):
-        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
-                               device=dev)
-    x, s_src, s_dst, g_agg, g_rs = t(n, c), t(n, h), t(n, h), t(n, h, c), t(n, h)
-    got = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
-    torch.cuda.synchronize()
+    say_gat_ptxas("gat_bwd", gb._library(), "gat_bwd_rows_kernel")
+    g, x, s_src, s_dst, g_agg, g_rs = gat_bwd_inputs(graph_np)
+    (n, c), h, e = x.shape, s_src.shape[1], g.n_edges
+    got = repeat_bitwise(lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg,
+                                                      g_rs, g), "gat_bwd")
     want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
     errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
     for a, b in zip(got, want):
@@ -280,10 +337,11 @@ def phase_gat_bwd(graph_np):
                                                 g_rs, g))
     plain = median_ms(lambda: gb.gat_backward_twin(x, s_src, s_dst, g_agg,
                                                    g_rs, g))
-    say("gat_bwd", f"N={n} E={g.n_edges} C={c} H={h}: max|err| d_x "
+    say("gat_bwd", f"N={n} E={e} C={c} H={h}: max|err| d_x "
         f"{errs[0]:.3e} d_s_src {errs[1]:.3e} d_s_dst {errs[2]:.3e} "
-        f"(rtol=atol=1e-4) | kernel {ms:.4f} ms twin {plain:.4f} ms")
-    e = g.n_edges
+        f"(rtol=atol=1e-4), bitwise repeat | kernel {ms:.4f} ms "
+        f"({e * h * c * 4 / ms / 1e6:.1f} GB/s of G rows gathered) twin "
+        f"{plain:.4f} ms")
     # in: x, s_src, s_dst, G, r, row_ptr, col; out: d_x, d_s_src, d_s_dst
     return row(gb.STATS.name, max(errs), ms, plain,
                4 * (2 * n * c + 5 * n * h + n * h * c + n + 1 + e),
@@ -359,15 +417,8 @@ def phase_rank(n=10500, d=1200, k=3):
                 f"{plan['last_wave']:.3f} full), {plan['smem_bytes']} B "
                 "shared")
 
-    def repeat(fn, what):
-        first, again = fn(), fn()
-        torch.cuda.synchronize()
-        if not all(a is b or torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"{what}: two runs differ")
-        return first
-
     # sweep A, both directions, against its plain version
-    got_a = repeat(lambda: rk.topk_mean_both_cuda(x, y, xn, yn, k), "sweep A")
+    got_a = repeat_bitwise(lambda: rk.topk_mean_both_cuda(x, y, xn, yn, k), "sweep A")
     want_a = rk.topk_mean_both_twin(x, y, xn, yn, k)
     err_a = max((a - b).abs().max().item() for a, b in zip(got_a, want_a))
     for a, b in zip(got_a, want_a):
@@ -381,7 +432,7 @@ def phase_rank(n=10500, d=1200, k=3):
         f" plain {plain_a:.3f} ms")
 
     # sweep B, both directions, fed the same CSLS terms
-    got_b = repeat(lambda: rk.rank_counts_both_cuda(x, y, xn, yn, mean, rr,
+    got_b = repeat_bitwise(lambda: rk.rank_counts_both_cuda(x, y, xn, yn, mean, rr,
                                                     diag, True), "sweep B")
     want_b = rk.rank_counts_both_twin(x, y, xn, yn, mean, rr, diag, True)
     agree_b, err_b = 1.0, 0

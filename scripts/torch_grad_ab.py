@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The loss kernels (both gradients and both lse) and the two rank sweeps
-of a checkout of the PyTorch port, timed and fingerprinted on one NVIDIA
-GPU.
+"""The loss kernels (both gradients and both lse), the two rank sweeps and
+the two GAT kernels of a checkout of the PyTorch port, timed and
+fingerprinted on one NVIDIA GPU.
 
     python3 scripts/torch_grad_ab.py [--root DIR] [--out FILE] [--against FILE]
 
@@ -23,7 +23,14 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   in one launch): their median ms, and it fails unless their outputs have
   the digests of the one-direction records they reproduce.  In a checkout
   whose every launch does both directions, the one-direction calls return
-  the row direction of such a launch and take its time.
+  the row direction of such a launch and take its time;
+* the GAT kernels on the bench graph (``chip_smoke.BENCH_ARGS``: 30,000
+  nodes, 329,862 edges) with ``chip_smoke.gat_inputs`` and
+  ``gat_bwd_inputs`` at C = 300, H = 2 (float4 slices), C = 30, H = 1 and
+  C = 319, H = 2 (single floats): ``gat_attention_cuda`` (sha256 of agg and
+  of rowsum) and ``gat_backward_cuda`` (sha256 of d_x, d_s_src and
+  d_s_dst), each with its median ms, and the registers and spills of the
+  kernels (``chip_smoke.gat_ptxas``) where this process built them.
 
 It prints one JSON line with the card's name and power limit, and writes it
 to FILE.  With ``--against`` it fails unless every digest equals that of
@@ -80,6 +87,7 @@ def main() -> int:
            "card": card}
     out.update(loss_records(cs, nx, sl))
     out["rank"] = rank_records(cs, rk)
+    out.update(gat_records(cs))
 
     line = json.dumps(out)
     print(line)
@@ -105,7 +113,37 @@ def main() -> int:
 
 
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
-            "rank")
+            "rank", "gat_fwd", "gat_bwd")
+
+
+def gat_records(cs):
+    """Both GAT kernels on the bench graph: one digest per output, and the
+    median ms under the shape's label."""
+    from snag_tpu_torch.data.dataset import load_data
+    from snag_tpu_torch.ops.cuda import gat_attention as ga
+    from snag_tpu_torch.ops.cuda import gat_bwd as gb
+    graph = load_data(cs.cfg_from(cs.BENCH_ARGS + ["--device", "cpu"])).graph
+    out = {"gat_fwd": {}, "gat_bwd": {}}
+    for label, c, h in (("C300 H2", 300, 2), ("C30 H1", 30, 1),
+                        ("C319 H2", 319, 2)):
+        fwd_in = cs.gat_inputs(graph, c, h)
+        bwd_in = cs.gat_bwd_inputs(graph, c, h)
+        fwd = (lambda: ga.gat_attention_cuda(*fwd_in[1:], fwd_in[0]),
+               ("agg", "rowsum"), out["gat_fwd"])
+        bwd = (lambda: gb.gat_backward_cuda(*bwd_in[1:], bwd_in[0]),
+               ("d_x", "d_s_src", "d_s_dst"), out["gat_bwd"])
+        for fn, names, rec in (fwd, bwd):
+            for name, t in zip(names, fn()):
+                rec[f"{label} {name}"] = {"sha256": digest(t)}
+            rec[label] = {"ms": cs.median_ms(fn)}
+    out["ptxas"] = {
+        kind: [{"entry": name, "registers": regs, "spill_stores": st,
+                "spill_loads": ld}
+               for name, regs, st, ld in cs.gat_ptxas(lib, kernel)]
+        for kind, lib, kernel in (
+            ("gat_fwd", ga._library(), "gat_attention_fwd_kernel"),
+            ("gat_bwd", gb._library(), "gat_bwd_rows_kernel"))}
+    return out
 
 
 def loss_records(cs, nx, sl):

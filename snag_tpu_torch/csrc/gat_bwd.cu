@@ -12,32 +12,61 @@
 //
 // The edge multiset is symmetric (an undirected graph with self-loops; the
 // wrapper refuses a graph without that flag), so node j's in-edges are its
-// CSR out-edges (j, k) read backwards.  One block per CSR row j therefore
-// produces all three outputs of j with no atomics and a fixed edge order:
-//   reverse edge (row k, col j): score = s_src[k] + s_dst[j], gathering
-//       G[k] and r[k]  ->  d_x[j], d_s_dst[j];
-//   forward edge (row j, col k): score = s_src[j] + s_dst[k], gathering
-//       x[k] and s_dst[k]  ->  d_s_src[j].
+// CSR row (j, k) read backwards, and rev[p] is the position of the reverse
+// of edge p (a self-loop is its own reverse).  Two launches, no atomics:
+//   pass 1, one warp per CSR row j: each edge p = (j, k) of the row is read
+//       as the edge (k, j) = rev[p].  The warp gathers G[k] (and s_src[k],
+//       r[k]), adds e * G[k] into d_x[j] in registers, reduces <x[j], G[k, h]>
+//       across its lanes, and forms that edge's d_score: it goes into
+//       d_s_dst[j] in edge order and to scratch[rev[p]].
+//   pass 2, one thread per row i: d_s_src[i] = sum of scratch over row i in
+//       CSR order.
 // e is recomputed, never stored.
 //
-// What bounds it on the H100: the gathered bytes.  Each edge reads one G row
-// (h*c floats) and one x row (c floats): (h+1)*c*4 bytes, 1.19 GB per layer
-// at the slice geometry (E = 329,862, c = 300, h = 2), mostly from L2.
-// What the design does about it: like the forward, nothing per-edge is
-// materialised; every thread owns a float4 slice of the c features, keeps
-// x[j] and G[j] in registers, and accumulates d_x[j] in registers.  The two
-// per-edge dot products per head are reduced across the block with warp
-// shuffles into shared memory, and one thread per edge turns them into
-// d_score.  The TPU kernel's one-hot dots, packed [G | r | s_src] tables and
-// spill tails are not needed here.
+// What bounds it on the H100: the gathered bytes.  G (n h c floats, 72 MB at
+// the slice geometry: n = 30,000, c = 300, h = 2) and x (36 MB) together do
+// not fit in the 50 MB L2, and the columns of a row are scattered, so most G
+// rows come from HBM.  Each edge needs its G row, h c floats: 0.79 GB per
+// layer at E = 329,862.  Every d_score is computed once, by the row of its
+// column, so nothing else is gathered per edge: no x[k] row (the earlier
+// kernel, one block per row, gathered x[k] as well to compute each d_score a
+// second time, for d_s_src: (h + 1) c floats an edge).  The scratch is E h
+// floats (2.6 MB), written once at scattered positions and read once in
+// order from L2.
+//
+// What the design does about it: a warp owns a row, so a row costs no block
+// barrier, no shared memory and no serial thread.  Lane l owns the float4
+// slices l, l + 32, ..., (G of them, a template parameter): x[j] and d_x[j]
+// stay in registers, and both are streamed past L2 (read or written once) so
+// that L2 keeps G rows.  The column ids and scalars of up to 32 edges are
+// loaded one edge a lane and broadcast by shuffle; the edge weights are
+// computed while the first G rows are in flight.  What sets the rate is the
+// number of rows in flight on an SM, so a lane loads the G rows of one edge
+// at a time and registers stay few (more edges in flight ran slower at C =
+// 300 on an H100: PERF.md, PR 10).  A row of any length is walked by
+// its one warp, 32 edges at a time: a hub row of 10^4 edges runs serially on
+// one warp, slower than the rest of the grid but with the same sums.
+//
+// Bit-identity with the block-per-row kernel it replaced: there thread s owned
+// slice s, so warp w held slices 32w + l, and a dot product was
+// ((0 + P_0) + P_1) + ... with P_w warp w's xor-butterfly sum (offsets
+// 16..1) of its lanes' Vec::dot.  Here lane l's group g is slice 32g + l, so
+// butterflying each group separately and adding the group sums in order from
+// 0 gives the same bits; every lane of an xor butterfly ends with the same
+// value.  The d_score of edge (i, k) there was computed twice, once in row i
+// as Vec::dot(x[k], G[i]) and once in row k; here row k computes it once with
+// those operands, and d_s_src adds it in row i's CSR order as before.  d_x is
+// the same fmaf chain (edges in order, heads in order, from 0).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int EDGE_CHUNK = 32;
 constexpr int MAX_HEADS = 4;
-constexpr int MAX_WARPS = 32;
+constexpr int MAX_GROUPS = 10;   // c / vec <= 320
+constexpr int WARPS = 4;         // rows a block in pass 1
+constexpr int SUM_THREADS = 256; // rows a block in pass 2
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float edge_weight(float score) {
   const float lr = score > 0.f ? score : 0.2f * score;
@@ -67,145 +96,180 @@ template <> struct Vec<4> {
   }
 };
 
-template <int H, int VEC>
-__global__ void gat_bwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ s_src,
-                               const float* __restrict__ s_dst,
-                               const float* __restrict__ g_agg,
-                               const float* __restrict__ g_rs,
-                               const int* __restrict__ row_ptr,
-                               const int* __restrict__ col,
-                               float* __restrict__ d_x,
-                               float* __restrict__ d_s_src,
-                               float* __restrict__ d_s_dst, int c) {
+template <int H, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_bwd_rows_kernel(const float* __restrict__ x,
+                    const float* __restrict__ s_src,
+                    const float* __restrict__ s_dst,
+                    const float* __restrict__ g_agg,
+                    const float* __restrict__ g_rs,
+                    const int* __restrict__ row_ptr,
+                    const int* __restrict__ col,
+                    const long long* __restrict__ rev,
+                    float* __restrict__ d_x,
+                    float* __restrict__ d_s_dst,
+                    float* __restrict__ scratch, int n, int c) {
   using V = typename Vec<VEC>::T;
-  __shared__ int sh_col[EDGE_CHUNK];
-  __shared__ float sh_erev[EDGE_CHUNK * H];
-  __shared__ float sh_part[MAX_WARPS][EDGE_CHUNK][2 * H];
-  __shared__ float sh_dscore[EDGE_CHUNK][2 * H];
-
-  const int j = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int n_warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (j >= n) return;  // a tail warp; nothing below waits on a barrier
   const int nv = c / VEC;
-  const bool owns_slice = t < nv;
+
+  V xj[G], acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int s = lane + 32 * g;
+    // read once: streamed past L2, which keeps the G rows
+    xj[g] = s < nv ? __ldcs(reinterpret_cast<const V*>(x + (size_t)j * c) + s) : V{};
+    acc[g] = V{};
+  }
+  float dst_j[H], sum_dst[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    dst_j[h] = s_dst[(size_t)j * H + h];
+    sum_dst[h] = 0.f;
+  }
   const int beg = row_ptr[j];
   const int end = row_ptr[j + 1];
 
-  float src_j[H], dst_j[H], r_j[H];
+  for (int base = beg; base < end; base += 32) {
+    const int m = min(32, end - base);
+    // edge base + lane: column k, the position of its reverse, its scalars
+    int k_l = 0;
+    long long at_l = 0;
+    float score_l[H], e_l[H], r_l[H], dot_l[H];
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
-    src_j[h] = s_src[(size_t)j * H + h];
-    dst_j[h] = s_dst[(size_t)j * H + h];
-    r_j[h] = g_rs[(size_t)j * H + h];
-  }
-  V xj{}, gj[H], acc{};
-#pragma unroll
-  for (int h = 0; h < H; ++h) gj[h] = V{};
-  if (owns_slice) {
-    xj = reinterpret_cast<const V*>(x + (size_t)j * c)[t];
-#pragma unroll
-    for (int h = 0; h < H; ++h)
-      gj[h] = reinterpret_cast<const V*>(g_agg + ((size_t)j * H + h) * c)[t];
-  }
-  float sum_dst[H], sum_src[H];
-#pragma unroll
-  for (int h = 0; h < H; ++h) sum_dst[h] = sum_src[h] = 0.f;
-
-  for (int base = beg; base < end; base += EDGE_CHUNK) {
-    const int m = min(EDGE_CHUNK, end - base);
-    __syncthreads();  // the previous chunk is fully consumed
-    if (t < m) {
-      const int k = col[base + t];
-      sh_col[t] = k;
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-        sh_erev[t * H + h] = edge_weight(s_src[(size_t)k * H + h] + dst_j[h]);
-    }
-    __syncthreads();
-
-    // per edge: d_x accumulation, and the block-wide dot products
-    // <x[j], G[k, h]> (reverse edge) and <x[k], G[j, h]> (forward edge)
-    for (int q = 0; q < m; ++q) {
-      const int k = sh_col[q];
-      float part[2 * H];
-#pragma unroll
-      for (int p = 0; p < 2 * H; ++p) part[p] = 0.f;
-      if (owns_slice) {
-        const V xk = reinterpret_cast<const V*>(x + (size_t)k * c)[t];
-#pragma unroll
-        for (int h = 0; h < H; ++h) {
-          const V gk = reinterpret_cast<const V*>(g_agg + ((size_t)k * H + h) * c)[t];
-          Vec<VEC>::fma(acc, sh_erev[q * H + h], gk);
-          part[h] = Vec<VEC>::dot(xj, gk);
-          part[H + h] = Vec<VEC>::dot(xk, gj[h]);
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < 2 * H; ++p) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part[p] += __shfl_xor_sync(0xffffffffu, part[p], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int p = 0; p < 2 * H; ++p) sh_part[warp][q][p] = part[p];
-      }
-    }
-    __syncthreads();
-
-    if (t < m) {
-      const int k = sh_col[t];
+    for (int h = 0; h < H; ++h) score_l[h] = r_l[h] = dot_l[h] = 0.f;
+    if (lane < m) {
+      k_l = col[base + lane];
+      at_l = rev[base + lane];
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        float dot_rev = 0.f, dot_fwd = 0.f;
-        for (int w = 0; w < n_warps; ++w) {
-          dot_rev += sh_part[w][t][h];
-          dot_fwd += sh_part[w][t][H + h];
-        }
-        const float score_rev = s_src[(size_t)k * H + h] + dst_j[h];
-        const float d_e_rev = dot_rev + g_rs[(size_t)k * H + h];
-        sh_dscore[t][h] = -d_e_rev * sh_erev[t * H + h] * leaky_grad(score_rev);
-        const float score_fwd = src_j[h] + s_dst[(size_t)k * H + h];
-        const float d_e_fwd = dot_fwd + r_j[h];
-        sh_dscore[t][H + h] = -d_e_fwd * edge_weight(score_fwd) * leaky_grad(score_fwd);
+        score_l[h] = s_src[(size_t)k_l * H + h];
+        r_l[h] = g_rs[(size_t)k_l * H + h];
       }
     }
-    __syncthreads();
-    if (t == 0) {
-      for (int q = 0; q < m; ++q) {
+
+    for (int q = 0; q < m; ++q) {  // the same q for every lane
+      const int k = __shfl_sync(FULL, k_l, q);
+      V gk[H][G];
 #pragma unroll
-        for (int h = 0; h < H; ++h) {
-          sum_dst[h] += sh_dscore[q][h];
-          sum_src[h] += sh_dscore[q][H + h];
+      for (int h = 0; h < H; ++h) {
+        const V* row = reinterpret_cast<const V*>(g_agg + ((size_t)k * H + h) * c);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int s = lane + 32 * g;
+          gk[h][g] = s < nv ? row[s] : V{};
         }
       }
+      if (q == 0) {  // with the first G rows in flight: the edge weights
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          score_l[h] += dst_j[h];
+          e_l[h] = edge_weight(score_l[h]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float e = __shfl_sync(FULL, e_l[h], q);
+        float part[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          Vec<VEC>::fma(acc[g], e, gk[h][g]);
+          part[g] = lane + 32 * g < nv ? Vec<VEC>::dot(xj[g], gk[h][g]) : 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part[g] += __shfl_xor_sync(FULL, part[g], off);
+        }
+        float dot = 0.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (32 * g < nv) dot += part[g];
+        // with VEC = 1 the compiler may fuse a lane's product into the
+        // butterfly's first add, and then lanes may differ: lane 0's sum
+        // is the one the block-per-row kernel kept
+        if (VEC == 1) dot = __shfl_sync(FULL, dot, 0);
+        if (lane == q) dot_l[h] = dot;
+      }
+    }
+
+    // the chunk's d_scores, one edge a lane: to scratch, and into d_s_dst[j]
+    // in edge order
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float d_score = -(dot_l[h] + r_l[h]) * e_l[h] * leaky_grad(score_l[h]);
+      if (lane < m) scratch[at_l * H + h] = d_score;
+      for (int q = 0; q < m; ++q) sum_dst[h] += __shfl_sync(FULL, d_score, q);
     }
   }
 
-  if (owns_slice) reinterpret_cast<V*>(d_x + (size_t)j * c)[t] = acc;
-  if (t == 0) {
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      d_s_dst[(size_t)j * H + h] = sum_dst[h];
-      d_s_src[(size_t)j * H + h] = sum_src[h];
-    }
+  for (int g = 0; g < G; ++g) {
+    const int s = lane + 32 * g;
+    if (s < nv) __stcs(reinterpret_cast<V*>(d_x + (size_t)j * c) + s, acc[g]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) d_s_dst[(size_t)j * H + h] = sum_dst[h];
   }
 }
 
+// d_s_src[i] = the d_scores of row i's edges, added in CSR order from 0.
 template <int H>
-void launch(const float* x, const float* s_src, const float* s_dst,
-            const float* g_agg, const float* g_rs, const int* row_ptr,
-            const int* col, float* d_x, float* d_s_src, float* d_s_dst, int n,
-            int c, int vec, int threads, cudaStream_t stream) {
-  if (vec == 4)
-    gat_bwd_kernel<H, 4><<<n, threads, 0, stream>>>(
-        x, s_src, s_dst, g_agg, g_rs, row_ptr, col, d_x, d_s_src, d_s_dst, c);
-  else
-    gat_bwd_kernel<H, 1><<<n, threads, 0, stream>>>(
-        x, s_src, s_dst, g_agg, g_rs, row_ptr, col, d_x, d_s_src, d_s_dst, c);
+__global__ void __launch_bounds__(SUM_THREADS)
+gat_bwd_src_kernel(const float* __restrict__ scratch,
+                   const int* __restrict__ row_ptr,
+                   float* __restrict__ d_s_src, int n) {
+  const int i = blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (i >= n) return;
+  float sum[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) sum[h] = 0.f;
+  const int end = row_ptr[i + 1];
+  for (int p = row_ptr[i]; p < end; ++p) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) sum[h] += scratch[(size_t)p * H + h];
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) d_s_src[(size_t)i * H + h] = sum[h];
+}
+
+struct Args {
+  const float *x, *s_src, *s_dst, *g_agg, *g_rs;
+  const int *row_ptr, *col;
+  const long long* rev;
+  float *d_x, *d_s_src, *d_s_dst, *scratch;
+  int n, c;
+};
+
+template <int H, int VEC, int G>
+void launch_rows(const Args& a, cudaStream_t stream) {
+  gat_bwd_rows_kernel<H, VEC, G><<<(a.n + WARPS - 1) / WARPS, 32 * WARPS, 0, stream>>>(
+      a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev, a.d_x,
+      a.d_s_dst, a.scratch, a.n, a.c);
+}
+
+template <int H, int VEC>
+void launch_groups(const Args& a, int groups, cudaStream_t stream) {
+  if (groups <= 1) launch_rows<H, VEC, 1>(a, stream);
+  else if (groups <= 2) launch_rows<H, VEC, 2>(a, stream);
+  else if (groups <= 3) launch_rows<H, VEC, 3>(a, stream);
+  else if (groups <= 5) launch_rows<H, VEC, 5>(a, stream);
+  else launch_rows<H, VEC, MAX_GROUPS>(a, stream);
+}
+
+template <int H>
+int launch(const Args& a, int vec, int groups, cudaStream_t stream) {
+  if (vec == 4) launch_groups<H, 4>(a, groups, stream);
+  else launch_groups<H, 1>(a, groups, stream);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gat_bwd_src_kernel<H><<<(a.n + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
+                          stream>>>(a.scratch, a.row_ptr, a.d_s_src, a.n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -217,27 +281,28 @@ const char* snag_error_string(int err) {
 }
 
 // x (n, c), s_src/s_dst (n, h), g_agg (n, h, c), g_rs (n, h), row_ptr (n+1),
-// col (row_ptr[n]) on the device, the CSR multiset symmetric; d_x (n, c),
-// d_s_src and d_s_dst (n, h) are written in full.  vec is 4 when c % 4 == 0
-// and x, g_agg, d_x are 16-byte aligned, else 1.
+// col and rev (row_ptr[n], rev int64) on the device, the CSR multiset
+// symmetric; d_x (n, c), d_s_src and d_s_dst (n, h) are written in full,
+// scratch (row_ptr[n], h) is the caller's.  vec is 4 when c % 4 == 0 and x,
+// g_agg, d_x are 16-byte aligned, else 1; c / vec <= 320.
 int gat_bwd(const float* x, const float* s_src, const float* s_dst,
             const float* g_agg, const float* g_rs, const int* row_ptr,
-            const int* col, float* d_x, float* d_s_src, float* d_s_dst, int n,
-            int c, int h, int vec, void* stream) {
+            const int* col, const long long* rev, float* d_x, float* d_s_src,
+            float* d_s_dst, float* scratch, int n, int c, int h, int vec,
+            void* stream) {
   if (n <= 0 || c <= 0 || h < 1 || h > MAX_HEADS || (vec != 1 && vec != 4) ||
-      c % vec)
+      c % vec || c / vec > 32 * MAX_GROUPS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nv = c / vec;
-  const int threads = (((nv > EDGE_CHUNK ? nv : EDGE_CHUNK) + 31) / 32) * 32;
-  if (threads > 32 * MAX_WARPS) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (c / vec + 31) / 32;
+  const Args a{x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev,
+               d_x, d_s_src, d_s_dst, scratch, n, c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (h) {
-    case 1: launch<1>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, d_x, d_s_src, d_s_dst, n, c, vec, threads, s); break;
-    case 2: launch<2>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, d_x, d_s_src, d_s_dst, n, c, vec, threads, s); break;
-    case 3: launch<3>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, d_x, d_s_src, d_s_dst, n, c, vec, threads, s); break;
-    default: launch<4>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, d_x, d_s_src, d_s_dst, n, c, vec, threads, s); break;
+    case 1: return launch<1>(a, vec, groups, s);
+    case 2: return launch<2>(a, vec, groups, s);
+    case 3: return launch<3>(a, vec, groups, s);
+    default: return launch<4>(a, vec, groups, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -8,6 +8,11 @@ head h and edge i <- j of the row-sorted CSR graph:
     agg[i, h]   = sum_j e_ij * x[j]
     rowsum[i, h] = sum_j e_ij
 
+One warp owns a row; lane l owns the 4-float (or 1-float) slices l,
+l + 32, ... of the row's C features, at most ``MAX_GROUPS`` of them, so the
+kernel takes C <= 1,280 when C % 4 == 0 and C <= 320 otherwise
+(``slice_width``; the backward shares the limit).
+
 Twin: ``gat_attention_twin``, the ``index_add_`` form of
 ``xla_gat_attention`` (gat_attention.py:207-221).
 """
@@ -26,6 +31,21 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
 
 STATS = KernelStats("gat_attention_fwd")
 MAX_HEADS = 4
+MAX_GROUPS = 10     # slices a lane
+
+
+def slice_width(c: int, *tensors: torch.Tensor) -> int:
+    """The GAT kernels' slice width: 4 floats when C % 4 == 0 and every
+    tensor is 16-byte aligned, else 1.  Raises when a lane would own more
+    than ``MAX_GROUPS`` slices of a row."""
+    vec = 4 if c % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in tensors) else 1
+    if c // vec > 32 * MAX_GROUPS:
+        raise ValueError(
+            f"C = {c} is too wide for a warp per row: the GAT kernels take "
+            f"C <= {4 * 32 * MAX_GROUPS} with C % 4 == 0 (and 16-byte "
+            f"aligned tensors), else C <= {32 * MAX_GROUPS}")
+    return vec
 
 
 def gat_attention_twin(x: torch.Tensor, s_src: torch.Tensor,
@@ -75,12 +95,10 @@ def gat_attention_cuda(x: torch.Tensor, s_src: torch.Tensor,
     require(s_dst, "s_dst", torch.float32, (n, h), dev)
     require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     require(graph.col, "col", torch.int32, (graph.n_edges,), dev)
-    vec = 4 if (c % 4 == 0 and x.data_ptr() % 16 == 0) else 1
-    if -(-c // vec) > 1024:
-        raise ValueError(f"C = {c} is too wide for one block per row")
 
     agg = torch.empty(n, h, c, dtype=torch.float32, device=dev)
     rowsum = torch.empty(n, h, dtype=torch.float32, device=dev)
+    vec = slice_width(c, x, agg)
     built = _library()
     with torch.cuda.device(dev):
         err = built.lib.gat_attention_fwd(

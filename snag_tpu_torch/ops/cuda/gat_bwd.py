@@ -13,7 +13,12 @@ edge i <- j of the CSR graph:
     d_s_src[i] += d_score
 
 The kernel reads each node's in-edges as its out-edges reversed, so it
-needs the symmetric edge multiset that ``build_graph`` records.
+needs the symmetric edge multiset that ``build_graph`` records, and its
+``rev``: the first of its two launches, a warp per CSR row j, computes the
+d_score of each edge (k, j) once, adds it into d_s_dst[j] and writes it to
+an (E, H) scratch at that edge's position rev[p]; the second adds each
+row's scratch into d_s_src in CSR order.  It takes C up to the forward's
+limit (``gat_attention.slice_width``).
 
 Twin: ``gat_backward_twin``, the same sums in ``index_add_`` form over the
 edge list (no symmetry needed).
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
                                           ptr, require, stream_of)
+from snag_tpu_torch.ops.cuda.gat_attention import slice_width
 
 STATS = KernelStats("gat_bwd")
 MAX_HEADS = 4
@@ -61,7 +67,7 @@ def _library():
     built = load_library("gat_bwd")
     fn = built.lib.gat_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return built
@@ -91,20 +97,20 @@ def gat_backward_cuda(x: torch.Tensor, s_src: torch.Tensor,
     require(g_rs, "g_rs", torch.float32, (n, h), dev)
     require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     require(graph.col, "col", torch.int32, (graph.n_edges,), dev)
+    require(graph.rev, "rev", torch.int64, (graph.n_edges,), dev)
 
     d_x = torch.empty(n, c, dtype=torch.float32, device=dev)
     d_s_src = torch.empty(n, h, dtype=torch.float32, device=dev)
     d_s_dst = torch.empty(n, h, dtype=torch.float32, device=dev)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g_agg, d_x))
-    vec = 4 if (c % 4 == 0 and aligned) else 1
-    if max(-(-c // vec), 32) > 1024:
-        raise ValueError(f"C = {c} is too wide for one block per row")
+    scratch = torch.empty(graph.n_edges, h, dtype=torch.float32, device=dev)
+    vec = slice_width(c, x, g_agg, d_x)
     built = _library()
     with torch.cuda.device(dev):
         err = built.lib.gat_bwd(
             ptr(x), ptr(s_src), ptr(s_dst), ptr(g_agg), ptr(g_rs),
-            ptr(graph.row_ptr), ptr(graph.col), ptr(d_x), ptr(d_s_src),
-            ptr(d_s_dst), n, c, h, vec, stream_of(x))
+            ptr(graph.row_ptr), ptr(graph.col), ptr(graph.rev), ptr(d_x),
+            ptr(d_s_src), ptr(d_s_dst), ptr(scratch), n, c, h, vec,
+            stream_of(x))
     check(built, err, "gat_bwd")
     STATS.launches += 1
     return d_x, d_s_src, d_s_dst

@@ -58,7 +58,13 @@ def _gat_inputs(dev, n=300, n_tri=900, c=48, h=2, seed=0):
     return g, t(n, c), t(n, h), t(n, h)
 
 
-@pytest.mark.parametrize("c,h", [(48, 2), (30, 1), (300, 2), (64, 4)])
+# a warp per row, lane l owning slices l + 32 g: C = 1,280 is the widest row
+# of float4 slices (10 a lane), C = 319 the widest of single floats
+GAT_WIDTHS = [(48, 2), (30, 1), (300, 2), (64, 4), (1200, 2), (1280, 2),
+              (319, 1)]
+
+
+@pytest.mark.parametrize("c,h", GAT_WIDTHS)
 def test_gat_kernel_matches_twin(dev, c, h):
     g, x, s_src, s_dst = _gat_inputs(dev, c=c, h=h)
     agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
@@ -76,6 +82,14 @@ def test_gat_wrappers_refuse_what_the_kernel_does_not_take(dev):
         ga.gat_attention_cuda(x.t().contiguous().t(), s_src, s_dst, g)
     with pytest.raises(ValueError):
         ga.gat_attention_cuda(x, s_src.cpu(), s_dst, g)
+    for c in (1284, 321):       # 321 floats, or 321 float4 slices
+        wide = torch.zeros(x.shape[0], c, device=dev)
+        with pytest.raises(ValueError, match="too wide"):
+            ga.gat_attention_cuda(wide, s_src, s_dst, g)
+        with pytest.raises(ValueError, match="too wide"):
+            gb.gat_backward_cuda(wide, s_src, s_dst,
+                                 torch.zeros(x.shape[0], 2, c, device=dev),
+                                 s_src, g)
     before = ga.STATS.launches
     with torch.no_grad():
         gat_attention(x, s_src, s_dst, g)
@@ -87,7 +101,7 @@ def test_gat_wrappers_refuse_what_the_kernel_does_not_take(dev):
                              g._replace(rev=None))
 
 
-@pytest.mark.parametrize("c,h", [(48, 2), (30, 1), (300, 2), (64, 4)])
+@pytest.mark.parametrize("c,h", GAT_WIDTHS)
 def test_gat_backward_kernel_matches_twin(dev, c, h):
     g, x, s_src, s_dst = _gat_inputs(dev, c=c, h=h, seed=c)
     rng = np.random.default_rng(h)
@@ -100,6 +114,43 @@ def test_gat_backward_kernel_matches_twin(dev, c, h):
     want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _gat_grads_inputs(dev, n, c, h, seed):
+    g, x, s_src, s_dst = _gat_inputs(dev, n=n, c=c, h=h, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    g_agg = torch.as_tensor(rng.normal(size=(n, h, c)).astype(np.float32),
+                            device=dev)
+    g_rs = torch.as_tensor(rng.normal(size=(n, h)).astype(np.float32),
+                           device=dev)
+    return g, x, s_src, s_dst, g_agg, g_rs
+
+
+@pytest.mark.parametrize("n", [301, 302, 303])
+def test_gat_kernels_partial_last_block(dev, n):
+    """A row count that leaves the last block of 4 (or 8) rows part
+    empty: its idle warps return, the rows before them are complete."""
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, n, 300, 2, n)
+    agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
+    got = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
+    torch.cuda.synchronize()
+    want_agg, want_rs = ga.gat_attention_twin(x, s_src, s_dst, g)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+    want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c,h", [(300, 2), (30, 1), (1200, 2)])
+def test_gat_kernels_repeat_bitwise(dev, c, h):
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, c, h, c)
+    for fn in (lambda: ga.gat_attention_cuda(x, s_src, s_dst, g),
+               lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_gat_autograd_launches_both_kernels(dev):

@@ -11,13 +11,18 @@ the exit code is non-zero:
    for sm_90a (into the git-ignored ``build/kernels``), one nvcc each, in
    parallel;
 3. each of the nine kernels against its plain-PyTorch twin on the card, at
-   the shapes the bench geometry gives it, with max errors and median times
-   (CUDA events, 5 runs), beside its bound (bytes over 3.35 TB/s or flops
-   over the rate of its route, the larger: the loss kernels, NT-Xent and
-   mixture, at the 3xTF32 tensor-core rate of 495 / 3 TFLOP/s, whose
-   limits 3xTF32 meets; the rank sweeps at fp32's 67 TFLOP/s, as exact
-   ranks need fp32 in a fixed order) and, where one PyTorch call computes
-   the same function, that call's time; for both loss gradients (one
+   the shapes the bench geometry gives it, with max errors and two median
+   times over 5 runs: ``ms``, one launch between two CUDA events
+   (``median_ms``; under ~0.2 ms it also counts the wrapper's Python), and
+   ``device_ms``, the device time of the kernel's own launches in one
+   ``torch.profiler`` trace of the 5 calls, each call's summed (kernels
+   only, named as in ``DEVICE_KERNELS``), beside its bound (bytes over
+   3.35 TB/s or flops over the rate of its route, the larger: the loss
+   kernels, NT-Xent and mixture, at the 3xTF32 tensor-core rate of 495 / 3
+   TFLOP/s, whose limits 3xTF32 meets; the rank sweeps at fp32's 67
+   TFLOP/s, as exact ranks need fp32 in a fixed order) and, where one
+   PyTorch call computes the same function, that call's time; for both
+   loss gradients (one
    kernel, ``csrc/gram_grad.cuh``) and both loss lse kernels (one kernel,
    ``csrc/gram_lse.cuh``) the executed and least TFLOP/s and a bitwise
    repeat, and the launch plans of NT-Xent's gradient and of both lse;
@@ -26,7 +31,11 @@ the exit code is non-zero:
    spills, and a column direction that must give the bits of the row
    direction of the launch on (y, x); for the two GAT kernels (a warp per
    CSR row) a bitwise repeat, the GB/s of the rows they gather, and the
-   registers and spills of the instantiations at C = 300 and 1,200;
+   registers and spills of the instantiations at C = 300 and 1,200; for
+   the weighted segment sum (a warp per CSR row too) the forward on the
+   GCN's adjacency and the backward's launch on ``w_rev``, each with a
+   bitwise repeat and its gathered GB/s, its registers and spills, and
+   ``torch.sparse.mm`` as the library yardstick;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -46,7 +55,8 @@ the exit code is non-zero:
    rank kernels must have launched and the GAT kernels not.
 
 The line before last is the per-kernel JSON record (launches summed over
-the runs of phases 5-7); the last line is ``{"ok": true, "device": {...}}``.
+the runs of phases 5-7; ``bound_share`` is ``bound_ms / device_ms``); the
+last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
 """
 
@@ -104,6 +114,20 @@ GCN_TRAIN_ARGS = [
 ]
 KERNELS = ("gat_attention", "rank_eval", "gat_bwd", "ntxent", "snag_loss",
            "tile_segment")
+# each wrapper's launches by the names of their kernels on the card
+# (substrings, as the profiler shows them); device_ms and profile_train.py
+# sum these
+DEVICE_KERNELS = {
+    "gat_attention_fwd": ("gat_attention_fwd",),
+    "gat_bwd": ("gat_bwd",),
+    "rank_topk_mean": ("topk_mean_kernel", "topk_merge_kernel"),
+    "rank_counts": ("ranks_kernel", "ranks_merge_kernel"),
+    "ntxent_lse": ("ntxent_lse",),
+    "ntxent_grad": ("ntxent_grad",),
+    "mixture_lse": ("mixture_lse",),
+    "mixture_grad": ("mixture_grad", "mixture_dbeta", "mixture_sum"),
+    "weighted_segment_sum": ("weighted_segment_sum",),
+}
 SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
 GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
 SEGMENT_KERNEL = "weighted_segment_sum"
@@ -157,11 +181,13 @@ def symmetric_gram_flops(m, n2, d):
     return m * n2 * (n2 + 1) * d, 2 * m * n2 * n2 * d
 
 
-def row(name, err, ms, plain_ms, nbytes, flops, library_ms=None,
+def row(name, err, ms, dev_ms, plain_ms, nbytes, flops, library_ms=None,
         flop_per_s=FP32_FLOP_PER_S):
-    """One kernel's record for the JSON line."""
+    """One kernel's record for the JSON line: ``ms`` from ``median_ms``,
+    ``device_ms`` from ``device_ms`` and the bound's share of it."""
     bound_ms, bound_by = bound(nbytes, flops, flop_per_s)
-    return {"name": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"name": name, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "bound_share": bound_ms / dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
@@ -181,6 +207,8 @@ def check_launches(phase, stats, expected):
 
 
 def median_ms(fn) -> float:
+    """Median of REPS single launches between two CUDA events: under ~0.2
+    ms this also counts the wrapper's Python (``device_ms`` does not)."""
     import torch
     fn()                                       # warm-up
     torch.cuda.synchronize()
@@ -194,6 +222,98 @@ def median_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def is_kernel(ev, host_names=frozenset()) -> bool:
+    """A profiler event that is a kernel on the card: device-side, not a
+    copy or memset, and not a GPU user annotation (a span such as
+    ``Optimizer.step#AdamW.step`` laid over kernels that are counted on
+    their own).  An annotation is known by the event's flag where the
+    installed torch has one, else by its name, which is also a host
+    event's: no kernel is named like a host op."""
+    from torch.autograd import DeviceType
+    if ev.device_type != DeviceType.CUDA:
+        return False
+    if getattr(ev, "is_user_annotation", False) or ev.name in host_names:
+        return False
+    return not ev.name.startswith(("Memcpy", "Memset"))
+
+
+def host_names(events) -> frozenset:
+    from torch.autograd import DeviceType
+    return frozenset(ev.name for ev in events
+                     if ev.device_type == DeviceType.CPU)
+
+
+CALL = "device_ms call "     # the record_function span of each traced call
+# A profiler session loses the kernels of its first calls (on an H100
+# with torch 2.11 the first one or two, within ~3 ms of its start), so
+# each session first runs fn uncounted for at least SETTLE_S and 3 calls,
+# and ends with 2 uncounted calls after the counted ones.
+SETTLE_S = 0.01
+
+
+def call_kernel_ms(events, names, calls) -> list:
+    """Device ms of each of ``calls`` traced calls (each inside a
+    ``record_function`` span named ``CALL`` + its index): the sum of the
+    kernels named like ``names`` inside the span's GPU annotation, which
+    the profiler lays, on the card's clock, over the kernels launched
+    inside the span.  Raises unless every call has such kernels, as many
+    as every other call."""
+    from torch.autograd import DeviceType
+    span = {int(ev.name[len(CALL):]): ev.time_range for ev in events
+            if ev.name.startswith(CALL) and ev.device_type == DeviceType.CUDA}
+    host = host_names(events)
+    out = [0.0] * calls
+    hits = [0] * calls
+    for ev in events:
+        if not (is_kernel(ev, host) and any(k in ev.name for k in names)):
+            continue
+        for r, t in span.items():
+            if t.start <= ev.time_range.start <= t.end:
+                out[r] += ev.device_time / 1e3
+                hits[r] += 1
+    if len(span) != calls or min(hits) == 0 or len(set(hits)) != 1:
+        seen = sorted((round(ev.time_range.start, 1), ev.name[:40])
+                      for ev in events if ev.device_type == DeviceType.CUDA)
+        raise RuntimeError(
+            f"the profiler recorded no kernel named like {names} in a call, "
+            f"or fewer than in another, of {calls}: kernels a call {hits}; "
+            f"spans on the card "
+            f"{sorted((r, t.start, t.end) for r, t in span.items())}; last "
+            f"device events {seen[-24:]}")
+    return out
+
+
+def traced_calls(fn, calls):
+    """The profiler's events of ``calls`` calls of fn, each run to its end
+    inside a ``record_function`` span ``CALL`` + its index, between the
+    session's uncounted calls (``SETTLE_S``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def run():
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0, settled = time.perf_counter(), 0
+        while settled < 3 or time.perf_counter() - t0 < SETTLE_S:
+            run()
+            settled += 1
+        for r in range(calls):
+            with record_function(f"{CALL}{r}"):
+                run()
+        run()
+        run()
+    return prof.events()
+
+
+def device_ms(fn, names, trace=traced_calls) -> float:
+    """Median over REPS calls of fn, traced together, of each call's device
+    time of its kernels named like ``names`` (a call's launches summed):
+    the card's time alone, without the host's."""
+    return statistics.median(call_kernel_ms(trace(fn, REPS), names, REPS))
 
 
 # ------------------------------------------------------------------ phases
@@ -268,20 +388,25 @@ def repeat_bitwise(fn, what):
     return first
 
 
-def gat_ptxas(lib, kernel):
-    """(name, registers, spill store bytes, spill load bytes) of
-    ``kernel<H = 2, VEC = 4, G>`` at G = 3 (C = 300) and G = 10 (C = 1,200),
-    and of any other entry of ``lib`` whose name holds ``_src_kernel`` (the
-    backward's second pass), from the build's ptxas log."""
-    names = (f"{kernel}ILi2ELi4ELi3E", f"{kernel}ILi2ELi4ELi10E",
-             "_src_kernelILi2E")
+def kernel_ptxas(lib, names):
+    """(name<template ints>, registers, spill store bytes, spill load
+    bytes) of each entry of ``lib`` whose mangled name holds one of
+    ``names``, from the build's ptxas log."""
     out = []
     for entry, regs, st, ld in ptxas_usage(lib.compiler_log, names):
-        m = re.search(r"\d(gat_[a-z_]+?_kernel)I(.*?)EEv", entry)
+        m = re.search(r"\d([a-z_]+?_kernel)I(.*?)EEv", entry)
         name = (f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)', m.group(2)))}>"
                 if m else entry)
         out.append((name, regs, st, ld))
     return out
+
+
+def gat_ptxas(lib, kernel):
+    """``kernel_ptxas`` of ``kernel<H = 2, VEC = 4, G>`` at G = 3 (C = 300)
+    and G = 10 (C = 1,200), and of any other entry of ``lib`` whose name
+    holds ``_src_kernel`` (the backward's second pass)."""
+    return kernel_ptxas(lib, (f"{kernel}ILi2ELi4ELi3E",
+                              f"{kernel}ILi2ELi4ELi10E", "_src_kernelILi2E"))
 
 
 def say_gat_ptxas(phase, lib, kernel):
@@ -307,12 +432,15 @@ def phase_gat(graph_np):
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
     ms = median_ms(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g))
+    dev = device_ms(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g),
+                    DEVICE_KERNELS[ga.STATS.name])
     plain = median_ms(lambda: ga.gat_attention_twin(x, s_src, s_dst, g))
     say("gat", f"N={n} E={e} C={c} H={h}: max|agg err| {err_agg:.3e}"
         f" max|rowsum err| {err_rs:.3e} (rtol=atol=1e-5), bitwise repeat |"
-        f" kernel {ms:.4f} ms ({e * c * 4 / ms / 1e6:.1f} GB/s of x rows"
-        f" gathered) twin {plain:.4f} ms")
-    return row(ga.STATS.name, max(err_agg, err_rs), ms, plain,
+        f" kernel {ms:.4f} ms, device {dev:.4f} ms "
+        f"({e * c * 4 / dev / 1e6:.1f} GB/s of x rows gathered) twin "
+        f"{plain:.4f} ms")
+    return row(ga.STATS.name, max(err_agg, err_rs), ms, dev, plain,
                4 * (n * c + 2 * n * h + n + 1 + e + n * h * c + n * h),
                2 * e * h * (c + 1))
 
@@ -335,15 +463,18 @@ def phase_gat_bwd(graph_np):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     ms = median_ms(lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg,
                                                 g_rs, g))
+    dev = device_ms(lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg,
+                                                 g_rs, g),
+                    DEVICE_KERNELS[gb.STATS.name])
     plain = median_ms(lambda: gb.gat_backward_twin(x, s_src, s_dst, g_agg,
                                                    g_rs, g))
     say("gat_bwd", f"N={n} E={e} C={c} H={h}: max|err| d_x "
         f"{errs[0]:.3e} d_s_src {errs[1]:.3e} d_s_dst {errs[2]:.3e} "
-        f"(rtol=atol=1e-4), bitwise repeat | kernel {ms:.4f} ms "
-        f"({e * h * c * 4 / ms / 1e6:.1f} GB/s of G rows gathered) twin "
-        f"{plain:.4f} ms")
+        f"(rtol=atol=1e-4), bitwise repeat | kernel {ms:.4f} ms, device "
+        f"{dev:.4f} ms ({e * h * c * 4 / dev / 1e6:.1f} GB/s of G rows "
+        f"gathered) twin {plain:.4f} ms")
     # in: x, s_src, s_dst, G, r, row_ptr, col; out: d_x, d_s_src, d_s_dst
-    return row(gb.STATS.name, max(errs), ms, plain,
+    return row(gb.STATS.name, max(errs), ms, dev, plain,
                4 * (2 * n * c + 5 * n * h + n * h * c + n + 1 + e),
                4 * e * h * c)
 
@@ -425,10 +556,13 @@ def phase_rank(n=10500, d=1200, k=3):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     mean, diag, rr = got_a
     ms_a = median_ms(lambda: rk.topk_mean_both_cuda(x, y, xn, yn, k))
+    dev_a = device_ms(lambda: rk.topk_mean_both_cuda(x, y, xn, yn, k),
+                      DEVICE_KERNELS[rk.STATS_TOPK.name])
     plain_a = median_ms(lambda: rk.topk_mean_both_twin(x, y, xn, yn, k))
     say("rank", f"sweep A N={n} d={d} k={k}, both directions: max|mean/diag/"
         f"column mean err| {err_a:.3e} (rtol=atol=1e-5), bitwise repeat | "
-        f"kernel {ms_a:.3f} ms ({rates(ms_a, rk.device_plan(x.device, n, d, 0, k))})"
+        f"kernel {ms_a:.3f} ms, device {dev_a:.3f} ms "
+        f"({rates(dev_a, rk.device_plan(x.device, n, d, 0, k))})"
         f" plain {plain_a:.3f} ms")
 
     # sweep B, both directions, fed the same CSLS terms
@@ -444,13 +578,17 @@ def phase_rank(n=10500, d=1200, k=3):
     del want_b
     ms_b = median_ms(lambda: rk.rank_counts_both_cuda(x, y, xn, yn, mean, rr,
                                                       diag, True))
+    dev_b = device_ms(lambda: rk.rank_counts_both_cuda(x, y, xn, yn, mean, rr,
+                                                       diag, True),
+                      DEVICE_KERNELS[rk.STATS_RANKS.name])
     plain_b = median_ms(lambda: rk.rank_counts_both_twin(x, y, xn, yn, mean,
                                                          rr, diag, True))
     library = median_ms(lambda: x @ y.T)
     say("rank", f"sweep B, both directions: ranks equal on {agree_b:.6f} of "
         f"queries (the worse direction), top-3 on {top3_agree:.6f}, max|rank "
-        f"diff| {err_b}, bitwise repeat | kernel {ms_b:.3f} ms "
-        f"({rates(ms_b, rk.device_plan(x.device, n, d, 1, 3))}) plain "
+        f"diff| {err_b}, bitwise repeat | kernel {ms_b:.3f} ms, device "
+        f"{dev_b:.3f} ms ({rates(dev_b, rk.device_plan(x.device, n, d, 1, 3))})"
+        f" plain "
         f"{plain_b:.3f} ms | fp32 cuBLAS x @ y.T alone {library:.3f} ms "
         f"({flops / library / 1e9:.1f} TFLOP/s)")
 
@@ -492,9 +630,9 @@ def phase_rank(n=10500, d=1200, k=3):
     # sweep A: in x, y and their norms, out the row and column means and
     # the diagonal; sweep B: in the same, the CSLS terms and the diagonal,
     # out two int32 rank counts a direction and the top-3
-    return [row(rk.STATS_TOPK.name, err_a, ms_a, plain_a,
+    return [row(rk.STATS_TOPK.name, err_a, ms_a, dev_a, plain_a,
                 4 * (2 * n * d + 5 * n), flops),
-            row(rk.STATS_RANKS.name, float(err_b), ms_b, plain_b,
+            row(rk.STATS_RANKS.name, float(err_b), ms_b, dev_b, plain_b,
                 4 * (2 * n * d + 5 * n) + 4 * (2 * 2 * n + 3 * n), flops)]
 
 
@@ -554,15 +692,20 @@ def phase_ntxent(tau=0.1):
               "grad": median_ms(lambda: nx.ntxent_grad_cuda(
                   z, want, coef, v, tau)),
               "grad_twin": median_ms(lambda: nx.ntxent_grad_twin(
-                  z, want, coef, v, tau))}
+                  z, want, coef, v, tau)),
+              "lse_dev": device_ms(lambda: nx.streaming_lse_cuda(z, v, tau),
+                                   DEVICE_KERNELS[nx.STATS_LSE.name]),
+              "grad_dev": device_ms(lambda: nx.ntxent_grad_cuda(
+                  z, want, coef, v, tau), DEVICE_KERNELS[nx.STATS_GRAD.name])}
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
         executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
         lse_executed = 2 * m * lp["pairs"] * lp["tile"] ** 2 * d
         if i == 0:
-            first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_twin"],
-                      4 * (m * n2 * d + n2 + m * n2), k_flops),
-                     (nx.STATS_GRAD.name, ms["grad"], ms["grad_twin"],
+            first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_dev"],
+                      ms["lse_twin"], 4 * (m * n2 * d + n2 + m * n2), k_flops),
+                     (nx.STATS_GRAD.name, ms["grad"], ms["grad_dev"],
+                      ms["grad_twin"],
                       4 * (2 * m * n2 * d + 2 * m * n2 + n2),
                       k_flops + wz_flops)]
         err_lse = max(err_lse, e_lse)
@@ -570,12 +713,14 @@ def phase_ntxent(tau=0.1):
         say("ntxent", f"{label} (M={m}, B={b}, d={d}, {n_valid} valid): "
             f"max|lse err| {e_lse:.3e} | max|dz err| {e_dz:.3e} of "
             f"max|dz| {scale:.3e} (bitwise repeats) | lse kernel "
-            f"{ms['lse']:.3f} ms ({lse_executed / ms['lse'] / 1e9:.1f} "
-            f"executed, {k_flops / ms['lse'] / 1e9:.1f} least TFLOP/s; tile "
+            f"{ms['lse']:.3f} ms, device {ms['lse_dev']:.3f} ms "
+            f"({lse_executed / ms['lse_dev'] / 1e9:.1f} executed, "
+            f"{k_flops / ms['lse_dev'] / 1e9:.1f} least TFLOP/s; tile "
             f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
             f"block(s)/SM) twin {ms['lse_twin']:.3f} ms | grad kernel "
-            f"{ms['grad']:.3f} ms ({executed / ms['grad'] / 1e9:.1f} "
-            f"executed, {(k_flops + wz_flops) / ms['grad'] / 1e9:.1f} least "
+            f"{ms['grad']:.3f} ms, device {ms['grad_dev']:.3f} ms "
+            f"({executed / ms['grad_dev'] / 1e9:.1f} executed, "
+            f"{(k_flops + wz_flops) / ms['grad_dev'] / 1e9:.1f} least "
             f"TFLOP/s; {plan['chunks']} chunk(s), depth {plan['depth']}, "
             f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM)"
             f" twin {ms['grad_twin']:.3f} ms")
@@ -654,21 +799,28 @@ def phase_mixture(tau=0.1):
               "grad": median_ms(lambda: sl.mixture_grad_cuda(
                   z, alpha, beta, want, coef, v, tau)),
               "grad_twin": median_ms(lambda: sl.mixture_grad_twin(
-                  z, alpha, beta, want, coef, v, tau))}
+                  z, alpha, beta, want, coef, v, tau)),
+              "lse_dev": device_ms(lambda: sl.mixture_lse_cuda(
+                  z, alpha, beta, v, tau), DEVICE_KERNELS[sl.STATS_LSE.name]),
+              "grad_dev": device_ms(lambda: sl.mixture_grad_cuda(
+                  z, alpha, beta, want, coef, v, tau),
+                  DEVICE_KERNELS[sl.STATS_GRAD.name])}
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
         groups = -(-m // sl.modality_group(m, d, cap))
         executed = 2 * n2 * n2 * d * (groups * m + m)
-        rates = (f"{executed / ms['grad'] / 1e9:.1f} executed, "
-                 f"{(k_flops + wz_flops) / ms['grad'] / 1e9:.1f} least")
+        rates = (f"{executed / ms['grad_dev'] / 1e9:.1f} executed, "
+                 f"{(k_flops + wz_flops) / ms['grad_dev'] / 1e9:.1f} least")
         lp = sl.lse_plan(m, n2, d, z.device)
         lse_executed = 2 * m * lp["pairs"] * lp["tile"] ** 2 * d
         if i == 0:
             # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
-            first = [(sl.STATS_LSE.name, ms["lse"], ms["lse_twin"],
+            first = [(sl.STATS_LSE.name, ms["lse"], ms["lse_dev"],
+                      ms["lse_twin"],
                       4 * (m * n2 * d + n2 * m + m + n2 + (m + 2) * n2),
                       k_flops),
-                     (sl.STATS_GRAD.name, ms["grad"], ms["grad_twin"],
+                     (sl.STATS_GRAD.name, ms["grad"], ms["grad_dev"],
+                      ms["grad_twin"],
                       4 * (2 * m * n2 * d + 2 * n2 * m + 2 * m + n2
                            + 2 * (m + 2) * n2), k_flops + wz_flops)]
         err_lse = max(err_lse, e_lse)
@@ -677,12 +829,13 @@ def phase_mixture(tau=0.1):
             f"max|lse err| {e_lse:.3e} | max|err| dz {errs[0]:.3e} dalpha "
             f"{errs[1]:.3e} dbeta {errs[2]:.3e} of max|twin| "
             f"{[round(w.abs().max().item(), 6) for w in wants]} (bitwise "
-            f"repeats) | lse kernel {ms['lse']:.3f} ms "
-            f"({lse_executed / ms['lse'] / 1e9:.1f} executed, "
-            f"{k_flops / ms['lse'] / 1e9:.1f} least TFLOP/s; tile "
+            f"repeats) | lse kernel {ms['lse']:.3f} ms, device "
+            f"{ms['lse_dev']:.3f} ms ({lse_executed / ms['lse_dev'] / 1e9:.1f}"
+            f" executed, {k_flops / ms['lse_dev'] / 1e9:.1f} least TFLOP/s; "
+            f"tile "
             f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
             f"block(s)/SM) twin {ms['lse_twin']:.3f} ms | grad kernel "
-            f"{ms['grad']:.3f} ms "
+            f"{ms['grad']:.3f} ms, device {ms['grad_dev']:.3f} ms "
             f"({rates} TFLOP/s) twin {ms['grad_twin']:.3f} ms")
         del z, alpha, beta, v, coef, lse, lse_again, want, got, again, wants
         torch.cuda.empty_cache()
@@ -690,27 +843,65 @@ def phase_mixture(tau=0.1):
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
 
 
+def segment_inputs(graph_np, c=300, h=1):
+    """The bench graph on the card and seeded (x, e, e[rev], g_agg) of the
+    weighted segment sum: e is the GCN's adjacency w as one head at h = 1,
+    else seeded weights (E, h); the backward launch runs on g_agg (N, c)
+    with e[rev].  ``scripts/torch_grad_ab.py`` times the kernel on these."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 2)
+    dev = torch.device("cuda")
+    n = graph_np.n_nodes
+    g = graph_np.to_torch(dev)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    x, g_agg = t(n, c), t(n, c)
+    e = (g.w[:, None] if h == 1 else torch.as_tensor(
+        rng.uniform(0.1, 2.0, size=(g.n_edges, h)).astype(np.float32),
+        device=dev))
+    return g, x, e, e[g.rev].contiguous(), g_agg
+
+
+def segment_ptxas(lib):
+    """(name, registers, spill store bytes, spill load bytes) of
+    ``weighted_segment_sum_kernel<HB, VEC, G>`` at <1, 4, 3> (C = 300, one
+    head), <1, 1, 4> (single floats) and <4, 4, 4> (the most registers)."""
+    return kernel_ptxas(lib, tuple(
+        f"weighted_segment_sum_kernelILi{hb}ELi{vec}ELi{g}E"
+        for hb, vec, g in ((1, 4, 3), (1, 1, 4), (4, 4, 4))))
+
+
 def phase_segment(graph_np):
     """The weighted segment sum at the bench graph with the GCN's weights
     (H = 1): forward against its ``index_add_`` twin and the backward's
-    reverse-edge launch against the plain column reduction, rtol = atol =
-    1e-5; ``torch.sparse.mm`` of the CSR adjacency with x, which computes
-    the same aggregate, is the library yardstick."""
-    import numpy as np
+    reverse-edge launch (on ``w_rev``, which the GCN's backward uses)
+    against the plain column reduction, rtol = atol = 1e-5, each with a
+    bitwise repeat; the registers and spills of its instantiations, and the
+    GB/s of the x rows it gathers (E C 4 bytes over its device time);
+    ``torch.sparse.mm`` of the CSR adjacency with x, which computes the
+    same aggregate, is the library yardstick."""
     import torch
     from snag_tpu_torch.ops.cuda import tile_segment as ts
-    n, c = graph_np.n_nodes, 300
-    rng = np.random.default_rng(SEED + 2)
-    dev = torch.device("cuda")
-    g = graph_np.to_torch(dev)
-    x = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32), device=dev)
-    g_agg = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32),
-                            device=dev)
-    e = g.w[:, None].contiguous()
-    agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
-    e_rev = e[g.rev].contiguous()
-    d_x, _ = ts.weighted_segment_sum_cuda(g_agg, e_rev, g)
-    torch.cuda.synchronize()
+    for name, regs, st, ld in segment_ptxas(ts._library()):
+        say("segment", f"ptxas {name}: {regs} registers, spill stores {st} "
+            f"B, loads {ld} B")
+    g, x, e, e_rev, g_agg = segment_inputs(graph_np)
+    (n, c), m_e = x.shape, g.n_edges
+    if not torch.equal(g.w_rev[:, None], e_rev):
+        raise AssertionError("DeviceGraph.w_rev differs from w[rev]")
+    e_rev = g.w_rev[:, None]
+    names = DEVICE_KERNELS[ts.STATS.name]
+
+    def fwd():
+        return ts.weighted_segment_sum_cuda(x, e, g)
+
+    def bwd():
+        return ts.weighted_segment_sum_cuda(g_agg, e_rev, g)
+    agg, rs = repeat_bitwise(fwd, "segment forward")
+    d_x, _ = repeat_bitwise(bwd, "segment backward launch")
     want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
     want_dx = torch.zeros_like(x).index_add_(0, g.col.long(),
                                              e * g_agg[g.row])
@@ -723,17 +914,19 @@ def phase_segment(graph_np):
     adj = torch.sparse_csr_tensor(g.row_ptr, g.col, g.w, (n, n))
     lib = torch.sparse.mm(adj, x)
     torch.testing.assert_close(lib, agg[:, 0], rtol=1e-5, atol=1e-5)
-    ms = median_ms(lambda: ts.weighted_segment_sum_cuda(x, e, g))
-    ms_bwd = median_ms(lambda: ts.weighted_segment_sum_cuda(g_agg, e_rev, g))
+    ms, ms_bwd = median_ms(fwd), median_ms(bwd)
+    dev, dev_bwd = device_ms(fwd, names), device_ms(bwd, names)
     plain = median_ms(lambda: ts.weighted_segment_sum_twin(x, e, g))
     library = median_ms(lambda: torch.sparse.mm(adj, x))
-    say("segment", f"N={n} E={g.n_edges} C={c} H=1: max|err| agg "
+    plan = ts.launch_plan(c, 1, 4)
+    say("segment", f"N={n} E={m_e} C={c} H=1: max|err| agg "
         f"{errs[0]:.3e} rowsum {errs[1]:.3e} d_x {errs[2]:.3e} "
-        f"(rtol=atol=1e-5) | kernel {ms:.4f} ms (backward launch "
-        f"{ms_bwd:.4f} ms) twin {plain:.4f} ms torch.sparse.mm {library:.4f}"
-        f" ms")
-    m_e = g.n_edges
-    return row(ts.STATS.name, max(errs), ms, plain,
+        f"(rtol=atol=1e-5), bitwise repeats | plan {plan} | kernel {ms:.4f}"
+        f" ms, device {dev:.4f} ms ({m_e * c * 4 / dev / 1e6:.1f} GB/s of x "
+        f"rows gathered) | backward launch {ms_bwd:.4f} ms, device "
+        f"{dev_bwd:.4f} ms ({m_e * c * 4 / dev_bwd / 1e6:.1f} GB/s) | twin "
+        f"{plain:.4f} ms torch.sparse.mm {library:.4f} ms")
+    return row(ts.STATS.name, max(errs), ms, dev, plain,
                4 * (n * c + m_e + n + 1 + m_e + n * c + n), 2 * m_e * c,
                library)
 
@@ -1000,8 +1193,9 @@ def main() -> int:
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],
                 "launches": sum(run[r["name"]] for run in runs),
-                **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}}
+                **{k: r[k] for k in ("max_abs_err", "ms", "device_ms",
+                                     "bound_share", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
                for r in rows]
     if {k["name"] for k in kernels} != set(meta) or \
             not all(k["launches"] > 0 for k in kernels):

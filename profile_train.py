@@ -6,14 +6,18 @@
 Builds the ``chip_smoke.py`` training configuration (the bench geometry:
 30,000 entities, batch 3500, GAT 300 x 2 x 2, the default fused loss,
 noise 0.2 / 0.7) through ``Runner``, runs three epochs untraced, then
-traces two more with ``torch.profiler`` and prints:
+traces two more with ``torch.profiler``; then the same with the GCN
+structure encoder (``chip_smoke.gcn_args``).  For each it prints:
 
 * the traced wall time per step, the kernels' device time, and the device's
-  busy and idle shares of the wall time;
-* device ms per step by kind: the mixture gradient and lse kernels, the
-  NT-Xent gradient and lse kernels, the GAT backward and forward kernels,
-  cuBLAS GEMMs and everything else (elementwise, index, reduce,
-  optimizer);
+  busy and idle shares of the wall time.  Kernel time counts kernels only
+  (``chip_smoke.is_kernel``): GPU user annotations such as
+  ``Optimizer.step#AdamW.step``, spans laid over kernels counted on their
+  own, are left out and printed apart, as are copies and memsets;
+* device ms per step by kind: each hand-written kernel of the port
+  (``chip_smoke.DEVICE_KERNELS``: the mixture and NT-Xent gradient and
+  lse, the GAT backward and forward, the weighted segment sum), cuBLAS
+  GEMMs and everything else (elementwise, index, reduce, optimizer);
 * the 15 kernels with the most device time;
 * the median step of the untraced epochs after the first (CUDA events,
   ``step_ms``).
@@ -29,43 +33,35 @@ import sys
 import time
 from pathlib import Path
 
+from chip_smoke import (BENCH_ARGS, DEVICE_KERNELS, TRAIN_ARGS, cfg_from,
+                        gcn_args, host_names, is_kernel)
+
 ROOT = Path(__file__).resolve().parent
 WARM_EPOCHS = 3
 TRACED_EPOCHS = 2
-# (label, substring of the kernel name), first match wins; the two
-# instantiations of csrc/gram_grad.cuh are named apart
-# (mixture_grad_kernel, ntxent_grad_mma_kernel and ntxent_grad_sum_kernel)
-KINDS = (("mixture_grad", "mixture_grad"), ("mixture_lse", "mixture_lse"),
-         ("mixture_grad", "mixture_dbeta"), ("mixture_grad", "mixture_sum"),
-         ("ntxent_grad", "ntxent_grad"), ("ntxent_lse", "ntxent_lse"),
-         ("gat_bwd", "gat_bwd"), ("gat_attention_fwd", "gat_attention_fwd"),
-         ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"))
+# (label, substring of the kernel name), first match wins
+KINDS = tuple((label, key) for label, keys in DEVICE_KERNELS.items()
+              for key in keys) + (("cuBLAS GEMM", "gemm"),
+                                  ("cuBLAS GEMM", "xmma"))
 
 
 def kind_of(name: str) -> str:
     return next((label for label, key in KINDS if key in name), "other")
 
 
-def main() -> int:
+def profile_config(label: str, args) -> None:
+    """Train ``args`` untraced, then traced, and print the block."""
     import torch
-    if not torch.cuda.is_available():
-        print("profile_train: torch.cuda is not available; this run needs an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import BENCH_ARGS, TRAIN_ARGS, cfg_from
     from snag_tpu_torch.train.runner import Runner
     from snag_tpu_torch.utils.logging import create_logger
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg_from(BENCH_ARGS + TRAIN_ARGS + [
+    cfg = cfg_from(args + TRAIN_ARGS + [
         "--device", "cuda", "--data_path", str(ROOT / "build" / "profile_train"),
-        "--exp_name", "profile_train", "--no_tensorboard"])
-    runner = Runner(cfg, create_logger(name="profile_train"))
+        "--exp_name", f"profile_train_{label}", "--no_tensorboard"])
+    runner = Runner(cfg, create_logger(name=f"profile_train_{label}"))
     for epoch in range(WARM_EPOCHS):
         runner.epoch = epoch
         runner.train_epoch()
@@ -85,31 +81,52 @@ def main() -> int:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     steps = len(runner.step_ms) - n_untraced
 
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            ms, count = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (ms + ev.device_time / 1e3, count + 1)
+    events = prof.events()
+    host = host_names(events)
+    by_name, apart = {}, {}
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        table = by_name if is_kernel(ev, host) else apart
+        ms, count = table.get(ev.name, (0.0, 0))
+        table[ev.name] = (ms + ev.device_time / 1e3, count + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms <= 0.0:
-        raise RuntimeError("the profiler recorded no device time")
+        raise RuntimeError("the profiler recorded no kernel time")
     by_kind = {}
     for name, (ms, _) in by_name.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
 
-    print(f"traced {steps} steps: wall {wall_ms:.3f} ms "
-          f"({wall_ms / steps:.3f} ms/step), kernel time {busy_ms:.3f} ms, "
-          f"busy share {busy_ms / wall_ms:.4f}, "
-          f"idle share {1.0 - busy_ms / wall_ms:.4f}")
-    print(f"median warm step, untraced (CUDA events): "
+    print(f"[{label}] traced {steps} steps: wall {wall_ms:.3f} ms "
+          f"({wall_ms / steps:.3f} ms/step), kernel time {busy_ms:.3f} ms "
+          f"({busy_ms / steps:.3f} ms/step), busy share "
+          f"{busy_ms / wall_ms:.4f}, idle share {1.0 - busy_ms / wall_ms:.4f}")
+    print(f"[{label}] median warm step, untraced (CUDA events): "
           f"{statistics.median(warm):.3f} ms over {len(warm)} steps")
-    for label, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:18s} {ms / steps:9.3f} ms/step  "
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:20s} {ms / steps:9.3f} ms/step  "
               f"{ms / busy_ms:.4f} of kernel time")
+    for name, (ms, count) in sorted(apart.items(), key=lambda kv: -kv[1][0]):
+        print(f"  not counted: {ms / steps:9.3f} ms/step {count / steps:6.1f}"
+              f"/step {name[:80]}")
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:15]:
         print(f"{ms / steps:10.3f} ms/step {count / steps:6.1f}/step "
               f"{name[:100]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_train: torch.cuda is not available; this run needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    profile_config("gat", BENCH_ARGS)
+    torch.cuda.empty_cache()
+    profile_config("gcn", gcn_args(BENCH_ARGS))
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The loss kernels (both gradients and both lse), the two rank sweeps and
-the two GAT kernels of a checkout of the PyTorch port, timed and
-fingerprinted on one NVIDIA GPU.
+"""The loss kernels (both gradients and both lse), the two rank sweeps,
+the two GAT kernels and the weighted segment sum of a checkout of the
+PyTorch port, timed and fingerprinted on one NVIDIA GPU.
 
     python3 scripts/torch_grad_ab.py [--root DIR] [--out FILE] [--against FILE]
 
@@ -9,8 +9,8 @@ Imports ``snag_tpu_torch`` from DIR (default: this checkout), builds its
 kernels there, and on ``chip_smoke.py``'s inputs runs
 
 * ``mixture_grad_cuda`` at ``chip_smoke.MIXTURE_SHAPES``: the sha256 of
-  the bytes of dz, dalpha and dbeta, and the median ms of 5 runs (CUDA
-  events); ``mixture_lse_cuda`` there: the sha256 of lse and the median ms;
+  the bytes of dz, dalpha and dbeta, and the median ms of 5 runs;
+  ``mixture_lse_cuda`` there: the sha256 of lse and the median ms;
 * ``ntxent_grad_cuda`` at ``chip_smoke.NTXENT_SHAPES``: the sha256 of dz
   and the median ms, or the error the wrapper raised; ``streaming_lse_cuda``
   there: the sha256 of lse and the median ms;
@@ -30,7 +30,20 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   C = 319, H = 2 (single floats): ``gat_attention_cuda`` (sha256 of agg and
   of rowsum) and ``gat_backward_cuda`` (sha256 of d_x, d_s_src and
   d_s_dst), each with its median ms, and the registers and spills of the
-  kernels (``chip_smoke.gat_ptxas``) where this process built them.
+  kernels (``chip_smoke.gat_ptxas``) where this process built them;
+* the weighted segment sum on the bench graph with
+  ``chip_smoke.segment_inputs``: ``weighted_segment_sum_cuda`` on the
+  GCN's adjacency at C = 300, H = 1 and its backward launch on g_agg with
+  w[rev], then on C = 30, H = 1 (adjacency), C = 319, H = 2 and C = 64,
+  H = 5 (seeded weights): the sha256 of agg and of rowsum and the median
+  ms, and the kernel's registers and spills (``chip_smoke.segment_ptxas``).
+
+Every median ms comes twice: ``ms`` (``chip_smoke.median_ms``, one launch
+between two CUDA events, which under ~0.2 ms also counts the wrapper's
+Python) and ``device_ms`` (``chip_smoke.device_ms``, the profiler's device
+time of the kernels the call launched, named as in
+``chip_smoke.DEVICE_KERNELS``).  Both timers come from this checkout's
+``chip_smoke.py``, whichever ``--root`` is timed.
 
 It prints one JSON line with the card's name and power limit, and writes it
 to FILE.  With ``--against`` it fails unless every digest equals that of
@@ -87,7 +100,12 @@ def main() -> int:
            "card": card}
     out.update(loss_records(cs, nx, sl))
     out["rank"] = rank_records(cs, rk)
-    out.update(gat_records(cs))
+    from snag_tpu_torch.data.dataset import load_data
+    graph = load_data(cs.cfg_from(cs.BENCH_ARGS + ["--device", "cpu"])).graph
+    out.update(gat_records(cs, graph))
+    out["segment"] = segment_records(cs, graph)
+    from snag_tpu_torch.ops.cuda import tile_segment as ts
+    out["ptxas"]["segment"] = ptxas_records(cs.segment_ptxas(ts._library()))
 
     line = json.dumps(out)
     print(line)
@@ -113,33 +131,60 @@ def main() -> int:
 
 
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
-            "rank", "gat_fwd", "gat_bwd")
+            "rank", "gat_fwd", "gat_bwd", "segment")
 
 
-def gat_records(cs):
+def ptxas_records(rows):
+    return [{"entry": name, "registers": regs, "spill_stores": st,
+             "spill_loads": ld} for name, regs, st, ld in rows]
+
+
+def timed(cs, fn, kernel):
+    """The two median times of fn, whose launches are ``kernel``'s."""
+    return {"ms": cs.median_ms(fn),
+            "device_ms": cs.device_ms(fn, cs.DEVICE_KERNELS[kernel])}
+
+
+def segment_records(cs, graph):
+    """The weighted segment sum on the bench graph: one digest per output,
+    and the median times under the shape's label."""
+    from snag_tpu_torch.ops.cuda import tile_segment as ts
+    out = {}
+    for label, c, h in (("C300 H1", 300, 1), ("C30 H1", 30, 1),
+                        ("C319 H2", 319, 2), ("C64 H5", 64, 5)):
+        g, x, e, e_rev, g_agg = cs.segment_inputs(graph, c, h)
+        runs = [(label, lambda: ts.weighted_segment_sum_cuda(x, e, g))]
+        if label == "C300 H1":
+            runs.append(("C300 H1 backward", lambda: (
+                ts.weighted_segment_sum_cuda(g_agg, e_rev, g))))
+        for name, fn in runs:
+            for part, t in zip(("agg", "rowsum"), fn()):
+                out[f"{name} {part}"] = {"sha256": digest(t)}
+            out[name] = timed(cs, fn, ts.STATS.name)
+        del g, x, e, e_rev, g_agg
+    return out
+
+
+def gat_records(cs, graph):
     """Both GAT kernels on the bench graph: one digest per output, and the
-    median ms under the shape's label."""
-    from snag_tpu_torch.data.dataset import load_data
+    median times under the shape's label."""
     from snag_tpu_torch.ops.cuda import gat_attention as ga
     from snag_tpu_torch.ops.cuda import gat_bwd as gb
-    graph = load_data(cs.cfg_from(cs.BENCH_ARGS + ["--device", "cpu"])).graph
     out = {"gat_fwd": {}, "gat_bwd": {}}
     for label, c, h in (("C300 H2", 300, 2), ("C30 H1", 30, 1),
                         ("C319 H2", 319, 2)):
         fwd_in = cs.gat_inputs(graph, c, h)
         bwd_in = cs.gat_bwd_inputs(graph, c, h)
         fwd = (lambda: ga.gat_attention_cuda(*fwd_in[1:], fwd_in[0]),
-               ("agg", "rowsum"), out["gat_fwd"])
+               ("agg", "rowsum"), out["gat_fwd"], ga.STATS.name)
         bwd = (lambda: gb.gat_backward_cuda(*bwd_in[1:], bwd_in[0]),
-               ("d_x", "d_s_src", "d_s_dst"), out["gat_bwd"])
-        for fn, names, rec in (fwd, bwd):
+               ("d_x", "d_s_src", "d_s_dst"), out["gat_bwd"], gb.STATS.name)
+        for fn, names, rec, kernel in (fwd, bwd):
             for name, t in zip(names, fn()):
                 rec[f"{label} {name}"] = {"sha256": digest(t)}
-            rec[label] = {"ms": cs.median_ms(fn)}
+            rec[label] = timed(cs, fn, kernel)
     out["ptxas"] = {
-        kind: [{"entry": name, "registers": regs, "spill_stores": st,
-                "spill_loads": ld}
-               for name, regs, st, ld in cs.gat_ptxas(lib, kernel)]
+        kind: ptxas_records(cs.gat_ptxas(lib, kernel))
         for kind, lib, kernel in (
             ("gat_fwd", ga._library(), "gat_attention_fwd_kernel"),
             ("gat_bwd", gb._library(), "gat_bwd_rows_kernel"))}
@@ -155,28 +200,30 @@ def loss_records(cs, nx, sl):
                                                      cs.SEED + i)
         lse = sl.mixture_lse_twin(z, alpha, beta, v, TAU)
         got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, TAU)
-        ms = cs.median_ms(lambda: sl.mixture_grad_cuda(z, alpha, beta, lse,
-                                                       coef, v, TAU))
-        out["mixture_grad"][label] = {"sha256": digest(*got), "ms": ms}
+        out["mixture_grad"][label] = {"sha256": digest(*got), **timed(
+            cs, lambda: sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v,
+                                             TAU), sl.STATS_GRAD.name)}
         got = sl.mixture_lse_cuda(z, alpha, beta, v, TAU)
-        ms = cs.median_ms(lambda: sl.mixture_lse_cuda(z, alpha, beta, v, TAU))
-        out["mixture_lse"][label] = {"sha256": digest(got), "ms": ms}
+        out["mixture_lse"][label] = {"sha256": digest(got), **timed(
+            cs, lambda: sl.mixture_lse_cuda(z, alpha, beta, v, TAU),
+            sl.STATS_LSE.name)}
         del z, alpha, beta, v, coef, lse, got
         torch.cuda.empty_cache()
 
     for i, (label, m, b, d, n_valid) in enumerate(cs.NTXENT_SHAPES):
         z, v, coef = cs._ntxent_inputs(m, b, d, n_valid, cs.SEED + i)
         lse = nx.streaming_lse_cuda(z, v, TAU)
-        ms = cs.median_ms(lambda: nx.streaming_lse_cuda(z, v, TAU))
-        out["ntxent_lse"][label] = {"sha256": digest(lse), "ms": ms}
+        out["ntxent_lse"][label] = {"sha256": digest(lse), **timed(
+            cs, lambda: nx.streaming_lse_cuda(z, v, TAU), nx.STATS_LSE.name)}
         lse = nx.streaming_lse_twin(z, v, TAU)
         try:
             dz = nx.ntxent_grad_cuda(z, lse, coef, v, TAU)
         except ValueError as e:
             out["ntxent_grad"][label] = {"error": str(e)}
             continue
-        ms = cs.median_ms(lambda: nx.ntxent_grad_cuda(z, lse, coef, v, TAU))
-        out["ntxent_grad"][label] = {"sha256": digest(dz), "ms": ms}
+        out["ntxent_grad"][label] = {"sha256": digest(dz), **timed(
+            cs, lambda: nx.ntxent_grad_cuda(z, lse, coef, v, TAU),
+            nx.STATS_GRAD.name)}
         del z, v, coef, lse, dz
         torch.cuda.empty_cache()
     return out
@@ -190,9 +237,12 @@ def rank_records(cs, rk, n=10500, d=1200):
     xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
     out = {}
 
+    def sweep(label):
+        return (rk.STATS_TOPK if label.startswith("A") else rk.STATS_RANKS).name
+
     def record(label, fn):
         got = [t for t in fn() if t is not None]
-        out[label] = {"sha256": digest(*got), "ms": cs.median_ms(fn)}
+        out[label] = {"sha256": digest(*got), **timed(cs, fn, sweep(label))}
         return got
 
     mean_l, diag_l = record("A l2r k3", lambda: rk.topk_mean_cuda(
@@ -216,7 +266,7 @@ def rank_records(cs, rk, n=10500, d=1200):
                     ("B l2r csls top3", (0, 1)), ("B r2l csls", (2,)))}
         for label, (fn, *parts) in both.items():
             got = fn()
-            out[label] = {"ms": cs.median_ms(fn)}
+            out[label] = timed(cs, fn, sweep(label))
             for name, idx in parts:
                 if digest(*[got[i] for i in idx]) != out[name]["sha256"]:
                     raise AssertionError(f"{label} differs from {name}")

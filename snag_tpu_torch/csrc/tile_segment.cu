@@ -18,20 +18,31 @@
 //
 // What the design does about it: the TPU kernel takes the gathered (E, C)
 // edge block x[col] from device memory and reduces it with one-hot MXU
-// dots per row tile.  Here nothing is materialised: one block owns one
-// row and up to MAX_HEADS heads (blockIdx.y walks the head groups), stages
-// EDGE_CHUNK of the row's column ids and weights in shared memory, and
-// every thread gathers its float4 slice of x[col] from L2 into register
-// accumulators.  No atomics, and the edges of a row are summed in CSR
-// order, so the result is deterministic.  This is the structure of
-// gat_attention.cu without the score and the exp.
+// dots per row tile.  Here nothing is materialised, and a row costs no
+// block barrier, no shared memory and no serial thread: one warp owns one
+// row (WARPS rows a block).  The column ids and weights of up to 32 of its
+// edges are loaded one edge a lane and broadcast by shuffle; lane l owns
+// the slices l, l + 32, ... (G of them, a template parameter) of a column
+// chunk of 32 G slices (blockIdx.y) and keeps up to MAX_HEADS heads'
+// register accumulators (blockIdx.z walks the head groups).  One edge's x
+// row is in flight at a time, so that registers stay few and an SM holds
+// more warps; x is read once per edge for all heads of a group, agg is
+// written once and streamed past L2.  No value crosses slices, so a row
+// wider than 32 G slices is cut into chunks that each walk the row's edges;
+// a row of any length is walked by its one warp, 32 edges at a time.  No
+// atomics, and the edge order within a row is fixed: agg is an fmaf chain
+// over the row's edges in CSR order from 0 and rowsum a sum in edge order
+// from 0, the bits of the block-per-row kernel this one replaced.  This is
+// the walk of gat_attention.cu without the score and the exp.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int EDGE_CHUNK = 64;
-constexpr int MAX_HEADS = 4;   // heads per block; more go to blockIdx.y
+constexpr int MAX_HEADS = 4;    // heads a launch group
+constexpr int MAX_GROUPS = 4;   // slices a lane in one column chunk
+constexpr int WARPS = 4;        // rows a block
+constexpr unsigned FULL = 0xffffffffu;
 
 template <int VEC> struct Vec;
 template <> struct Vec<1> {
@@ -48,81 +59,125 @@ template <> struct Vec<4> {
   }
 };
 
-// Heads h0 .. h0+HB-1 of row blockIdx.x, h0 = blockIdx.y * MAX_HEADS.
-template <int HB, int VEC>
-__global__ void weighted_segment_sum_kernel(const float* __restrict__ x,
-                                            const float* __restrict__ e,
-                                            const int* __restrict__ row_ptr,
-                                            const int* __restrict__ col,
-                                            float* __restrict__ agg,
-                                            float* __restrict__ rowsum,
-                                            int c, int h) {
+// The launch plan of weighted_segment_sum (ops/cuda/tile_segment.py's
+// launch_plan computes the same): c / vec slices in 32-lane groups, cut
+// into the fewest column chunks of at most MAX_GROUPS groups, the groups
+// shared out evenly; heads in groups of MAX_HEADS, the last HB < MAX_HEADS
+// launched on its own.
+struct Plan {
+  int groups, chunks, full, tail;
+};
+
+Plan plan_for(int c, int h, int vec) {
+  const int lane_groups = (c / vec + 31) / 32;
+  const int chunks = (lane_groups + MAX_GROUPS - 1) / MAX_GROUPS;
+  return {(lane_groups + chunks - 1) / chunks, chunks, h / MAX_HEADS,
+          h % MAX_HEADS};
+}
+
+// Heads h0 .. h0+HB-1 (h0 = blockIdx.z * MAX_HEADS) of rows
+// blockIdx.x * WARPS + warp, slices blockIdx.y * 32 G + lane + 32 g.
+template <int HB, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+weighted_segment_sum_kernel(const float* __restrict__ x,
+                            const float* __restrict__ e,
+                            const int* __restrict__ row_ptr,
+                            const int* __restrict__ col,
+                            float* __restrict__ agg,
+                            float* __restrict__ rowsum, int n, int c, int h) {
   using V = typename Vec<VEC>::T;
-  __shared__ int sh_col[EDGE_CHUNK];
-  __shared__ float sh_e[EDGE_CHUNK * HB];
-
-  const int i = blockIdx.x;
-  const int h0 = blockIdx.y * MAX_HEADS;
-  const int t = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (i >= n) return;  // a tail warp; nothing below waits on a barrier
+  const int h0 = blockIdx.z * MAX_HEADS;
+  const int s0 = blockIdx.y * 32 * G + lane;
   const int nv = c / VEC;
-  const bool owns_slice = t < nv;
-  const int beg = row_ptr[i];
-  const int end = row_ptr[i + 1];
 
-  V acc[HB];
+  V acc[HB][G];
   float rs[HB];
 #pragma unroll
   for (int q = 0; q < HB; ++q) {
-    acc[q] = V{};
     rs[q] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[q][g] = V{};
   }
+  const int beg = row_ptr[i];
+  const int end = row_ptr[i + 1];
 
-  for (int base = beg; base < end; base += EDGE_CHUNK) {
-    const int m = min(EDGE_CHUNK, end - base);
-    __syncthreads();  // the previous chunk is fully consumed
-    if (t < m) {
-      sh_col[t] = col[base + t];
+  for (int base = beg; base < end; base += 32) {
+    const int m = min(32, end - base);
+    // edge base + lane: its column and weights
+    int j_l = 0;
+    float e_l[HB];
 #pragma unroll
-      for (int q = 0; q < HB; ++q)
-        sh_e[t * HB + q] = e[(size_t)(base + t) * h + h0 + q];
+    for (int q = 0; q < HB; ++q) e_l[q] = 0.f;
+    if (lane < m) {
+      j_l = col[base + lane];
+#pragma unroll
+      for (int q = 0; q < HB; ++q) e_l[q] = e[(size_t)(base + lane) * h + h0 + q];
     }
-    __syncthreads();
-    if (owns_slice) {
-      for (int k = 0; k < m; ++k) {
-        const V v = reinterpret_cast<const V*>(x + (size_t)sh_col[k] * c)[t];
+
+    for (int k = 0; k < m; ++k) {  // the same k for every lane
+      const int j = __shfl_sync(FULL, j_l, k);
+      const V* xr = reinterpret_cast<const V*>(x + (size_t)j * c);
+      V v[G];
 #pragma unroll
-        for (int q = 0; q < HB; ++q) Vec<VEC>::fma(acc[q], sh_e[k * HB + q], v);
+      for (int g = 0; g < G; ++g) {
+        const int s = s0 + 32 * g;
+        v[g] = s < nv ? xr[s] : V{};
+      }
+#pragma unroll
+      for (int q = 0; q < HB; ++q) {
+        const float ek = __shfl_sync(FULL, e_l[q], k);
+#pragma unroll
+        for (int g = 0; g < G; ++g) Vec<VEC>::fma(acc[q][g], ek, v[g]);
+        rs[q] += ek;
       }
     }
-    if (t == 0) {
-      for (int k = 0; k < m; ++k) {
-#pragma unroll
-        for (int q = 0; q < HB; ++q) rs[q] += sh_e[k * HB + q];
-      }
-    }
   }
 
-  if (owns_slice) {
 #pragma unroll
-    for (int q = 0; q < HB; ++q)
-      reinterpret_cast<V*>(agg + ((size_t)i * h + h0 + q) * c)[t] = acc[q];
+  for (int q = 0; q < HB; ++q) {
+    V* out = reinterpret_cast<V*>(agg + ((size_t)i * h + h0 + q) * c);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int s = s0 + 32 * g;
+      if (s < nv) __stcs(out + s, acc[q][g]);
+    }
   }
-  if (t == 0) {
+  if (blockIdx.y == 0 && lane == 0) {  // every chunk sums the same weights
 #pragma unroll
     for (int q = 0; q < HB; ++q) rowsum[(size_t)i * h + h0 + q] = rs[q];
   }
 }
 
+struct Args {
+  const float *x, *e;
+  const int *row_ptr, *col;
+  float *agg, *rowsum;
+  int n, c, h;
+};
+
+template <int HB, int VEC, int G>
+void launch_rows(const Args& a, dim3 grid, cudaStream_t s) {
+  weighted_segment_sum_kernel<HB, VEC, G><<<grid, 32 * WARPS, 0, s>>>(
+      a.x, a.e, a.row_ptr, a.col, a.agg, a.rowsum, a.n, a.c, a.h);
+}
+
+template <int HB, int VEC>
+void launch_groups(const Args& a, dim3 grid, int groups, cudaStream_t s) {
+  switch (groups) {
+    case 1: launch_rows<HB, VEC, 1>(a, grid, s); break;
+    case 2: launch_rows<HB, VEC, 2>(a, grid, s); break;
+    case 3: launch_rows<HB, VEC, 3>(a, grid, s); break;
+    default: launch_rows<HB, VEC, MAX_GROUPS>(a, grid, s); break;
+  }
+}
+
 template <int HB>
-void launch(const float* x, const float* e, const int* row_ptr, const int* col,
-            float* agg, float* rowsum, dim3 grid, int c, int h, int vec,
-            int threads, cudaStream_t s) {
-  if (vec == 4)
-    weighted_segment_sum_kernel<HB, 4><<<grid, threads, 0, s>>>(
-        x, e, row_ptr, col, agg, rowsum, c, h);
-  else
-    weighted_segment_sum_kernel<HB, 1><<<grid, threads, 0, s>>>(
-        x, e, row_ptr, col, agg, rowsum, c, h);
+void launch(const Args& a, dim3 grid, int vec, int groups, cudaStream_t s) {
+  if (vec == 4) launch_groups<HB, 4>(a, grid, groups, s);
+  else launch_groups<HB, 1>(a, grid, groups, s);
 }
 
 }  // namespace
@@ -133,6 +188,20 @@ const char* snag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The plan weighted_segment_sum launches for (c, h, vec): out[0..3] =
+// slices a lane (G), column chunks, full head groups, heads of the tail
+// group.
+int weighted_segment_sum_plan(int c, int h, int vec, int* out) {
+  if (c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_for(c, h, vec);
+  out[0] = p.groups;
+  out[1] = p.chunks;
+  out[2] = p.full;
+  out[3] = p.tail;
+  return 0;
+}
+
 // x (n, c), e (row_ptr[n], h), row_ptr (n+1), col (row_ptr[n]) on the
 // device; agg (n, h, c) and rowsum (n, h) are written in full.  vec is 4
 // when c % 4 == 0 and x is 16-byte aligned, else 1.  Heads are taken
@@ -141,29 +210,26 @@ const char* snag_error_string(int err) {
 int weighted_segment_sum(const float* x, const float* e, const int* row_ptr,
                          const int* col, float* agg, float* rowsum, int n,
                          int c, int h, int vec, void* stream) {
-  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec ||
-      h / MAX_HEADS > 65535)
+  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nv = c / vec;
-  const int threads = (((nv > EDGE_CHUNK ? nv : EDGE_CHUNK) + 31) / 32) * 32;
-  if (threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_for(c, h, vec);
+  if (p.chunks > 65535 || p.full > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned rows = (n + WARPS - 1) / WARPS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int full = h / MAX_HEADS;
-  if (full > 0)
-    launch<MAX_HEADS>(x, e, row_ptr, col, agg, rowsum, dim3(n, full), c, h,
-                      vec, threads, s);
-  const int tail = h % MAX_HEADS;
-  if (tail > 0) {
-    // the tail group's blockIdx.y is 0: offset the head index instead
-    const int off = full * MAX_HEADS;
-    const float* et = e + off;
-    float* at = agg + (size_t)off * c;
-    float* rt = rowsum + off;
-    const dim3 grid(n, 1);
-    switch (tail) {
-      case 1: launch<1>(x, et, row_ptr, col, at, rt, grid, c, h, vec, threads, s); break;
-      case 2: launch<2>(x, et, row_ptr, col, at, rt, grid, c, h, vec, threads, s); break;
-      default: launch<3>(x, et, row_ptr, col, at, rt, grid, c, h, vec, threads, s); break;
+  if (p.full > 0)
+    launch<MAX_HEADS>({x, e, row_ptr, col, agg, rowsum, n, c, h},
+                      dim3(rows, p.chunks, p.full), vec, p.groups, s);
+  if (p.tail > 0) {
+    // the tail group's blockIdx.z is 0: offset the head index instead
+    const int off = p.full * MAX_HEADS;
+    const Args a{x, e + off, row_ptr, col, agg + (size_t)off * c,
+                 rowsum + off, n, c, h};
+    const dim3 grid(rows, p.chunks, 1);
+    switch (p.tail) {
+      case 1: launch<1>(a, grid, vec, p.groups, s); break;
+      case 2: launch<2>(a, grid, vec, p.groups, s); break;
+      default: launch<3>(a, grid, vec, p.groups, s); break;
     }
   }
   return static_cast<int>(cudaGetLastError());

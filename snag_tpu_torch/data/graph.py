@@ -22,7 +22,8 @@ its out-edges reversed, so a reduction over a node's in-edges is one over
 its CSR row: the GAT backward kernel relies on it
 (snag_tpu/ops/pallas/gat_bwd.py:17-32) and refuses a graph without it, and
 the backward of the weighted segment sum (``ops/gat_agg.py``) walks rows
-with the weights ``e[rev]``.
+with the weights ``e[rev]``; for the GCN's e, the adjacency itself, those
+are ``DeviceGraph.w_rev``, gathered once when the graph is moved.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class DeviceGraph(NamedTuple):
     col: torch.Tensor       # (E,) int32
     w: torch.Tensor         # (E,) f32, sym-normalised adjacency values
     rev: Optional[torch.Tensor]   # (E,) int64 reverse edge, None if asymmetric
+    w_rev: Optional[torch.Tensor] = None   # (E,) f32 w[rev], with rev
 
     @property
     def symmetric(self) -> bool:
@@ -79,7 +81,9 @@ class Graph:
             col=torch.as_tensor(self.col, device=device),
             w=torch.as_tensor(self.w, device=device),
             rev=None if self.rev is None
-            else torch.as_tensor(self.rev, device=device))
+            else torch.as_tensor(self.rev, device=device),
+            w_rev=None if self.rev is None
+            else torch.as_tensor(self.w[self.rev], device=device))
 
 
 def is_symmetric(n_nodes: int, rows: np.ndarray, cols: np.ndarray) -> bool:

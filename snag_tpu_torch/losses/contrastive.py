@@ -99,7 +99,8 @@ def icl_loss(emb: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
             or inversion:
         raise NotImplementedError(
             "icl_loss with replay negatives, mining or inversion "
-            "(MEAformer's replay path) is not ported: ROADMAP A6")
+            "(MEAformer's replay path) is not ported: ROADMAP A: the other "
+            "families")
     if norm:
         emb = l2norm(emb)
     zis = emb[links[:, 0]]

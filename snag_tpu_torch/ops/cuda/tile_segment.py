@@ -8,7 +8,10 @@ every head h and edge k = i <- j of the row-sorted CSR graph:
     rowsum[i, h] = sum_k e[k, h]
 
 The kernel gathers x[col] itself; the JAX package's (E, C) edge block is
-never built.
+never built.  One warp owns a row; lane l owns the 4-float (or 1-float)
+slices l, l + 32, ... of a column chunk, at most ``MAX_GROUPS`` of them, and
+up to ``MAX_HEADS`` heads' accumulators: ``launch_plan`` gives the chunks
+and head groups, so any C and any H are taken.
 
 Twin: ``weighted_segment_sum_twin``, the ``index_add_`` form of
 ``xla_weighted_segment_sum`` (tile_segment.py:341-353).
@@ -17,7 +20,7 @@ Twin: ``weighted_segment_sum_twin``, the ``index_add_`` form of
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,6 +29,34 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
                                           ptr, require, stream_of)
 
 STATS = KernelStats("weighted_segment_sum")
+MAX_HEADS = 4       # heads a launch group
+MAX_GROUPS = 4      # slices a lane in one column chunk
+WARPS = 4           # rows a block
+
+
+class LaunchPlan(NamedTuple):
+    """How ``csrc/tile_segment.cu`` covers (rows, heads, C / vec slices):
+    blocks of ``WARPS`` rows, a warp a row; ``chunks`` column chunks
+    (gridDim.y) of 32 lanes x ``groups`` slices, lane l owning slices
+    chunk * 32 * groups + l + 32 g; ``full`` head groups of ``MAX_HEADS``
+    (gridDim.z) and, launched on its own, a group of the ``tail`` heads
+    left."""
+    vec: int
+    groups: int
+    chunks: int
+    full: int
+    tail: int
+
+
+def launch_plan(c: int, h: int, vec: int) -> LaunchPlan:
+    """The plan the C entry ``weighted_segment_sum`` launches (its
+    ``plan_for``): the C / vec slices in 32-lane groups, cut into the
+    fewest column chunks of at most ``MAX_GROUPS`` groups, shared out
+    evenly."""
+    lane_groups = -(-(c // vec) // 32)
+    chunks = -(-lane_groups // MAX_GROUPS)
+    return LaunchPlan(vec, -(-lane_groups // chunks), chunks, h // MAX_HEADS,
+                      h % MAX_HEADS)
 
 
 def weighted_segment_sum_twin(x: torch.Tensor, e: torch.Tensor,
@@ -49,7 +80,21 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        plan = built.lib.weighted_segment_sum_plan
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        plan.restype = ctypes.c_int
     return built
+
+
+def kernel_plan(c: int, h: int, vec: int) -> LaunchPlan:
+    """The plan as the built library computes it (for holding
+    ``launch_plan`` against it on the card)."""
+    built = _library()
+    out = (ctypes.c_int * 4)()
+    check(built, built.lib.weighted_segment_sum_plan(
+        c, h, vec, ctypes.cast(out, ctypes.c_void_p)),
+        "weighted_segment_sum_plan")
+    return LaunchPlan(vec, *out)
 
 
 def weighted_segment_sum_cuda(x: torch.Tensor, e: torch.Tensor,
@@ -73,8 +118,6 @@ def weighted_segment_sum_cuda(x: torch.Tensor, e: torch.Tensor,
     require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     require(graph.col, "col", torch.int32, (graph.n_edges,), dev)
     vec = 4 if (c % 4 == 0 and x.data_ptr() % 16 == 0) else 1
-    if -(-c // vec) > 1024:
-        raise ValueError(f"C = {c} is too wide for one block per row")
 
     agg = torch.empty(n, h, c, dtype=torch.float32, device=dev)
     rowsum = torch.empty(n, h, dtype=torch.float32, device=dev)

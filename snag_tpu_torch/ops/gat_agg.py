@@ -10,8 +10,10 @@ The forward is ``ops/cuda/tile_segment.py``'s weighted segment sum.  The
 backward's d_x[j] = sum over edges i <- j of sum_h e[edge, h] g_agg[i, h]
 is a reduction over j's in-edges; on the symmetric edge multiset those are
 j's CSR row reversed (``DeviceGraph.rev``), so it is the same row kernel
-run on g_agg with the weights e[rev], one launch per head.  The JAX
-package instead reduces over a col-sorted copy of the edges (:89-112).
+run on g_agg with the weights e[rev], one launch per head.  When e is the
+graph's own adjacency ``graph.w`` (the GCN's), e[rev] is ``graph.w_rev``,
+gathered once per graph instead of on every backward.  The JAX package
+instead reduces over a col-sorted copy of the edges (:89-112).
 
 The GCN's edge weights are the constant adjacency ``graph.w``, so no path
 needs d_e: an ``e`` that requires a gradient is refused.
@@ -38,7 +40,7 @@ class _GatAggregate(torch.autograd.Function):
     def backward(ctx, g_agg, g_rs):
         (e,) = ctx.saved_tensors
         graph = ctx.graph
-        e_rev = e[graph.rev]
+        e_rev = reverse_weights(e, graph)
         d_x = None
         for h in range(e.shape[1]):
             part, _ = weighted_segment_sum(g_agg[:, h].contiguous(),
@@ -46,6 +48,16 @@ class _GatAggregate(torch.autograd.Function):
                                            graph)
             d_x = part[:, 0] if d_x is None else d_x + part[:, 0]
         return d_x, None, None
+
+
+def reverse_weights(e: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
+    """e[rev] (E, H): ``graph.w_rev`` when e is the graph's adjacency
+    ``graph.w`` as one head (the same memory), else gathered."""
+    if (graph.w_rev is not None and e.shape == (graph.n_edges, 1)
+            and e.device == graph.w.device and e.dtype == graph.w.dtype
+            and e.data_ptr() == graph.w.data_ptr()):
+        return graph.w_rev[:, None]
+    return e[graph.rev]
 
 
 def gat_aggregate(x: torch.Tensor, e: torch.Tensor, graph: DeviceGraph

@@ -92,7 +92,7 @@ class MultiHeadGraphAttention(nn.Module):
                 "GAT attention dropout (--attn_dropout > 0) takes the "
                 "segment_sum path of snag_tpu/ops/gnn.py:160-174, plain "
                 "module work with no Pallas kernel, not ported yet "
-                "(ROADMAP A6)")
+                "(ROADMAP A: GAT attention dropout)")
         f = self.f_out
         wh = self.w[:, 0, :]                                  # (H, F)
         a_src = self.a_src_dst[:, :f, 0]

@@ -35,7 +35,7 @@ def make_lr_schedule(cfg: Config, lr: float, total_steps: int,
     if cfg.accumulation_steps > 1:
         raise NotImplementedError(
             "--accumulation_steps > 1 (optax.MultiSteps) is not ported yet: "
-            "ROADMAP A4")
+            "ROADMAP A: gradient accumulation")
     total = max(int(total_steps), 1)
     warmup = int(warmup_steps)
 

@@ -38,7 +38,7 @@ from snag_tpu_torch.utils.import_reference import load_reference_checkpoint
 from snag_tpu_torch.utils.loss_log import LossLog
 from snag_tpu_torch.utils.seed import set_seed
 
-CHECKPOINTS = "ROADMAP A5 (checkpoints and resume)"
+CHECKPOINTS = "ROADMAP A: train-state checkpoints"
 
 
 def _sync(device: torch.device) -> None:
@@ -57,10 +57,10 @@ class Runner:
                                "plain PyTorch twins)")
         if cfg.dtype != "float32":
             raise NotImplementedError(f"--dtype {cfg.dtype}: only float32 "
-                                      "is ported (bf16 is ROADMAP A7)")
+                                      "is ported (ROADMAP A: bf16)")
         if cfg.mesh_shape:
             raise NotImplementedError("--mesh_shape: multi-GPU is not "
-                                      "ported (ROADMAP A6)")
+                                      "ported (ROADMAP A: multi-GPU)")
         for flag, on in (("--save_model", cfg.save_model),
                          ("--checkpoint_every", cfg.checkpoint_every),
                          ("--resume_from", cfg.resume_from)):

@@ -13,7 +13,7 @@ rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|; so do the
 mixture kernels, under the same limits for lse, dz, dalpha and dbeta, and
 two runs of any of the four loss kernels give the same bits.  The weighted segment
 sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
-atol = 1e-5.  The rank
+atol = 1e-5, and two runs give the same bits.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
 may flip: ranks must agree on >= 99 % of queries; tie rules are checked on
 the kernel's own exact ties; two runs, and runs with any number of column
@@ -24,14 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from snag_tpu_torch.data.graph import build_graph
+from snag_tpu_torch.data.graph import DeviceGraph, build_graph
 from snag_tpu_torch.ops.cuda import gat_attention as ga
 from snag_tpu_torch.ops.cuda import gat_bwd as gb
 from snag_tpu_torch.ops.cuda import ntxent as nx
 from snag_tpu_torch.ops.cuda import rank_eval as rk
 from snag_tpu_torch.ops.cuda import snag_loss as sl
 from snag_tpu_torch.ops.cuda import tile_segment as ts
-from snag_tpu_torch.ops.gat_agg import gat_aggregate
+from snag_tpu_torch.ops.gat_agg import gat_aggregate, reverse_weights
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 
 pytestmark = pytest.mark.cuda
@@ -334,14 +334,23 @@ def test_mixture_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 def _segment_inputs(dev, c, h, seed=0, n=300):
-    g, x, _, _ = _gat_inputs(dev, c=c, h=1, seed=seed)
+    g, x, _, _ = _gat_inputs(dev, n=n, c=c, h=1, seed=seed)
     rng = np.random.default_rng(seed)
     e = torch.as_tensor(rng.uniform(0.1, 2.0, size=(g.n_edges, h)).astype(
         np.float32), device=dev)
     return g, x, e
 
 
-@pytest.mark.parametrize("c,h", [(48, 1), (30, 2), (300, 1), (64, 5)])
+# a warp per row, lane l owning slices l + 32 g of a column chunk: C = 300
+# one chunk of float4 slices; 1,200 three chunks; 4,096 eight (1,024
+# float4 slices, the widest row of the block-per-row kernel before); 1,023
+# eight chunks of single floats; H = 5 and 8 a full head group and a tail,
+# two full groups
+SEGMENT_WIDTHS = [(48, 1), (30, 2), (300, 1), (64, 5), (1200, 1), (4096, 1),
+                  (1023, 2), (300, 8)]
+
+
+@pytest.mark.parametrize("c,h", SEGMENT_WIDTHS)
 def test_weighted_segment_sum_matches_twin(dev, c, h):
     g, x, e = _segment_inputs(dev, c, h, seed=c)
     agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
@@ -349,6 +358,81 @@ def test_weighted_segment_sum_matches_twin(dev, c, h):
     want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+
+
+def test_weighted_segment_sum_plan_is_the_kernels(dev):
+    """The built library launches the plan ``launch_plan`` computes."""
+    for c in (30, 64, 300, 319, 1023, 1200, 4096, 8192):
+        for h in (1, 2, 4, 5, 8):
+            for vec in ((4, 1) if c % 4 == 0 else (1,)):
+                assert ts.kernel_plan(c, h, vec) == ts.launch_plan(c, h, vec)
+
+
+@pytest.mark.parametrize("n", [301, 302, 303])
+def test_weighted_segment_sum_partial_last_block(dev, n):
+    """A row count that leaves the last block of 4 rows part empty."""
+    g, x, e = _segment_inputs(dev, 300, 2, seed=n, n=n)
+    agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
+    torch.cuda.synchronize()
+    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,h", [(300, 1), (1023, 2)])
+def test_weighted_segment_sum_empty_and_hub_rows(dev, c, h):
+    """Rows with no edge (first and last among them) give zeros; a row of
+    70 edges is walked 32 at a time; every row's edges are summed in CSR
+    order, so the kernel repeats bit for bit."""
+    lengths = np.array([0, 3, 0, 70, 1, 0, 33, 64, 65, 2, 0])
+    n = len(lengths)
+    rng = np.random.default_rng(c)
+    row = np.repeat(np.arange(n), lengths)
+    col = rng.integers(n, size=len(row)).astype(np.int32)
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    g = DeviceGraph(n, len(row), torch.as_tensor(row_ptr, device=dev),
+                    torch.as_tensor(row, device=dev),
+                    torch.as_tensor(col, device=dev),
+                    torch.ones(len(row), device=dev), None)
+    x = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32),
+                        device=dev)
+    e = torch.as_tensor(rng.uniform(0.1, 2.0, size=(len(row), h)).astype(
+        np.float32), device=dev)
+    agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
+    again = ts.weighted_segment_sum_cuda(x, e, g)
+    torch.cuda.synchronize()
+    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+    empty = torch.as_tensor(lengths == 0, device=dev)
+    assert (agg[empty] == 0).all() and (rs[empty] == 0).all()
+    assert torch.equal(agg, again[0]) and torch.equal(rs, again[1])
+
+
+@pytest.mark.parametrize("c,h", [(300, 1), (1023, 2), (4096, 1), (64, 5)])
+def test_weighted_segment_sum_repeats_bitwise(dev, c, h):
+    g, x, e = _segment_inputs(dev, c, h, seed=c + 1)
+    first = ts.weighted_segment_sum_cuda(x, e, g)
+    again = ts.weighted_segment_sum_cuda(x, e, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_gcn_backward_takes_the_cached_reverse_weights(dev):
+    """The GCN's e is the graph's adjacency: its backward launch runs on
+    ``w_rev`` and gives the plain column reduction's d_x."""
+    g, x, _ = _segment_inputs(dev, 300, 1, seed=5)
+    e = g.w[:, None]
+    assert reverse_weights(e, g).data_ptr() == g.w_rev.data_ptr()
+    xg = x.clone().requires_grad_()
+    agg, _ = gat_aggregate(xg, e, g)
+    g_agg = torch.randn_like(agg)
+    (agg * g_agg).sum().backward()
+    torch.cuda.synchronize()
+    want = torch.zeros_like(x).index_add_(0, g.col.long(),
+                                          e * g_agg[g.row, 0])
+    torch.testing.assert_close(xg.grad, want, rtol=1e-5, atol=1e-5)
 
 
 def test_gat_aggregate_backward_launches_the_kernel(dev):

@@ -32,7 +32,7 @@ from snag_tpu.ops.gat_agg import gat_aggregate as jax_gat_aggregate
 from snag_tpu.ops.gnn import GCN as JaxGCN
 from snag_tpu_torch.data.graph import build_graph
 from snag_tpu_torch.ops.cuda import tile_segment as tts
-from snag_tpu_torch.ops.gat_agg import gat_aggregate
+from snag_tpu_torch.ops.gat_agg import gat_aggregate, reverse_weights
 from snag_tpu_torch.ops.gnn import GCN
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
 from torch_port_common import (padded_batch, single_thread, small_argv,
@@ -115,6 +115,43 @@ def test_gat_aggregate_forward_and_dx_match_jax_vjp(h):
 
     xt = torch.from_numpy(x).requires_grad_()
     agg, rs = gat_aggregate(xt, torch.from_numpy(e), tg.to_torch("cpu"))
+    ((agg * torch.from_numpy(g_agg)).sum()
+     + (rs * torch.from_numpy(g_rs)).sum()).backward()
+    np.testing.assert_allclose(agg.detach().numpy(), np.asarray(want_agg), **TOL)
+    np.testing.assert_allclose(rs.detach().numpy(), np.asarray(want_rs), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), **TOL)
+
+
+def test_gat_aggregate_dx_with_cached_reverse_weights_matches_jax_vjp():
+    """The GCN's e is the graph's adjacency w: the backward takes w[rev]
+    from ``DeviceGraph.w_rev`` (gathered once per graph) and d_x must
+    still match ``jax.vjp``; any other e is gathered at rev."""
+    n, c = 150, 24
+    tri = _triples(n, 450, seed=9, hubs=True)
+    jg, tg = jax_build_graph(n, tri), build_graph(n, tri)
+    dg = tg.to_torch("cpu")
+    np.testing.assert_array_equal(dg.w_rev.numpy(), tg.w[tg.rev])
+    e = dg.w[:, None]
+    assert reverse_weights(e, dg).data_ptr() == dg.w_rev.data_ptr()
+    other = e.clone()
+    assert reverse_weights(other, dg).data_ptr() != dg.w_rev.data_ptr()
+    torch.testing.assert_close(reverse_weights(other, dg), other[dg.rev],
+                               rtol=0, atol=0)
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    g_agg = rng.normal(size=(n, 1, c)).astype(np.float32)
+    g_rs = rng.normal(size=(n, 1)).astype(np.float32)
+
+    @jax.jit
+    def jrun(xx, ga, gr):
+        out, vjp = jax.vjp(lambda a: jax_gat_aggregate(
+            a, jnp.asarray(jg.w)[:, None], jg), xx)
+        return out, vjp((ga, gr))[0]
+    (want_agg, want_rs), want_dx = jrun(jnp.asarray(x), jnp.asarray(g_agg),
+                                        jnp.asarray(g_rs))
+
+    xt = torch.from_numpy(x).requires_grad_()
+    agg, rs = gat_aggregate(xt, e, dg)
     ((agg * torch.from_numpy(g_agg)).sum()
      + (rs * torch.from_numpy(g_rs)).sum()).backward()
     np.testing.assert_allclose(agg.detach().numpy(), np.asarray(want_agg), **TOL)

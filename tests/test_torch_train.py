@@ -75,7 +75,8 @@ def test_lr_schedule_matches_jax(scheduler):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-10)
     if scheduler != "fixed":
         assert got[0] == 0.0          # the pre-increment step under warmup
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A: gradient accumulation"):
         make_lr_schedule(dataclasses.replace(cfg, accumulation_steps=2),
                          5e-4, 40, 6)
 
@@ -247,5 +248,6 @@ def test_checkpoint_flags_raise(tmp_path, flag, value):
     from snag_tpu_torch.config import finalize_config
     cfg = finalize_config(Config(device="cpu", **SMALL, **{flag: value}),
                           data_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A: train-state checkpoints"):
         Runner(cfg, create_logger(name="flags"))

@@ -52,10 +52,19 @@ the exit code is non-zero:
    add pairs and the final metrics lie in [0, 1];
 7. the GCN encoder (``--structure_encoder gcn``) at the same geometry:
    serving, then 6 training epochs; the segment sum, mixture, NT-Xent and
-   rank kernels must have launched and the GAT kernels not.
+   rank kernels must have launched and the GAT kernels not;
+8. files: ``scripts/torch_gates.py`` exports the 30,000-entity DBP15K
+   ja_en files of the quality gates and checks their digests against the
+   JAX package's; ``main`` trains on them at the gates' geometry for 8
+   epochs (IL from epoch 2, a checkpoint every 3 epochs, ``--save_model
+   1``), a second run resumes from the epoch-5 checkpoint and must end
+   with the same final metrics and a saved model equal tensor for tensor,
+   and ``--only_test 1`` from the saved ``.pkl`` must give the same
+   metrics; each run's kernels must have launched and no twin may have
+   run.
 
 The line before last is the per-kernel JSON record (launches summed over
-the runs of phases 5-7; ``bound_share`` is ``bound_ms / device_ms``); the
+the runs of phases 5-8; ``bound_share`` is ``bound_ms / device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
 """
@@ -1148,6 +1157,108 @@ def phase_gcn(data):
     return {k: served[k] + trained[k] for k in served}
 
 
+def _files_argv(root: Path, exp_id: str, *extra: str):
+    """The gates' flags (``torch_gates.PARITY_FLAGS``) at 8 epochs with IL
+    from epoch 2, on the files under ``root``."""
+    import torch_gates
+    flags = list(torch_gates.PARITY_FLAGS)
+    for k, v in (("--epoch", "8"), ("--il_start", "2")):
+        flags[flags.index(k) + 1] = v
+    return flags + ["--random_seed", str(SEED), "--data_path",
+                    str(root / "data"), "--dump_path", str(root / "dump"),
+                    "--exp_name", "chip_smoke_files", "--exp_id", exp_id,
+                    "--no_tensorboard", *extra]
+
+
+def _files_run(label, argv, expected):
+    """``main(argv)`` with the launch counts set to 0 just before it;
+    returns (runner, launches), the kernels of ``expected`` launched and
+    no other, no twin."""
+    import torch
+    from snag_tpu_torch.cli.train_mmea import main
+    from snag_tpu_torch.ops import cuda as kernels
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    runner = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = kernel_stats()
+    res = runner.last_result
+    say("files", f"{label}: main() {wall:.1f} s | {_res_line(res)} | MRR "
+        f"l2r {res.mrr_l2r!r} r2l {res.mrr_r2l!r} | launches/twin calls "
+        f"{stats}")
+    check_launches(f"files {label}", stats, expected)
+    return runner, {name: launches for name, (launches, _) in stats.items()}
+
+
+def _res_line(res):
+    t1, t2, _ = res.acc_l2r
+    return f"Res:[{t1}\t{t2}\t{res.mrr_l2r:.3f}]"
+
+
+def _same_result(a, b):
+    return (_res_line(a) == _res_line(b)
+            and (a.mrr_l2r, a.mrr_r2l, a.mr_l2r, a.mr_r2l)
+            == (b.mrr_l2r, b.mrr_r2l, b.mr_l2r, b.mr_r2l)
+            and (a.acc_r2l == b.acc_r2l).all()
+            and (a.ranks_l2r == b.ranks_l2r).all()
+            and (a.top3_l2r == b.top3_l2r).all())
+
+
+def phase_files():
+    """The on-disk data path and train-state checkpoints at the gates'
+    geometry: export (digests held against the JAX package's), train with
+    checkpoints and ``--save_model``, resume from the last checkpoint,
+    serve the saved ``.pkl``.  Returns the launches of the three runs."""
+    import torch
+    from snag_tpu_torch.ops import cuda as kernels
+    from snag_tpu_torch.utils.checkpoint import CHECKPOINT_NAME
+    from snag_tpu_torch.utils.logging import get_dump_path
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_gates
+    root = WORK / "files"
+    t0 = time.perf_counter()
+    digests = torch_gates.export(str(root))     # raises on a mismatch
+    say("files", f"export + digests {time.perf_counter() - t0:.1f} s, all "
+        f"{len(digests)} the JAX package's:")
+    for line in torch_gates.digest_lines(digests):
+        say("files", f"  {line}")
+
+    train = set(kernels.all_stats()) - {SEGMENT_KERNEL}
+    ckpt_flags = ("--checkpoint_every", "3", "--save_model", "1")
+    trained, launches = _files_run(
+        "trained", _files_argv(root, "trained", *ckpt_flags), train)
+    ckpt = str(Path(get_dump_path(trained.cfg)) / CHECKPOINT_NAME)
+    epoch = torch.load(ckpt, weights_only=True)["epoch"]
+    if epoch != 5:
+        raise AssertionError(f"the last checkpoint is of epoch {epoch}, not 5")
+    resumed, more = _files_run(
+        "resumed from the epoch-5 checkpoint",
+        _files_argv(root, "resumed", *ckpt_flags, "--resume_from", ckpt),
+        train)
+    launches = {k: launches[k] + more[k] for k in launches}
+    saved = [torch.load(str(Path(r.cfg.data_path) / "SNAG" / "save" /
+                            f"{r.cfg.exp_id}.pkl"), weights_only=True)
+             for r in (trained, resumed)]
+    differ = sorted(k for k in saved[0] if not torch.equal(saved[0][k],
+                                                           saved[1][k]))
+    say("files", f"saved models: {len(saved[0])} tensors, {len(differ)} "
+        f"differ {differ[:8]}; final results equal: "
+        f"{_same_result(trained.last_result, resumed.last_result)}")
+    if differ or saved[0].keys() != saved[1].keys() or \
+            not _same_result(trained.last_result, resumed.last_result):
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    served, more = _files_run(
+        "served from the saved .pkl",
+        _files_argv(root, "served", "--only_test", "1", "--model_name_save",
+                    trained.cfg.exp_id), SERVING_KERNELS)
+    launches = {k: launches[k] + more[k] for k in launches}
+    if not _same_result(trained.last_result, served.last_result):
+        raise AssertionError("serving the saved model gives other metrics")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1169,6 +1280,7 @@ def main() -> int:
     phase_train_small_all()
     runs = [phase_slice(data), phase_train(), phase_gcn(data)]
     del data
+    runs.append(phase_files())
 
     meta = {
         "gat_attention_fwd": ("snag_tpu_torch/csrc/gat_attention.cu",

@@ -1,13 +1,15 @@
-"""Dataset orchestration: synthetic KG -> one host-side container.
+"""Dataset orchestration: files or the synthetic KG -> one host-side container.
 
-Port of ``snag_tpu/data/dataset.py`` (``load_data`` -> ``_load_synthetic``
--> ``_assemble``), returning the same ``KGData`` fields.  Everything here
-is numpy; the runner moves what the model reads to its device.
+Port of ``snag_tpu/data/dataset.py`` (``load_data`` -> ``_load_files`` or
+``_load_synthetic`` -> ``_assemble``), returning the same ``KGData``
+fields.  Everything here is numpy; the runner moves what the model reads
+to its device.
 """
 
 from __future__ import annotations
 
 import logging
+import os.path as osp
 from dataclasses import dataclass, field
 from typing import List, Optional, Set, Tuple
 
@@ -15,6 +17,7 @@ import numpy as np
 
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data import features as F
+from snag_tpu_torch.data import io
 from snag_tpu_torch.data.graph import Graph, build_graph
 from snag_tpu_torch.data.synthetic import generate_synthetic_kg
 
@@ -69,13 +72,11 @@ def _split_ills(ills, data_rate: float, rng: np.random.Generator):
 
 def load_data(cfg: Config, logger: Optional[logging.Logger] = None) -> KGData:
     logger = logger or logging.getLogger("snag_tpu_torch")
-    if cfg.data_choice != "SYNTH":
-        raise NotImplementedError(
-            f"--data_choice {cfg.data_choice}: the on-disk loader is not "
-            "ported yet; use SYNTH")
     if cfg.model_name == "MSNEA":
         raise NotImplementedError("MSNEA is not ported yet")
-    return _load_synthetic(cfg, logger)
+    if cfg.data_choice == "SYNTH":
+        return _load_synthetic(cfg, logger)
+    return _load_files(cfg, logger)
 
 
 def _load_synthetic(cfg: Config, logger) -> KGData:
@@ -103,6 +104,65 @@ def _load_synthetic(cfg: Config, logger) -> KGData:
                      ent_wo_img, ent_w_img, rel, att, name_feat, char_feat,
                      train_ill, test_ill, test_ill_, left_ents, right_ents,
                      kg1_triples, kg2_triples)
+
+
+def _load_files(cfg: Config, logger) -> KGData:
+    """One dataset directory in the reference's on-disk layout
+    (``data/export_reference.py`` writes it)."""
+    if "OEA" in cfg.data_choice:
+        file_dir = osp.join(cfg.data_path, "OpenEA", cfg.data_choice)
+    else:
+        file_dir = osp.join(cfg.data_path, cfg.data_choice, cfg.data_split)
+    ent2id, ills, triples, r_hs, _, _ = io.read_raw_data(file_dir)
+    left_ents = io.get_ids(osp.join(file_dir, "ent_ids_1"))
+    right_ents = io.get_ids(osp.join(file_dir, "ent_ids_2"))
+    n_ent = len(ent2id)
+    n_rel = len(r_hs)
+
+    img_path = io.resolve_img_pickle(cfg.data_path, cfg.data_choice,
+                                     cfg.data_split, cfg.ratio)
+    img, ent_wo_img, ent_w_img = F.load_img_pickle(n_ent, img_path,
+                                                   cfg.random_seed)
+    logger.info(f"image feature shape: {img.shape}; {len(ent_wo_img)} "
+                "entities without image")
+
+    name_feat = char_feat = None
+    if cfg.data_choice == "DBP15K" and (cfg.w_name or cfg.w_char):
+        name_path = osp.join(cfg.data_path, "DBP15K", "translated_ent_name",
+                             f"dbp_{cfg.data_split}.json")
+        w2v_path = osp.join(cfg.data_path, "embedding", "glove.6B.300d.txt")
+        name_feat, char_feat = F.build_name_char_features(
+            n_ent, io.read_ent_names(name_path), F.load_word2vec(w2v_path),
+            np.random.default_rng(cfg.random_seed))
+
+    if cfg.unsup:
+        feats = {"char": char_feat, "name": name_feat}.get(
+            cfg.unsup_mode, F.l2_normalize_rows(img))
+        if feats is None:
+            raise ValueError(f"--unsup_mode {cfg.unsup_mode} needs the "
+                             "surface features: pass --use_surface 1 with "
+                             "DBP15K")
+        train_ill = F.visual_pivot_induction(left_ents, right_ents, feats,
+                                             cfg.unsup_k)
+        test_ill_ = list(ills)
+        np.random.default_rng(cfg.random_seed).shuffle(test_ill_)
+        test_ill = np.asarray(test_ill_, dtype=np.int32)
+    else:
+        # the reference seeds the legacy global RNG at start and its first
+        # draw is this shuffle (main.py:41 -> src/data.py:153): the same
+        # seed gives the reference's train/test split
+        train_ill, test_ill, test_ill_ = _split_ills(
+            ills, cfg.data_rate, np.random.RandomState(cfg.random_seed))
+
+    rel = F.build_relation_features(n_ent, triples, 1000)
+    ent_attrs = io.read_attrs([osp.join(file_dir, "training_attrs_1"),
+                               osp.join(file_dir, "training_attrs_2")], ent2id)
+    att = F.build_attr_features(n_ent, ent_attrs, 1000)
+    kg1 = io.read_tuples([osp.join(file_dir, "triples_1")])
+    kg2 = io.read_tuples([osp.join(file_dir, "triples_2")])
+    return _assemble(logger, n_ent, n_rel, triples, img, ent_wo_img,
+                     ent_w_img, rel, att, name_feat, char_feat, train_ill,
+                     test_ill, test_ill_, left_ents, right_ents, kg1, kg2)
 
 
 def _assemble(logger, n_ent, n_rel, triples, img, ent_wo_img, ent_w_img,

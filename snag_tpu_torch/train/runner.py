@@ -12,6 +12,13 @@ weights with the top-3 CSV (:203-206, 395-420).
 Data, features and model live on ``cfg.device``; the growing ``train_ill``
 stays a host numpy array and batches are fed capacity-padded with a
 validity mask.  ``train_epoch`` reads the device once, at its end.
+
+``--checkpoint_every N`` saves the full train state to
+``<dump>/checkpoint.pt`` every N epochs and ``--resume_from`` continues
+from one (``utils/checkpoint.py``); ``--save_model 1`` writes the final
+weights as a reference ``.pkl`` (``torch.save(state_dict)``,
+SNAG_MMEA/main.py:481-500), which ``load_model`` and the JAX package's
+``load_model`` both read.
 """
 
 from __future__ import annotations
@@ -34,11 +41,13 @@ from snag_tpu_torch.models.encoder import prepare_features, prepare_stats
 from snag_tpu_torch.ops.fusion import l2norm
 from snag_tpu_torch.train import il as il_mod
 from snag_tpu_torch.train.step import TrainStep, make_noise_fn
-from snag_tpu_torch.utils.import_reference import load_reference_checkpoint
+from snag_tpu_torch.utils.checkpoint import (CHECKPOINT_NAME,
+                                             load_checkpoint, save_checkpoint)
+from snag_tpu_torch.utils.import_reference import (load_reference_checkpoint,
+                                                   save_reference_checkpoint)
+from snag_tpu_torch.utils.logging import get_dump_path
 from snag_tpu_torch.utils.loss_log import LossLog
 from snag_tpu_torch.utils.seed import set_seed
-
-CHECKPOINTS = "ROADMAP A: train-state checkpoints"
 
 
 def _sync(device: torch.device) -> None:
@@ -61,12 +70,6 @@ class Runner:
         if cfg.mesh_shape:
             raise NotImplementedError("--mesh_shape: multi-GPU is not "
                                       "ported (ROADMAP A: multi-GPU)")
-        for flag, on in (("--save_model", cfg.save_model),
-                         ("--checkpoint_every", cfg.checkpoint_every),
-                         ("--resume_from", cfg.resume_from)):
-            if on:
-                raise NotImplementedError(f"{flag}: train-state checkpoints "
-                                          f"are not ported yet, {CHECKPOINTS}")
         if cfg.profile_dir:
             raise NotImplementedError("--profile_dir: the port has no "
                                       "profiler hook yet")
@@ -117,6 +120,13 @@ class Runner:
         self.last_result: Optional[RankResult] = None
         self.pred_path: Optional[str] = None
 
+        self.start_epoch = 0
+        if cfg.resume_from:
+            load_checkpoint(self, cfg.resume_from)
+            self.start_epoch = self.epoch + 1
+            self.logger.info(f"resumed from {cfg.resume_from} "
+                             f"(epoch {self.epoch}, stage {self.stage})")
+
     # ------------------------------------------------------------------
     def _steps_per_epoch(self) -> int:
         return max(1, -(-len(self.train_ill) // self.cfg.batch_size))
@@ -125,7 +135,9 @@ class Runner:
         """A fresh optimizer and schedule over ``total_epochs`` epochs
         (runner.py:176-206); the step count restarts at 0."""
         total_steps = self._steps_per_epoch() * total_epochs
-        warmup = int(total_steps * 0.15)
+        self._make_train_step(total_steps, int(total_steps * 0.15))
+
+    def _make_train_step(self, total_steps: int, warmup: int) -> None:
         self.logger.info(f"total_steps: {total_steps}  warmup_steps: {warmup}"
                          f"  lr: {self._lr}  weight_decay: "
                          f"{self.cfg.weight_decay}")
@@ -297,7 +309,6 @@ class Runner:
         cfg = self.cfg
         writer = None
         if not cfg.no_tensorboard:
-            from snag_tpu_torch.utils.logging import get_dump_path
             from snag_tpu_torch.utils.metrics_writer import MetricsWriter
             writer = MetricsWriter(get_dump_path(cfg))
         try:
@@ -309,7 +320,7 @@ class Runner:
     def _run(self, writer) -> RankResult:
         cfg = self.cfg
         t0 = time.time()
-        for i in range(cfg.epoch):
+        for i in range(self.start_epoch, cfg.epoch):
             self.epoch = i
             if cfg.il and ((i == cfg.il_start and self.stage == 0)
                            or (self.early_stop_count <= 0
@@ -350,6 +361,10 @@ class Runner:
 
             if (i + 1) % cfg.eval_epoch == 0:
                 self.evaluate()
+            if cfg.checkpoint_every and (i + 1) % cfg.checkpoint_every == 0:
+                path = save_checkpoint(
+                    self, osp.join(get_dump_path(cfg), CHECKPOINT_NAME))
+                self.logger.info(f"checkpoint saved to {path}")
             if self.stage == 1 and self.early_stop_count <= 0:
                 self.logger.info(f"Early stop in epoch {i}")
                 break
@@ -364,18 +379,34 @@ class Runner:
         if self.step_ms:
             self.logger.info(f"train step: median {statistics.median(self.step_ms):.3f}"
                              f" ms over {len(self.step_ms)} steps ({self.device})")
+        if cfg.save_model:
+            self.save_model()
         return res
 
     # ------------------------------------------------------------------
+    def save_model(self) -> str:
+        """The model's weights (the best model's after ``run``) as a
+        reference ``.pkl`` under ``<data_path>/<model>/save/``
+        (main.py:481-500)."""
+        cfg = self.cfg
+        path = osp.join(cfg.data_path, cfg.model_name, "save")
+        os.makedirs(path, exist_ok=True)
+        path = save_reference_checkpoint(
+            self.model, osp.join(path, f"{cfg.exp_id}.pkl"))
+        self.logger.info(f"saving [{path}] done!")
+        return path
+
     def load_model(self, name: str) -> bool:
         """Load a reference-format ``.pkl`` checkpoint
-        (torch.save(state_dict), SNAG_MMEA/main.py:481-500).  Every port
-        parameter must be present; extra reference keys are ignored."""
+        (torch.save(state_dict), SNAG_MMEA/main.py:481-500), the port's
+        ``save_model`` output among them; a name without the ``.pkl``
+        suffix (an ``exp_id``, which may hold dots) means ``<name>.pkl``,
+        and a relative one lies under ``<data_path>/<model>/save/``.
+        Every port parameter must be present; extra reference keys are
+        ignored."""
         cfg = self.cfg
         if not name.endswith(".pkl"):
-            raise NotImplementedError(
-                f"{name}: only reference .pkl checkpoints load in the port "
-                f"({CHECKPOINTS})")
+            name += ".pkl"
         path = name if osp.isabs(name) else osp.join(
             cfg.data_path, cfg.model_name, "save", name)
         if not osp.exists(path):

@@ -44,7 +44,8 @@ def make_noise_fn(cfg: Config, stats: FeatureStats
 
 class TrainStep:
     """One optimizer step of ``model``'s training loss; ``count`` is the
-    optimizer step counter (the JAX ``TrainState.step``)."""
+    optimizer step counter (the JAX ``TrainState.step``), and
+    ``total_steps`` / ``warmup_steps`` the schedule's horizon."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, lr: float,
                  total_steps: int, warmup_steps: int):
@@ -52,6 +53,8 @@ class TrainStep:
         self.model = model
         self.params = list(model.parameters())
         self.opt = build_optimizer(cfg, model, lr)
+        self.total_steps = total_steps
+        self.warmup_steps = warmup_steps
         self.sched = make_lr_schedule(cfg, lr, total_steps, warmup_steps)
         self.count = 0
 

@@ -1,0 +1,115 @@
+"""Full mid-training checkpoint and resume of an MMEA run.
+
+Port of the MMEA half of ``snag_tpu/utils/checkpoint.py``
+(``save_checkpoint`` / ``load_checkpoint``).  The file is
+``<dump>/checkpoint.pt``, written by ``torch.save`` with every array stored
+as a tensor, so ``torch.load(path, weights_only=True)`` reads it.  It holds
+the model and the best model's state dicts, the AdamW state, the schedule
+(its step count and the horizon it was built with), ``epoch``, ``stage``,
+the LR, ``best_mrr``, ``early_stop_count``, the epoch losses, the grown
+``train_ill``, the five ``ILState`` tensors, and the global ``numpy`` and
+``random`` states.
+
+Contract: a run resumed from a checkpoint repeats the uninterrupted run
+exactly, parameter for parameter and metric for metric.  The batches come
+from ``np.random.permutation`` and a promotion re-seeds that RNG, so its
+state is saved; the noise and dropout streams are derived from
+(seed, epoch) and (seed, step) and need nothing saved.  The schedule's
+horizon is saved rather than recomputed: the stage-1 horizon is fixed
+when the stage begins, before promotions grow ``train_ill``, so a
+recomputed one would change every LR after a resume past a promotion (the
+JAX package recomputes it, and its kill-and-resume gate checks only the
+final MRR).  MEAformer's replay buffer waits for that family's port.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+import random
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from snag_tpu_torch.train.il import ILState
+
+CHECKPOINT_NAME = "checkpoint.pt"
+IL_FIELDS = ("left_cand", "left_valid", "right_cand", "right_valid",
+             "cand_right")
+
+
+def _np_random_state() -> Dict[str, Any]:
+    kind, keys, pos, has_gauss, gauss = np.random.get_state()
+    return {"kind": kind, "keys": torch.from_numpy(keys.astype(np.int64)),
+            "pos": int(pos), "has_gauss": int(has_gauss),
+            "gauss": float(gauss)}
+
+
+def _set_np_random_state(s: Dict[str, Any]) -> None:
+    np.random.set_state((s["kind"], s["keys"].cpu().numpy().astype(np.uint32),
+                         s["pos"], s["has_gauss"], s["gauss"]))
+
+
+def _py_random_state() -> Dict[str, Any]:
+    version, internal, gauss_next = random.getstate()
+    return {"version": version,
+            "internal": torch.tensor(internal, dtype=torch.int64),
+            "gauss_next": gauss_next}
+
+
+def _set_py_random_state(s: Dict[str, Any]) -> None:
+    random.setstate((s["version"], tuple(s["internal"].cpu().tolist()),
+                     s["gauss_next"]))
+
+
+def save_checkpoint(runner, path: str) -> str:
+    """Write ``runner``'s train state to ``path`` (atomically: a kill
+    during the write leaves the previous file whole)."""
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    step = runner.train_step
+    il = runner.il_state
+    payload = {
+        "model": runner.model.state_dict(),
+        "best_state": runner.best_state,
+        "optimizer": step.opt.state_dict(),
+        "schedule": {"count": step.count, "total_steps": step.total_steps,
+                     "warmup_steps": step.warmup_steps},
+        "epoch": runner.epoch,
+        "stage": runner.stage,
+        "lr": runner._lr,
+        "best_mrr": runner.best_mrr,
+        "early_stop_count": runner.early_stop_count,
+        "losses": list(runner.loss_log.loss),
+        "train_ill": torch.from_numpy(np.asarray(runner.train_ill)),
+        "il": None if il is None else {f: getattr(il, f) for f in IL_FIELDS},
+        "np_random": _np_random_state(),
+        "py_random": _py_random_state(),
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(runner, path: str) -> None:
+    """Restore ``runner`` from ``path``: the optimizer and schedule are
+    rebuilt with the saved horizon and LR, then given the saved state."""
+    payload = torch.load(path, map_location=runner.device, weights_only=True)
+    runner.model.load_state_dict(payload["model"])
+    runner.best_state = payload["best_state"]
+    runner.epoch = int(payload["epoch"])
+    runner.stage = int(payload["stage"])
+    runner._lr = float(payload["lr"])
+    runner.best_mrr = float(payload["best_mrr"])
+    runner.early_stop_count = int(payload["early_stop_count"])
+    runner.loss_log.loss = list(payload["losses"])
+    runner.train_ill = payload["train_ill"].cpu().numpy()
+    sched = payload["schedule"]
+    runner._make_train_step(sched["total_steps"], sched["warmup_steps"])
+    runner.train_step.opt.load_state_dict(payload["optimizer"])
+    runner.train_step.count = int(sched["count"])
+    if payload["il"] is not None:
+        runner.il_state = ILState(**payload["il"])
+    _set_np_random_state(payload["np_random"])
+    _set_py_random_state(payload["py_random"])

@@ -8,26 +8,9 @@ from snag_tpu.data.dataset import load_data as jax_load_data
 from snag_tpu.data.graph import build_graph as jax_build_graph
 from snag_tpu_torch.data.dataset import load_data as torch_load_data
 from snag_tpu_torch.data.graph import build_graph as torch_build_graph
-from torch_port_common import configs, single_thread
+from torch_port_common import assert_graph_equal, configs, single_thread
 
 single_thread()
-
-
-def _real_edges(g):
-    m = g.mask
-    return g.row[m], g.col[m], g.w[m]
-
-
-def _assert_graph_equal(jg, tg):
-    assert tg.n_nodes == jg.n_nodes and tg.n_edges == jg.n_edges
-    jr, jc, jw = _real_edges(jg)
-    np.testing.assert_array_equal(tg.row, jr)
-    np.testing.assert_array_equal(tg.col, jc)
-    np.testing.assert_array_equal(tg.w, jw)
-    assert tg.mask.all() and tg.mask.shape == (tg.n_edges,)
-    np.testing.assert_array_equal(tg.row_ptr[:-1], jg.starts)
-    np.testing.assert_array_equal(np.diff(tg.row_ptr), jg.deg)
-    assert tg.row_ptr[-1] == tg.n_edges
 
 
 @pytest.mark.parametrize("seed,n_ents", [(7, 200), (3408, 300)])
@@ -45,7 +28,7 @@ def test_load_data_matches_jax(tmp_path, seed, n_ents):
     for name in ("ent_wo_img", "ent_w_img", "left_ents", "right_ents",
                  "left_non_train", "right_non_train", "test_ill_set"):
         assert getattr(td, name) == getattr(jd, name), name
-    _assert_graph_equal(jd.graph, td.graph)
+    assert_graph_equal(jd.graph, td.graph)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -57,7 +40,7 @@ def test_build_graph_matches_jax_with_duplicates_and_loops(seed):
     tri = [(int(rng.integers(n - 1)), 0, int(rng.integers(n - 1)))
            for _ in range(150)]
     tri += [(3, 1, 5), (5, 2, 3), (3, 1, 5), (8, 0, 8)]
-    _assert_graph_equal(jax_build_graph(n, tri), torch_build_graph(n, tri))
+    assert_graph_equal(jax_build_graph(n, tri), torch_build_graph(n, tri))
 
 
 def test_device_graph_tensors():

@@ -245,9 +245,15 @@ def test_cpu_train_mmea_run_with_il_promotion(tmp_path):
                                         ("checkpoint_every", 2),
                                         ("resume_from", "x.msgpack")])
 def test_checkpoint_flags_raise(tmp_path, flag, value):
+    """The checkpoint flags are ported (tests/test_torch_resume.py): the
+    runner takes ``--save_model`` and ``--checkpoint_every``, and
+    ``--resume_from`` raises only for want of its file."""
     from snag_tpu_torch.config import finalize_config
     cfg = finalize_config(Config(device="cpu", **SMALL, **{flag: value}),
                           data_root=str(tmp_path))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A: train-state checkpoints"):
-        Runner(cfg, create_logger(name="flags"))
+    if flag == "resume_from":
+        with pytest.raises(FileNotFoundError):
+            Runner(cfg, create_logger(name="flags"))
+    else:
+        assert getattr(Runner(cfg, create_logger(name="flags")).cfg,
+                       flag) == value

@@ -51,6 +51,21 @@ def fast_create_train_state(cfg, model, feats, graph, tx, seed,
                       step=jnp.zeros((), jnp.int32), base_key=base_key)
 
 
+def assert_graph_equal(jg, tg):
+    """The port's compact ``Graph`` holds the real edges of the JAX
+    package's padded one, in the same order, with the same CSR rows."""
+    import numpy as np
+    m = jg.mask
+    assert tg.n_nodes == jg.n_nodes and tg.n_edges == jg.n_edges
+    np.testing.assert_array_equal(tg.row, jg.row[m])
+    np.testing.assert_array_equal(tg.col, jg.col[m])
+    np.testing.assert_array_equal(tg.w, jg.w[m])
+    assert tg.mask.all() and tg.mask.shape == (tg.n_edges,)
+    np.testing.assert_array_equal(tg.row_ptr[:-1], jg.starts)
+    np.testing.assert_array_equal(np.diff(tg.row_ptr), jg.deg)
+    assert tg.row_ptr[-1] == tg.n_edges
+
+
 def single_thread():
     # tier-1 runs several xdist workers; one intra-op thread each
     torch.set_num_threads(1)

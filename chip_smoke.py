@@ -11,7 +11,10 @@ the exit code is non-zero:
    for sm_90a (into the git-ignored ``build/kernels``), one nvcc each, in
    parallel;
 3. each of the nine kernels against its plain-PyTorch twin on the card, at
-   the shapes the bench geometry gives it, with max errors and two median
+   the shapes the bench geometry gives it (the twins of the two GAT kernels
+   and of the segment sum, whose ``index_add_`` adds by atomics in a
+   varying order on the card, run on CPU copies of the inputs), with max
+   errors and two median
    times over 5 runs: ``ms``, one launch between two CUDA events
    (``median_ms``; under ~0.2 ms it also counts the wrapper's Python), and
    ``device_ms``, the device time of the kernel's own launches in one
@@ -35,21 +38,31 @@ the exit code is non-zero:
    the weighted segment sum (a warp per CSR row too) the forward on the
    GCN's adjacency and the backward's launch on ``w_rev``, each with a
    bitwise repeat and its gathered GB/s, its registers and spills, and
-   ``torch.sparse.mm`` as the library yardstick;
+   ``torch.sparse.mm`` as the library yardstick; then the six bf16 entries
+   (``--dtype bfloat16``: both GAT kernels, the NT-Xent and mixture lse and
+   gradients, on bf16 operands) against their bf16 twins on CPU copies at
+   the main path's shapes (the GAT inputs above rounded to bf16, NT-Xent
+   IIR, the mixture's full M = 4 batch), within 4e-3 x max
+   |twin| per output, with bitwise repeats and the same timings, their
+   bound at the bf16 dense rate of 989 TFLOP/s;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
    encoder: losses and parameters must agree, and the fused and unfused
-   losses too;
+   losses too; then ``--dtype bfloat16``: step 0's loss and gradients and
+   three steps' losses, GPU against CPU (``phase_train_small_bf16``);
 5. serving: ``snag_tpu_torch.cli.train_mmea.main`` with ``--only_test 1``
    at the bench geometry (30,000 entities, 2 x 2 GAT at d = 300, CSLS k = 3,
    10,500 test pairs) from a seeded random init saved as a reference
    ``.pkl``; its three kernels must have launched and no twin may have run;
 6. training: ``main`` at the same geometry with batch 3500, 12 epochs, IL
    from epoch 2 (promotion at epoch 9), noise 0.2/0.7 and the default fused
-   loss; every kernel but the weighted segment sum must have launched, no
-   twin may have run, the losses must be finite and fall, promotion must
-   add pairs and the final metrics lie in [0, 1];
+   loss; every f32 kernel but the weighted segment sum must have launched,
+   no twin may have run, the losses must be finite and fall, promotion must
+   add pairs and the final metrics lie in [0, 1]; then the same run with
+   ``--dtype bfloat16`` (``train_bf16``: every bf16 entry and both rank
+   sweeps launch, no f32 GAT or loss kernel, its warm step printed beside
+   the f32 one) and bf16 serving from a seeded init (``slice_bf16``);
 7. the GCN encoder (``--structure_encoder gcn``) at the same geometry:
    serving, then 6 training epochs; the segment sum, mixture, NT-Xent and
    rank kernels must have launched and the GAT kernels not;
@@ -89,6 +102,8 @@ REPS = 5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 TF32X3_FLOP_PER_S = 495e12 / 3  # H100 SXM TF32 tensor cores, 3 products
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+BF16_TOL = 4e-3                 # a bf16 kernel: max |err| / max |twin|
 
 BENCH_ARGS = [
     "--model_name", "SNAG", "--data_choice", "SYNTH", "--data_rate", "0.3",
@@ -136,10 +151,23 @@ DEVICE_KERNELS = {
     "mixture_lse": ("mixture_lse",),
     "mixture_grad": ("mixture_grad", "mixture_dbeta", "mixture_sum"),
     "weighted_segment_sum": ("weighted_segment_sum",),
+    # the bf16 entries (--dtype bfloat16), named apart: "<f32 name>_bf16"
+    "gat_attention_fwd_bf16": ("gat_attention_fwd_bf16",),
+    "gat_bwd_bf16": ("gat_bwd_bf16",),
+    "ntxent_lse_bf16": ("ntxent_lse_bf16",),
+    "ntxent_grad_bf16": ("ntxent_grad_bf16",),
+    "mixture_lse_bf16": ("mixture_lse_bf16",),
+    "mixture_grad_bf16": ("mixture_grad_bf16", "mixture_dbeta_bf16",
+                          "mixture_sum_bf16"),
 }
 SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
 GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
 SEGMENT_KERNEL = "weighted_segment_sum"
+BF16_KERNELS = {"gat_attention_fwd_bf16", "gat_bwd_bf16", "ntxent_lse_bf16",
+                "ntxent_grad_bf16", "mixture_lse_bf16", "mixture_grad_bf16"}
+RANK_KERNELS = {"rank_topk_mean", "rank_counts"}
+BF16 = ["--dtype", "bfloat16"]
+WARM_STEP_MS = {}               # phase -> median warm step ms of its run
 # (name, M, B, d, valid rows) of the NT-Xent calls at the bench geometry:
 # the default fused loss runs IIR only (4 modalities' hidden rows); with
 # --fused_snag_loss 0 ECIA (shown with the padded last batch, 1,000 of 3,500
@@ -387,6 +415,35 @@ def gat_bwd_inputs(graph_np, c=300, h=2):
             t(n, h))
 
 
+def on_cpu(twin, *args):
+    """``twin`` on CPU copies of ``args`` (tensors and a DeviceGraph), its
+    outputs moved back to the card: ``index_add_`` adds in a fixed order on
+    the CPU and by atomics in a varying order on the card."""
+    import torch
+    from snag_tpu_torch.data.graph import DeviceGraph
+
+    def cpu(a):
+        if isinstance(a, DeviceGraph):
+            return DeviceGraph(*(cpu(t) for t in a))
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+    out = twin(*(cpu(a) for a in args))
+    return tuple(o.to("cuda") for o in out)
+
+
+def bf16_errors(label, got, want):
+    """max |err| of each bf16 kernel output against its twin's; raises
+    above ``BF16_TOL`` x max |twin| or on a non-finite value."""
+    errs = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        a, w = a.float(), w.float()
+        e, scale = (a - w).abs().max().item(), w.abs().max().item()
+        if not (a.isfinite().all() and e <= BF16_TOL * scale):
+            raise AssertionError(f"{label} output {i}: max|err| {e} > "
+                                 f"{BF16_TOL} x max|twin| {scale}")
+        errs.append(e)
+    return errs
+
+
 def repeat_bitwise(fn, what):
     """fn's outputs, after checking that a second run gives the same bits."""
     import torch
@@ -424,67 +481,93 @@ def say_gat_ptxas(phase, lib, kernel):
             f"loads {ld} B")
 
 
-def phase_gat(graph_np):
-    """The GAT forward kernel against its index_add_ twin at the slice
-    shapes, rtol = atol = 1e-5, with a bitwise repeat and the rate of its
-    x gathers (E C 4 bytes over the kernel's time)."""
+def phase_gat(graph_np, bf16=False):
+    """The GAT forward kernel against its index_add_ twin (on CPU copies)
+    at the slice shapes, rtol = atol = 1e-5, with a bitwise repeat and the
+    rate of its x gathers (E C 4 bytes over the kernel's time).  bf16: the
+    bf16 entry on the same x rounded to bf16, within ``BF16_TOL`` x max of
+    its bf16 twin, gathering E C 2 bytes."""
     import torch
     from snag_tpu_torch.ops.cuda import gat_attention as ga
-    say_gat_ptxas("gat", ga._library(), "gat_attention_fwd_kernel")
+    stats = ga.STATS_BF16 if bf16 else ga.STATS
+    label = "gat_bf16" if bf16 else "gat"
+    say_gat_ptxas(label, ga._library(), f"{stats.name}_kernel")
     g, x, s_src, s_dst = gat_inputs(graph_np)
+    if bf16:
+        x = x.to(torch.bfloat16)
     (n, c), h, e = x.shape, s_src.shape[1], g.n_edges
     agg, rs = repeat_bitwise(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g),
-                             "gat")
-    want_agg, want_rs = ga.gat_attention_twin(x, s_src, s_dst, g)
-    err_agg = (agg - want_agg).abs().max().item()
-    err_rs = (rs - want_rs).abs().max().item()
-    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+                             label)
+    want_agg, want_rs = on_cpu(ga.gat_attention_twin, x, s_src, s_dst, g)
+    if bf16:
+        err_agg, err_rs = bf16_errors(label, (agg, rs), (want_agg, want_rs))
+        limit = f"<= {BF16_TOL} x max"
+    else:
+        err_agg = (agg - want_agg).abs().max().item()
+        err_rs = (rs - want_rs).abs().max().item()
+        torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
+        limit = "rtol=atol=1e-5"
     ms = median_ms(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g))
     dev = device_ms(lambda: ga.gat_attention_cuda(x, s_src, s_dst, g),
-                    DEVICE_KERNELS[ga.STATS.name])
+                    DEVICE_KERNELS[stats.name])
     plain = median_ms(lambda: ga.gat_attention_twin(x, s_src, s_dst, g))
-    say("gat", f"N={n} E={e} C={c} H={h}: max|agg err| {err_agg:.3e}"
-        f" max|rowsum err| {err_rs:.3e} (rtol=atol=1e-5), bitwise repeat |"
+    xb = x.element_size()
+    say(label, f"N={n} E={e} C={c} H={h}: max|agg err| {err_agg:.3e}"
+        f" max|rowsum err| {err_rs:.3e} ({limit}), bitwise repeat |"
         f" kernel {ms:.4f} ms, device {dev:.4f} ms "
-        f"({e * c * 4 / dev / 1e6:.1f} GB/s of x rows gathered) twin "
+        f"({e * c * xb / dev / 1e6:.1f} GB/s of x rows gathered) twin "
         f"{plain:.4f} ms")
-    return row(ga.STATS.name, max(err_agg, err_rs), ms, dev, plain,
-               4 * (n * c + 2 * n * h + n + 1 + e + n * h * c + n * h),
+    # in: x, s_src, s_dst, row_ptr, col; out: agg, rowsum
+    return row(stats.name, max(err_agg, err_rs), ms, dev, plain,
+               xb * n * c + 4 * (2 * n * h + n + 1 + e + n * h * c + n * h),
                2 * e * h * (c + 1))
 
 
-def phase_gat_bwd(graph_np):
-    """The GAT backward kernel against its index_add_ twin at the slice
-    shapes, with a bitwise repeat and the rate of its G gathers (E H C 4
-    bytes over the kernel's time).  Per-edge dot products over C and the
-    heads are summed in another order: rtol = atol = 1e-4."""
+def phase_gat_bwd(graph_np, bf16=False):
+    """The GAT backward kernel against its index_add_ twin (on CPU copies)
+    at the slice shapes, with a bitwise repeat and the rate of its G
+    gathers (E H C 4 bytes over the kernel's time).  Per-edge dot products
+    over C and the heads are summed in another order: rtol = atol = 1e-4.
+    bf16: the bf16 entry on x and G rounded to bf16, within ``BF16_TOL`` x
+    max of its bf16 twin per output, gathering E H C 2 bytes."""
     import torch
     from snag_tpu_torch.ops.cuda import gat_bwd as gb
-    say_gat_ptxas("gat_bwd", gb._library(), "gat_bwd_rows_kernel")
+    stats = gb.STATS_BF16 if bf16 else gb.STATS
+    label = "gat_bwd_bf16" if bf16 else "gat_bwd"
+    say_gat_ptxas(label, gb._library(),
+                  f"{'gat_bwd_bf16' if bf16 else 'gat_bwd'}_rows_kernel")
     g, x, s_src, s_dst, g_agg, g_rs = gat_bwd_inputs(graph_np)
+    if bf16:
+        x, g_agg = x.to(torch.bfloat16), g_agg.to(torch.bfloat16)
     (n, c), h, e = x.shape, s_src.shape[1], g.n_edges
     got = repeat_bitwise(lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg,
-                                                      g_rs, g), "gat_bwd")
-    want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
-    errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+                                                      g_rs, g), label)
+    want = on_cpu(gb.gat_backward_twin, x, s_src, s_dst, g_agg, g_rs, g)
+    if bf16:
+        errs = bf16_errors(label, got, want)
+        limit = f"<= {BF16_TOL} x max"
+    else:
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        limit = "rtol=atol=1e-4"
     ms = median_ms(lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg,
                                                 g_rs, g))
     dev = device_ms(lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg,
                                                  g_rs, g),
-                    DEVICE_KERNELS[gb.STATS.name])
+                    DEVICE_KERNELS[stats.name])
     plain = median_ms(lambda: gb.gat_backward_twin(x, s_src, s_dst, g_agg,
                                                    g_rs, g))
-    say("gat_bwd", f"N={n} E={e} C={c} H={h}: max|err| d_x "
+    xb = x.element_size()
+    say(label, f"N={n} E={e} C={c} H={h}: max|err| d_x "
         f"{errs[0]:.3e} d_s_src {errs[1]:.3e} d_s_dst {errs[2]:.3e} "
-        f"(rtol=atol=1e-4), bitwise repeat | kernel {ms:.4f} ms, device "
-        f"{dev:.4f} ms ({e * h * c * 4 / dev / 1e6:.1f} GB/s of G rows "
+        f"({limit}), bitwise repeat | kernel {ms:.4f} ms, device "
+        f"{dev:.4f} ms ({e * h * c * xb / dev / 1e6:.1f} GB/s of G rows "
         f"gathered) twin {plain:.4f} ms")
     # in: x, s_src, s_dst, G, r, row_ptr, col; out: d_x, d_s_src, d_s_dst
-    return row(gb.STATS.name, max(errs), ms, dev, plain,
-               4 * (2 * n * c + 5 * n * h + n * h * c + n + 1 + e),
+    return row(stats.name, max(errs), ms, dev, plain,
+               xb * (2 * n * c + n * h * c) + 4 * (5 * n * h + n + 1 + e),
                4 * e * h * c)
 
 
@@ -852,6 +935,124 @@ def phase_mixture(tau=0.1):
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
 
 
+def phase_loss_bf16(tau=0.1):
+    """The four bf16 loss entries against their bf16 twins on CPU copies
+    at the main path's shapes: NT-Xent at IIR (M = 4, B = 3,500, d = 300)
+    and the mixture at M = 4 with the full batch, on the inputs of the
+    f32 phases with z rounded to bf16.  Each output within ``BF16_TOL`` x
+    max |twin|; two runs give the same bits.  Prints the plans and the
+    TFLOP/s, executed and least, as the f32 phases do; the bound is the
+    bf16 dense rate.  Returns the JSON records of the four kernels."""
+    import torch
+    from snag_tpu_torch.ops.cuda import ntxent as nx
+    from snag_tpu_torch.ops.cuda import snag_loss as sl
+    bf = torch.bfloat16
+    label, m, b, d, n_valid = NTXENT_SHAPES[0]
+    z, v, coef = _ntxent_inputs(m, b, d, n_valid, SEED)
+    z = z.to(bf)
+    lse = repeat_bitwise(lambda: [nx.streaming_lse_cuda(z, v, tau)],
+                         "ntxent_lse_bf16")[0]
+    dz = repeat_bitwise(lambda: [nx.ntxent_grad_cuda(z, lse, coef, v, tau)],
+                        "ntxent_grad_bf16")[0]
+    e_lse, = bf16_errors("ntxent_lse_bf16", [lse], on_cpu(
+        lambda *a: [nx.streaming_lse_twin(*a)], z, v, tau))
+    e_dz, = bf16_errors("ntxent_grad_bf16", [dz], on_cpu(
+        lambda *a: [nx.ntxent_grad_twin(*a)], z, lse, coef, v, tau))
+    n2 = 2 * b
+    k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+    plan = nx.grad_plan(m, n2, d, z.device, bf)
+    lp = nx.lse_plan(m, n2, d, z.device, bf)
+    t = {"lse": median_ms(lambda: nx.streaming_lse_cuda(z, v, tau)),
+         "lse_dev": device_ms(lambda: nx.streaming_lse_cuda(z, v, tau),
+                              DEVICE_KERNELS[nx.STATS_LSE_BF16.name]),
+         "lse_twin": median_ms(lambda: nx.streaming_lse_twin(z, v, tau)),
+         "grad": median_ms(lambda: nx.ntxent_grad_cuda(z, lse, coef, v, tau)),
+         "grad_dev": device_ms(lambda: nx.ntxent_grad_cuda(
+             z, lse, coef, v, tau), DEVICE_KERNELS[nx.STATS_GRAD_BF16.name]),
+         "grad_twin": median_ms(lambda: nx.ntxent_grad_twin(
+             z, lse, coef, v, tau))}
+    executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
+    say("loss_bf16", f"ntxent {label} (M={m}, B={b}, d={d}): max|lse err| "
+        f"{e_lse:.3e} | max|dz err| {e_dz:.3e} of max|dz| "
+        f"{dz.abs().max().item():.3e} (<= {BF16_TOL} x max, bitwise repeats)"
+        f" | lse kernel {t['lse']:.3f} ms, device {t['lse_dev']:.3f} ms "
+        f"({k_flops / t['lse_dev'] / 1e9:.1f} least TFLOP/s; tile "
+        f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
+        f"block(s)/SM) twin {t['lse_twin']:.3f} ms | grad kernel "
+        f"{t['grad']:.3f} ms, device {t['grad_dev']:.3f} ms "
+        f"({executed / t['grad_dev'] / 1e9:.1f} executed, "
+        f"{(k_flops + wz_flops) / t['grad_dev'] / 1e9:.1f} least TFLOP/s; "
+        f"{plan['chunks']} chunk(s), depth {plan['depth']}, "
+        f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM) "
+        f"twin {t['grad_twin']:.3f} ms")
+    rows = [row(nx.STATS_LSE_BF16.name, e_lse, t["lse"], t["lse_dev"],
+                t["lse_twin"], 2 * m * n2 * d + 4 * (n2 + m * n2), k_flops,
+                flop_per_s=BF16_FLOP_PER_S),
+            row(nx.STATS_GRAD_BF16.name, e_dz, t["grad"], t["grad_dev"],
+                t["grad_twin"], 2 * m * n2 * d + 4 * (m * n2 * d + 2 * m * n2
+                                                      + n2),
+                k_flops + wz_flops, flop_per_s=BF16_FLOP_PER_S)]
+    del z, v, coef, lse, dz
+    torch.cuda.empty_cache()
+    cap = sl._grad_cap(sl._library(), torch.device("cuda"))
+    first = None
+    for i, (label, m, b, d, n_valid) in enumerate(MIXTURE_SHAPES[:1]):
+        z, alpha, beta, v, coef = _mixture_inputs(m, b, d, n_valid, SEED + i)
+        z = z.to(bf)
+        lse = repeat_bitwise(lambda: [sl.mixture_lse_cuda(z, alpha, beta, v,
+                                                          tau)],
+                             "mixture_lse_bf16")[0]
+        got = repeat_bitwise(lambda: sl.mixture_grad_cuda(
+            z, alpha, beta, lse, coef, v, tau), "mixture_grad_bf16")
+        e_lse, = bf16_errors("mixture_lse_bf16", [lse], on_cpu(
+            lambda *a: [sl.mixture_lse_twin(*a)], z, alpha, beta, v, tau))
+        errs = bf16_errors("mixture_grad_bf16", got, on_cpu(
+            sl.mixture_grad_twin, z, alpha, beta, lse, coef, v, tau))
+        t = {"lse": median_ms(lambda: sl.mixture_lse_cuda(
+                 z, alpha, beta, v, tau)),
+             "lse_dev": device_ms(lambda: sl.mixture_lse_cuda(
+                 z, alpha, beta, v, tau),
+                 DEVICE_KERNELS[sl.STATS_LSE_BF16.name]),
+             "lse_twin": median_ms(lambda: sl.mixture_lse_twin(
+                 z, alpha, beta, v, tau)),
+             "grad": median_ms(lambda: sl.mixture_grad_cuda(
+                 z, alpha, beta, lse, coef, v, tau)),
+             "grad_dev": device_ms(lambda: sl.mixture_grad_cuda(
+                 z, alpha, beta, lse, coef, v, tau),
+                 DEVICE_KERNELS[sl.STATS_GRAD_BF16.name]),
+             "grad_twin": median_ms(lambda: sl.mixture_grad_twin(
+                 z, alpha, beta, lse, coef, v, tau))}
+        n2 = 2 * b
+        k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+        groups = -(-m // sl.modality_group(m, d, cap))
+        executed = 2 * n2 * n2 * d * (groups * m + m)
+        say("loss_bf16", f"mixture {label} (M={m}, B={b}, d={d}, {n_valid} "
+            f"valid): max|lse err| {e_lse:.3e} | max|err| dz {errs[0]:.3e} "
+            f"dalpha {errs[1]:.3e} dbeta {errs[2]:.3e} (<= {BF16_TOL} x max,"
+            f" bitwise repeats) | lse kernel {t['lse']:.3f} ms, device "
+            f"{t['lse_dev']:.3f} ms ({k_flops / t['lse_dev'] / 1e9:.1f} "
+            f"least TFLOP/s) twin {t['lse_twin']:.3f} ms | grad kernel "
+            f"{t['grad']:.3f} ms, device {t['grad_dev']:.3f} ms "
+            f"({executed / t['grad_dev'] / 1e9:.1f} executed, "
+            f"{(k_flops + wz_flops) / t['grad_dev'] / 1e9:.1f} least "
+            f"TFLOP/s) twin {t['grad_twin']:.3f} ms")
+        if first is None:
+            # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
+            first = [row(sl.STATS_LSE_BF16.name, e_lse, t["lse"],
+                         t["lse_dev"], t["lse_twin"],
+                         2 * m * n2 * d + 4 * (n2 * m + m + n2
+                                               + (m + 2) * n2), k_flops,
+                         flop_per_s=BF16_FLOP_PER_S),
+                     row(sl.STATS_GRAD_BF16.name, max(errs), t["grad"],
+                         t["grad_dev"], t["grad_twin"],
+                         2 * m * n2 * d + 4 * (m * n2 * d + 2 * n2 * m + 2 * m
+                                               + n2 + 2 * (m + 2) * n2),
+                         k_flops + wz_flops, flop_per_s=BF16_FLOP_PER_S)]
+        del z, alpha, beta, v, coef, lse, got
+        torch.cuda.empty_cache()
+    return rows + first
+
+
 def segment_inputs(graph_np, c=300, h=1):
     """The bench graph on the card and seeded (x, e, e[rev], g_agg) of the
     weighted segment sum: e is the GCN's adjacency w as one head at h = 1,
@@ -911,9 +1112,9 @@ def phase_segment(graph_np):
         return ts.weighted_segment_sum_cuda(g_agg, e_rev, g)
     agg, rs = repeat_bitwise(fwd, "segment forward")
     d_x, _ = repeat_bitwise(bwd, "segment backward launch")
-    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
-    want_dx = torch.zeros_like(x).index_add_(0, g.col.long(),
-                                             e * g_agg[g.row])
+    want_agg, want_rs = on_cpu(ts.weighted_segment_sum_twin, x, e, g)
+    want_dx = torch.zeros_like(x).cpu().index_add_(
+        0, g.col.long().cpu(), (e * g_agg[g.row]).cpu()).cuda()
     errs = [(agg - want_agg).abs().max().item(),
             (rs - want_rs).abs().max().item(),
             (d_x[:, 0] - want_dx).abs().max().item()]
@@ -1018,6 +1219,70 @@ def phase_train_small(label, extra):
     return lc
 
 
+def phase_train_small_bf16():
+    """``--dtype bfloat16``, fused loss, all six modalities: step 0's loss
+    and every parameter gradient, then the losses of three deterministic
+    steps, on the GPU (bf16 kernels) against the CPU (bf16 twins), at the
+    limits of tests/test_torch_bf16.py: loss rel 1e-3, gradients max |err|
+    <= 1e-2 x max |CPU| over each optimizer group, three losses rel 1e-2."""
+    import copy
+    import numpy as np
+    import torch
+    from snag_tpu_torch.data.dataset import load_data
+    from snag_tpu_torch.models import build_model
+    from snag_tpu_torch.models.encoder import prepare_features
+    from snag_tpu_torch.train.optim import param_label
+    from snag_tpu_torch.train.step import TrainStep
+    cfg = cfg_from(SMALL_ARGS + ["--use_surface", "1", "--char_dim", "64",
+                                 "--name_dim", "64", "--add_noise", "0",
+                                 "--lr", "5e-4", "--scheduler", "cos",
+                                 "--fused_snag_loss", "1", "--device", "cpu"]
+                   + BF16)
+    data = load_data(cfg)
+    b = 128
+    batches = []
+    for k in range(0, 3 * b, b):      # the third batch is padded
+        chunk = data.train_ill[k:k + b]
+        links = np.zeros((b, 2), dtype=np.int64)
+        links[:len(chunk)] = chunk
+        batches.append((links, np.arange(b) < len(chunk)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, data, torch.Generator().manual_seed(SEED))
+        model = model.to(device)
+        feats = prepare_features(cfg, data, device)
+        graph = data.graph.to_torch(device)
+        links, valid = (torch.as_tensor(a, device=device) for a in batches[0])
+        probe = copy.deepcopy(model)
+        loss0, _ = probe(links, valid, feats, graph)
+        loss0.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 probe.named_parameters()}
+        step = TrainStep(cfg, model, cfg.lr, 20, 3)
+        losses = [step(torch.as_tensor(l, device=device),
+                       torch.as_tensor(v, device=device), feats, graph,
+                       epoch=0, deterministic=True)[0].item()
+                  for l, v in batches]
+        out[device] = (loss0.item(), grads, losses)
+    (l0g, gg, lg), (l0c, gc, lc) = out["cuda"], out["cpu"]
+    scale, err = {}, {}
+    for k, w in gc.items():
+        label = param_label(k)
+        scale[label] = max(scale.get(label, 0.0), w.abs().max().item())
+        err[label] = max(err.get(label, 0.0), (gg[k] - w).abs().max().item())
+    rel0 = abs(l0g - l0c) / abs(l0c)
+    rel = max(abs(a - c) / abs(c) for a, c in zip(lg, lc))
+    say("train_small_bf16", f"{data.ent_num} entities, batch {b}: step-0 "
+        f"loss gpu {l0g} cpu {l0c} (rel {rel0:.2e}, limit 1e-3) | gradients"
+        f" max|gpu-cpu| / max|cpu| by group "
+        f"{ {k: round(err[k] / scale[k], 6) for k in err} } (limit 1e-2) | "
+        f"three steps' losses gpu {lg} cpu {lc} (max rel {rel:.2e}, limit "
+        f"1e-2)")
+    if rel0 > 1e-3 or rel > 1e-2 or any(err[k] > 1e-2 * scale[k]
+                                         for k in err):
+        raise AssertionError("bf16 GPU and CPU training steps disagree")
+
+
 def phase_train_small_all():
     """The fused and the unfused loss, and the GCN encoder; the fused and
     unfused losses must agree within rel 1e-4."""
@@ -1120,8 +1385,9 @@ def _train(phase, argv, expected, promotion):
         f"{len(runner.data.train_ill)} -> {len(runner.train_ill)} | final "
         f"Hits@1/10/50 l2r {res.acc_l2r.tolist()} MRR l2r {res.mrr_l2r:.6f} "
         f"r2l {res.mrr_r2l:.6f}")
+    WARM_STEP_MS[phase] = statistics.median(warm)
     say(phase, f"step ms (device, CUDA events): median warm "
-        f"{statistics.median(warm):.3f} over {len(warm)} steps, first "
+        f"{WARM_STEP_MS[phase]:.3f} over {len(warm)} steps, first "
         f"{steps[0]:.3f} | launches/twin calls {stats}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
@@ -1135,25 +1401,48 @@ def _train(phase, argv, expected, promotion):
     return {name: launches for name, (launches, _) in stats.items()}
 
 
+def f32_kernels():
+    from snag_tpu_torch.ops import cuda as kernels
+    return set(kernels.all_stats()) - BF16_KERNELS
+
+
 def phase_train():
     """The training path at the bench geometry through the CLI entry, with
-    the default fused loss: every kernel but the segment sum launches."""
-    from snag_tpu_torch.ops import cuda as kernels
-    expected = set(kernels.all_stats()) - {SEGMENT_KERNEL}
-    return _train("train", BENCH_ARGS + TRAIN_ARGS, expected, promotion=True)
+    the default fused loss: every f32 kernel but the segment sum launches."""
+    return _train("train", BENCH_ARGS + TRAIN_ARGS,
+                  f32_kernels() - {SEGMENT_KERNEL}, promotion=True)
+
+
+def phase_train_bf16():
+    """The same training run with ``--dtype bfloat16``: every bf16 entry
+    and both rank sweeps launch, no f32 GAT or loss kernel does."""
+    launches = _train("train_bf16", BENCH_ARGS + TRAIN_ARGS + BF16,
+                      BF16_KERNELS | RANK_KERNELS, promotion=True)
+    say("train_bf16", f"median warm step: bf16 "
+        f"{WARM_STEP_MS['train_bf16']:.3f} ms, f32 (phase train) "
+        f"{WARM_STEP_MS['train']:.3f} ms")
+    return launches
+
+
+def phase_slice_bf16(data):
+    """Serving a bf16 configuration from a seeded init: the bf16 GAT
+    forward and the two f32 rank sweeps (the joint embedding is f32)."""
+    args = BENCH_ARGS + BF16
+    pkl = _seeded_checkpoint(args, data, "seeded_init_bf16.pkl")
+    return _serve("slice_bf16", args, pkl,
+                  {"gat_attention_fwd_bf16"} | RANK_KERNELS)
 
 
 def phase_gcn(data):
     """The GCN encoder at the bench geometry: serving from a seeded init,
     then training; the segment sum, mixture, NT-Xent and rank kernels
     launch, the GAT kernels do not."""
-    from snag_tpu_torch.ops import cuda as kernels
     args = gcn_args(BENCH_ARGS)
     pkl = _seeded_checkpoint(args, data, "seeded_init_gcn.pkl")
     served = _serve("gcn_serve", args, pkl,
                     {SEGMENT_KERNEL, "rank_topk_mean", "rank_counts"})
     trained = _train("gcn_train", args + GCN_TRAIN_ARGS,
-                     set(kernels.all_stats()) - GAT_KERNELS, promotion=False)
+                     f32_kernels() - GAT_KERNELS, promotion=False)
     return {k: served[k] + trained[k] for k in served}
 
 
@@ -1211,7 +1500,6 @@ def phase_files():
     checkpoints and ``--save_model``, resume from the last checkpoint,
     serve the saved ``.pkl``.  Returns the launches of the three runs."""
     import torch
-    from snag_tpu_torch.ops import cuda as kernels
     from snag_tpu_torch.utils.checkpoint import CHECKPOINT_NAME
     from snag_tpu_torch.utils.logging import get_dump_path
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -1224,7 +1512,7 @@ def phase_files():
     for line in torch_gates.digest_lines(digests):
         say("files", f"  {line}")
 
-    train = set(kernels.all_stats()) - {SEGMENT_KERNEL}
+    train = f32_kernels() - {SEGMENT_KERNEL}
     ckpt_flags = ("--checkpoint_every", "3", "--save_model", "1")
     trained, launches = _files_run(
         "trained", _files_argv(root, "trained", *ckpt_flags), train)
@@ -1276,9 +1564,14 @@ def main() -> int:
     rows += phase_ntxent()
     rows += phase_mixture()
     rows.append(phase_segment(data.graph))
+    rows += [phase_gat(data.graph, bf16=True),
+             phase_gat_bwd(data.graph, bf16=True)]
+    rows += phase_loss_bf16()
     phase_small()
     phase_train_small_all()
-    runs = [phase_slice(data), phase_train(), phase_gcn(data)]
+    phase_train_small_bf16()
+    runs = [phase_slice(data), phase_train(), phase_train_bf16(),
+            phase_slice_bf16(data), phase_gcn(data)]
     del data
     runs.append(phase_files())
 
@@ -1302,6 +1595,10 @@ def main() -> int:
         SEGMENT_KERNEL: ("snag_tpu_torch/csrc/tile_segment.cu",
                          "snag_tpu/ops/pallas/tile_segment.py:242"),
     }
+    # each bf16 entry: the same source and TPU kernel as its f32 one
+    meta.update({f"{name}_bf16": meta[name] for name in (
+        "gat_attention_fwd", "gat_bwd", "ntxent_lse", "ntxent_grad",
+        "mixture_lse", "mixture_grad")})
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],
                 "launches": sum(run[r["name"]] for run in runs),

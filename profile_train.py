@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its device time.
 
-    python3 profile_train.py
+    python3 profile_train.py [--dtype bfloat16]
 
 Builds the ``chip_smoke.py`` training configuration (the bench geometry:
 30,000 entities, batch 3500, GAT 300 x 2 x 2, the default fused loss,
@@ -22,6 +22,9 @@ structure encoder (``chip_smoke.gcn_args``).  For each it prints:
 * the median step of the untraced epochs after the first (CUDA events,
   ``step_ms``).
 
+With ``--dtype bfloat16`` it profiles the GAT configuration in bf16 alone
+(the GCN has no bf16 path); the bf16 entries are kinds of their own.
+
 Needs one NVIDIA GPU; exits non-zero without it.  Scratch data goes to the
 git-ignored ``build/profile_train``.
 """
@@ -39,10 +42,12 @@ from chip_smoke import (BENCH_ARGS, DEVICE_KERNELS, TRAIN_ARGS, cfg_from,
 ROOT = Path(__file__).resolve().parent
 WARM_EPOCHS = 3
 TRACED_EPOCHS = 2
-# (label, substring of the kernel name), first match wins
-KINDS = tuple((label, key) for label, keys in DEVICE_KERNELS.items()
-              for key in keys) + (("cuBLAS GEMM", "gemm"),
-                                  ("cuBLAS GEMM", "xmma"))
+# (label, substring of the kernel name), first match wins: the longest
+# substrings first, so that a bf16 entry ("mixture_grad_bf16") is not
+# taken for its f32 one ("mixture_grad")
+KINDS = tuple(sorted(((label, key) for label, keys in DEVICE_KERNELS.items()
+                      for key in keys), key=lambda lk: -len(lk[1]))) + (
+    ("cuBLAS GEMM", "gemm"), ("cuBLAS GEMM", "xmma"))
 
 
 def kind_of(name: str) -> str:
@@ -124,6 +129,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--dtype", "bfloat16"]:
+        profile_config("gat_bf16", BENCH_ARGS + sys.argv[1:])
+        return 0
+    if sys.argv[1:]:
+        print("usage: profile_train.py [--dtype bfloat16]", file=sys.stderr)
+        return 2
     profile_config("gat", BENCH_ARGS)
     torch.cuda.empty_cache()
     profile_config("gcn", gcn_args(BENCH_ARGS))

@@ -5,6 +5,7 @@ one NVIDIA GPU.
     python3 scripts/torch_gates.py export
     python3 scripts/torch_gates.py parity --seed 3408 [--variant il40]
     python3 scripts/torch_gates.py canon --run c1|c2|c3
+    (either with --dtype bfloat16)
 
 ``export`` writes the 30,000-entity DBP15K ja_en files of
 ``scripts/parity_15k.py`` (:91-100) with the port's exporter and prints a
@@ -24,6 +25,10 @@ package's export of the same arguments), and run
   ``c2`` the same run again as ``c2_repeat.log``; ``c3`` sends SIGTERM
   once the epoch-599 checkpoint is saved (``c3_killed.log``) and resumes
   from it (``c3_resumed.log``).
+
+``--dtype bfloat16`` passes the JAX package's main-path dtype through to
+the trainer and puts ``bf16_`` before the log's name (``ours_bf16_3408.log``,
+``bf16_c1_cold.log``); the JAX package's committed gate logs are f32.
 
 Each log starts with the card's name and power limit (nvidia-smi) and the
 data digests, and ends with the run's wall time.  Data and run dumps go
@@ -201,13 +206,22 @@ def header(digests: dict) -> list:
     return [f"card: {card()}"] + digest_lines(digests)
 
 
-def parity(root: str, logs: str, seed: int, variant: str) -> None:
+def dtype_flags(dtype: str) -> tuple:
+    """(trainer flags, log-name prefix) of ``--dtype``."""
+    if dtype == "float32":
+        return [], ""
+    return ["--dtype", dtype], "bf16_"
+
+
+def parity(root: str, logs: str, seed: int, variant: str,
+           dtype: str = "float32") -> None:
     digests = export(root)
     flags = list(PARITY_FLAGS)
     for k, v in VARIANTS[variant].items():
         flags[flags.index(k) + 1] = v
-    tag = f"{variant}_" if variant else ""
-    argv = flags + ["--random_seed", str(seed),
+    extra, prefix = dtype_flags(dtype)
+    tag = prefix + (f"{variant}_" if variant else "")
+    argv = flags + extra + ["--random_seed", str(seed),
                     "--data_path", osp.join(root, "data"), "--workers", "1",
                     "--exp_name", "p15k", "--exp_id", f"T{tag}{seed}",
                     "--no_tensorboard", "--dump_path", osp.join(root, "dump")]
@@ -217,10 +231,12 @@ def parity(root: str, logs: str, seed: int, variant: str) -> None:
         raise SystemExit(rc)
 
 
-def canon(root: str, logs: str, run: str) -> None:
+def canon(root: str, logs: str, run: str, dtype: str = "float32") -> None:
     digests = export(root)
     exp_id, name = CANON_RUNS[run]
-    argv = CANON_FLAGS + ["--exp_id", exp_id,
+    extra, prefix = dtype_flags(dtype)
+    exp_id, name = prefix + exp_id, prefix + name
+    argv = CANON_FLAGS + extra + ["--exp_id", exp_id,
                           "--data_path", osp.join(root, "data"),
                           "--dump_path", osp.join(root, "dump")]
     kill = KILL_AFTER_EPOCH + 1 if run == "c3" else 0
@@ -234,7 +250,8 @@ def canon(root: str, logs: str, run: str) -> None:
         raise SystemExit(f"c3: the run was not killed after its epoch-"
                          f"{KILL_AFTER_EPOCH} checkpoint (exit code {rc})")
     rc, _ = run_logged(argv + ["--resume_from", ckpt],
-                       osp.join(logs, "c3_resumed.log"), header(digests))
+                       osp.join(logs, f"{prefix}c3_resumed.log"),
+                       header(digests))
     if rc:
         raise SystemExit(rc)
 
@@ -247,15 +264,17 @@ def main() -> None:
     p.add_argument("--run", default="c1", choices=sorted(CANON_RUNS))
     p.add_argument("--root", default=osp.join(REPO, "build", "torch_gates"))
     p.add_argument("--logs", default="")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"])
     a = p.parse_args()
     root = osp.abspath(a.root)
     logs = osp.abspath(a.logs or a.root)
     if a.stage == "export":
         export(root)
     elif a.stage == "parity":
-        parity(root, logs, a.seed, a.variant)
+        parity(root, logs, a.seed, a.variant, a.dtype)
     else:
-        canon(root, logs, a.run)
+        canon(root, logs, a.run, a.dtype)
 
 
 if __name__ == "__main__":

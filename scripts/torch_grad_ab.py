@@ -36,7 +36,14 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   GCN's adjacency at C = 300, H = 1 and its backward launch on g_agg with
   w[rev], then on C = 30, H = 1 (adjacency), C = 319, H = 2 and C = 64,
   H = 5 (seeded weights): the sha256 of agg and of rowsum and the median
-  ms, and the kernel's registers and spills (``chip_smoke.segment_ptxas``).
+  ms, and the kernel's registers and spills (``chip_smoke.segment_ptxas``);
+* where the checkout has them, the bf16 entries (``--dtype bfloat16``) on
+  the same inputs rounded to bf16: both GAT kernels at C = 300, H = 2 and
+  C = 319, H = 2, ``mixture_lse_cuda`` and ``mixture_grad_cuda`` at the
+  first two ``MIXTURE_SHAPES`` (the gradient fed the bf16 lse), and
+  ``streaming_lse_cuda`` and ``ntxent_grad_cuda`` at ``NTXENT_SHAPES``,
+  each output's sha256 and the median times, in sections named
+  ``<section>_bf16``.
 
 Every median ms comes twice: ``ms`` (``chip_smoke.median_ms``, one launch
 between two CUDA events, which under ~0.2 ms also counts the wrapper's
@@ -48,6 +55,8 @@ time of the kernels the call launched, named as in
 It prints one JSON line with the card's name and power limit, and writes it
 to FILE.  With ``--against`` it fails unless every digest equals that of
 an earlier run's FILE: the check that two builds compute the same bits.
+A section the earlier run does not have at all (the bf16 sections against
+a checkout without bf16 entries) is reported and skipped.
 Run each checkout in its own process (two packages of one name cannot
 share one), in turns on one card: A, B, B, A.
 """
@@ -66,9 +75,13 @@ TAU = 0.1
 
 
 def digest(*tensors) -> str:
+    import torch
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().numpy().tobytes())
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:        # numpy has no bf16: its bits
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()
 
 
@@ -106,6 +119,9 @@ def main() -> int:
     out["segment"] = segment_records(cs, graph)
     from snag_tpu_torch.ops.cuda import tile_segment as ts
     out["ptxas"]["segment"] = ptxas_records(cs.segment_ptxas(ts._library()))
+    from snag_tpu_torch.ops.cuda import gat_attention as ga
+    if hasattr(ga, "STATS_BF16"):
+        out.update(bf16_records(cs, nx, sl, graph))
 
     line = json.dumps(out)
     print(line)
@@ -116,6 +132,9 @@ def main() -> int:
         other = json.loads(Path(args.against).read_text())
         same = True
         for kind in SECTIONS:
+            if kind in out and kind not in other:
+                print(f"{kind}: not in {other['root']}, skipped")
+                continue
             for label, rec in out.get(kind, {}).items():
                 if "sha256" not in rec:
                     continue
@@ -132,6 +151,8 @@ def main() -> int:
 
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
             "rank", "gat_fwd", "gat_bwd", "segment")
+SECTIONS += tuple(f"{k}_bf16" for k in SECTIONS
+                  if k not in ("rank", "segment"))
 
 
 def ptxas_records(rows):
@@ -188,6 +209,56 @@ def gat_records(cs, graph):
         for kind, lib, kernel in (
             ("gat_fwd", ga._library(), "gat_attention_fwd_kernel"),
             ("gat_bwd", gb._library(), "gat_bwd_rows_kernel"))}
+    return out
+
+
+def bf16_records(cs, nx, sl, graph):
+    """The bf16 entries: one digest per output, and the median times."""
+    import torch
+    from snag_tpu_torch.ops.cuda import gat_attention as ga
+    from snag_tpu_torch.ops.cuda import gat_bwd as gb
+    bf = torch.bfloat16
+    out = {k: {} for k in SECTIONS if k.endswith("_bf16")}
+    for label, c, h in (("C300 H2", 300, 2), ("C319 H2", 319, 2)):
+        g, x, s_src, s_dst = cs.gat_inputs(graph, c, h)
+        _, xb, sb, db, g_agg, g_rs = cs.gat_bwd_inputs(graph, c, h)
+        x, xb, g_agg = x.to(bf), xb.to(bf), g_agg.to(bf)
+        for fn, names, kind, kernel in (
+                (lambda: ga.gat_attention_cuda(x, s_src, s_dst, g),
+                 ("agg", "rowsum"), "gat_fwd_bf16", ga.STATS_BF16.name),
+                (lambda: gb.gat_backward_cuda(xb, sb, db, g_agg, g_rs, g),
+                 ("d_x", "d_s_src", "d_s_dst"), "gat_bwd_bf16",
+                 gb.STATS_BF16.name)):
+            for name, t in zip(names, fn()):
+                out[kind][f"{label} {name}"] = {"sha256": digest(t)}
+            out[kind][label] = timed(cs, fn, kernel)
+    for i, (label, m, b, d, n_valid) in enumerate(cs.MIXTURE_SHAPES[:2]):
+        z, alpha, beta, v, coef = cs._mixture_inputs(m, b, d, n_valid,
+                                                     cs.SEED + i)
+        z = z.to(bf)
+        lse = sl.mixture_lse_cuda(z, alpha, beta, v, TAU)
+        out["mixture_lse_bf16"][label] = {"sha256": digest(lse), **timed(
+            cs, lambda: sl.mixture_lse_cuda(z, alpha, beta, v, TAU),
+            sl.STATS_LSE_BF16.name)}
+        got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, TAU)
+        out["mixture_grad_bf16"][label] = {"sha256": digest(*got), **timed(
+            cs, lambda: sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v,
+                                             TAU), sl.STATS_GRAD_BF16.name)}
+        del z, alpha, beta, v, coef, lse, got
+        torch.cuda.empty_cache()
+    for i, (label, m, b, d, n_valid) in enumerate(cs.NTXENT_SHAPES):
+        z, v, coef = cs._ntxent_inputs(m, b, d, n_valid, cs.SEED + i)
+        z = z.to(bf)
+        lse = nx.streaming_lse_cuda(z, v, TAU)
+        out["ntxent_lse_bf16"][label] = {"sha256": digest(lse), **timed(
+            cs, lambda: nx.streaming_lse_cuda(z, v, TAU),
+            nx.STATS_LSE_BF16.name)}
+        dz = nx.ntxent_grad_cuda(z, lse, coef, v, TAU)
+        out["ntxent_grad_bf16"][label] = {"sha256": digest(dz), **timed(
+            cs, lambda: nx.ntxent_grad_cuda(z, lse, coef, v, TAU),
+            nx.STATS_GRAD_BF16.name)}
+        del z, v, coef, lse, dz
+        torch.cuda.empty_cache()
     return out
 
 

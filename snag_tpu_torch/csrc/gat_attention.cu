@@ -1,4 +1,4 @@
-// Sparse-GAT layer forward (diag mode) for Hopper, f32.
+// Sparse-GAT layer forward (diag mode) for Hopper, f32 or bf16 x.
 //
 // Replaces snag_tpu/ops/pallas/gat_attention.py::fused_gat_attention.
 // For every destination row i, head h and edge i <- j in row_ptr[i]..row_ptr[i+1]:
@@ -28,8 +28,21 @@
 // rowsum a sum in edge order from 0, the bits of the block-per-row kernel
 // this one replaced.  A row of any length is walked by its one warp, 32 edges
 // at a time.
+//
+// gat_attention_fwd_bf16: the same kernel on bf16 x (T = __nv_bfloat16),
+// with the rounding points of the Pallas kernel on the JAX package's bf16
+// path: s_src[i] and s_dst[j] are rounded to bf16 (gat_attention.py:135,
+// gat_attn_primitive.py:85), and so is e, before both the aggregate and
+// the rowsum (gat_attention.py:74); the sums run in fp32 (a bf16 e times a
+// bf16 x is exact there) and agg and rowsum are fp32.  A lane's slice is 4
+// bf16, one 8-byte load (C = 300 is not a multiple of 8), so the gathered
+// bytes halve.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,15 +71,41 @@ template <> struct Vec<4> {
   }
 };
 
-template <int H, int VEC, int G>
-__global__ void __launch_bounds__(32 * WARPS)
-gat_attention_fwd_kernel(const float* __restrict__ x,
-                         const float* __restrict__ s_src,
-                         const float* __restrict__ s_dst,
-                         const int* __restrict__ row_ptr,
-                         const int* __restrict__ col,
-                         float* __restrict__ agg,
-                         float* __restrict__ rowsum, int n, int c) {
+// x rounded to bf16 and back: the JAX package's astype(bfloat16)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Slice s of a row of x as fp32: VEC floats, or VEC bf16 (their bits
+// shifted into fp32's high half, which is exact).
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_slice(const float* row,
+                                                           int s) {
+  return reinterpret_cast<const typename Vec<VEC>::T*>(row)[s];
+}
+
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_slice(
+    const __nv_bfloat16* row, int s) {
+  if constexpr (VEC == 4) {
+    const uint2 u = reinterpret_cast<const uint2*>(row)[s];
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    return __bfloat162float(row[s]);
+  }
+}
+
+// The body of both kernels; X is x's type.
+template <typename X, int H, int VEC, int G>
+__device__ __forceinline__ void gat_attention_rows(
+    const X* __restrict__ x, const float* __restrict__ s_src,
+    const float* __restrict__ s_dst, const int* __restrict__ row_ptr,
+    const int* __restrict__ col, float* __restrict__ agg,
+    float* __restrict__ rowsum, int n, int c) {
+  constexpr bool BF16 = !std::is_same<X, float>::value;
   using V = typename Vec<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -78,6 +117,7 @@ gat_attention_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     src[h] = s_src[(size_t)i * H + h];
+    if constexpr (BF16) src[h] = round_bf16(src[h]);
     rs[h] = 0.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[h][g] = V{};
@@ -95,21 +135,27 @@ gat_attention_fwd_kernel(const float* __restrict__ x,
     if (lane < m) {
       j_l = col[base + lane];
 #pragma unroll
-      for (int h = 0; h < H; ++h) e_l[h] = s_dst[(size_t)j_l * H + h];
+      for (int h = 0; h < H; ++h) {
+        e_l[h] = s_dst[(size_t)j_l * H + h];
+        if constexpr (BF16) e_l[h] = round_bf16(e_l[h]);
+      }
     }
 
     for (int q = 0; q < m; ++q) {  // the same q for every lane
       const int j = __shfl_sync(FULL, j_l, q);
-      const V* row = reinterpret_cast<const V*>(x + (size_t)j * c);
+      const X* row = x + (size_t)j * c;
       V v[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const int s = lane + 32 * g;
-        v[g] = s < nv ? row[s] : V{};
+        v[g] = s < nv ? load_slice<VEC>(row, s) : V{};
       }
       if (q == 0) {  // with the first x row in flight: the edge weights
 #pragma unroll
-        for (int h = 0; h < H; ++h) e_l[h] = edge_weight(src[h] + e_l[h]);
+        for (int h = 0; h < H; ++h) {
+          e_l[h] = edge_weight(src[h] + e_l[h]);
+          if constexpr (BF16) e_l[h] = round_bf16(e_l[h]);
+        }
       }
 #pragma unroll
       for (int h = 0; h < H; ++h) {
@@ -135,32 +181,85 @@ gat_attention_fwd_kernel(const float* __restrict__ x,
   }
 }
 
+template <int H, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_attention_fwd_kernel(const float* __restrict__ x,
+                         const float* __restrict__ s_src,
+                         const float* __restrict__ s_dst,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ col,
+                         float* __restrict__ agg,
+                         float* __restrict__ rowsum, int n, int c) {
+  gat_attention_rows<float, H, VEC, G>(x, s_src, s_dst, row_ptr, col, agg,
+                                       rowsum, n, c);
+}
+
+// named apart so that a profile tells the two apart
+template <int H, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                              const float* __restrict__ s_src,
+                              const float* __restrict__ s_dst,
+                              const int* __restrict__ row_ptr,
+                              const int* __restrict__ col,
+                              float* __restrict__ agg,
+                              float* __restrict__ rowsum, int n, int c) {
+  gat_attention_rows<__nv_bfloat16, H, VEC, G>(x, s_src, s_dst, row_ptr, col,
+                                               agg, rowsum, n, c);
+}
+
+template <typename X>
 struct Args {
-  const float *x, *s_src, *s_dst;
+  const X* x;
+  const float *s_src, *s_dst;
   const int *row_ptr, *col;
   float *agg, *rowsum;
   int n, c;
 };
 
-template <int H, int VEC, int G>
-void launch_rows(const Args& a, cudaStream_t stream) {
-  gat_attention_fwd_kernel<H, VEC, G><<<(a.n + WARPS - 1) / WARPS, 32 * WARPS, 0, stream>>>(
-      a.x, a.s_src, a.s_dst, a.row_ptr, a.col, a.agg, a.rowsum, a.n, a.c);
+template <typename X, int H, int VEC, int G>
+void launch_rows(const Args<X>& a, cudaStream_t stream) {
+  const int blocks = (a.n + WARPS - 1) / WARPS;
+  if constexpr (std::is_same<X, float>::value)
+    gat_attention_fwd_kernel<H, VEC, G><<<blocks, 32 * WARPS, 0, stream>>>(
+        a.x, a.s_src, a.s_dst, a.row_ptr, a.col, a.agg, a.rowsum, a.n, a.c);
+  else
+    gat_attention_fwd_bf16_kernel<H, VEC, G><<<blocks, 32 * WARPS, 0, stream>>>(
+        a.x, a.s_src, a.s_dst, a.row_ptr, a.col, a.agg, a.rowsum, a.n, a.c);
 }
 
-template <int H, int VEC>
-void launch_groups(const Args& a, int groups, cudaStream_t stream) {
-  if (groups <= 1) launch_rows<H, VEC, 1>(a, stream);
-  else if (groups <= 2) launch_rows<H, VEC, 2>(a, stream);
-  else if (groups <= 3) launch_rows<H, VEC, 3>(a, stream);
-  else if (groups <= 5) launch_rows<H, VEC, 5>(a, stream);
-  else launch_rows<H, VEC, MAX_GROUPS>(a, stream);
+template <typename X, int H, int VEC>
+void launch_groups(const Args<X>& a, int groups, cudaStream_t stream) {
+  if (groups <= 1) launch_rows<X, H, VEC, 1>(a, stream);
+  else if (groups <= 2) launch_rows<X, H, VEC, 2>(a, stream);
+  else if (groups <= 3) launch_rows<X, H, VEC, 3>(a, stream);
+  else if (groups <= 5) launch_rows<X, H, VEC, 5>(a, stream);
+  else launch_rows<X, H, VEC, MAX_GROUPS>(a, stream);
 }
 
-template <int H>
-void launch(const Args& a, int vec, int groups, cudaStream_t stream) {
-  if (vec == 4) launch_groups<H, 4>(a, groups, stream);
-  else launch_groups<H, 1>(a, groups, stream);
+template <typename X, int H>
+void launch(const Args<X>& a, int vec, int groups, cudaStream_t stream) {
+  if (vec == 4) launch_groups<X, H, 4>(a, groups, stream);
+  else launch_groups<X, H, 1>(a, groups, stream);
+}
+
+template <typename X>
+int forward(const X* x, const float* s_src, const float* s_dst,
+            const int* row_ptr, const int* col, float* agg, float* rowsum,
+            int n, int c, int h, int vec, void* stream) {
+  if (n <= 0 || c <= 0 || h < 1 || h > MAX_HEADS || (vec != 1 && vec != 4) ||
+      c % vec || c / vec > 32 * MAX_GROUPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (c / vec + 31) / 32;
+  const Args<X> a{x, s_src, s_dst, row_ptr, col, agg, rowsum, n, c};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (h) {
+    case 1: launch<X, 1>(a, vec, groups, s); break;
+    case 2: launch<X, 2>(a, vec, groups, s); break;
+    case 3: launch<X, 3>(a, vec, groups, s); break;
+    default: launch<X, 4>(a, vec, groups, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -178,19 +277,18 @@ int gat_attention_fwd(const float* x, const float* s_src, const float* s_dst,
                       const int* row_ptr, const int* col, float* agg,
                       float* rowsum, int n, int c, int h, int vec,
                       void* stream) {
-  if (n <= 0 || c <= 0 || h < 1 || h > MAX_HEADS || (vec != 1 && vec != 4) ||
-      c % vec || c / vec > 32 * MAX_GROUPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = (c / vec + 31) / 32;
-  const Args a{x, s_src, s_dst, row_ptr, col, agg, rowsum, n, c};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (h) {
-    case 1: launch<1>(a, vec, groups, s); break;
-    case 2: launch<2>(a, vec, groups, s); break;
-    case 3: launch<3>(a, vec, groups, s); break;
-    default: launch<4>(a, vec, groups, s); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return forward(x, s_src, s_dst, row_ptr, col, agg, rowsum, n, c, h, vec,
+                 stream);
+}
+
+// The same on bf16 x (s_src, s_dst, agg and rowsum fp32); vec is 4 when
+// c % 4 == 0, x is 8-byte and agg 16-byte aligned, else 1.
+int gat_attention_fwd_bf16(const __nv_bfloat16* x, const float* s_src,
+                           const float* s_dst, const int* row_ptr,
+                           const int* col, float* agg, float* rowsum, int n,
+                           int c, int h, int vec, void* stream) {
+  return forward(x, s_src, s_dst, row_ptr, col, agg, rowsum, n, c, h, vec,
+                 stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Sparse-GAT layer backward (diag mode) for Hopper, f32.
+// Sparse-GAT layer backward (diag mode) for Hopper, f32 or bf16 x and G.
 //
 // Replaces snag_tpu/ops/pallas/gat_bwd.py::fused_gat_backward_row (per-edge
 // math edgewise_bwd).  Given the cotangents G (n, h, c) of agg and r (n, h)
@@ -57,8 +57,24 @@
 // as Vec::dot(x[k], G[i]) and once in row k; here row k computes it once with
 // those operands, and d_s_src adds it in row i's CSR order as before.  d_x is
 // the same fmaf chain (edges in order, heads in order, from 0).
+//
+// gat_bwd_bf16: the same two launches on bf16 x and G (T = __nv_bfloat16),
+// with the rounding points of the Pallas kernel on the JAX package's bf16
+// path (gat_attn_primitive.py:137-192, gat_bwd.py:95-125, edgewise_bwd):
+// the node block [G | r | s_src] and [x | s_dst] are bf16, so s_src, s_dst
+// and r are rounded to bf16 here; e stays fp32; d_e sums the exact fp32
+// products of x[j] and G[k]; each edge's d_score is rounded to bf16 (the
+// kernel packs it beside d_x in the bf16 block it reduces), and so is its
+// d_x term, a bf16 sum over heads of bf16(bf16(e_h) G[k, h]); the scratch
+// and both row sums stay fp32, and d_x is written as bf16, as the
+// primitive casts it to x's dtype.  The G gather, what bounds the kernel,
+// halves.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -96,19 +112,91 @@ template <> struct Vec<4> {
   }
 };
 
-template <int H, int VEC, int G>
-__global__ void __launch_bounds__(32 * WARPS)
-gat_bwd_rows_kernel(const float* __restrict__ x,
-                    const float* __restrict__ s_src,
-                    const float* __restrict__ s_dst,
-                    const float* __restrict__ g_agg,
-                    const float* __restrict__ g_rs,
-                    const int* __restrict__ row_ptr,
-                    const int* __restrict__ col,
-                    const long long* __restrict__ rev,
-                    float* __restrict__ d_x,
-                    float* __restrict__ d_s_dst,
-                    float* __restrict__ scratch, int n, int c) {
+// x rounded to bf16 and back: the JAX package's astype(bfloat16)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float bf16_bits(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+// Slice s of a row as fp32: VEC floats, or VEC bf16 (their bits shifted
+// into fp32's high half, which is exact).  stream: read once, past L2.
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_slice(const float* row,
+                                                           int s, bool stream) {
+  const auto* p = reinterpret_cast<const typename Vec<VEC>::T*>(row) + s;
+  return stream ? __ldcs(p) : *p;
+}
+
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_slice(
+    const __nv_bfloat16* row, int s, bool stream) {
+  if constexpr (VEC == 4) {
+    const uint2* p = reinterpret_cast<const uint2*>(row) + s;
+    const uint2 u = stream ? __ldcs(p) : *p;
+    return make_float4(bf16_bits(u.x & 0xffffu), __uint_as_float(u.x & 0xffff0000u),
+                       bf16_bits(u.y & 0xffffu), __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    return __bfloat162float(row[s]);
+  }
+}
+
+// The bf16 arithmetic of one d_x term: t = bf16(t + bf16(e g)), or
+// bf16(e g) for the first head.
+__device__ __forceinline__ void dx_term(float& t, float e, float g, bool first) {
+  const float p = round_bf16(e * g);
+  t = first ? p : round_bf16(t + p);
+}
+__device__ __forceinline__ void dx_term(float4& t, float e, float4 g,
+                                        bool first) {
+  dx_term(t.x, e, g.x, first);
+  dx_term(t.y, e, g.y, first);
+  dx_term(t.z, e, g.z, first);
+  dx_term(t.w, e, g.w, first);
+}
+
+__device__ __forceinline__ void add(float& a, float b) { a += b; }
+__device__ __forceinline__ void add(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Slice s of d_x's row: VEC floats, or VEC rounded to bf16.
+template <int VEC>
+__device__ __forceinline__ void store_slice(float* row, int s,
+                                            typename Vec<VEC>::T v) {
+  __stcs(reinterpret_cast<typename Vec<VEC>::T*>(row) + s, v);
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_slice(__nv_bfloat16* row, int s,
+                                            typename Vec<VEC>::T v) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(row) + s, u);
+  } else {
+    row[s] = __float2bfloat16_rn(v);
+  }
+}
+
+// Pass 1, the body of both kernels; X is the type of x, G and d_x.
+template <typename X, int H, int VEC, int G>
+__device__ __forceinline__ void gat_bwd_rows(
+    const X* __restrict__ x, const float* __restrict__ s_src,
+    const float* __restrict__ s_dst, const X* __restrict__ g_agg,
+    const float* __restrict__ g_rs, const int* __restrict__ row_ptr,
+    const int* __restrict__ col, const long long* __restrict__ rev,
+    X* __restrict__ d_x, float* __restrict__ d_s_dst,
+    float* __restrict__ scratch, int n, int c) {
+  constexpr bool BF16 = !std::is_same<X, float>::value;
   using V = typename Vec<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -120,13 +208,14 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
   for (int g = 0; g < G; ++g) {
     const int s = lane + 32 * g;
     // read once: streamed past L2, which keeps the G rows
-    xj[g] = s < nv ? __ldcs(reinterpret_cast<const V*>(x + (size_t)j * c) + s) : V{};
+    xj[g] = s < nv ? load_slice<VEC>(x + (size_t)j * c, s, true) : V{};
     acc[g] = V{};
   }
   float dst_j[H], sum_dst[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     dst_j[h] = s_dst[(size_t)j * H + h];
+    if constexpr (BF16) dst_j[h] = round_bf16(dst_j[h]);
     sum_dst[h] = 0.f;
   }
   const int beg = row_ptr[j];
@@ -147,6 +236,10 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
       for (int h = 0; h < H; ++h) {
         score_l[h] = s_src[(size_t)k_l * H + h];
         r_l[h] = g_rs[(size_t)k_l * H + h];
+        if constexpr (BF16) {
+          score_l[h] = round_bf16(score_l[h]);
+          r_l[h] = round_bf16(r_l[h]);
+        }
       }
     }
 
@@ -155,11 +248,11 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
       V gk[H][G];
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        const V* row = reinterpret_cast<const V*>(g_agg + ((size_t)k * H + h) * c);
+        const X* row = g_agg + ((size_t)k * H + h) * c;
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const int s = lane + 32 * g;
-          gk[h][g] = s < nv ? row[s] : V{};
+          gk[h][g] = s < nv ? load_slice<VEC>(row, s, false) : V{};
         }
       }
       if (q == 0) {  // with the first G rows in flight: the edge weights
@@ -169,13 +262,17 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
           e_l[h] = edge_weight(score_l[h]);
         }
       }
+      V term[G];   // bf16: this edge's d_x term, summed over heads in bf16
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         const float e = __shfl_sync(FULL, e_l[h], q);
         float part[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          Vec<VEC>::fma(acc[g], e, gk[h][g]);
+          if constexpr (BF16)
+            dx_term(term[g], round_bf16(e), gk[h][g], h == 0);
+          else
+            Vec<VEC>::fma(acc[g], e, gk[h][g]);
           part[g] = lane + 32 * g < nv ? Vec<VEC>::dot(xj[g], gk[h][g]) : 0.f;
         }
 #pragma unroll
@@ -194,13 +291,18 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
         if (VEC == 1) dot = __shfl_sync(FULL, dot, 0);
         if (lane == q) dot_l[h] = dot;
       }
+      if constexpr (BF16) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) add(acc[g], term[g]);
+      }
     }
 
     // the chunk's d_scores, one edge a lane: to scratch, and into d_s_dst[j]
     // in edge order
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      const float d_score = -(dot_l[h] + r_l[h]) * e_l[h] * leaky_grad(score_l[h]);
+      float d_score = -(dot_l[h] + r_l[h]) * e_l[h] * leaky_grad(score_l[h]);
+      if constexpr (BF16) d_score = round_bf16(d_score);
       if (lane < m) scratch[at_l * H + h] = d_score;
       for (int q = 0; q < m; ++q) sum_dst[h] += __shfl_sync(FULL, d_score, q);
     }
@@ -209,7 +311,7 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const int s = lane + 32 * g;
-    if (s < nv) __stcs(reinterpret_cast<V*>(d_x + (size_t)j * c) + s, acc[g]);
+    if (s < nv) store_slice<VEC>(d_x + (size_t)j * c, s, acc[g]);
   }
   if (lane == 0) {
 #pragma unroll
@@ -217,12 +319,46 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
   }
 }
 
+template <int H, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_bwd_rows_kernel(const float* __restrict__ x,
+                    const float* __restrict__ s_src,
+                    const float* __restrict__ s_dst,
+                    const float* __restrict__ g_agg,
+                    const float* __restrict__ g_rs,
+                    const int* __restrict__ row_ptr,
+                    const int* __restrict__ col,
+                    const long long* __restrict__ rev,
+                    float* __restrict__ d_x,
+                    float* __restrict__ d_s_dst,
+                    float* __restrict__ scratch, int n, int c) {
+  gat_bwd_rows<float, H, VEC, G>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col,
+                                 rev, d_x, d_s_dst, scratch, n, c);
+}
+
+// named apart so that a profile tells the two apart
+template <int H, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_bwd_bf16_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                         const float* __restrict__ s_src,
+                         const float* __restrict__ s_dst,
+                         const __nv_bfloat16* __restrict__ g_agg,
+                         const float* __restrict__ g_rs,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ col,
+                         const long long* __restrict__ rev,
+                         __nv_bfloat16* __restrict__ d_x,
+                         float* __restrict__ d_s_dst,
+                         float* __restrict__ scratch, int n, int c) {
+  gat_bwd_rows<__nv_bfloat16, H, VEC, G>(x, s_src, s_dst, g_agg, g_rs, row_ptr,
+                                         col, rev, d_x, d_s_dst, scratch, n, c);
+}
+
 // d_s_src[i] = the d_scores of row i's edges, added in CSR order from 0.
 template <int H>
-__global__ void __launch_bounds__(SUM_THREADS)
-gat_bwd_src_kernel(const float* __restrict__ scratch,
-                   const int* __restrict__ row_ptr,
-                   float* __restrict__ d_s_src, int n) {
+__device__ __forceinline__ void gat_bwd_src(const float* __restrict__ scratch,
+                                            const int* __restrict__ row_ptr,
+                                            float* __restrict__ d_s_src, int n) {
   const int i = blockIdx.x * SUM_THREADS + threadIdx.x;
   if (i >= n) return;
   float sum[H];
@@ -237,39 +373,92 @@ gat_bwd_src_kernel(const float* __restrict__ scratch,
   for (int h = 0; h < H; ++h) d_s_src[(size_t)i * H + h] = sum[h];
 }
 
-struct Args {
-  const float *x, *s_src, *s_dst, *g_agg, *g_rs;
-  const int *row_ptr, *col;
-  const long long* rev;
-  float *d_x, *d_s_src, *d_s_dst, *scratch;
-  int n, c;
-};
-
-template <int H, int VEC, int G>
-void launch_rows(const Args& a, cudaStream_t stream) {
-  gat_bwd_rows_kernel<H, VEC, G><<<(a.n + WARPS - 1) / WARPS, 32 * WARPS, 0, stream>>>(
-      a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev, a.d_x,
-      a.d_s_dst, a.scratch, a.n, a.c);
-}
-
-template <int H, int VEC>
-void launch_groups(const Args& a, int groups, cudaStream_t stream) {
-  if (groups <= 1) launch_rows<H, VEC, 1>(a, stream);
-  else if (groups <= 2) launch_rows<H, VEC, 2>(a, stream);
-  else if (groups <= 3) launch_rows<H, VEC, 3>(a, stream);
-  else if (groups <= 5) launch_rows<H, VEC, 5>(a, stream);
-  else launch_rows<H, VEC, MAX_GROUPS>(a, stream);
+template <int H>
+__global__ void __launch_bounds__(SUM_THREADS)
+gat_bwd_src_kernel(const float* __restrict__ scratch,
+                   const int* __restrict__ row_ptr,
+                   float* __restrict__ d_s_src, int n) {
+  gat_bwd_src<H>(scratch, row_ptr, d_s_src, n);
 }
 
 template <int H>
-int launch(const Args& a, int vec, int groups, cudaStream_t stream) {
-  if (vec == 4) launch_groups<H, 4>(a, groups, stream);
-  else launch_groups<H, 1>(a, groups, stream);
+__global__ void __launch_bounds__(SUM_THREADS)
+gat_bwd_bf16_src_kernel(const float* __restrict__ scratch,
+                        const int* __restrict__ row_ptr,
+                        float* __restrict__ d_s_src, int n) {
+  gat_bwd_src<H>(scratch, row_ptr, d_s_src, n);
+}
+
+template <typename X>
+struct Args {
+  const X* x;
+  const float *s_src, *s_dst;
+  const X* g_agg;
+  const float* g_rs;
+  const int *row_ptr, *col;
+  const long long* rev;
+  X* d_x;
+  float *d_s_src, *d_s_dst, *scratch;
+  int n, c;
+};
+
+template <typename X, int H, int VEC, int G>
+void launch_rows(const Args<X>& a, cudaStream_t stream) {
+  const int blocks = (a.n + WARPS - 1) / WARPS;
+  if constexpr (std::is_same<X, float>::value)
+    gat_bwd_rows_kernel<H, VEC, G><<<blocks, 32 * WARPS, 0, stream>>>(
+        a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev, a.d_x,
+        a.d_s_dst, a.scratch, a.n, a.c);
+  else
+    gat_bwd_bf16_rows_kernel<H, VEC, G><<<blocks, 32 * WARPS, 0, stream>>>(
+        a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev, a.d_x,
+        a.d_s_dst, a.scratch, a.n, a.c);
+}
+
+template <typename X, int H, int VEC>
+void launch_groups(const Args<X>& a, int groups, cudaStream_t stream) {
+  if (groups <= 1) launch_rows<X, H, VEC, 1>(a, stream);
+  else if (groups <= 2) launch_rows<X, H, VEC, 2>(a, stream);
+  else if (groups <= 3) launch_rows<X, H, VEC, 3>(a, stream);
+  else if (groups <= 5) launch_rows<X, H, VEC, 5>(a, stream);
+  else launch_rows<X, H, VEC, MAX_GROUPS>(a, stream);
+}
+
+template <typename X, int H>
+int launch(const Args<X>& a, int vec, int groups, cudaStream_t stream) {
+  if (vec == 4) launch_groups<X, H, 4>(a, groups, stream);
+  else launch_groups<X, H, 1>(a, groups, stream);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gat_bwd_src_kernel<H><<<(a.n + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0,
-                          stream>>>(a.scratch, a.row_ptr, a.d_s_src, a.n);
+  const int blocks = (a.n + SUM_THREADS - 1) / SUM_THREADS;
+  if constexpr (std::is_same<X, float>::value)
+    gat_bwd_src_kernel<H><<<blocks, SUM_THREADS, 0, stream>>>(
+        a.scratch, a.row_ptr, a.d_s_src, a.n);
+  else
+    gat_bwd_bf16_src_kernel<H><<<blocks, SUM_THREADS, 0, stream>>>(
+        a.scratch, a.row_ptr, a.d_s_src, a.n);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename X>
+int backward(const X* x, const float* s_src, const float* s_dst,
+             const X* g_agg, const float* g_rs, const int* row_ptr,
+             const int* col, const long long* rev, X* d_x, float* d_s_src,
+             float* d_s_dst, float* scratch, int n, int c, int h, int vec,
+             void* stream) {
+  if (n <= 0 || c <= 0 || h < 1 || h > MAX_HEADS || (vec != 1 && vec != 4) ||
+      c % vec || c / vec > 32 * MAX_GROUPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (c / vec + 31) / 32;
+  const Args<X> a{x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev,
+                  d_x, d_s_src, d_s_dst, scratch, n, c};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (h) {
+    case 1: return launch<X, 1>(a, vec, groups, s);
+    case 2: return launch<X, 2>(a, vec, groups, s);
+    case 3: return launch<X, 3>(a, vec, groups, s);
+    default: return launch<X, 4>(a, vec, groups, s);
+  }
 }
 
 }  // namespace
@@ -290,19 +479,21 @@ int gat_bwd(const float* x, const float* s_src, const float* s_dst,
             const int* col, const long long* rev, float* d_x, float* d_s_src,
             float* d_s_dst, float* scratch, int n, int c, int h, int vec,
             void* stream) {
-  if (n <= 0 || c <= 0 || h < 1 || h > MAX_HEADS || (vec != 1 && vec != 4) ||
-      c % vec || c / vec > 32 * MAX_GROUPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = (c / vec + 31) / 32;
-  const Args a{x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev,
-               d_x, d_s_src, d_s_dst, scratch, n, c};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (h) {
-    case 1: return launch<1>(a, vec, groups, s);
-    case 2: return launch<2>(a, vec, groups, s);
-    case 3: return launch<3>(a, vec, groups, s);
-    default: return launch<4>(a, vec, groups, s);
-  }
+  return backward(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev, d_x,
+                  d_s_src, d_s_dst, scratch, n, c, h, vec, stream);
+}
+
+// The same on bf16 x, g_agg and d_x (s_src, s_dst, g_rs, d_s_src, d_s_dst
+// and scratch fp32); vec is 4 when c % 4 == 0 and x, g_agg, d_x are 8-byte
+// aligned, else 1.
+int gat_bwd_bf16(const __nv_bfloat16* x, const float* s_src,
+                 const float* s_dst, const __nv_bfloat16* g_agg,
+                 const float* g_rs, const int* row_ptr, const int* col,
+                 const long long* rev, __nv_bfloat16* d_x, float* d_s_src,
+                 float* d_s_dst, float* scratch, int n, int c, int h, int vec,
+                 void* stream) {
+  return backward(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev, d_x,
+                  d_s_src, d_s_dst, scratch, n, c, h, vec, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// Streaming batched NT-Xent for Hopper, f32: the row-logsumexp of the
-// virtual similarity matrix and its gradient, neither of which writes a
-// quadratic array.
+// Streaming batched NT-Xent for Hopper, f32 and bf16 operands: the
+// row-logsumexp of the virtual similarity matrix and its gradient, neither
+// of which writes a quadratic array.
 //
 // Replaces snag_tpu/ops/pallas/ntxent_kernel.py::streaming_lse (kernel
 // _lse_kernel) and ::streaming_ntxent_grad (kernel _grad_kernel).  For each
@@ -45,10 +45,23 @@
 // value: where the accumulator of all of d does not fit beside the
 // shallowest ring (d > 1,504 on the H100), blockIdx.y also walks balanced
 // feature chunks, each recomputing S over the whole d.
+//
+// ntxent_lse_bf16 and ntxent_grad_bf16: the same kernels on bf16 z (the
+// JAX package's bf16 path casts the unit rows to bf16 before both Pallas
+// kernels), the products on the bf16 tensor cores, one m16n8k16 mma.sync
+// with fp32 accumulation, whose products are exact, so one product keeps
+// fp32's accumulation error.  lse: S from the bf16 operands in fp32, all
+// after it fp32.  Gradient: S likewise, W rounded to bf16 before W z (the
+// Pallas kernel's w.astype(z.dtype), ntxent_kernel.py:157), dz fp32.  The
+// bound is then the flops over the bf16 dense rate, 989 TFLOP/s, and the
+// operand bytes halve; tiles, plans and scratch are the fp32 kernels'.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gram_grad.cuh"
 #include "gram_lse.cuh"
@@ -73,10 +86,22 @@ ntxent_lse_sum_kernel(const float* __restrict__ part, float* __restrict__ lse,
   lse::sum_partials(part, lse, m, tiles, n2, inv_tau);
 }
 
-int lse_setup(int m, int n2, LsePlan& plan) {
-  return lse_plan<LSE_TILE>(
-      reinterpret_cast<const void*>(ntxent_lse_mma_kernel<true>),
-      reinterpret_cast<const void*>(ntxent_lse_mma_kernel<false>), m, n2, plan);
+// The bf16 kernels, named apart so that a profile tells them apart.
+template <bool VEC>
+__global__ void __launch_bounds__(lse::THREADS, 1)
+ntxent_lse_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
+                           const float* __restrict__ v,
+                           float* __restrict__ part, int n2, int d,
+                           float inv_tau) {
+  lse::gram_lse<false, VEC, LSE_TILE, __nv_bfloat16>(z, nullptr, nullptr, v,
+                                                     part, 1, n2, d, inv_tau);
+}
+
+__global__ void __launch_bounds__(lse::SUM_THREADS)
+ntxent_lse_bf16_sum_kernel(const float* __restrict__ part,
+                           float* __restrict__ lse, int m, int tiles, int n2,
+                           float inv_tau) {
+  lse::sum_partials(part, lse, m, tiles, n2, inv_tau);
 }
 
 // out[i] += part[0][i] + part[1][i] + ..., in that order: the dz partials
@@ -87,33 +112,150 @@ ntxent_grad_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
   add_partials(out, part, n, parts);
 }
 
+__global__ void __launch_bounds__(REDUCE_THREADS)
+ntxent_grad_bf16_sum_kernel(float* __restrict__ out,
+                            const float* __restrict__ part, size_t n,
+                            int parts) {
+  add_partials(out, part, n, parts);
+}
+
+// The kernels of one operand type Op (float or __nv_bfloat16).
+template <typename Op>
+struct Kernels;
+
+template <>
+struct Kernels<float> {
+  static constexpr auto lse_vec = ntxent_lse_mma_kernel<true>;
+  static constexpr auto lse_scalar = ntxent_lse_mma_kernel<false>;
+  static constexpr auto lse_sum = ntxent_lse_sum_kernel;
+  static constexpr auto grad_vec = grad::ntxent_grad_mma_kernel<true>;
+  static constexpr auto grad_scalar = grad::ntxent_grad_mma_kernel<false>;
+  static constexpr auto grad_sum = ntxent_grad_sum_kernel;
+};
+
+template <>
+struct Kernels<__nv_bfloat16> {
+  static constexpr auto lse_vec = ntxent_lse_bf16_mma_kernel<true>;
+  static constexpr auto lse_scalar = ntxent_lse_bf16_mma_kernel<false>;
+  static constexpr auto lse_sum = ntxent_lse_bf16_sum_kernel;
+  static constexpr auto grad_vec = grad::ntxent_grad_bf16_mma_kernel<true>;
+  static constexpr auto grad_scalar = grad::ntxent_grad_bf16_mma_kernel<false>;
+  static constexpr auto grad_sum = ntxent_grad_bf16_sum_kernel;
+};
+
+template <typename Op>
+int lse_setup(int m, int n2, LsePlan& plan) {
+  return lse_plan<LSE_TILE, Op>(
+      reinterpret_cast<const void*>(Kernels<Op>::lse_vec),
+      reinterpret_cast<const void*>(Kernels<Op>::lse_scalar), m, n2, plan);
+}
+
 // Lets the gradient kernel take all the shared memory a block may opt in
 // to on the current device, then plans a launch (gram_grad.cuh).
+template <typename Op>
 int ntxent_plan(int m, int n2, int d, GradPlan& plan) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(grad::ntxent_grad_mma_kernel<true>,
+    err = cudaFuncSetAttribute(Kernels<Op>::grad_vec,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(grad::ntxent_grad_mma_kernel<false>,
+    err = cudaFuncSetAttribute(Kernels<Op>::grad_scalar,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return grad_plan<false>(
-      reinterpret_cast<const void*>(grad::ntxent_grad_mma_kernel<true>), m, 1,
-      n2, d, plan);
+  return grad_plan<false>(reinterpret_cast<const void*>(Kernels<Op>::grad_vec),
+                          m, 1, n2, d, plan);
 }
 
-bool vec_ok(const float* z, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+// 16-byte copies of 4 floats, or 8-byte copies of 4 bf16
+template <typename Op>
+bool vec_ok(const Op* z, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % (4 * sizeof(Op)) == 0;
 }
 
 int check_shape(int m, int n2, int d) {
   return (m <= 0 || n2 <= 0 || n2 % 2 || d <= 0 || m > 65535)
              ? static_cast<int>(cudaErrorInvalidValue)
              : 0;
+}
+
+template <typename Op>
+long lse_plan_entry(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  LsePlan plan;
+  const int err = lse_setup<Op>(m, n2, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.tile;
+    out[1] = plan.pairs;
+    out[2] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
+}
+
+template <typename Op>
+int lse_entry(const Op* z, const float* v, float* part, float* lse, int m,
+              int n2, int d, float inv_tau, void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  LsePlan plan;
+  int err = lse_setup<Op>(m, n2, plan);
+  if (err) return err;
+  const dim3 grid(plan.pairs, m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(z, d))
+    Kernels<Op>::lse_vec<<<grid, lse::THREADS, plan.bytes, s>>>(
+        z, v, part, n2, d, inv_tau);
+  else
+    Kernels<Op>::lse_scalar<<<grid, lse::THREADS, plan.bytes, s>>>(
+        z, v, part, n2, d, inv_tau);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long n = (long)m * n2;
+  Kernels<Op>::lse_sum<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
+                         lse::SUM_THREADS, 0, s>>>(part, lse, m, plan.tiles,
+                                                   n2, inv_tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Op>
+long grad_plan_entry(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  GradPlan plan;
+  const int err = ntxent_plan<Op>(m, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.chunks;
+    out[1] = plan.depth;
+    out[2] = plan.splits;
+    out[3] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
+}
+
+template <typename Op>
+int grad_entry(const Op* z, const float* lse, const float* coef,
+               const float* v, float* dz, float* part, int m, int n2, int d,
+               float inv_tau, void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  GradPlan plan;
+  int err = ntxent_plan<Op>(m, n2, d, plan);
+  if (err) return err;
+  const dim3 grid((n2 + grad::ROWS - 1) / grad::ROWS, m * plan.chunks,
+                  plan.splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(z, d))
+    Kernels<Op>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
+        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
+  else
+    Kernels<Op>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
+        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || plan.splits == 1) return err;
+  Kernels<Op>::grad_sum<<<1024, REDUCE_THREADS, 0, s>>>(
+      dz, part, (size_t)m * n2 * d, plan.splits - 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -129,41 +271,14 @@ const char* snag_error_string(int err) {
 // negative CUDA error; if out is not null, writes {tile, tile pairs,
 // blocks per SM} to it.
 long ntxent_lse_plan(int m, int n2, int d, int* out) {
-  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
-  LsePlan plan;
-  const int err = lse_setup(m, n2, plan);
-  if (err) return -static_cast<long>(err);
-  if (out) {
-    out[0] = plan.tile;
-    out[1] = plan.pairs;
-    out[2] = plan.per_sm;
-  }
-  return static_cast<long>(plan.scratch);
+  return lse_plan_entry<float>(m, n2, d, out);
 }
 
 // z (m, n2, d) with unit rows, v (n2,) 0/1 column validity; writes lse
 // (m, n2) in full, using part (ntxent_lse_plan floats) as scratch.
 int ntxent_lse(const float* z, const float* v, float* part, float* lse, int m,
                int n2, int d, float inv_tau, void* stream) {
-  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
-  LsePlan plan;
-  int err = lse_setup(m, n2, plan);
-  if (err) return err;
-  const dim3 grid(plan.pairs, m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(z, d))
-    ntxent_lse_mma_kernel<true><<<grid, lse::THREADS, plan.bytes, s>>>(
-        z, v, part, n2, d, inv_tau);
-  else
-    ntxent_lse_mma_kernel<false><<<grid, lse::THREADS, plan.bytes, s>>>(
-        z, v, part, n2, d, inv_tau);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const long n = (long)m * n2;
-  ntxent_lse_sum_kernel<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
-                          lse::SUM_THREADS, 0, s>>>(part, lse, m, plan.tiles,
-                                                    n2, inv_tau);
-  return static_cast<int>(cudaGetLastError());
+  return lse_entry(z, v, part, lse, m, n2, d, inv_tau, stream);
 }
 
 // How ntxent_grad runs at this shape on the current device: returns the
@@ -171,17 +286,7 @@ int ntxent_lse(const float* z, const float* v, float* part, float* lse, int m,
 // first), or a negative CUDA error; if out is not null, writes {feature
 // chunks, ring depth, column splits, blocks per SM} to it.
 long ntxent_grad_plan(int m, int n2, int d, int* out) {
-  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
-  GradPlan plan;
-  const int err = ntxent_plan(m, n2, d, plan);
-  if (err) return -static_cast<long>(err);
-  if (out) {
-    out[0] = plan.chunks;
-    out[1] = plan.depth;
-    out[2] = plan.splits;
-    out[3] = plan.per_sm;
-  }
-  return static_cast<long>(plan.scratch);
+  return grad_plan_entry<float>(m, n2, d, out);
 }
 
 // z (m, n2, d), lse and coef (m, n2), v (n2,); writes dz (m, n2, d) in
@@ -189,24 +294,28 @@ long ntxent_grad_plan(int m, int n2, int d, int* out) {
 int ntxent_grad(const float* z, const float* lse, const float* coef,
                 const float* v, float* dz, float* part, int m, int n2, int d,
                 float inv_tau, void* stream) {
-  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
-  GradPlan plan;
-  int err = ntxent_plan(m, n2, d, plan);
-  if (err) return err;
-  const dim3 grid((n2 + grad::ROWS - 1) / grad::ROWS, m * plan.chunks,
-                  plan.splits);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(z, d))
-    grad::ntxent_grad_mma_kernel<true><<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
-  else
-    grad::ntxent_grad_mma_kernel<false><<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
-  err = static_cast<int>(cudaGetLastError());
-  if (err || plan.splits == 1) return err;
-  ntxent_grad_sum_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
-      dz, part, (size_t)m * n2 * d, plan.splits - 1);
-  return static_cast<int>(cudaGetLastError());
+  return grad_entry(z, lse, coef, v, dz, part, m, n2, d, inv_tau, stream);
+}
+
+// The same four on bf16 z; lse, coef, v, dz and the scratch stay fp32.
+long ntxent_lse_bf16_plan(int m, int n2, int d, int* out) {
+  return lse_plan_entry<__nv_bfloat16>(m, n2, d, out);
+}
+
+int ntxent_lse_bf16(const __nv_bfloat16* z, const float* v, float* part,
+                    float* lse, int m, int n2, int d, float inv_tau,
+                    void* stream) {
+  return lse_entry(z, v, part, lse, m, n2, d, inv_tau, stream);
+}
+
+long ntxent_grad_bf16_plan(int m, int n2, int d, int* out) {
+  return grad_plan_entry<__nv_bfloat16>(m, n2, d, out);
+}
+
+int ntxent_grad_bf16(const __nv_bfloat16* z, const float* lse,
+                     const float* coef, const float* v, float* dz, float* part,
+                     int m, int n2, int d, float inv_tau, void* stream) {
+  return grad_entry(z, lse, coef, v, dz, part, m, n2, d, inv_tau, stream);
 }
 
 }  // extern "C"

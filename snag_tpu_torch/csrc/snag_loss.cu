@@ -1,6 +1,7 @@
-// SNAG's fused loss bundle for Hopper, f32: the row-logsumexp of M modality
-// channels and two mixture channels from shared similarity tiles, and its
-// gradient, neither of which writes a quadratic array.
+// SNAG's fused loss bundle for Hopper, f32 and bf16 operands: the
+// row-logsumexp of M modality channels and two mixture channels from shared
+// similarity tiles, and its gradient, neither of which writes a quadratic
+// array.
 //
 // Replaces snag_tpu/ops/pallas/snag_loss_kernel.py::mixture_lse (kernel
 // _mix_lse_kernel) and ::mixture_grad (kernel _mix_grad_kernel).  z is
@@ -65,10 +66,25 @@
 // modalities (blockIdx.y, chosen by the wrapper).  dbeta is summed per
 // block, written as per-block partials and reduced in a fixed order: no
 // atomics, two runs give the same bits.
+//
+// mixture_lse_bf16 and mixture_grad_bf16: the same kernels on bf16 z (the
+// JAX package's bf16 path casts the unit rows to bf16 before both Pallas
+// kernels), their products on the bf16 tensor cores, one m16n8k16
+// mma.sync with fp32 accumulation.  The rounding points are the Pallas
+// kernels' (snag_loss_kernel.py:185-226): lse takes K from the bf16
+// operands in fp32 and all after it in fp32; the gradient builds mix_a and
+// mix_f from that fp32 K, while each modality's own weight W_m, its dalpha
+// term and its dbeta term read K rounded to bf16 (the kernel's K scratch
+// is in z's dtype), and W_tot is rounded to bf16 before W_tot z.  The bound
+// is the flops over the bf16 dense rate, 989 TFLOP/s; tiles, plans and
+// scratch are the fp32 kernels'.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gram_grad.cuh"
 #include "gram_lse.cuh"
@@ -97,20 +113,33 @@ mixture_lse_sum_kernel(const float* __restrict__ part, float* __restrict__ lse,
   lse::sum_partials(part, lse, channels, tiles, n2, inv_tau);
 }
 
-int lse_setup(int m, int n2, LsePlan& plan) {
-  return lse_plan<LSE_TILE>(
-      reinterpret_cast<const void*>(mixture_lse_mma_kernel<true>),
-      reinterpret_cast<const void*>(mixture_lse_mma_kernel<false>), m + 2, n2,
-      plan);
+// The bf16 kernels, named apart so that a profile tells them apart.
+template <bool VEC>
+__global__ void __launch_bounds__(lse::THREADS, 1)
+mixture_lse_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
+                            const float* __restrict__ alpha,
+                            const float* __restrict__ beta,
+                            const float* __restrict__ v,
+                            float* __restrict__ part, int nm, int n2, int d,
+                            float inv_tau) {
+  lse::gram_lse<true, VEC, LSE_TILE, __nv_bfloat16>(z, alpha, beta, v, part,
+                                                    nm, n2, d, inv_tau);
+}
+
+__global__ void __launch_bounds__(lse::SUM_THREADS)
+mixture_lse_bf16_sum_kernel(const float* __restrict__ part,
+                            float* __restrict__ lse, int channels, int tiles,
+                            int n2, float inv_tau) {
+  lse::sum_partials(part, lse, channels, tiles, n2, inv_tau);
 }
 
 // ------------------------------------------------------------- mixture_grad
 // The kernel is grad::mixture_grad_kernel of gram_grad.cuh.
 
 // dbeta[m] = 1/2 sum_b part[b, m], in a fixed order: one block per m.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-mixture_dbeta_kernel(const float* __restrict__ part, float* __restrict__ dbeta,
-                     int n_blocks, int nm) {
+__device__ __forceinline__ void mixture_dbeta(const float* __restrict__ part,
+                                              float* __restrict__ dbeta,
+                                              int n_blocks, int nm) {
   __shared__ float red[REDUCE_THREADS];
   const int m = blockIdx.x;
   float s = 0.f;
@@ -125,6 +154,12 @@ mixture_dbeta_kernel(const float* __restrict__ part, float* __restrict__ dbeta,
   if (threadIdx.x == 0) dbeta[m] = 0.5f * red[0];
 }
 
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_dbeta_kernel(const float* __restrict__ part, float* __restrict__ dbeta,
+                     int n_blocks, int nm) {
+  mixture_dbeta(part, dbeta, n_blocks, nm);
+}
+
 // out[i] += part[0][i] + part[1][i] + ..., in that order.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 mixture_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
@@ -132,14 +167,150 @@ mixture_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
   add_partials(out, part, n, parts);
 }
 
-bool vec_ok(const float* z, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_dbeta_bf16_kernel(const float* __restrict__ part,
+                          float* __restrict__ dbeta, int n_blocks, int nm) {
+  mixture_dbeta(part, dbeta, n_blocks, nm);
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_sum_bf16_kernel(float* __restrict__ out, const float* __restrict__ part,
+                        size_t n, int parts) {
+  add_partials(out, part, n, parts);
+}
+
+// The kernels of one operand type Op (float or __nv_bfloat16).
+template <typename Op>
+struct Kernels;
+
+template <>
+struct Kernels<float> {
+  static constexpr auto lse_vec = mixture_lse_mma_kernel<true>;
+  static constexpr auto lse_scalar = mixture_lse_mma_kernel<false>;
+  static constexpr auto lse_sum = mixture_lse_sum_kernel;
+  static constexpr auto grad_vec = grad::mixture_grad_kernel<true>;
+  static constexpr auto grad_scalar = grad::mixture_grad_kernel<false>;
+  static constexpr auto dbeta = mixture_dbeta_kernel;
+  static constexpr auto sum = mixture_sum_kernel;
+};
+
+template <>
+struct Kernels<__nv_bfloat16> {
+  static constexpr auto lse_vec = mixture_lse_bf16_mma_kernel<true>;
+  static constexpr auto lse_scalar = mixture_lse_bf16_mma_kernel<false>;
+  static constexpr auto lse_sum = mixture_lse_bf16_sum_kernel;
+  static constexpr auto grad_vec = grad::mixture_grad_bf16_kernel<true>;
+  static constexpr auto grad_scalar = grad::mixture_grad_bf16_kernel<false>;
+  static constexpr auto dbeta = mixture_dbeta_bf16_kernel;
+  static constexpr auto sum = mixture_sum_bf16_kernel;
+};
+
+template <typename Op>
+int lse_setup(int m, int n2, LsePlan& plan) {
+  return lse_plan<LSE_TILE, Op>(
+      reinterpret_cast<const void*>(Kernels<Op>::lse_vec),
+      reinterpret_cast<const void*>(Kernels<Op>::lse_scalar), m + 2, n2, plan);
+}
+
+// 16-byte copies of 4 floats, or 8-byte copies of 4 bf16
+template <typename Op>
+bool vec_ok(const Op* z, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % (4 * sizeof(Op)) == 0;
 }
 
 int check_shape(int m, int n2, int d) {
   return (m <= 0 || m > MAX_MOD || n2 <= 0 || n2 % 2 || d <= 0)
              ? static_cast<int>(cudaErrorInvalidValue)
              : 0;
+}
+
+template <typename Op>
+long lse_plan_entry(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  LsePlan plan;
+  const int err = lse_setup<Op>(m, n2, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.tile;
+    out[1] = plan.pairs;
+    out[2] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
+}
+
+template <typename Op>
+int lse_entry(const Op* z, const float* alpha, const float* beta,
+              const float* v, float* part, float* lse, int m, int n2, int d,
+              float inv_tau, void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  LsePlan plan;
+  int err = lse_setup<Op>(m, n2, plan);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(z, d))
+    Kernels<Op>::lse_vec<<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
+        z, alpha, beta, v, part, m, n2, d, inv_tau);
+  else
+    Kernels<Op>::lse_scalar<<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
+        z, alpha, beta, v, part, m, n2, d, inv_tau);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long n = (long)(m + 2) * n2;
+  Kernels<Op>::lse_sum<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
+                         lse::SUM_THREADS, 0, s>>>(part, lse, m + 2,
+                                                   plan.tiles, n2, inv_tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Op>
+int grad_plan_of(int m, int mg, int n2, int d, GradPlan& plan) {
+  return grad_plan<true>(reinterpret_cast<const void*>(Kernels<Op>::grad_vec),
+                         m, mg, n2, d, plan);
+}
+
+template <typename Op>
+long grad_scratch_entry(int m, int mg, int n2, int d) {
+  if (check_shape(m, n2, d) || mg < 1 || mg > m)
+    return -static_cast<long>(cudaErrorInvalidValue);
+  GradPlan plan;
+  const int err = grad_plan_of<Op>(m, mg, n2, d, plan);
+  return err ? -static_cast<long>(err) : static_cast<long>(plan.scratch);
+}
+
+template <typename Op>
+int grad_entry(const Op* z, const float* alpha, const float* beta,
+               const float* lse, const float* coef, const float* v, float* dz,
+               float* dalpha, float* dbeta, float* part, int m, int mg, int n2,
+               int d, float inv_tau, void* stream) {
+  if (check_shape(m, n2, d) || mg < 1 || mg > m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GradPlan plan;
+  int err = grad_plan_of<Op>(m, mg, n2, d, plan);
+  if (err) return err;
+  const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
+  const dim3 grid(nb, (m + mg - 1) / mg, plan.splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(z, d))
+    Kernels<Op>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
+        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
+        plan.depth);
+  else
+    Kernels<Op>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
+        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
+        plan.depth);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  if (plan.splits > 1) {
+    const size_t parts = (size_t)plan.splits * nb * m;
+    const size_t n_da = (size_t)n2 * m, n_dz = (size_t)m * n2 * d;
+    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
+        dalpha, part + parts, n_da, plan.splits - 1);
+    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
+        dz, part + parts + (plan.splits - 1) * n_da, n_dz, plan.splits - 1);
+  }
+  Kernels<Op>::dbeta<<<m, REDUCE_THREADS, 0, s>>>(part, dbeta,
+                                                  plan.splits * nb, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -155,16 +326,7 @@ const char* snag_error_string(int err) {
 // channel), or a negative CUDA error; if out is not null, writes {tile,
 // tile pairs, blocks per SM} to it.
 long mixture_lse_plan(int m, int n2, int d, int* out) {
-  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
-  LsePlan plan;
-  const int err = lse_setup(m, n2, plan);
-  if (err) return -static_cast<long>(err);
-  if (out) {
-    out[0] = plan.tile;
-    out[1] = plan.pairs;
-    out[2] = plan.per_sm;
-  }
-  return static_cast<long>(plan.scratch);
+  return lse_plan_entry<float>(m, n2, d, out);
 }
 
 // z (m, n2, d) unit rows, alpha (n2, m), beta (m,), v (n2,) 0/1 column
@@ -173,41 +335,27 @@ long mixture_lse_plan(int m, int n2, int d, int* out) {
 int mixture_lse(const float* z, const float* alpha, const float* beta,
                 const float* v, float* part, float* lse, int m, int n2, int d,
                 float inv_tau, void* stream) {
-  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
-  LsePlan plan;
-  int err = lse_setup(m, n2, plan);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(z, d))
-    mixture_lse_mma_kernel<true><<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, v, part, m, n2, d, inv_tau);
-  else
-    mixture_lse_mma_kernel<false><<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, v, part, m, n2, d, inv_tau);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const long n = (long)(m + 2) * n2;
-  mixture_lse_sum_kernel<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
-                           lse::SUM_THREADS, 0, s>>>(part, lse, m + 2,
-                                                     plan.tiles, n2, inv_tau);
-  return static_cast<int>(cudaGetLastError());
+  return lse_entry(z, alpha, beta, v, part, lse, m, n2, d, inv_tau, stream);
 }
 
 // Once per device, before the first mixture_grad on it: lets the gradient
-// kernel take all the shared memory a block may opt in to, and returns the
-// largest (modalities per block) x (d rounded up to a multiple of 8) its
-// row accumulator then holds, or a negative CUDA error.
+// kernels (fp32 and bf16) take all the shared memory a block may opt in
+// to, and returns the largest (modalities per block) x (d rounded up to a
+// multiple of 8) its row accumulator then holds, or a negative CUDA error.
 int mixture_grad_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(grad::mixture_grad_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(grad::mixture_grad_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(Kernels<float>::grad_vec),
+      reinterpret_cast<const void*>(Kernels<float>::grad_scalar),
+      reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::grad_vec),
+      reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::grad_scalar)};
+  for (const void* k : kernels)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const long room = (long)optin - (long)grad::smem_bytes(grad::MIN_DEPTH, 0, 0);
   return room > 0 ? 8 * static_cast<int>(room / (sizeof(float) * grad::TILE_FLOATS)) : 0;
@@ -217,13 +365,7 @@ int mixture_grad_init(void) {
 // dbeta partials, and the dalpha and dz partials of the column splits past
 // the first), or a negative CUDA error.  Call after mixture_grad_init.
 long mixture_grad_scratch(int m, int mg, int n2, int d) {
-  if (check_shape(m, n2, d) || mg < 1 || mg > m)
-    return -static_cast<long>(cudaErrorInvalidValue);
-  GradPlan plan;
-  const int err = grad_plan<true>(
-      reinterpret_cast<const void*>(grad::mixture_grad_kernel<true>), m, mg,
-      n2, d, plan);
-  return err ? -static_cast<long>(err) : static_cast<long>(plan.scratch);
+  return grad_scratch_entry<float>(m, mg, n2, d);
 }
 
 // z, alpha, beta, v as for mixture_lse; lse and coef (m + 2, n2); writes
@@ -235,37 +377,34 @@ int mixture_grad(const float* z, const float* alpha, const float* beta,
                  const float* lse, const float* coef, const float* v,
                  float* dz, float* dalpha, float* dbeta, float* part,
                  int m, int mg, int n2, int d, float inv_tau, void* stream) {
-  if (check_shape(m, n2, d) || mg < 1 || mg > m)
-    return static_cast<int>(cudaErrorInvalidValue);
-  GradPlan plan;
-  int err = grad_plan<true>(
-      reinterpret_cast<const void*>(grad::mixture_grad_kernel<true>), m, mg,
-      n2, d, plan);
-  if (err) return err;
-  const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
-  const dim3 grid(nb, (m + mg - 1) / mg, plan.splits);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(z, d))
-    grad::mixture_grad_kernel<true><<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
-        plan.depth);
-  else
-    grad::mixture_grad_kernel<false><<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
-        plan.depth);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  if (plan.splits > 1) {
-    const size_t parts = (size_t)plan.splits * nb * m;
-    const size_t n_da = (size_t)n2 * m, n_dz = (size_t)m * n2 * d;
-    mixture_sum_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
-        dalpha, part + parts, n_da, plan.splits - 1);
-    mixture_sum_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
-        dz, part + parts + (plan.splits - 1) * n_da, n_dz, plan.splits - 1);
-  }
-  mixture_dbeta_kernel<<<m, REDUCE_THREADS, 0, s>>>(part, dbeta,
-                                                    plan.splits * nb, m);
-  return static_cast<int>(cudaGetLastError());
+  return grad_entry(z, alpha, beta, lse, coef, v, dz, dalpha, dbeta, part, m,
+                    mg, n2, d, inv_tau, stream);
+}
+
+// The same on bf16 z; alpha, beta, v, lse, coef, every output and the
+// scratch stay fp32.
+long mixture_lse_bf16_plan(int m, int n2, int d, int* out) {
+  return lse_plan_entry<__nv_bfloat16>(m, n2, d, out);
+}
+
+int mixture_lse_bf16(const __nv_bfloat16* z, const float* alpha,
+                     const float* beta, const float* v, float* part,
+                     float* lse, int m, int n2, int d, float inv_tau,
+                     void* stream) {
+  return lse_entry(z, alpha, beta, v, part, lse, m, n2, d, inv_tau, stream);
+}
+
+long mixture_grad_bf16_scratch(int m, int mg, int n2, int d) {
+  return grad_scratch_entry<__nv_bfloat16>(m, mg, n2, d);
+}
+
+int mixture_grad_bf16(const __nv_bfloat16* z, const float* alpha,
+                      const float* beta, const float* lse, const float* coef,
+                      const float* v, float* dz, float* dalpha, float* dbeta,
+                      float* part, int m, int mg, int n2, int d, float inv_tau,
+                      void* stream) {
+  return grad_entry(z, alpha, beta, lse, coef, v, dz, dalpha, dbeta, part, m,
+                    mg, n2, d, inv_tau, stream);
 }
 
 }  // extern "C"

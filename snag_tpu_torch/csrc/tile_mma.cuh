@@ -1,5 +1,7 @@
-// Tensor-core building blocks for fp32 data on Hopper: the 3xTF32 split,
-// one m16n8k8 TF32 mma.sync, and cp.async copies with zero fill.
+// Tensor-core building blocks on Hopper: for fp32 data the 3xTF32 split
+// and one m16n8k8 TF32 mma.sync; for bf16 data one m16n8k16 bf16 mma.sync
+// and the packing of two floats into its operand registers; cp.async
+// copies with zero fill.
 //
 // 3xTF32: an fp32 x is split into hi = rna_tf32(x) and lo = rna_tf32(x -
 // hi) (x - hi is exact in fp32), and a product a b is taken as a_lo b_hi +
@@ -16,9 +18,21 @@
 // A product sums over k in any order, so a caller may feed k slot t from
 // element 2t of an 8-wide slice and slot t + 4 from element 2t + 1, in A
 // and B alike: then a0, a2 (and b0, b1 of a k-contiguous B) are adjacent.
+//
+// Fragments of mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, each 32-bit
+// register holding two bf16, the lower k in its low half:
+//   A (16 x 16):  r0 (g, 2t..2t+1)  r1 (g + 8, 2t..)  r2 (g, 2t+8..2t+9)  r3 (g + 8, 2t+8..)
+//   B (16 x 8):   r0 (2t..2t+1, g)  r1 (2t+8..2t+9, g)
+//   C: as for TF32.
+// The same freedom lets a caller feed k slots 2t, 2t + 1, 2t + 8, 2t + 9
+// from elements 4t .. 4t + 3 of a 16-wide slice: one 64-bit load of a
+// k-contiguous row gives r0 and r2 (A) or r0 and r1 (B).  The products of
+// two bf16 are exact in fp32, so a bf16 product is as close to fp32
+// products of the same operands as the accumulation lets it be.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +73,27 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4],
   mma_tf32(d, a_hi, b_hi);
 }
 
+// d += a b in bf16 with fp32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats rounded to bf16 (to nearest, ties to even) in one register,
+// lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two raw bf16 (their bits) in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -75,6 +110,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
                :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

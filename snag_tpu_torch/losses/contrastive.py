@@ -16,6 +16,12 @@ row-logsumexp and whose backward the streaming gradient
 tensors.  Only the (M, B) row statistics are kept for the backward.  The
 bundle is the same over the mixture kernels (``ops/cuda/snag_loss.py``).
 Rows must be L2-normalised (the kernels' static max).
+
+``matmul_dtype`` (bf16 under ``--dtype bfloat16``, JAX snag.py:86-87): the
+unit rows are cast to it after the l2norm (contrastive.py:257-261,
+364-366, 384-386) and the kernels take bf16 operands; the positives, row
+statistics and losses stay f32 (bf16 products are exact in f32), and the
+gradients are returned in the rows' dtype (:150, :496-500).
 """
 
 from __future__ import annotations
@@ -30,9 +36,14 @@ from snag_tpu_torch.ops.cuda.snag_loss import mixture_grad, mixture_lse
 from snag_tpu_torch.ops.fusion import l2norm
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
 def _pos_diag(zis: torch.Tensor, zjs: torch.Tensor, tau: float):
-    """Positive-pair similarities: pos[m, i] = zis_i . zjs_i / tau."""
-    return torch.einsum("mbd,mbd->mb", zis, zjs) / tau
+    """Positive-pair similarities: pos[m, i] = zis_i . zjs_i / tau, in f32
+    (preferred_element_type=f32)."""
+    return torch.einsum("mbd,mbd->mb", _f32(zis), _f32(zjs)) / tau
 
 
 class _ICLXentBatched(torch.autograd.Function):
@@ -74,7 +85,8 @@ class _ICLXentBatched(torch.autograd.Function):
         if w_min is not None and ctx.needs_input_grad[2]:
             base = (ab * per_a + (1 - ab) * per_b) * vf[None, :]
             d_w = g[:, None] * base / denom
-        return d_zis, d_zjs, d_w, None, None, None
+        return (d_zis.to(zis.dtype), d_zjs.to(zjs.dtype), d_w, None, None,
+                None)
 
 
 def icl_xent_batched(zis: torch.Tensor, zjs: torch.Tensor,
@@ -87,12 +99,19 @@ def icl_xent_batched(zis: torch.Tensor, zjs: torch.Tensor,
                                  valid, tau, ab_weight)
 
 
+def _cast(zis, zjs, matmul_dtype):
+    if matmul_dtype is None:
+        return zis, zjs
+    return zis.to(matmul_dtype), zjs.to(matmul_dtype)
+
+
 def icl_loss(emb: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
              ab_weight: float = 0.5,
              weight_norm: Optional[torch.Tensor] = None,
              valid: Optional[torch.Tensor] = None, neg_l=None, neg_r=None,
              norm: bool = True, with_replay_mining: bool = False,
-             inversion: bool = False) -> torch.Tensor:
+             inversion: bool = False,
+             matmul_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Intra-modal NT-Xent over a link batch (SNAG_loss.py:58-128), simple
     route only: the batched core with M = 1."""
     if neg_l is not None or neg_r is not None or with_replay_mining \
@@ -103,8 +122,7 @@ def icl_loss(emb: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
             "families")
     if norm:
         emb = l2norm(emb)
-    zis = emb[links[:, 0]]
-    zjs = emb[links[:, 1]]
+    zis, zjs = _cast(emb[links[:, 0]], emb[links[:, 1]], matmul_dtype)
     w_min = None
     if weight_norm is not None:
         w_min = torch.minimum(weight_norm[links[:, 0]],
@@ -116,30 +134,35 @@ def icl_loss(emb: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
 def icl_loss_multi(embs: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
                    ab_weight: float = 0.5,
                    w_min: Optional[torch.Tensor] = None,
-                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   valid: Optional[torch.Tensor] = None,
+                   matmul_dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
     """M independent ICL losses in one batched computation.
 
     embs: (M, N, d) already L2-normalised rows; w_min: (M, B) per-row
     weights or None.  Returns (M,) losses."""
-    zis = embs[:, links[:, 0], :]
-    zjs = embs[:, links[:, 1], :]
+    zis, zjs = _cast(embs[:, links[:, 0], :], embs[:, links[:, 1], :],
+                     matmul_dtype)
     return icl_xent_batched(zis, zjs, w_min, valid, tau, ab_weight)
 
 
 def icl_loss_stacked(emb_list: Sequence[torch.Tensor], links: torch.Tensor,
                      tau: float = 0.1, ab_weight: float = 0.5,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None,
+                     matmul_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
     """Sum of independent ICL losses over several equally wide embedding
     tables, batched through one core call: SNAG's GMI = icl(joint) +
     icl(joint_fz) (SNAG.py:106)."""
-    zis = torch.stack([l2norm(e[links[:, 0]]) for e in emb_list])
-    zjs = torch.stack([l2norm(e[links[:, 1]]) for e in emb_list])
+    zis, zjs = _cast(torch.stack([l2norm(e[links[:, 0]]) for e in emb_list]),
+                     torch.stack([l2norm(e[links[:, 1]]) for e in emb_list]),
+                     matmul_dtype)
     return icl_xent_batched(zis, zjs, None, valid, tau, ab_weight).sum()
 
 
 def _bundle_pos(zis, zjs, a_i, a_j, beta, tau):
-    """(M + 2, B) positive-pair logits of every channel."""
-    posk = torch.einsum("mbd,mbd->mb", zis, zjs)
+    """(M + 2, B) positive-pair logits of every channel, in f32."""
+    posk = torch.einsum("mbd,mbd->mb", _f32(zis), _f32(zjs))
     pos_a = torch.einsum("bm,bm,mb->b", a_i, a_j, posk)
     pos_f = torch.einsum("m,mb->b", beta, posk)
     return torch.cat([posk, pos_a[None], pos_f[None]], dim=0) / tau
@@ -194,8 +217,8 @@ class _BundleStreamed(torch.autograd.Function):
         if ctx.needs_input_grad[5]:
             base = (ab * per_a[:m] + (1 - ab) * per_b[:m]) * vf[None, :]
             d_w = g[:m, None] * base / denom
-        return (dz[:, :b], dz[:, b:], dalpha[:b], dalpha[b:], dbeta, d_w,
-                None, None, None)
+        return (dz[:, :b].to(z.dtype), dz[:, b:].to(z.dtype), dalpha[:b],
+                dalpha[b:], dbeta, d_w, None, None, None)
 
 
 def snag_bundle_losses(zis: torch.Tensor, zjs: torch.Tensor,

@@ -13,6 +13,13 @@ noise at half rates, :151-153), ``dropout_gen`` (None = deterministic) and
 ``rows`` (encode only a batch's entities after the graph encoder,
 :155-167).  Feature-table noise is applied by the caller, once per epoch
 (``apply_feature_noise``).
+
+``--dtype bfloat16`` (the JAX package's ``dtype`` property, :78-80): the
+five projections and the fusion stack compute in bf16 with f32
+parameters, the GAT gathers bf16 rows and returns f32, ``entity_emb``,
+the feature tables and their noise stay f32, and the joint embeddings are
+f32 (f32 weights times modality rows).  The GCN has no bf16 path yet
+(the runner refuses it).
 """
 
 from __future__ import annotations
@@ -62,6 +69,11 @@ class EncoderOutput(NamedTuple):
     weight_fz: torch.Tensor
 
 
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The encoder's compute dtype from ``--dtype``."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
 class MultiModalEncoder(nn.Module):
     def __init__(self, cfg: Config, ent_num: int, img_feature_dim: int,
                  attr_input_dim: int, rel_input_dim: int,
@@ -70,6 +82,7 @@ class MultiModalEncoder(nn.Module):
         if cfg.use_project_head:
             raise NotImplementedError("projection heads are not ported")
         self.cfg = cfg
+        dt = compute_dtype(cfg)
         input_dim = cfg.n_units()[0]
         self.entity_emb = nn.Embedding(ent_num, input_dim)
         with torch.no_grad():
@@ -80,15 +93,18 @@ class MultiModalEncoder(nn.Module):
         # (src/data.py:521-538) whatever the width of our table
         if cfg.w_rel:
             self.rel_fc = tlinear(rel_input_dim, cfg.attr_dim, generator,
-                                  fan_in=1000)
+                                  fan_in=1000, dtype=dt)
         if cfg.w_attr:
-            self.att_fc = tlinear(attr_input_dim, cfg.attr_dim, generator)
+            self.att_fc = tlinear(attr_input_dim, cfg.attr_dim, generator,
+                                  dtype=dt)
         if cfg.w_img:
-            self.img_fc = tlinear(img_feature_dim, cfg.img_dim, generator)
+            self.img_fc = tlinear(img_feature_dim, cfg.img_dim, generator,
+                                  dtype=dt)
         if cfg.w_name:
-            self.name_fc = tlinear(300, cfg.char_dim, generator)
+            self.name_fc = tlinear(300, cfg.char_dim, generator, dtype=dt)
         if cfg.w_char:
-            self.char_fc = tlinear(char_feature_dim, cfg.char_dim, generator)
+            self.char_fc = tlinear(char_feature_dim, cfg.char_dim, generator,
+                                   dtype=dt)
 
         if cfg.w_gcn and cfg.structure_encoder == "gcn":
             u = cfg.n_units()
@@ -98,10 +114,11 @@ class MultiModalEncoder(nn.Module):
             self.cross_graph_model = GAT(
                 cfg.n_units(), cfg.n_heads(), generator, dropout=cfg.dropout,
                 attn_dropout=cfg.attn_dropout,
-                instance_normalization=cfg.instance_normalization, diag=True)
+                instance_normalization=cfg.instance_normalization, diag=True,
+                dtype=dt)
         self.fusion = MformerFusion(
             cfg.hidden_size, cfg.num_attention_heads, cfg.num_hidden_layers,
-            cfg.intermediate_size, bool(cfg.use_intermediate), generator)
+            cfg.intermediate_size, bool(cfg.use_intermediate), generator, dt)
 
     def forward(self, feats: FeaturePack, graph: DeviceGraph,
                 entity_noise_gen: Optional[torch.Generator] = None,

@@ -22,6 +22,11 @@ run.  With ``--fused_snag_loss 0``, or where the modalities differ in
 width, GMI and ECIA are separate NT-Xent calls: the same loss
 (tests/test_snag_bundle.py:100).  ECIA and IIR batch their modalities
 into one call where they share a width, else run one per modality.
+
+Under ``--dtype bfloat16`` every loss takes bf16 unit rows
+(``_matmul_dtype``); each modality is normalised in its own dtype (bf16
+projections and hidden slices, the f32 GAT rows) and a stack of mixed
+dtypes is f32 before the cast, as JAX's ``jnp.stack`` promotes it.
 """
 
 from __future__ import annotations
@@ -44,6 +49,16 @@ from snag_tpu_torch.ops.fusion import l2norm
 
 # fusion input order (SNAG_tools.py:154)
 FUSION_ORDER = ("img", "att", "rel", "gph", "name", "char")
+
+
+def _stack_normed(embs) -> torch.Tensor:
+    """(M, N, d) of the l2-normalised rows, each normalised in its own
+    dtype, in their common dtype (f32 where any is f32)."""
+    normed = [l2norm(e) for e in embs]
+    dt = normed[0].dtype
+    for e in normed[1:]:
+        dt = torch.promote_types(dt, e.dtype)
+    return torch.stack([e.to(dt) for e in normed], dim=0)
 
 
 def weight_column(cfg: Config, modality: str) -> Optional[int]:
@@ -89,12 +104,18 @@ class SNAG(nn.Module):
             name = char = None
         return gph, rel, att, img, name, char
 
+    def _matmul_dtype(self) -> Optional[torch.dtype]:
+        """The losses' operand dtype (JAX snag.py:86-87): bf16 under
+        ``--dtype bfloat16``, else None (the rows' own f32)."""
+        return torch.bfloat16 if self.cfg.dtype == "bfloat16" else None
+
     def inner_view_loss(self, gph, rel, att, img, name, char, links, valid,
                         weight_norm: Optional[torch.Tensor] = None):
         """Per-modality ICL through the Kendall layer (SNAG.py:143-162): one
         batched call over the active modalities where they share a width
         (every shipped config), else one ``icl_loss`` per modality."""
         cfg = self.cfg
+        md = self._matmul_dtype()
         named = [("gph", gph), ("rel", rel), ("att", att), ("img", img),
                  ("name", name), ("char", char)]
         active = [(m, e) for m, e in named if e is not None]
@@ -110,9 +131,9 @@ class SNAG(nn.Module):
                     w = weight_norm[:, col] * weight_norm.shape[1]
                 return icl_loss(emb, links, tau=cfg.tau,
                                 ab_weight=cfg.ab_weight, weight_norm=w,
-                                valid=valid)
+                                valid=valid, matmul_dtype=md)
             return self.multi_loss_layer([one(m, e) for m, e in named])
-        stack = torch.stack([l2norm(e) for _, e in active], dim=0)
+        stack = _stack_normed([e for _, e in active])
         w_min = None
         if weight_norm is not None:
             # weight_norm: (N_ent, mod_num); the reference scales the
@@ -124,7 +145,7 @@ class SNAG(nn.Module):
             w_min = torch.minimum(wi, wj) * mod_num
         per = icl_loss_multi(stack, links, tau=cfg.tau,
                              ab_weight=cfg.ab_weight, w_min=w_min,
-                             valid=valid)
+                             valid=valid, matmul_dtype=md)
         it = iter(per)
         return self.multi_loss_layer(
             [0.0 if e is None else next(it) for _, e in named])
@@ -142,9 +163,12 @@ class SNAG(nn.Module):
         active = [(m, e) for m, e in named if e is not None]
         if len({e.shape[-1] for _, e in active}) != 1:
             return None
-        stack = torch.stack([l2norm(e) for _, e in active], dim=0)
+        stack = _stack_normed([e for _, e in active])
         zis = stack[:, links[:, 0], :]
         zjs = stack[:, links[:, 1], :]
+        md = self._matmul_dtype()
+        if md is not None:
+            zis, zjs = zis.to(md), zjs.to(md)
         mod_num = enc.weight_norm.shape[1]
         cols = [weight_column(cfg, m) for m, _ in active]
         wi = enc.weight_norm[links[:, 0]][:, cols]                  # (B, M)
@@ -186,7 +210,8 @@ class SNAG(nn.Module):
         else:
             gmi = icl_loss_stacked((enc.joint, enc.joint_fz), links,
                                    tau=cfg.tau, ab_weight=cfg.ab_weight,
-                                   valid=valid)
+                                   valid=valid,
+                                   matmul_dtype=self._matmul_dtype())
             ecia = self.inner_view_loss(enc.gph, enc.rel, enc.att, enc.img,
                                         enc.name, enc.char, links, valid,
                                         weight_norm=enc.weight_norm)

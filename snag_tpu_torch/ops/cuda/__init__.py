@@ -16,7 +16,18 @@ def all_stats():
                                 ntxent.STATS_LSE, ntxent.STATS_GRAD,
                                 rank_eval.STATS_TOPK, rank_eval.STATS_RANKS,
                                 snag_loss.STATS_LSE, snag_loss.STATS_GRAD,
-                                tile_segment.STATS)}
+                                tile_segment.STATS,
+                                *bf16_stats())}
+
+
+def bf16_stats():
+    """The launch counts of the bf16-operand entries (``--dtype
+    bfloat16``), one per kernel that has one."""
+    from snag_tpu_torch.ops.cuda import (gat_attention, gat_bwd, ntxent,
+                                         snag_loss)
+    return (gat_attention.STATS_BF16, gat_bwd.STATS_BF16,
+            ntxent.STATS_LSE_BF16, ntxent.STATS_GRAD_BF16,
+            snag_loss.STATS_LSE_BF16, snag_loss.STATS_GRAD_BF16)
 
 
 def reset_stats() -> None:

@@ -110,6 +110,17 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def dtype_suffix(dtype: torch.dtype, what: str) -> str:
+    """The name suffix of the C entries of ``what`` for operands of
+    ``dtype``: "" for float32, "_bf16" for bfloat16; raises on another."""
+    if dtype == torch.float32:
+        return ""
+    if dtype == torch.bfloat16:
+        return "_bf16"
+    raise TypeError(f"operands of dtype {dtype}: the {what} take float32 "
+                    "or bfloat16")
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
             device: torch.device) -> None:
     """The checks every kernel wrapper makes before passing a pointer."""

@@ -15,6 +15,14 @@ kernel takes C <= 1,280 when C % 4 == 0 and C <= 320 otherwise
 
 Twin: ``gat_attention_twin``, the ``index_add_`` form of
 ``xla_gat_attention`` (gat_attention.py:207-221).
+
+bf16: a bf16 x (the JAX package's edge dtype under ``--dtype bfloat16``,
+gnn.py:127-129) takes ``gat_attention_fwd_bf16``, the same kernel on bf16
+rows, counted apart (``STATS_BF16``).  It follows the Pallas kernel, the
+path the TPU ran, not the XLA fallback: s_src and s_dst (f32 inputs) are
+rounded to bf16 (gat_attention.py:135, gat_attn_primitive.py:85) and so
+is e before both sums (gat_attention.py:74; the fallback keeps s_src in
+f32 and e unrounded, :207-220); the sums and both outputs are f32.
 """
 
 from __future__ import annotations
@@ -26,38 +34,52 @@ import torch
 import torch.nn.functional as F
 
 from snag_tpu_torch.data.graph import DeviceGraph
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
-                                          ptr, require, stream_of)
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
+                                          load_library, ptr, require,
+                                          stream_of)
 
 STATS = KernelStats("gat_attention_fwd")
+STATS_BF16 = KernelStats("gat_attention_fwd_bf16")
 MAX_HEADS = 4
 MAX_GROUPS = 10     # slices a lane
 
 
 def slice_width(c: int, *tensors: torch.Tensor) -> int:
-    """The GAT kernels' slice width: 4 floats when C % 4 == 0 and every
-    tensor is 16-byte aligned, else 1.  Raises when a lane would own more
-    than ``MAX_GROUPS`` slices of a row."""
-    vec = 4 if c % 4 == 0 and all(t.data_ptr() % 16 == 0
+    """The GAT kernels' slice width: 4 elements when C % 4 == 0 and every
+    tensor is aligned to 4 of its elements (16 bytes of f32, 8 of bf16),
+    else 1.  Raises when a lane would own more than ``MAX_GROUPS`` slices
+    of a row."""
+    vec = 4 if c % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
                                   for t in tensors) else 1
     if c // vec > 32 * MAX_GROUPS:
         raise ValueError(
             f"C = {c} is too wide for a warp per row: the GAT kernels take "
-            f"C <= {4 * 32 * MAX_GROUPS} with C % 4 == 0 (and 16-byte "
-            f"aligned tensors), else C <= {32 * MAX_GROUPS}")
+            f"C <= {4 * 32 * MAX_GROUPS} with C % 4 == 0 (and tensors "
+            f"aligned to 4 elements), else C <= {32 * MAX_GROUPS}")
     return vec
+
+
+def to_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 and back to f32 (the JAX package's astype)."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def gat_attention_twin(x: torch.Tensor, s_src: torch.Tensor,
                        s_dst: torch.Tensor, graph: DeviceGraph
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch version: gather, weight, ``index_add_`` over rows."""
+    """Plain-PyTorch version: gather, weight, ``index_add_`` over rows;
+    for a bf16 x with the Pallas kernel's roundings (module docstring)."""
     n, c = x.shape
     h = s_src.shape[1]
     row = graph.row
     col = graph.col.long()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        s_src, s_dst, x = to_bf16(s_src), to_bf16(s_dst), x.to(torch.float32)
     score = s_src[row] + s_dst[col]                          # (E, H)
     e = torch.exp(-F.leaky_relu(score, negative_slope=0.2))
+    if bf16:
+        e = to_bf16(e)
     vals = (e[:, :, None] * x[col][:, None, :]).reshape(-1, h * c)
     agg = torch.zeros(n, h * c, dtype=torch.float32, device=x.device)
     agg.index_add_(0, row, vals)
@@ -68,19 +90,19 @@ def gat_attention_twin(x: torch.Tensor, s_src: torch.Tensor,
 
 def _library():
     built = load_library("gat_attention")
-    fn = built.lib.gat_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn in (built.lib.gat_attention_fwd, built.lib.gat_attention_fwd_bf16):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return built
 
 
 def gat_attention_cuda(x: torch.Tensor, s_src: torch.Tensor,
                        s_dst: torch.Tensor, graph: DeviceGraph
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; every input must be f32/int32, contiguous
-    and on the same CUDA device."""
+    """Launch the CUDA kernel; x must be f32 or bf16, the scores f32, the
+    graph int32, every input contiguous and on the same CUDA device."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"gat_attention_cuda needs CUDA tensors, got {dev}")
@@ -90,7 +112,8 @@ def gat_attention_cuda(x: torch.Tensor, s_src: torch.Tensor,
         raise ValueError(f"{h} heads; the kernel takes 1..{MAX_HEADS}")
     if n != graph.n_nodes:
         raise ValueError(f"x has {n} rows, the graph {graph.n_nodes} nodes")
-    require(x, "x", torch.float32, (n, c), dev)
+    dtype_suffix(x.dtype, "GAT kernels")
+    require(x, "x", x.dtype, (n, c), dev)
     require(s_src, "s_src", torch.float32, (n, h), dev)
     require(s_dst, "s_dst", torch.float32, (n, h), dev)
     require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
@@ -100,13 +123,14 @@ def gat_attention_cuda(x: torch.Tensor, s_src: torch.Tensor,
     rowsum = torch.empty(n, h, dtype=torch.float32, device=dev)
     vec = slice_width(c, x, agg)
     built = _library()
+    stats = STATS_BF16 if x.dtype == torch.bfloat16 else STATS
+    entry = getattr(built.lib, stats.name)
     with torch.cuda.device(dev):
-        err = built.lib.gat_attention_fwd(
-            ptr(x), ptr(s_src), ptr(s_dst), ptr(graph.row_ptr),
-            ptr(graph.col), ptr(agg), ptr(rowsum), n, c, h, vec,
-            stream_of(x))
-    check(built, err, "gat_attention_fwd")
-    STATS.launches += 1
+        err = entry(ptr(x), ptr(s_src), ptr(s_dst), ptr(graph.row_ptr),
+                    ptr(graph.col), ptr(agg), ptr(rowsum), n, c, h, vec,
+                    stream_of(x))
+    check(built, err, stats.name)
+    stats.launches += 1
     return agg, rowsum
 
 
@@ -114,10 +138,10 @@ def fused_gat_attention(x: torch.Tensor, s_src: torch.Tensor,
                         s_dst: torch.Tensor, graph: DeviceGraph
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (agg (N, H, C) f32, rowsum (N, H) f32): the kernel for CUDA
-    tensors, the twin for CPU tensors."""
+    tensors, the twin for CPU tensors; x f32 or bf16."""
     if x.device.type == "cuda":
         return gat_attention_cuda(x, s_src, s_dst, graph)
     if x.device.type != "cpu":
         raise ValueError(f"no GAT attention path for device {x.device}")
-    STATS.twin_calls += 1
+    (STATS_BF16 if x.dtype == torch.bfloat16 else STATS).twin_calls += 1
     return gat_attention_twin(x, s_src, s_dst, graph)

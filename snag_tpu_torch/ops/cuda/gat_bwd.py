@@ -22,6 +22,14 @@ limit (``gat_attention.slice_width``).
 
 Twin: ``gat_backward_twin``, the same sums in ``index_add_`` form over the
 edge list (no symmetry needed).
+
+bf16: a bf16 x (with bf16 G, as ``gat_attn_primitive`` builds it) takes
+``gat_bwd_bf16``, counted apart (``STATS_BF16``), with the rounding points
+of the Pallas backward on the JAX package's bf16 path
+(gat_attn_primitive.py:137-192, gat_bwd.py:95-125): s_src, s_dst and r
+rounded to bf16, e in f32, each edge's d_score rounded to bf16, and its
+d_x term the bf16 sum over heads of bf16(bf16(e_h) G_h); the edge sums run
+in f32, d_x is returned in bf16 (x's dtype), d_s_src and d_s_dst in f32.
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from snag_tpu_torch.data.graph import DeviceGraph
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
-                                          ptr, require, stream_of)
-from snag_tpu_torch.ops.cuda.gat_attention import slice_width
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
+                                          load_library, ptr, require,
+                                          stream_of)
+from snag_tpu_torch.ops.cuda.gat_attention import slice_width, to_bf16
 
 STATS = KernelStats("gat_bwd")
+STATS_BF16 = KernelStats("gat_bwd_bf16")
 MAX_HEADS = 4
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -47,37 +57,52 @@ def gat_backward_twin(x: torch.Tensor, s_src: torch.Tensor,
                       s_dst: torch.Tensor, g_agg: torch.Tensor,
                       g_rs: torch.Tensor, graph: DeviceGraph) -> Grads:
     """Plain-PyTorch version: per-edge terms, ``index_add_`` over the
-    edge's column (d_x, d_s_dst) and row (d_s_src)."""
+    edge's column (d_x, d_s_dst) and row (d_s_src); for a bf16 x with the
+    Pallas kernel's roundings (module docstring)."""
     n, c = x.shape
     row = graph.row
     col = graph.col.long()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        s_src, s_dst, g_rs = to_bf16(s_src), to_bf16(s_dst), to_bf16(g_rs)
+        x, g_agg = x.to(torch.float32), g_agg.to(torch.float32)
     score = s_src[row] + s_dst[col]                             # (E, H)
     e = torch.exp(-F.leaky_relu(score, negative_slope=0.2))
     g_row = g_agg[row]                                          # (E, H, C)
     d_e = (x[col][:, None, :] * g_row).sum(dim=2) + g_rs[row]
     d_score = -d_e * e * torch.where(score > 0, 1.0, 0.2)
-    d_x = torch.zeros_like(x).index_add_(
-        0, col, (e[:, :, None] * g_row).sum(dim=1))
+    if bf16:
+        d_score = to_bf16(d_score)
+        eb = to_bf16(e)
+        term = to_bf16(eb[:, 0, None] * g_row[:, 0])
+        for h in range(1, g_row.shape[1]):
+            term = to_bf16(term + to_bf16(eb[:, h, None] * g_row[:, h]))
+    else:
+        term = (e[:, :, None] * g_row).sum(dim=1)
+    d_x = torch.zeros_like(x).index_add_(0, col, term)
     d_s_dst = torch.zeros_like(s_dst).index_add_(0, col, d_score)
     d_s_src = torch.zeros_like(s_src).index_add_(0, row, d_score)
+    if bf16:
+        d_x = d_x.to(torch.bfloat16)
     return d_x, d_s_src, d_s_dst
 
 
 def _library():
     built = load_library("gat_bwd")
-    fn = built.lib.gat_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn in (built.lib.gat_bwd, built.lib.gat_bwd_bf16):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return built
 
 
 def gat_backward_cuda(x: torch.Tensor, s_src: torch.Tensor,
                       s_dst: torch.Tensor, g_agg: torch.Tensor,
                       g_rs: torch.Tensor, graph: DeviceGraph) -> Grads:
-    """Launch the CUDA kernel; every input must be f32/int32, contiguous
-    and on the same CUDA device, and the graph symmetric."""
+    """Launch the CUDA kernel; x and g_agg both f32 or both bf16, the
+    scores and g_rs f32, the graph int32, every input contiguous and on the
+    same CUDA device, and the graph symmetric."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"gat_backward_cuda needs CUDA tensors, got {dev}")
@@ -90,40 +115,42 @@ def gat_backward_cuda(x: torch.Tensor, s_src: torch.Tensor,
         raise ValueError(f"{h} heads; the kernel takes 1..{MAX_HEADS}")
     if n != graph.n_nodes:
         raise ValueError(f"x has {n} rows, the graph {graph.n_nodes} nodes")
-    require(x, "x", torch.float32, (n, c), dev)
+    dtype_suffix(x.dtype, "GAT kernels")
+    require(x, "x", x.dtype, (n, c), dev)
     require(s_src, "s_src", torch.float32, (n, h), dev)
     require(s_dst, "s_dst", torch.float32, (n, h), dev)
-    require(g_agg, "g_agg", torch.float32, (n, h, c), dev)
+    require(g_agg, "g_agg", x.dtype, (n, h, c), dev)
     require(g_rs, "g_rs", torch.float32, (n, h), dev)
     require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     require(graph.col, "col", torch.int32, (graph.n_edges,), dev)
     require(graph.rev, "rev", torch.int64, (graph.n_edges,), dev)
 
-    d_x = torch.empty(n, c, dtype=torch.float32, device=dev)
+    d_x = torch.empty(n, c, dtype=x.dtype, device=dev)
     d_s_src = torch.empty(n, h, dtype=torch.float32, device=dev)
     d_s_dst = torch.empty(n, h, dtype=torch.float32, device=dev)
     scratch = torch.empty(graph.n_edges, h, dtype=torch.float32, device=dev)
     vec = slice_width(c, x, g_agg, d_x)
     built = _library()
+    stats = STATS_BF16 if x.dtype == torch.bfloat16 else STATS
     with torch.cuda.device(dev):
-        err = built.lib.gat_bwd(
+        err = getattr(built.lib, stats.name)(
             ptr(x), ptr(s_src), ptr(s_dst), ptr(g_agg), ptr(g_rs),
             ptr(graph.row_ptr), ptr(graph.col), ptr(graph.rev), ptr(d_x),
             ptr(d_s_src), ptr(d_s_dst), ptr(scratch), n, c, h, vec,
             stream_of(x))
-    check(built, err, "gat_bwd")
-    STATS.launches += 1
+    check(built, err, stats.name)
+    stats.launches += 1
     return d_x, d_s_src, d_s_dst
 
 
 def fused_gat_backward(x: torch.Tensor, s_src: torch.Tensor,
                        s_dst: torch.Tensor, g_agg: torch.Tensor,
                        g_rs: torch.Tensor, graph: DeviceGraph) -> Grads:
-    """Returns (d_x (N, C), d_s_src (N, H), d_s_dst (N, H)) f32: the kernel
-    for CUDA tensors, the twin for CPU tensors."""
+    """Returns (d_x (N, C) in x's dtype, d_s_src (N, H), d_s_dst (N, H)
+    f32): the kernel for CUDA tensors, the twin for CPU tensors."""
     if x.device.type == "cuda":
         return gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, graph)
     if x.device.type != "cpu":
         raise ValueError(f"no GAT backward path for device {x.device}")
-    STATS.twin_calls += 1
+    (STATS_BF16 if x.dtype == torch.bfloat16 else STATS).twin_calls += 1
     return gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, graph)

@@ -29,6 +29,22 @@ blocks that share a row tile's columns.
 
 Twins: ``streaming_lse_twin`` and ``ntxent_grad_twin``, the same formulas
 on the dense (M, 2B, 2B) matrix.
+
+bf16: a bf16 z (the JAX package's matmul dtype under ``--dtype bfloat16``,
+contrastive.py:364-366) takes ``ntxent_lse_bf16`` and ``ntxent_grad_bf16``,
+the same kernels with their products on the bf16 tensor cores, counted
+apart (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The rounding points are
+the Pallas kernels': S from the bf16 operands in f32 (their products are
+exact), everything after it f32, and the gradient's W rounded to bf16
+before W z (ntxent_kernel.py:157); lse and dz are f32.
+
+W's rounding makes dz sensitive to S's last bits: two f32 evaluations of
+S whose sums differ by an ulp can round an element of W apart, which
+moves a row of dz by a bf16 ulp of that element, as much as the card
+check's 4e-3 x max when it is the positive pair's.  So the twin takes a
+bf16 z's Gram matrix the way the kernels do (``gram``): per 16-wide
+feature slice from zero, the slices added in f32 in feature order; it
+differs from a kernel only in how each 16-term slice sum is rounded.
 """
 
 from __future__ import annotations
@@ -38,11 +54,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
-                                          ptr, require, stream_of)
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
+                                          load_library, ptr, require,
+                                          stream_of)
 
 STATS_LSE = KernelStats("ntxent_lse")
 STATS_GRAD = KernelStats("ntxent_grad")
+STATS_LSE_BF16 = KernelStats("ntxent_lse_bf16")
+STATS_GRAD_BF16 = KernelStats("ntxent_grad_bf16")
 LSE_EPS = 1e-30
 
 
@@ -56,10 +75,28 @@ def stack(zis: torch.Tensor, zjs: torch.Tensor,
     return z, torch.cat([vf, vf]).contiguous()
 
 
+KSLICE = 16     # the bf16 kernels' k16 steps (mma.sync m16n8k16)
+
+
+def gram(z: torch.Tensor) -> torch.Tensor:
+    """K = z z^T (M, 2B, 2B).  A bf16 z enters as f32, where its products
+    are exact, one ``KSLICE``-wide feature slice at a time, the slices
+    added in feature order (the kernels' order)."""
+    if z.dtype != torch.bfloat16:
+        return torch.einsum("mrd,mcd->mrc", z, z)
+    z = z.to(torch.float32)
+    k = None
+    for k0 in range(0, z.shape[2], KSLICE):
+        zs = z[:, :, k0:k0 + KSLICE]
+        part = torch.einsum("mrd,mcd->mrc", zs, zs)
+        k = part if k is None else k + part
+    return k
+
+
 def _dense(z: torch.Tensor, inv_tau: float):
     """(S (M, 2B, 2B), off-diagonal indicator (2B, 2B) f32)."""
     n2 = z.shape[1]
-    s = torch.einsum("mrd,mcd->mrc", z, z) * inv_tau
+    s = gram(z) * inv_tau
     neq = ~torch.eye(n2, dtype=torch.bool, device=z.device)
     return s, neq.to(torch.float32)
 
@@ -76,7 +113,8 @@ def streaming_lse_twin(z: torch.Tensor, v: torch.Tensor,
 
 def ntxent_grad_twin(z: torch.Tensor, lse: torch.Tensor, coef: torch.Tensor,
                      v: torch.Tensor, tau: float) -> torch.Tensor:
-    """Plain version of ``ntxent_grad``: dz (M, 2B, d) = W z."""
+    """Plain version of ``ntxent_grad``: dz (M, 2B, d) = W z; for a bf16 z
+    W is rounded to bf16 first."""
     inv_tau = 1.0 / tau
     n2 = z.shape[1]
     s, neqf = _dense(z, inv_tau)
@@ -91,6 +129,9 @@ def ntxent_grad_twin(z: torch.Tensor, lse: torch.Tensor, coef: torch.Tensor,
     w = (neqf[None] * (coef_r * p_row * v[None, None, :]
                        + p_col * coef_c * v[None, :, None])
          - onehot[None] * (coef_r + coef_c)) * inv_tau
+    if z.dtype == torch.bfloat16:
+        return torch.bmm(w.to(torch.bfloat16).to(torch.float32),
+                         z.to(torch.float32))
     return torch.bmm(w, z)
 
 
@@ -98,43 +139,54 @@ def _library():
     built = load_library("ntxent")
     lib = built.lib
     if lib.ntxent_lse.argtypes is None:
-        lib.ntxent_lse.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-            + [ctypes.c_float, ctypes.c_void_p]
-        lib.ntxent_lse.restype = ctypes.c_int
-        lib.ntxent_lse_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.ntxent_lse_plan.restype = ctypes.c_long
-        lib.ntxent_grad.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-            + [ctypes.c_float, ctypes.c_void_p]
-        lib.ntxent_grad.restype = ctypes.c_int
-        lib.ntxent_grad_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.ntxent_grad_plan.restype = ctypes.c_long
+        for lse, grad in (("ntxent_lse", "ntxent_grad"),
+                          ("ntxent_lse_bf16", "ntxent_grad_bf16")):
+            fn = getattr(lib, lse)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+                + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, grad)
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+                + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            for plan in (f"{lse}_plan", f"{grad}_plan"):
+                fn = getattr(lib, plan)
+                fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_long
     return built
 
 
-def lse_plan(m: int, n2: int, d: int,
-             device: torch.device) -> Dict[str, int]:
-    """How ``ntxent_lse`` runs at (m, n2, d) on ``device``: its tile, tile
-    pairs (blocks per batch), blocks per SM and floats of scratch."""
+def _suffix(dtype: torch.dtype) -> str:
+    return dtype_suffix(dtype, "NT-Xent kernels")
+
+
+def lse_plan(m: int, n2: int, d: int, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """How ``ntxent_lse`` (``ntxent_lse_bf16`` for a bf16 ``dtype``) runs
+    at (m, n2, d) on ``device``: its tile, tile pairs (blocks per batch),
+    blocks per SM and floats of scratch."""
     built = _library()
+    name = f"ntxent_lse{_suffix(dtype)}_plan"
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        floats = built.lib.ntxent_lse_plan(m, n2, d, out)
+        floats = getattr(built.lib, name)(m, n2, d, out)
     if floats < 0:
-        check(built, -floats, "ntxent_lse_plan")
+        check(built, -floats, name)
     return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
 
 
-def grad_plan(m: int, n2: int, d: int,
-              device: torch.device) -> Dict[str, int]:
-    """How ``ntxent_grad`` runs at (m, n2, d) on ``device``: its feature
-    chunks, ring depth, column splits, blocks per SM and floats of
-    scratch."""
+def grad_plan(m: int, n2: int, d: int, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """How ``ntxent_grad`` (``ntxent_grad_bf16`` for a bf16 ``dtype``) runs
+    at (m, n2, d) on ``device``: its feature chunks, ring depth, column
+    splits, blocks per SM and floats of scratch."""
     built = _library()
+    name = f"ntxent_grad{_suffix(dtype)}_plan"
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        floats = built.lib.ntxent_grad_plan(m, n2, d, out)
+        floats = getattr(built.lib, name)(m, n2, d, out)
     if floats < 0:
-        check(built, -floats, "ntxent_grad_plan")
+        check(built, -floats, name)
     return dict(zip(("chunks", "depth", "splits", "blocks_per_sm"), out),
                 scratch=floats)
 
@@ -146,45 +198,51 @@ def _check_z(z: torch.Tensor, v: torch.Tensor):
     if z.dim() != 3 or z.shape[1] % 2:
         raise ValueError(f"z must be (M, 2B, d), got {tuple(z.shape)}")
     m, n2, d = z.shape
-    require(z, "z", torch.float32, (m, n2, d), dev)
+    _suffix(z.dtype)
+    require(z, "z", z.dtype, (m, n2, d), dev)
     require(v, "v", torch.float32, (n2,), dev)
     return m, n2, d
 
 
 def streaming_lse_cuda(z: torch.Tensor, v: torch.Tensor,
                        tau: float) -> torch.Tensor:
-    """Launch ``ntxent_lse``: lse (M, 2B) f32."""
+    """Launch ``ntxent_lse`` (f32 z) or ``ntxent_lse_bf16`` (bf16 z): lse
+    (M, 2B) f32."""
     m, n2, d = _check_z(z, v)
     built = _library()
-    plan = lse_plan(m, n2, d, z.device)
+    stats = STATS_LSE_BF16 if z.dtype == torch.bfloat16 else STATS_LSE
+    plan = lse_plan(m, n2, d, z.device, z.dtype)
     with torch.cuda.device(z.device):
         lse = torch.empty(m, n2, dtype=torch.float32, device=z.device)
         part = torch.empty(plan["scratch"], dtype=torch.float32,
                            device=z.device)
-        err = built.lib.ntxent_lse(ptr(z), ptr(v), ptr(part), ptr(lse), m, n2,
-                                   d, 1.0 / tau, stream_of(z))
-    check(built, err, "ntxent_lse")
-    STATS_LSE.launches += 1
+        err = getattr(built.lib, stats.name)(
+            ptr(z), ptr(v), ptr(part), ptr(lse), m, n2, d, 1.0 / tau,
+            stream_of(z))
+    check(built, err, stats.name)
+    stats.launches += 1
     return lse
 
 
 def ntxent_grad_cuda(z: torch.Tensor, lse: torch.Tensor, coef: torch.Tensor,
                      v: torch.Tensor, tau: float) -> torch.Tensor:
-    """Launch ``ntxent_grad``: dz (M, 2B, d) f32."""
+    """Launch ``ntxent_grad`` (f32 z) or ``ntxent_grad_bf16`` (bf16 z): dz
+    (M, 2B, d) f32."""
     m, n2, d = _check_z(z, v)
     require(lse, "lse", torch.float32, (m, n2), z.device)
     require(coef, "coef", torch.float32, (m, n2), z.device)
     built = _library()
-    plan = grad_plan(m, n2, d, z.device)
+    stats = STATS_GRAD_BF16 if z.dtype == torch.bfloat16 else STATS_GRAD
+    plan = grad_plan(m, n2, d, z.device, z.dtype)
     with torch.cuda.device(z.device):
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         part = torch.empty(plan["scratch"], dtype=torch.float32,
                            device=z.device)
-        err = built.lib.ntxent_grad(ptr(z), ptr(lse), ptr(coef), ptr(v),
-                                    ptr(dz), ptr(part), m, n2, d, 1.0 / tau,
-                                    stream_of(z))
-    check(built, err, "ntxent_grad")
-    STATS_GRAD.launches += 1
+        err = getattr(built.lib, stats.name)(
+            ptr(z), ptr(lse), ptr(coef), ptr(v), ptr(dz), ptr(part), m, n2,
+            d, 1.0 / tau, stream_of(z))
+    check(built, err, stats.name)
+    stats.launches += 1
     return dz
 
 
@@ -200,11 +258,14 @@ def streaming_lse(zis: torch.Tensor, zjs: torch.Tensor, tau: float,
                   valid: Optional[torch.Tensor]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-logsumexp of the masked virtual similarity matrix: (lse_a,
-    lse_b), each (M, B) f32, over the [aa | ab] and [ba | bb] rows."""
+    lse_b), each (M, B) f32, over the [aa | ab] and [ba | bb] rows; zis and
+    zjs f32 or bf16."""
     b = zis.shape[1]
     z, v = stack(zis, zjs, valid)
     if _on_cpu(z):
-        STATS_LSE.twin_calls += 1
+        _suffix(z.dtype)
+        (STATS_LSE_BF16 if z.dtype == torch.bfloat16
+         else STATS_LSE).twin_calls += 1
         lse = streaming_lse_twin(z, v, tau)
     else:
         lse = streaming_lse_cuda(z, v, tau)
@@ -221,7 +282,9 @@ def streaming_ntxent_grad(zis, zjs, lse_a, lse_b, coef_a, coef_b, tau,
     lse = torch.cat([lse_a, lse_b], dim=1).to(torch.float32).contiguous()
     coef = torch.cat([coef_a, coef_b], dim=1).to(torch.float32).contiguous()
     if _on_cpu(z):
-        STATS_GRAD.twin_calls += 1
+        _suffix(z.dtype)
+        (STATS_GRAD_BF16 if z.dtype == torch.bfloat16
+         else STATS_GRAD).twin_calls += 1
         dz = ntxent_grad_twin(z, lse, coef, v, tau)
     else:
         dz = ntxent_grad_cuda(z, lse, coef, v, tau)

@@ -537,7 +537,12 @@ def streaming_rank_eval(emb_l: torch.Tensor, emb_r: torch.Tensor,
     counting with the gold column excluded from the strict comparison.
 
     CUDA tensors run both sweeps, each over both directions
-    (``both_sweeps``); CPU tensors run the dense twin."""
+    (``both_sweeps``); CPU tensors run the dense twin.  Takes f32 alone,
+    as the Pallas path casts the embeddings to f32 (rank_eval.py:247-248):
+    a bf16 embedding raises."""
+    if emb_l.dtype == torch.bfloat16 or emb_r.dtype == torch.bfloat16:
+        raise TypeError("the rank sweeps have no bf16 variant: cast the "
+                        "embeddings to float32 first")
     if emb_l.shape != emb_r.shape:
         raise ValueError(f"sides differ: {tuple(emb_l.shape)} vs "
                          f"{tuple(emb_r.shape)}")

@@ -36,6 +36,19 @@ tile's columns.
 Twins: ``mixture_lse_twin`` and ``mixture_grad_twin``, the same formulas
 on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
 (snag_tpu/losses/contrastive.py:390-408).
+
+bf16: a bf16 z (the JAX package's matmul dtype under ``--dtype bfloat16``,
+snag.py:86-87, 168-170) takes ``mixture_lse_bf16`` and
+``mixture_grad_bf16``, the same kernels with their products on the bf16
+tensor cores, counted apart (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).
+The rounding points are the Pallas kernels' (snag_loss_kernel.py:185-226):
+K from the bf16 operands in f32; mix_a and mix_f from that f32 K; each
+modality's own weight W_m, its dalpha term and its dbeta term from K
+rounded to bf16 (the kernel keeps its K tiles in z's dtype, :191, :297);
+W_tot rounded to bf16 before W_tot z (:214).  alpha, beta, lse, coef and
+every output are f32.  The twin takes K the kernels' way (``ntxent.gram``:
+16-wide feature slices added in order), as W_tot's rounding makes dz
+sensitive to the last bits of mix_a and mix_f.
 """
 
 from __future__ import annotations
@@ -45,11 +58,15 @@ from typing import Dict, Tuple
 
 import torch
 
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
-                                          ptr, require, stream_of)
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
+                                          load_library, ptr, require,
+                                          stream_of)
+from snag_tpu_torch.ops.cuda.ntxent import gram
 
 STATS_LSE = KernelStats("mixture_lse")
 STATS_GRAD = KernelStats("mixture_grad")
+STATS_LSE_BF16 = KernelStats("mixture_lse_bf16")
+STATS_GRAD_BF16 = KernelStats("mixture_grad_bf16")
 LSE_EPS = 1e-30
 MAX_MOD = 6
 FEATURE_TILE = 8                    # the accumulator's n8 feature tiles
@@ -58,8 +75,9 @@ _GRAD_CAP: Dict[int, int] = {}      # device index -> modalities x d limit
 
 def _channels(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor
               ) -> torch.Tensor:
-    """The dense (M + 2, 2B, 2B) channels [K_m | mix_a | mix_f], unscaled."""
-    k = torch.einsum("mrd,mcd->mrc", z, z)
+    """The dense (M + 2, 2B, 2B) channels [K_m | mix_a | mix_f], unscaled;
+    K of a bf16 z as the kernels add it (``ntxent.gram``)."""
+    k = gram(z)
     mix_a = torch.einsum("rm,cm,mrc->rc", alpha, alpha, k)
     mix_f = torch.einsum("m,mrc->rc", beta, k)
     return torch.cat([k, mix_a[None], mix_f[None]], dim=0)
@@ -84,10 +102,15 @@ def mixture_grad_twin(z: torch.Tensor, alpha: torch.Tensor,
                       coef: torch.Tensor, v: torch.Tensor, tau: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``mixture_grad``: (dz (M, 2B, d), dalpha (2B, M),
-    dbeta (M,))."""
+    dbeta (M,)); for a bf16 z with the Pallas kernel's roundings (module
+    docstring)."""
     inv_tau = 1.0 / tau
     m, n2, _ = z.shape
     ch = _channels(z, alpha, beta)
+    bf16 = z.dtype == torch.bfloat16
+    if bf16:
+        ch = torch.cat([ch[:m].to(torch.bfloat16).to(torch.float32), ch[m:]])
+        z = z.to(torch.float32)
     k = ch[:m]
     s = ch * inv_tau
     neq = _off_diagonal(n2, z.device)
@@ -104,6 +127,8 @@ def mixture_grad_twin(z: torch.Tensor, alpha: torch.Tensor,
     w_a, w_f = w[m], w[m + 1]
     aa = alpha.T[:, :, None] * alpha.T[:, None, :]           # (M, 2B, 2B)
     w_tot = w[:m] + w_a[None] * aa + w_f[None] * beta[:, None, None]
+    if bf16:
+        w_tot = w_tot.to(torch.bfloat16).to(torch.float32)
     dz = torch.bmm(w_tot, z)
     dalpha = torch.einsum("rc,cm,mrc->rm", w_a, alpha, k)
     dbeta = 0.5 * torch.einsum("rc,mrc->m", w_f, k)
@@ -114,31 +139,42 @@ def _library():
     built = load_library("snag_loss")
     lib = built.lib
     if lib.mixture_lse.argtypes is None:
-        lib.mixture_lse.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-            + [ctypes.c_float, ctypes.c_void_p]
-        lib.mixture_lse.restype = ctypes.c_int
-        lib.mixture_lse_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.mixture_lse_plan.restype = ctypes.c_long
-        lib.mixture_grad.argtypes = [ctypes.c_void_p] * 10 \
-            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        lib.mixture_grad.restype = ctypes.c_int
+        for sfx in ("", "_bf16"):
+            fn = getattr(lib, f"mixture_lse{sfx}")
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+                + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"mixture_lse{sfx}_plan")
+            fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_long
+            fn = getattr(lib, f"mixture_grad{sfx}")
+            fn.argtypes = [ctypes.c_void_p] * 10 \
+                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"mixture_grad{sfx}_scratch")
+            fn.argtypes = [ctypes.c_int] * 4
+            fn.restype = ctypes.c_long
         lib.mixture_grad_init.argtypes = []
         lib.mixture_grad_init.restype = ctypes.c_int
-        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 4
-        lib.mixture_grad_scratch.restype = ctypes.c_long
     return built
 
 
-def lse_plan(m: int, n2: int, d: int,
-             device: torch.device) -> Dict[str, int]:
-    """How ``mixture_lse`` runs at (m, n2, d) on ``device``: its tile, tile
-    pairs (blocks), blocks per SM and floats of scratch."""
+def _suffix(dtype: torch.dtype) -> str:
+    return dtype_suffix(dtype, "mixture kernels")
+
+
+def lse_plan(m: int, n2: int, d: int, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """How ``mixture_lse`` (``mixture_lse_bf16`` for a bf16 ``dtype``)
+    runs at (m, n2, d) on ``device``: its tile, tile pairs (blocks), blocks
+    per SM and floats of scratch."""
     built = _library()
+    name = f"mixture_lse{_suffix(dtype)}_plan"
     out = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        floats = built.lib.mixture_lse_plan(m, n2, d, out)
+        floats = getattr(built.lib, name)(m, n2, d, out)
     if floats < 0:
-        check(built, -floats, "mixture_lse_plan")
+        check(built, -floats, name)
     return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
 
 
@@ -177,7 +213,8 @@ def _check(z, alpha, beta, v):
     if not 1 <= m <= MAX_MOD:
         raise ValueError(f"{m} modalities; the mixture kernels take "
                          f"1..{MAX_MOD}")
-    require(z, "z", torch.float32, (m, n2, d), dev)
+    _suffix(z.dtype)
+    require(z, "z", z.dtype, (m, n2, d), dev)
     require(alpha, "alpha", torch.float32, (n2, m), dev)
     require(beta, "beta", torch.float32, (m,), dev)
     require(v, "v", torch.float32, (n2,), dev)
@@ -186,19 +223,21 @@ def _check(z, alpha, beta, v):
 
 def mixture_lse_cuda(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                      v: torch.Tensor, tau: float) -> torch.Tensor:
-    """Launch ``mixture_lse``: lse (M + 2, 2B) f32."""
+    """Launch ``mixture_lse`` (f32 z) or ``mixture_lse_bf16`` (bf16 z):
+    lse (M + 2, 2B) f32."""
     m, n2, d = _check(z, alpha, beta, v)
     built = _library()
-    plan = lse_plan(m, n2, d, z.device)
+    stats = STATS_LSE_BF16 if z.dtype == torch.bfloat16 else STATS_LSE
+    plan = lse_plan(m, n2, d, z.device, z.dtype)
     with torch.cuda.device(z.device):
         lse = torch.empty(m + 2, n2, dtype=torch.float32, device=z.device)
         part = torch.empty(plan["scratch"], dtype=torch.float32,
                            device=z.device)
-        err = built.lib.mixture_lse(ptr(z), ptr(alpha), ptr(beta), ptr(v),
-                                    ptr(part), ptr(lse), m, n2, d, 1.0 / tau,
-                                    stream_of(z))
-    check(built, err, "mixture_lse")
-    STATS_LSE.launches += 1
+        err = getattr(built.lib, stats.name)(
+            ptr(z), ptr(alpha), ptr(beta), ptr(v), ptr(part), ptr(lse), m, n2,
+            d, 1.0 / tau, stream_of(z))
+    check(built, err, stats.name)
+    stats.launches += 1
     return lse
 
 
@@ -206,26 +245,29 @@ def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
                       beta: torch.Tensor, lse: torch.Tensor,
                       coef: torch.Tensor, v: torch.Tensor, tau: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``mixture_grad``: (dz (M, 2B, d), dalpha (2B, M), dbeta (M,))."""
+    """Launch ``mixture_grad`` (f32 z) or ``mixture_grad_bf16`` (bf16 z):
+    (dz (M, 2B, d), dalpha (2B, M), dbeta (M,)), all f32."""
     m, n2, d = _check(z, alpha, beta, v)
     require(lse, "lse", torch.float32, (m + 2, n2), z.device)
     require(coef, "coef", torch.float32, (m + 2, n2), z.device)
     built = _library()
+    stats = STATS_GRAD_BF16 if z.dtype == torch.bfloat16 else STATS_GRAD
     with torch.cuda.device(z.device):
         mg = modality_group(m, d, _grad_cap(built, z.device))
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         dalpha = torch.empty(n2, m, dtype=torch.float32, device=z.device)
         dbeta = torch.empty(m, dtype=torch.float32, device=z.device)
-        floats = built.lib.mixture_grad_scratch(m, mg, n2, d)
+        name = f"{stats.name}_scratch"
+        floats = getattr(built.lib, name)(m, mg, n2, d)
         if floats < 0:
-            check(built, -floats, "mixture_grad_scratch")
+            check(built, -floats, name)
         part = torch.empty(floats, dtype=torch.float32, device=z.device)
-        err = built.lib.mixture_grad(
+        err = getattr(built.lib, stats.name)(
             ptr(z), ptr(alpha), ptr(beta), ptr(lse), ptr(coef), ptr(v),
             ptr(dz), ptr(dalpha), ptr(dbeta), ptr(part), m, mg, n2, d,
             1.0 / tau, stream_of(z))
-    check(built, err, "mixture_grad")
-    STATS_GRAD.launches += 1
+    check(built, err, stats.name)
+    stats.launches += 1
     return dz, dalpha, dbeta
 
 
@@ -240,9 +282,11 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def mixture_lse(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                 v: torch.Tensor, tau: float) -> torch.Tensor:
     """(M + 2, 2B) channel row-logsumexps: the kernel for CUDA tensors, the
-    twin for CPU tensors."""
+    twin for CPU tensors; z f32 or bf16."""
     if _on_cpu(z):
-        STATS_LSE.twin_calls += 1
+        _suffix(z.dtype)
+        (STATS_LSE_BF16 if z.dtype == torch.bfloat16
+         else STATS_LSE).twin_calls += 1
         return mixture_lse_twin(z, alpha, beta, v, tau)
     return mixture_lse_cuda(z, alpha, beta, v, tau)
 
@@ -251,8 +295,10 @@ def mixture_grad(z, alpha, beta, lse, coef, v, tau
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradient of sum_ch sum_r coef[ch, r] (lse[ch, r] - pos[ch, r]); coef
     folds the cotangent, ab_weight, row weights and 1/denom.  Returns
-    (dz, dalpha, dbeta)."""
+    (dz, dalpha, dbeta), f32."""
     if _on_cpu(z):
-        STATS_GRAD.twin_calls += 1
+        _suffix(z.dtype)
+        (STATS_GRAD_BF16 if z.dtype == torch.bfloat16
+         else STATS_GRAD).twin_calls += 1
         return mixture_grad_twin(z, alpha, beta, lse, coef, v, tau)
     return mixture_grad_cuda(z, alpha, beta, lse, coef, v, tau)

@@ -135,7 +135,11 @@ def weighted_segment_sum(x: torch.Tensor, e: torch.Tensor, graph: DeviceGraph
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (N, C), e (E, H) in CSR edge order.  Returns (agg (N, H, C) f32,
     rowsum (N, H) f32): the kernel for CUDA tensors, the twin for CPU
-    tensors."""
+    tensors.  Takes f32 alone: a bf16 x raises (a bf16 GCN waits for a
+    bf16 variant of the kernel, ROADMAP A)."""
+    if x.dtype == torch.bfloat16 or e.dtype == torch.bfloat16:
+        raise TypeError("the weighted segment sum has no bf16 variant "
+                        "(ROADMAP A: bf16 GCN (segment sum))")
     if x.device.type == "cuda":
         return weighted_segment_sum_cuda(x, e, graph)
     if x.device.type != "cpu":

@@ -11,6 +11,17 @@ output) and :211 (intermediate output), with masks drawn from the
 ``dropout_gen`` a forward is given; ``dropout_gen=None`` is deterministic.
 The token axis is tiny (M = 3-6), so the attention core is plain batched
 ``torch.matmul``, which the JAX package also leaves to its compiler.
+
+Compute dtype: every module takes ``dtype`` (float32 or bfloat16), the
+flax ``Dense(dtype=...)`` / ``LayerNorm(dtype=...)`` semantics of the JAX
+package under ``--dtype bfloat16``: parameters stay f32; a linear layer
+casts its input, weight and bias to bf16, its product is bf16 and the bias
+is added in bf16 (fusion.py:101-114); the attention scores and
+probabilities are f32 and the probabilities are cast to bf16 before the
+context product (``_tiny_scores_ctx``, :58-66); LayerNorm computes from
+the bf16 sum in f32 and returns bf16 (:196-213); the token stack is cast
+to the compute dtype (:242-244).  The rounding points are those, set
+explicitly (no autocast).
 """
 
 from __future__ import annotations
@@ -36,13 +47,49 @@ def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` with a compute dtype and f32 parameters (flax
+    ``Dense(dtype=...)``): in bf16, x W^T is a bf16 product of bf16
+    operands and the bf16 bias is added to it in bf16."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with a compute dtype and f32 parameters (flax
+    ``LayerNorm(dtype=...)``): in bf16 the statistics and the affine map
+    run in f32 on the bf16 input and the result is bf16."""
+
+    def __init__(self, size: int, eps: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(size, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.to(torch.float32), self.normalized_shape,
+                            self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
 def tlinear(in_features: int, out_features: int, generator: torch.Generator,
-            fan_in: Optional[int] = None) -> nn.Linear:
-    """``nn.Linear`` with torch's default init drawn from ``generator`` at
+            fan_in: Optional[int] = None,
+            dtype: torch.dtype = torch.float32) -> Linear:
+    """``Linear`` with torch's default init drawn from ``generator`` at
     the REFERENCE's fan-in (``_tdense``, fusion.py:101-114): rel_fc's
     reference input is the 1000-column relation bag."""
     fan = in_features if fan_in is None else fan_in
-    lin = nn.Linear(in_features, out_features)
+    lin = Linear(in_features, out_features, dtype)
     with torch.no_grad():
         lin.weight.copy_(inits.torch_linear((out_features, in_features), fan,
                                             generator))
@@ -55,15 +102,16 @@ class BertSelfAttention(nn.Module):
     (SNAG_tools.py:158-209)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
         self.num_heads = num_heads
-        self.query = tlinear(hidden_size, hidden_size, generator)
-        self.key = tlinear(hidden_size, hidden_size, generator)
-        self.value = tlinear(hidden_size, hidden_size, generator)
+        self.query = tlinear(hidden_size, hidden_size, generator, dtype=dtype)
+        self.key = tlinear(hidden_size, hidden_size, generator, dtype=dtype)
+        self.value = tlinear(hidden_size, hidden_size, generator, dtype=dtype)
 
     def forward(self, hidden: torch.Tensor,
                 dropout_gen: Optional[torch.Generator] = None):
@@ -77,18 +125,22 @@ class BertSelfAttention(nn.Module):
         q = split(self.query(hidden))
         k = split(self.key(hidden))
         v = split(self.value(hidden))
-        scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+        # scores and probabilities in f32 whatever the compute dtype
+        scores = torch.matmul(q.to(torch.float32),
+                              k.to(torch.float32).transpose(-1, -2)) * (
+            1.0 / math.sqrt(dh))
         probs = torch.softmax(scores, dim=-1)                 # (N, H, M, M)
-        ctx = torch.matmul(dropout(probs, DROPOUT, dropout_gen), v)
+        ctx = torch.matmul(dropout(probs, DROPOUT, dropout_gen).to(v.dtype), v)
         return ctx.transpose(1, 2).reshape(n, m, d), probs
 
 
 class BertSelfOutput(nn.Module):
     def __init__(self, in_size: int, hidden_size: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = tlinear(in_size, hidden_size, generator)
-        self.LayerNorm = nn.LayerNorm(hidden_size, eps=1e-12)
+        self.dense = tlinear(in_size, hidden_size, generator, dtype=dtype)
+        self.LayerNorm = LayerNorm(hidden_size, 1e-12, dtype)
 
     def forward(self, x, residual, dropout_gen=None):
         out = dropout(self.dense(x), DROPOUT, dropout_gen)
@@ -97,10 +149,13 @@ class BertSelfOutput(nn.Module):
 
 class BertAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self = BertSelfAttention(hidden_size, num_heads, generator)
-        self.output = BertSelfOutput(hidden_size, hidden_size, generator)
+        self.self = BertSelfAttention(hidden_size, num_heads, generator,
+                                      dtype)
+        self.output = BertSelfOutput(hidden_size, hidden_size, generator,
+                                     dtype)
 
     def forward(self, hidden, dropout_gen=None):
         ctx, probs = self.self(hidden, dropout_gen)
@@ -109,9 +164,11 @@ class BertAttention(nn.Module):
 
 class BertIntermediate(nn.Module):
     def __init__(self, hidden_size: int, intermediate_size: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense = tlinear(hidden_size, intermediate_size, generator)
+        self.dense = tlinear(hidden_size, intermediate_size, generator,
+                             dtype=dtype)
 
     def forward(self, x):
         return F.gelu(self.dense(x))          # exact (erf) GELU
@@ -123,15 +180,17 @@ class BertLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, use_intermediate: bool,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attention = BertAttention(hidden_size, num_heads, generator)
+        self.attention = BertAttention(hidden_size, num_heads, generator,
+                                       dtype)
         self.use_intermediate = use_intermediate
         if use_intermediate:
-            self.intermediate = BertIntermediate(hidden_size,
-                                                 intermediate_size, generator)
+            self.intermediate = BertIntermediate(
+                hidden_size, intermediate_size, generator, dtype)
             self.output = BertSelfOutput(intermediate_size, hidden_size,
-                                         generator)
+                                         generator, dtype)
 
     def forward(self, hidden, dropout_gen=None):
         attention_output, probs = self.attention(hidden, dropout_gen)
@@ -156,12 +215,14 @@ class MformerFusion(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  intermediate_size: int, use_intermediate: bool,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.compute_dtype = dtype
         self.fusion_layer = nn.ModuleList(
             BertLayer(hidden_size, num_heads, intermediate_size,
-                      use_intermediate, generator)
+                      use_intermediate, generator, dtype)
             for _ in range(num_layers))
         self.weight_raw = nn.Parameter(torch.ones(6))
 
@@ -169,7 +230,9 @@ class MformerFusion(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None):
         active = [e for e in embs if e is not None]
         modal_num = len(active)
-        hidden = torch.stack(active, dim=1)                   # (N, M, d)
+        # the stack in the compute dtype (the GAT's rows arrive f32)
+        hidden = torch.stack([e.to(self.compute_dtype) for e in active],
+                             dim=1)                           # (N, M, d)
         probs = None
         for layer in self.fusion_layer:
             hidden, probs = layer(hidden, dropout_gen)
@@ -179,7 +242,9 @@ class MformerFusion(nn.Module):
             modal_num * self.num_heads)                       # (N, M)
         weight_norm = torch.softmax(attention_pro_comb, dim=-1)
 
-        normed = [l2norm(e) for e in active]
+        # each modality normalised in its own dtype, then weighted in f32
+        # (JAX promotes f32 weights times bf16 rows to f32)
+        normed = [l2norm(e).to(torch.float32) for e in active]
         joint_emb = torch.cat(
             [weight_norm[:, i:i + 1] * normed[i] for i in range(modal_num)],
             dim=1)

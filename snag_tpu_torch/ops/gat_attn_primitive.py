@@ -8,6 +8,12 @@ The forward is ``ops/cuda/gat_attention.py`` and the backward
 tensors.  Both walk the CSR rows and gather x[col] themselves, so the JAX
 package's ``[x | s_dst | 1]`` edge block and its residual are never built;
 the backward keeps only x, s_src and s_dst.
+
+x may be bf16 (the edge dtype of ``--dtype bfloat16``, JAX gnn.py:127-129)
+with f32 scores: the backward then casts the cotangent G to bf16, as
+``_build_gm`` builds the ``[G | r | s_src]`` block in x's dtype (JAX
+gat_attn_primitive.py:90, :146); the kernels round r and the scores to
+bf16 themselves, and d_x comes back in bf16, d_s_* in f32.
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ class _GATAttention(torch.autograd.Function):
         n, c = x.shape
         h = s_src.shape[1]
         g_agg = (x.new_zeros(n, h, c) if g_agg is None
-                 else g_agg.contiguous())
-        g_rs = x.new_zeros(n, h) if g_rs is None else g_rs.contiguous()
+                 else g_agg.to(x.dtype).contiguous())
+        g_rs = (s_src.new_zeros(n, h) if g_rs is None
+                else g_rs.contiguous())
         d_x, d_s_src, d_s_dst = fused_gat_backward(
             x, s_src, s_dst, g_agg, g_rs, ctx.graph)
         return d_x, d_s_src, d_s_dst, None
@@ -43,7 +50,7 @@ class _GATAttention(torch.autograd.Function):
 
 def gat_attention(x: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                   graph: DeviceGraph) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (N, C); s_src/s_dst: (N, H) attention score halves.
-    Returns (agg (N, H, C) f32, rowsum (N, H) f32)."""
+    """x: (N, C) f32 or bf16; s_src/s_dst: (N, H) f32 attention score
+    halves.  Returns (agg (N, H, C) f32, rowsum (N, H) f32)."""
     return _GATAttention.apply(x.contiguous(), s_src.contiguous(),
                                s_dst.contiguous(), graph)

@@ -11,6 +11,11 @@ EVA_tools.py:52-63).  Parameter names are the reference's:
 Dropout is drawn from an explicit ``torch.Generator``: a forward given
 ``dropout_gen=None`` is deterministic (the JAX package's
 ``deterministic=True``).
+
+``dtype`` (GAT): under ``--dtype bfloat16`` the JAX package's GAT stays
+f32 but for the rows its edges gather: the attention scores come from the
+f32 x, and x enters the attention primitive as bf16 (gnn.py:121-133), whose
+kernels then follow the Pallas rounding points.  The output is f32.
 """
 
 from __future__ import annotations
@@ -73,8 +78,9 @@ class MultiHeadGraphAttention(nn.Module):
 
     def __init__(self, n_head: int, f_in: int, f_out: int,
                  generator: torch.Generator, attn_dropout: float = 0.0,
-                 diag: bool = True):
+                 diag: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.edge_dtype = dtype
         if not diag:
             raise NotImplementedError("non-diag GAT is not ported")
         if f_in != f_out:
@@ -101,7 +107,9 @@ class MultiHeadGraphAttention(nn.Module):
         # projection both halves reduce to x @ (w_h * a_h)
         s_src = x @ (wh * a_src).T                            # (N, H)
         s_dst = x @ (wh * a_dst).T
-        agg, rowsum = gat_attention(x, s_src, s_dst, graph)
+        # the scores from the f32 x, the gathered rows in the edge dtype
+        agg, rowsum = gat_attention(x.to(self.edge_dtype), s_src, s_dst,
+                                    graph)
         # the diag projection commutes out of the neighbour sum
         agg = agg * wh[None, :, :]                            # (N, H, F)
         return agg / rowsum[:, :, None]
@@ -114,7 +122,8 @@ class GAT(nn.Module):
     def __init__(self, n_units: List[int], n_heads: List[int],
                  generator: torch.Generator, dropout: float = 0.0,
                  attn_dropout: float = 0.0,
-                 instance_normalization: bool = False, diag: bool = True):
+                 instance_normalization: bool = False, diag: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if instance_normalization:
             raise NotImplementedError("GAT instance normalization is not ported")
@@ -123,7 +132,7 @@ class GAT(nn.Module):
         self.layer_stack = nn.ModuleList(
             MultiHeadGraphAttention(
                 n_heads[i], n_units[i], n_units[i + 1], generator,
-                attn_dropout=attn_dropout, diag=diag)
+                attn_dropout=attn_dropout, diag=diag, dtype=dtype)
             for i in range(num_layer))
 
     def forward(self, x: torch.Tensor, graph: DeviceGraph,

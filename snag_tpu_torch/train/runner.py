@@ -64,9 +64,11 @@ class Runner:
             raise RuntimeError(f"--device {cfg.device}: torch.cuda is not "
                                "available (pass --device cpu to run the "
                                "plain PyTorch twins)")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"--dtype {cfg.dtype}: only float32 "
-                                      "is ported (ROADMAP A: bf16)")
+        if cfg.dtype == "bfloat16" and cfg.structure_encoder == "gcn":
+            raise NotImplementedError(
+                "--dtype bfloat16 with --structure_encoder gcn needs a bf16 "
+                "variant of the weighted segment sum kernel (ROADMAP A: "
+                "bf16 GCN (segment sum))")
         if cfg.mesh_shape:
             raise NotImplementedError("--mesh_shape: multi-GPU is not "
                                       "ported (ROADMAP A: multi-GPU)")

@@ -7,11 +7,19 @@ Marked ``cuda``: these skip where torch sees no GPU.  On a GPU machine
 
 Tolerances: the GAT kernel sums a row's edges in a fixed order and the
 twin with ``index_add_``: rtol = atol = 1e-5; the GAT backward adds
-per-edge dot products over C and heads, rtol = atol = 1e-4.  The NT-Xent
+per-edge dot products over C and heads, rtol = atol = 1e-4.  Both GAT
+kernels and the weighted segment sum are held against their twins run on
+CPU copies of the inputs (``on_cpu``), where ``index_add_`` adds in a
+fixed order; on the card it adds by atomics in an order that changes from
+run to run, a reference that moved by more than the limit once.  The NT-Xent
 kernels sum 2B * d products per row in another order than cuBLAS: lse
 rtol = atol = 1e-5, gradients max |err| <= 1e-4 * max |twin|; so do the
 mixture kernels, under the same limits for lse, dz, dalpha and dbeta, and
-two runs of any of the four loss kernels give the same bits.  The weighted segment
+two runs of any of the four loss kernels give the same bits.  The bf16
+entries (``--dtype bfloat16``: both GAT kernels and the four loss kernels
+on bf16 operands) are held against their bf16 twins on CPU copies of the
+inputs at max |err| <= 4e-3 x max |twin| per output, about one bf16 ulp
+of the output's scale, with bitwise repeats.  The weighted segment
 sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
 atol = 1e-5, and two runs give the same bits.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
@@ -35,6 +43,27 @@ from snag_tpu_torch.ops.gat_agg import gat_aggregate, reverse_weights
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 
 pytestmark = pytest.mark.cuda
+BF16_TOL = 4e-3          # x max |twin| per output of a bf16 kernel
+
+
+def on_cpu(twin, *args):
+    """``twin`` on CPU copies of ``args`` (tensors and a DeviceGraph), its
+    outputs moved back to the device of the first tensor."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+
+    def cpu(a):
+        if isinstance(a, DeviceGraph):
+            return DeviceGraph(*(cpu(t) for t in a))
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+    out = twin(*(cpu(a) for a in args))
+    return tuple(o.to(dev) for o in out)
+
+
+def assert_bf16_close(got, want):
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.isfinite(a.float()).all()
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= BF16_TOL * w.float().abs().max().item()
 
 
 @pytest.fixture
@@ -69,7 +98,7 @@ def test_gat_kernel_matches_twin(dev, c, h):
     g, x, s_src, s_dst = _gat_inputs(dev, c=c, h=h)
     agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
     torch.cuda.synchronize()
-    want_agg, want_rs = ga.gat_attention_twin(x, s_src, s_dst, g)
+    want_agg, want_rs = on_cpu(ga.gat_attention_twin, x, s_src, s_dst, g)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
 
@@ -111,7 +140,7 @@ def test_gat_backward_kernel_matches_twin(dev, c, h):
         np.float32), device=dev)
     got = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
     torch.cuda.synchronize()
-    want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
+    want = on_cpu(gb.gat_backward_twin, x, s_src, s_dst, g_agg, g_rs, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
@@ -134,10 +163,10 @@ def test_gat_kernels_partial_last_block(dev, n):
     agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
     got = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
     torch.cuda.synchronize()
-    want_agg, want_rs = ga.gat_attention_twin(x, s_src, s_dst, g)
+    want_agg, want_rs = on_cpu(ga.gat_attention_twin, x, s_src, s_dst, g)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
-    want = gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs, g)
+    want = on_cpu(gb.gat_backward_twin, x, s_src, s_dst, g_agg, g_rs, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
@@ -162,8 +191,8 @@ def test_gat_autograd_launches_both_kernels(dev):
     torch.cuda.synchronize()
     assert (ga.STATS.launches, gb.STATS.launches) == (before[0] + 1,
                                                       before[1] + 1)
-    want = gb.gat_backward_twin(x, s_src, s_dst, torch.ones_like(agg),
-                                torch.ones_like(rs), g)
+    want = on_cpu(gb.gat_backward_twin, x, s_src, s_dst,
+                  torch.ones_like(agg), torch.ones_like(rs), g)
     for t, w in zip(xs, want):
         torch.testing.assert_close(t.grad, w, rtol=1e-4, atol=1e-4)
 
@@ -355,7 +384,7 @@ def test_weighted_segment_sum_matches_twin(dev, c, h):
     g, x, e = _segment_inputs(dev, c, h, seed=c)
     agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
     torch.cuda.synchronize()
-    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    want_agg, want_rs = on_cpu(ts.weighted_segment_sum_twin, x, e, g)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
 
@@ -374,7 +403,7 @@ def test_weighted_segment_sum_partial_last_block(dev, n):
     g, x, e = _segment_inputs(dev, 300, 2, seed=n, n=n)
     agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
     torch.cuda.synchronize()
-    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    want_agg, want_rs = on_cpu(ts.weighted_segment_sum_twin, x, e, g)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
 
@@ -401,7 +430,7 @@ def test_weighted_segment_sum_empty_and_hub_rows(dev, c, h):
     agg, rs = ts.weighted_segment_sum_cuda(x, e, g)
     again = ts.weighted_segment_sum_cuda(x, e, g)
     torch.cuda.synchronize()
-    want_agg, want_rs = ts.weighted_segment_sum_twin(x, e, g)
+    want_agg, want_rs = on_cpu(ts.weighted_segment_sum_twin, x, e, g)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rs, want_rs, rtol=1e-5, atol=1e-5)
     empty = torch.as_tensor(lengths == 0, device=dev)
@@ -430,8 +459,8 @@ def test_gcn_backward_takes_the_cached_reverse_weights(dev):
     g_agg = torch.randn_like(agg)
     (agg * g_agg).sum().backward()
     torch.cuda.synchronize()
-    want = torch.zeros_like(x).index_add_(0, g.col.long(),
-                                          e * g_agg[g.row, 0])
+    want = torch.zeros_like(x).cpu().index_add_(
+        0, g.col.long().cpu(), (e * g_agg[g.row, 0]).cpu()).to(dev)
     torch.testing.assert_close(xg.grad, want, rtol=1e-5, atol=1e-5)
 
 
@@ -445,8 +474,9 @@ def test_gat_aggregate_backward_launches_the_kernel(dev):
     torch.cuda.synchronize()
     # one forward launch, one backward launch per head
     assert ts.STATS.launches == before + 3
-    want = torch.zeros_like(x).index_add_(
-        0, g.col.long(), (e[:, :, None] * g_agg[g.row]).sum(dim=1))
+    want = torch.zeros_like(x).cpu().index_add_(
+        0, g.col.long().cpu(),
+        (e[:, :, None] * g_agg[g.row]).sum(dim=1).cpu()).to(dev)
     torch.testing.assert_close(xg.grad, want, rtol=1e-5, atol=1e-5)
 
 
@@ -554,3 +584,99 @@ def test_rank_plan_on_the_card(dev):
         assert p["blocks"] == 110 * p["splits"]
     with pytest.raises(ValueError, match="column tiles"):
         rk.device_plan(dev, 300, 8, 0, 3, splits=3)
+
+
+# ------------------------------------------------------------ bf16 entries
+
+# C = 1,280 is the widest row of 4-element slices, C = 319 the widest of
+# single elements; 1,200 and 300 the bench widths of the joint and the GAT
+BF16_GAT_WIDTHS = [(48, 2), (30, 1), (300, 2), (64, 4), (1200, 2),
+                   (1280, 2), (319, 1)]
+
+
+@pytest.mark.parametrize("c,h", BF16_GAT_WIDTHS)
+def test_gat_bf16_kernels_match_twins(dev, c, h):
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, c, h, c)
+    xb, gb16 = x.to(torch.bfloat16), g_agg.to(torch.bfloat16)
+    before = (ga.STATS.launches, gb.STATS.launches,
+              ga.STATS_BF16.launches, gb.STATS_BF16.launches)
+    fwd = ga.gat_attention_cuda(xb, s_src, s_dst, g)
+    bwd = gb.gat_backward_cuda(xb, s_src, s_dst, gb16, g_rs, g)
+    again = (ga.gat_attention_cuda(xb, s_src, s_dst, g),
+             gb.gat_backward_cuda(xb, s_src, s_dst, gb16, g_rs, g))
+    torch.cuda.synchronize()
+    assert (ga.STATS.launches, gb.STATS.launches, ga.STATS_BF16.launches,
+            gb.STATS_BF16.launches) == (before[0], before[1],
+                                        before[2] + 2, before[3] + 2)
+    assert [t.dtype for t in bwd] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    assert_bf16_close(fwd, on_cpu(ga.gat_attention_twin, xb, s_src, s_dst, g))
+    assert_bf16_close(bwd, on_cpu(gb.gat_backward_twin, xb, s_src, s_dst,
+                                  gb16, g_rs, g))
+    for a, b in zip((*fwd, *bwd), (*again[0], *again[1])):
+        assert torch.equal(a, b)
+
+
+def test_gat_bf16_autograd_and_refusals(dev):
+    g, x, s_src, s_dst = _gat_inputs(dev, n=301, c=300)
+    xs = [x.to(torch.bfloat16).requires_grad_(),
+          s_src.clone().requires_grad_(), s_dst.clone().requires_grad_()]
+    agg, rs = gat_attention(*xs, g)
+    (agg.sum() + rs.sum()).backward()
+    torch.cuda.synchronize()
+    want = on_cpu(gb.gat_backward_twin, xs[0].detach(), s_src, s_dst,
+                  torch.ones_like(agg).to(torch.bfloat16),
+                  torch.ones_like(rs), g)
+    assert_bf16_close([t.grad for t in xs], want)
+    # bf16 scores, or a G whose dtype differs from x's, are refused
+    with pytest.raises(TypeError):
+        ga.gat_attention_cuda(xs[0].detach(), s_src.to(torch.bfloat16),
+                              s_dst, g)
+    with pytest.raises(TypeError):
+        gb.gat_backward_cuda(xs[0].detach(), s_src, s_dst,
+                             torch.ones_like(agg), torch.ones_like(rs), g)
+    with pytest.raises(TypeError):
+        ts.weighted_segment_sum(x.to(torch.bfloat16), g.w[:, None], g)
+
+
+@pytest.mark.parametrize("m,b,d,n_valid", [(2, 9, 8, 9), (3, 130, 48, 100),
+                                           (4, 257, 300, 257),
+                                           (1, 70, 1200, 64),
+                                           (2, 300, 1800, 290),
+                                           (4, 75, 37, 70)])
+def test_ntxent_bf16_kernels_match_twins(dev, m, b, d, n_valid):
+    z, v, coef = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
+    z = z.to(torch.bfloat16)
+    coef = coef / n_valid
+    lse = nx.streaming_lse_cuda(z, v, 0.1)
+    dz = nx.ntxent_grad_cuda(z, lse, coef, v, 0.1)
+    again = (nx.streaming_lse_cuda(z, v, 0.1),
+             nx.ntxent_grad_cuda(z, lse, coef, v, 0.1))
+    torch.cuda.synchronize()
+    assert_bf16_close([lse], on_cpu(lambda *a: [nx.streaming_lse_twin(*a)],
+                                     z, v, 0.1))
+    assert_bf16_close([dz], on_cpu(lambda *a: [nx.ntxent_grad_twin(*a)],
+                                   z, lse, coef, v, 0.1))
+    assert torch.equal(lse, again[0]) and torch.equal(dz, again[1])
+
+
+@pytest.mark.parametrize("m,b,d,n_valid", [(1, 9, 8, 9), (4, 130, 48, 100),
+                                           (4, 257, 300, 257),
+                                           (6, 70, 300, 64), (4, 75, 37, 70),
+                                           (6, 100, 300, 100)])
+def test_mixture_bf16_kernels_match_twins(dev, m, b, d, n_valid):
+    z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, n_valid, seed=b)
+    z = z.to(torch.bfloat16)
+    coef = coef / n_valid
+    before = (sl.STATS_LSE.launches, sl.STATS_GRAD.launches)
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    again = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    assert (sl.STATS_LSE.launches, sl.STATS_GRAD.launches) == before
+    assert_bf16_close([lse], on_cpu(lambda *a: [sl.mixture_lse_twin(*a)],
+                                    z, alpha, beta, v, 0.1))
+    assert_bf16_close(got, on_cpu(sl.mixture_grad_twin, z, alpha, beta, lse,
+                                  coef, v, 0.1))
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)

@@ -8,7 +8,9 @@ measured against the JAX package's committed logs (its "ours" runs under
 
 * (a) the 12-epoch run: the two-seed mean MRR over seeds 3408 and 17 at
   most 0.5 points below JAX's mean, each seed at most 3.5 points below
-  JAX's;
+  JAX's; and the same run with ``--dtype bfloat16`` (the JAX package's
+  main-path dtype; its committed logs are f32), each seed at most 3.5
+  points below JAX's f32 MRR of that seed;
 * (b) the IL-heavy 40-epoch run: final MRR at most 3.5 points below JAX's,
   each of the last three common evaluations within 0.06 of JAX's, and
   three promotions or more;
@@ -47,7 +49,8 @@ RUN_RE = re.compile(r"(Ep \d+ \| [lr]2[lr]: .*|Res:\[.*\]|"
                     r"#new_links_select:\d+|Ep \[\d+/\d+\] Step \[\d+\] "
                     r"LR \[[\d.]+\] Loss [\d.]+)")
 LOGS = ("ours_3408.log", "ours_17.log", "ours_il40_3408.log", "c1_cold.log",
-        "c2_repeat.log", "c3_killed.log", "c3_resumed.log")
+        "c2_repeat.log", "c3_killed.log", "c3_resumed.log",
+        "ours_bf16_3408.log", "ours_bf16_17.log")
 
 
 def _port(name):
@@ -93,6 +96,16 @@ def test_12_epoch_two_seed_mean():
     for s in SEEDS:
         text = _port(f"ours_{s}.log")
         assert "[epoch 9]" in text and "candidate set" in text, s
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_12_epoch_bf16_each_seed(seed):
+    text = _port(f"ours_bf16_{seed}.log")
+    command = next(ln for ln in text.splitlines() if ln.startswith("running:"))
+    assert "--dtype bfloat16" in command
+    jax = _final_res(_jax(f"ours_{seed}.log"))[2]
+    assert _final_res(text)[2] >= jax - 0.035, (_final_res(text), jax)
+    assert "[epoch 9]" in text and "candidate set" in text
 
 
 def test_il40():

@@ -44,7 +44,10 @@ the exit code is non-zero:
    the main path's shapes (the GAT inputs above rounded to bf16, NT-Xent
    IIR, the mixture's full M = 4 batch), within 4e-3 x max
    |twin| per output, with bitwise repeats and the same timings, their
-   bound at the bf16 dense rate of 989 TFLOP/s;
+   bound at the bf16 dense rate of 989 TFLOP/s; the NT-Xent kernels also
+   at the other families' shapes (M = 1: MEAformer's joint loss at
+   d = 1,200, f32 and bf16; an MCLEA modality's padded last batch at
+   d = 300) and both rank sweeps also at MCLEA's 300-wide joint;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -66,7 +69,18 @@ the exit code is non-zero:
 7. the GCN encoder (``--structure_encoder gcn``) at the same geometry:
    serving, then 6 training epochs; the segment sum, mixture, NT-Xent and
    rank kernels must have launched and the GAT kernels not;
-8. files: ``scripts/torch_gates.py`` exports the 30,000-entity DBP15K
+8. the other families through ``main`` at the bench geometry with
+   ``--model_name`` switched (``phase_families``): EVA (its GCN; serving
+   from a seeded init, then 10 epochs with IL from epoch 2, promotion at
+   epoch 9), MCLEA and MEAformer (``--tau 0.1 --tau2 4.0``, their presets'
+   values; 6 epochs each), MEAformer with ``--replay 1`` (6 epochs; it
+   must log "begin replay!" and feed valid replay negatives, whose count
+   is printed) and MEAformer in bf16 (4 epochs); each run launches exactly
+   its family's kernels (EVA: the segment sum and both rank sweeps; MCLEA
+   and MEAformer: both f32 GAT kernels, both NT-Xent kernels and both rank
+   sweeps, their bf16 entries in bf16), its losses are finite and fall
+   and its metrics lie in [0, 1];
+9. files: ``scripts/torch_gates.py`` exports the 30,000-entity DBP15K
    ja_en files of the quality gates and checks their digests against the
    JAX package's; ``main`` trains on them at the gates' geometry for 8
    epochs (IL from epoch 2, a checkpoint every 3 epochs, ``--save_model
@@ -76,8 +90,9 @@ the exit code is non-zero:
    metrics; each run's kernels must have launched and no twin may have
    run.
 
-The line before last is the per-kernel JSON record (launches summed over
-the runs of phases 5-8; ``bound_share`` is ``bound_ms / device_ms``); the
+Before the per-kernel record it prints the script's wall time.  The line
+before last is the per-kernel JSON record (launches summed over the runs
+of phases 5-9; ``bound_share`` is ``bound_ms / device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
 """
@@ -167,15 +182,29 @@ BF16_KERNELS = {"gat_attention_fwd_bf16", "gat_bwd_bf16", "ntxent_lse_bf16",
                 "ntxent_grad_bf16", "mixture_lse_bf16", "mixture_grad_bf16"}
 RANK_KERNELS = {"rank_topk_mean", "rank_counts"}
 BF16 = ["--dtype", "bfloat16"]
+# the MCLEA and MEAformer presets' temperatures (scripts/run_mclea.sh,
+# run_meaformer.sh)
+FAMILY_ARGS = ["--tau", "0.1", "--tau2", "4.0"]
+# MCLEA and MEAformer's kernels: the GAT, NT-Xent and rank kernels (their
+# bf16 entries in bf16, with the f32 rank sweeps)
+FAMILY_KERNELS = {"gat_attention_fwd", "gat_bwd", "ntxent_lse",
+                  "ntxent_grad", "rank_topk_mean", "rank_counts"}
+FAMILY_BF16_KERNELS = {"gat_attention_fwd_bf16", "gat_bwd_bf16",
+                       "ntxent_lse_bf16", "ntxent_grad_bf16",
+                       "rank_topk_mean", "rank_counts"}
 WARM_STEP_MS = {}               # phase -> median warm step ms of its run
 # (name, M, B, d, valid rows) of the NT-Xent calls at the bench geometry:
 # the default fused loss runs IIR only (4 modalities' hidden rows); with
 # --fused_snag_loss 0 ECIA (shown with the padded last batch, 1,000 of 3,500
 # rows valid) and GMI (the two 1200-wide joint paths) run too, and GMI6
 # with --use_surface 1 (six modalities: 1800-wide joint rows, two feature
-# chunks of the gradient)
+# chunks of the gradient); MEAformer's joint loss (M = 1 at 1,200, the
+# gradient's one-chunk path at M = 1) and an MCLEA modality's loss with the
+# padded last batch (M = 1 at 300; MCLEA's joint loss has the same shape)
 NTXENT_SHAPES = (("IIR", 4, 3500, 300, 3500), ("ECIA", 4, 3500, 300, 1000),
-                 ("GMI", 2, 3500, 1200, 3500), ("GMI6", 2, 3500, 1800, 3500))
+                 ("GMI", 2, 3500, 1200, 3500), ("GMI6", 2, 3500, 1800, 3500),
+                 ("MEAformer joint", 1, 3500, 1200, 3500),
+                 ("MCLEA modality", 1, 3500, 300, 1000))
 # (name, M, B, d, valid rows) of the mixture kernels: the bundle of a full
 # training batch, the padded last batch, and six modalities
 # (--use_surface 1)
@@ -193,10 +222,23 @@ def cfg_from(argv):
     return finalize_config(config_from_args(build_argparser().parse_args(argv)))
 
 
+def set_flag(args, flag, value):
+    """``args`` with ``flag``'s value replaced by ``value``."""
+    i = args.index(flag)
+    return args[:i + 1] + [value] + args[i + 2:]
+
+
 def gcn_args(args):
     """``args`` with the GCN structure encoder in place of the GAT."""
-    i = args.index("--structure_encoder")
-    return args[:i + 1] + ["gcn"] + args[i + 2:]
+    return set_flag(args, "--structure_encoder", "gcn")
+
+
+def family_args(name, *extra):
+    """``BENCH_ARGS`` with ``--model_name name``: EVA with the GCN it
+    always builds, MCLEA and MEAformer with their presets' temperatures."""
+    args = set_flag(BENCH_ARGS, "--model_name", name)
+    args = gcn_args(args) if name == "EVA" else args + FAMILY_ARGS
+    return args + list(extra)
 
 
 def bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S):
@@ -939,8 +981,9 @@ def phase_loss_bf16(tau=0.1):
     """The four bf16 loss entries against their bf16 twins on CPU copies
     at the main path's shapes: NT-Xent at IIR (M = 4, B = 3,500, d = 300)
     and the mixture at M = 4 with the full batch, on the inputs of the
-    f32 phases with z rounded to bf16.  Each output within ``BF16_TOL`` x
-    max |twin|; two runs give the same bits.  Prints the plans and the
+    f32 phases with z rounded to bf16; also NT-Xent at MEAformer's joint
+    shape (M = 1, d = 1,200).  Each output within ``BF16_TOL`` x max
+    |twin|; two runs give the same bits.  Prints the plans and the
     TFLOP/s, executed and least, as the f32 phases do; the bound is the
     bf16 dense rate.  Returns the JSON records of the four kernels."""
     import torch
@@ -992,6 +1035,32 @@ def phase_loss_bf16(tau=0.1):
                 t["grad_twin"], 2 * m * n2 * d + 4 * (m * n2 * d + 2 * m * n2
                                                       + n2),
                 k_flops + wz_flops, flop_per_s=BF16_FLOP_PER_S)]
+    del z, v, coef, lse, dz
+    torch.cuda.empty_cache()
+    # MEAformer's joint loss in bf16 (M = 1 at d = 1,200): held and timed,
+    # not in the JSON record
+    label, m, b, d, n_valid = next(s for s in NTXENT_SHAPES
+                                   if s[0] == "MEAformer joint")
+    z, v, coef = _ntxent_inputs(m, b, d, n_valid, SEED + 4)
+    z = z.to(bf)
+    lse = repeat_bitwise(lambda: [nx.streaming_lse_cuda(z, v, tau)],
+                         "ntxent_lse_bf16")[0]
+    dz = repeat_bitwise(lambda: [nx.ntxent_grad_cuda(z, lse, coef, v, tau)],
+                        "ntxent_grad_bf16")[0]
+    e_lse, = bf16_errors(f"ntxent_lse_bf16 {label}", [lse], on_cpu(
+        lambda *a: [nx.streaming_lse_twin(*a)], z, v, tau))
+    e_dz, = bf16_errors(f"ntxent_grad_bf16 {label}", [dz], on_cpu(
+        lambda *a: [nx.ntxent_grad_twin(*a)], z, lse, coef, v, tau))
+    plan = nx.grad_plan(m, 2 * b, d, z.device, bf)
+    lse_dev = device_ms(lambda: nx.streaming_lse_cuda(z, v, tau),
+                        DEVICE_KERNELS[nx.STATS_LSE_BF16.name])
+    grad_dev = device_ms(lambda: nx.ntxent_grad_cuda(z, lse, coef, v, tau),
+                         DEVICE_KERNELS[nx.STATS_GRAD_BF16.name])
+    say("loss_bf16", f"ntxent {label} (M={m}, B={b}, d={d}): max|lse err| "
+        f"{e_lse:.3e} | max|dz err| {e_dz:.3e} of max|dz| "
+        f"{dz.abs().max().item():.3e} (<= {BF16_TOL} x max, bitwise repeats)"
+        f" | lse device {lse_dev:.3f} ms | grad device {grad_dev:.3f} ms "
+        f"({plan['chunks']} chunk(s), {plan['splits']} split(s))")
     del z, v, coef, lse, dz
     torch.cuda.empty_cache()
     cap = sl._grad_cap(sl._library(), torch.device("cuda"))
@@ -1356,10 +1425,11 @@ def phase_slice(data):
     return _serve("slice", BENCH_ARGS, pkl, SERVING_KERNELS)
 
 
-def _train(phase, argv, expected, promotion):
+def _train(phase, argv, expected, promotion, check=None):
     """``main`` training run: losses finite and falling, metrics in [0, 1],
     IL promotion adding pairs when ``promotion``; the kernels of
-    ``expected`` launched and no other.  Returns the launches."""
+    ``expected`` launched and no other; then ``check(runner)`` if given.
+    Returns the launches."""
     import torch
     from snag_tpu_torch.cli.train_mmea import main
     from snag_tpu_torch.ops import cuda as kernels
@@ -1398,6 +1468,8 @@ def _train(phase, argv, expected, promotion):
     if not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in metrics):
         raise AssertionError(f"metrics out of range: {metrics}")
     check_launches(phase, stats, expected)
+    if check is not None:
+        check(runner)
     return {name: launches for name, (launches, _) in stats.items()}
 
 
@@ -1444,6 +1516,54 @@ def phase_gcn(data):
     trained = _train("gcn_train", args + GCN_TRAIN_ARGS,
                      f32_kernels() - GAT_KERNELS, promotion=False)
     return {k: served[k] + trained[k] for k in served}
+
+
+def _replay_began(runner):
+    """MEAformer ``--replay 1``: "begin replay!" in the run's log and valid
+    replay negatives fed to later steps."""
+    from snag_tpu_torch.utils.logging import get_dump_path
+    log = (Path(get_dump_path(runner.cfg)) / "train.log").read_text()
+    say("meaformer_replay", f"'begin replay!' logged: {'begin replay!' in log}"
+        f" | valid replay negatives fed: {runner.replay_negatives} | "
+        f"buffer entries set: {int((runner.replay_neg >= 0).sum())} of "
+        f"{runner.replay_neg.numel()}")
+    if "begin replay!" not in log or runner.replay_negatives <= 0:
+        raise AssertionError("replay never began or fed no valid negative")
+
+
+def phase_families(data):
+    """EVA, MCLEA and MEAformer through ``main`` at the bench geometry:
+    EVA serving from a seeded init and training with IL (the segment sum
+    and both rank sweeps); MCLEA, MEAformer, MEAformer with ``--replay 1``
+    (the GAT, NT-Xent and rank kernels) and MEAformer in bf16 (the bf16
+    entries of the same, the f32 rank sweeps).  Returns the launches of
+    each run."""
+    eva = family_args("EVA")
+    pkl = _seeded_checkpoint(eva, data, "seeded_init_eva.pkl")
+    # TRAIN_ARGS at 10 epochs, the fewest that reach a promotion (epoch 9
+    # with --semi_learn_step 1), evaluating every 3
+    eva_train = set_flag(set_flag(TRAIN_ARGS, "--epoch", "10"),
+                         "--eval_epoch", "3")
+    runs = [_serve("eva_serve", eva, pkl, {SEGMENT_KERNEL} | RANK_KERNELS),
+            _train("eva_train", eva + eva_train,
+                   {SEGMENT_KERNEL} | RANK_KERNELS, promotion=True)]
+    for phase, args, expected, check in (
+            ("mclea_train", family_args("MCLEA"), FAMILY_KERNELS, None),
+            ("meaformer_train", family_args("MEAformer"), FAMILY_KERNELS,
+             None),
+            ("meaformer_replay", family_args("MEAformer", "--replay", "1"),
+             FAMILY_KERNELS, _replay_began),
+            ("meaformer_bf16", family_args("MEAformer", *BF16),
+             FAMILY_BF16_KERNELS, None)):
+        epochs = "4" if phase == "meaformer_bf16" else "6"
+        runs.append(_train(phase, args + set_flag(GCN_TRAIN_ARGS, "--epoch",
+                                                  epochs),
+                           expected, promotion=False, check=check))
+    say("families", "median warm step ms: " + ", ".join(
+        f"{p} {WARM_STEP_MS[p]:.3f}" for p in (
+            "eva_train", "mclea_train", "meaformer_train", "meaformer_replay",
+            "meaformer_bf16", "train")))
+    return runs
 
 
 def _files_argv(root: Path, exp_id: str, *extra: str):
@@ -1556,11 +1676,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from snag_tpu_torch.data.dataset import load_data
 
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     data = load_data(cfg_from(BENCH_ARGS + ["--device", "cpu"]))
     rows = [phase_gat(data.graph), phase_gat_bwd(data.graph)]
     rows += phase_rank()
+    phase_rank(d=300)               # MCLEA's joint width; its rows not kept
     rows += phase_ntxent()
     rows += phase_mixture()
     rows.append(phase_segment(data.graph))
@@ -1572,6 +1694,7 @@ def main() -> int:
     phase_train_small_bf16()
     runs = [phase_slice(data), phase_train(), phase_train_bf16(),
             phase_slice_bf16(data), phase_gcn(data)]
+    runs += phase_families(data)
     del data
     runs.append(phase_files())
 
@@ -1610,6 +1733,7 @@ def main() -> int:
             not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel is missing or never launched: "
                              f"{kernels}")
+    say("done", f"chip_smoke.py wall {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its device time.
 
-    python3 profile_train.py [--dtype bfloat16]
+    python3 profile_train.py [--dtype bfloat16] [--model_name NAME]
+                             [--replay 1]
 
 Builds the ``chip_smoke.py`` training configuration (the bench geometry:
 30,000 entities, batch 3500, GAT 300 x 2 x 2, the default fused loss,
@@ -24,6 +25,11 @@ structure encoder (``chip_smoke.gcn_args``).  For each it prints:
 
 With ``--dtype bfloat16`` it profiles the GAT configuration in bf16 alone
 (the GCN has no bf16 path); the bf16 entries are kinds of their own.
+With ``--model_name EVA``, ``MCLEA`` or ``MEAformer`` it profiles that
+family alone at the same geometry (``chip_smoke.family_args``: EVA on its
+GCN, MCLEA and MEAformer on the GAT with their presets' temperatures),
+in bf16 too with ``--dtype bfloat16`` and with MEAformer's replay under
+``--replay 1``.
 
 Needs one NVIDIA GPU; exits non-zero without it.  Scratch data goes to the
 git-ignored ``build/profile_train``.
@@ -31,13 +37,14 @@ git-ignored ``build/profile_train``.
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import sys
 import time
 from pathlib import Path
 
 from chip_smoke import (BENCH_ARGS, DEVICE_KERNELS, TRAIN_ARGS, cfg_from,
-                        gcn_args, host_names, is_kernel)
+                        family_args, gcn_args, host_names, is_kernel)
 
 ROOT = Path(__file__).resolve().parent
 WARM_EPOCHS = 3
@@ -129,12 +136,24 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["--dtype", "bfloat16"]:
-        profile_config("gat_bf16", BENCH_ARGS + sys.argv[1:])
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dtype", default="float32",
+                        choices=("float32", "bfloat16"))
+    parser.add_argument("--model_name", default="SNAG",
+                        choices=("SNAG", "EVA", "MCLEA", "MEAformer"))
+    parser.add_argument("--replay", default="0", choices=("0", "1"))
+    args = parser.parse_args()
+    bf16 = ["--dtype", "bfloat16"] if args.dtype == "bfloat16" else []
+    suffix = "_bf16" if bf16 else ""
+    if args.model_name != "SNAG":
+        replay = ["--replay", "1"] if args.replay == "1" else []
+        label = args.model_name.lower() + ("_replay" if replay else "")
+        profile_config(label + suffix,
+                       family_args(args.model_name, *replay, *bf16))
         return 0
-    if sys.argv[1:]:
-        print("usage: profile_train.py [--dtype bfloat16]", file=sys.stderr)
-        return 2
+    if bf16:
+        profile_config("gat_bf16", BENCH_ARGS + bf16)
+        return 0
     profile_config("gat", BENCH_ARGS)
     torch.cuda.empty_cache()
     profile_config("gcn", gcn_args(BENCH_ARGS))

@@ -73,7 +73,8 @@ def _split_ills(ills, data_rate: float, rng: np.random.Generator):
 def load_data(cfg: Config, logger: Optional[logging.Logger] = None) -> KGData:
     logger = logger or logging.getLogger("snag_tpu_torch")
     if cfg.model_name == "MSNEA":
-        raise NotImplementedError("MSNEA is not ported yet")
+        raise NotImplementedError("MSNEA's data path is not ported yet: "
+                                  "ROADMAP A: MSNEA")
     if cfg.data_choice == "SYNTH":
         return _load_synthetic(cfg, logger)
     return _load_files(cfg, logger)

@@ -1,10 +1,15 @@
-"""Intra-modal contrastive loss (ICL, NT-Xent) over link batches.
+"""Alignment losses over link batches: ICL (NT-Xent), IAL (KL), NCA.
 
-Port of the NT-Xent part of ``snag_tpu/losses/contrastive.py``: the batched
-core ``_icl_xent_batched`` (:77-201, its streaming branch), ``icl_loss``'s
-simple route (:269-278), ``icl_loss_multi`` (:343), ``icl_loss_stacked``
-(:370) and SNAG's fused bundle ``snag_bundle_losses`` (:411-533, its
-streaming branch).  Reference: SNAG_MMEA/model/SNAG_loss.py:31-128.
+Port of ``snag_tpu/losses/contrastive.py``: the batched NT-Xent core
+``_icl_xent_batched`` (:77-201, its streaming branch), ``icl_loss`` (its
+simple route :269-277 on that core; its dense route with replay negatives,
+the hardest-negative miner and ``inversion``, :279-335), ``icl_loss_multi``
+(:343), ``icl_loss_stacked`` (:370), SNAG's fused bundle
+``snag_bundle_losses`` (:411-533, its streaming branch), ``ial_loss``
+(:536-596) and ``nca_loss`` (:599-630).  References:
+SNAG_MMEA/model/SNAG_loss.py:31-202, MEAformer_loss.py:28-161,
+EVA_tools.py:80-148.  The dense routes are plain tensor code in JAX too
+(no Pallas kernel): their B x 2B products stay ``torch.matmul``.
 
 An optional ``valid`` mask lets capacity-padded batches compute the value
 the reference gets from its ragged last batch: invalid rows leave the
@@ -105,30 +110,115 @@ def _cast(zis, zjs, matmul_dtype):
     return zis.to(matmul_dtype), zjs.to(matmul_dtype)
 
 
+LARGE_NUM = 1e9
+
+
+def _colmask(valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(1, B): 0 on valid columns, -1e9 on padded ones, in ``dtype`` (JAX's
+    weakly typed mask takes the logits' dtype)."""
+    zero = torch.zeros((), dtype=dtype, device=valid.device)
+    return torch.where(valid[None, :], zero, zero - LARGE_NUM)
+
+
+def _masked_mean_xent(logits: torch.Tensor, valid: Optional[torch.Tensor],
+                      w_min: Optional[torch.Tensor]) -> torch.Tensor:
+    """softXEnt with diagonal targets: the mean over rows of
+    -logprob[i, i] (SNAG_loss.py:42-54)."""
+    b = logits.shape[0]
+    per_row = -torch.diagonal(torch.log_softmax(logits, dim=1))[:b]
+    if w_min is not None:
+        per_row = per_row * w_min
+    if valid is None:
+        return per_row.mean()
+    per_row = torch.where(valid, per_row, torch.zeros_like(per_row))
+    return per_row.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def _mine_hardest(logits: torch.Tensor) -> torch.Tensor:
+    """The hardest negative column of each row (MEAformer_loss.py:40-68):
+    the row's argmax, or, where that is the row's own positive (column i),
+    the argmax after that column is set to 0 (contrastive.py:330-336).
+    Ties go to the first index, as ``jnp.argmax``'s do."""
+    idx = torch.arange(logits.shape[0], device=logits.device)
+    stg = torch.argmax(logits, dim=1)
+    zeroed = logits.clone()
+    zeroed[idx, stg] = 0.0
+    stg2 = torch.argmax(zeroed, dim=1)
+    return torch.where(idx == stg, stg2, stg)
+
+
 def icl_loss(emb: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
              ab_weight: float = 0.5,
              weight_norm: Optional[torch.Tensor] = None,
-             valid: Optional[torch.Tensor] = None, neg_l=None, neg_r=None,
+             valid: Optional[torch.Tensor] = None,
+             neg_l: Optional[torch.Tensor] = None,
+             neg_r: Optional[torch.Tensor] = None,
+             neg_valid: Optional[torch.Tensor] = None,
+             neg_valid_r: Optional[torch.Tensor] = None,
              norm: bool = True, with_replay_mining: bool = False,
              inversion: bool = False,
-             matmul_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Intra-modal NT-Xent over a link batch (SNAG_loss.py:58-128), simple
-    route only: the batched core with M = 1."""
-    if neg_l is not None or neg_r is not None or with_replay_mining \
-            or inversion:
-        raise NotImplementedError(
-            "icl_loss with replay negatives, mining or inversion "
-            "(MEAformer's replay path) is not ported: ROADMAP A: the other "
-            "families")
+             matmul_dtype: Optional[torch.dtype] = None):
+    """Intra-modal NT-Xent over a link batch (SNAG_loss.py:58-128).
+
+    Without replay negatives, mining or ``inversion`` it is the batched
+    core with M = 1 (the NT-Xent kernels).  Otherwise the dense route:
+    logits rows [cross-KG ab | masked intra aa | replay negatives], labels
+    the diagonal of ab; ``inversion`` takes the opposite KG's intra block
+    ([ab | bb] / [ba | aa]) and drops the replay block.  With
+    ``with_replay_mining`` it returns (loss, l_neg, r_neg), the mined
+    logit columns of each side (``_mine_hardest``)."""
     if norm:
         emb = l2norm(emb)
     zis, zjs = _cast(emb[links[:, 0]], emb[links[:, 1]], matmul_dtype)
     w_min = None
     if weight_norm is not None:
         w_min = torch.minimum(weight_norm[links[:, 0]],
-                              weight_norm[links[:, 1]])[None]
-    return icl_xent_batched(zis[None], zjs[None], w_min, valid, tau,
-                            ab_weight)[0]
+                              weight_norm[links[:, 1]])
+    if neg_l is None and not inversion and not with_replay_mining:
+        return icl_xent_batched(zis[None], zjs[None],
+                                None if w_min is None else w_min[None],
+                                valid, tau, ab_weight)[0]
+
+    b = zis.shape[0]
+
+    def sim(x, y):      # f32 products (preferred_element_type=f32)
+        return torch.matmul(_f32(x), _f32(y).T) / tau
+    eye = torch.eye(b, dtype=torch.float32, device=emb.device)
+    z = torch.cat([zis, zjs])
+    big = sim(z, z)
+    logits_ab = big[:b, b:]
+    logits_ba = logits_ab.T
+    logits_aa = big[:b, :b] - eye * LARGE_NUM
+    logits_bb = big[b:, b:] - eye * LARGE_NUM
+    if valid is not None:
+        # padded rows must not serve as negatives in any block
+        colmask = _colmask(valid, torch.float32)
+        logits_ab = logits_ab + colmask
+        logits_ba = logits_ba + colmask
+        logits_aa = logits_aa + colmask
+        logits_bb = logits_bb + colmask
+
+    if inversion:
+        blocks_a, blocks_b = [logits_ab, logits_bb], [logits_ba, logits_aa]
+    else:
+        blocks_a, blocks_b = [logits_ab, logits_aa], [logits_ba, logits_bb]
+    if neg_l is not None and not inversion:
+        logits_ana = sim(zis, emb[neg_l].to(zis.dtype))
+        logits_bnb = sim(zjs, emb[neg_r].to(zjs.dtype))
+        if neg_valid is not None:
+            nvr = neg_valid if neg_valid_r is None else neg_valid_r
+            logits_ana = logits_ana + _colmask(neg_valid, torch.float32)
+            logits_bnb = logits_bnb + _colmask(nvr, torch.float32)
+        blocks_a.append(logits_ana)
+        blocks_b.append(logits_bnb)
+    logits_a = torch.cat(blocks_a, dim=1)
+    logits_b = torch.cat(blocks_b, dim=1)
+    loss = (ab_weight * _masked_mean_xent(logits_a, valid, w_min)
+            + (1 - ab_weight) * _masked_mean_xent(logits_b, valid, w_min))
+    if not with_replay_mining:
+        return loss
+    with torch.no_grad():
+        return loss, _mine_hardest(logits_a), _mine_hardest(logits_b)
 
 
 def icl_loss_multi(embs: torch.Tensor, links: torch.Tensor, tau: float = 0.1,
@@ -238,3 +328,84 @@ def snag_bundle_losses(zis: torch.Tensor, zjs: torch.Tensor,
     return _BundleStreamed.apply(zis.contiguous(), zjs.contiguous(), a_i, a_j,
                                  beta.contiguous(), w_min, valid, tau,
                                  ab_weight)
+
+
+def ial_loss(src_emb: torch.Tensor, tar_emb: torch.Tensor,
+             links: torch.Tensor, tau: float = 4.0, ab_weight: float = 0.5,
+             zoom: float = 0.1, reduction: str = "mean",
+             valid: Optional[torch.Tensor] = None, norm: bool = True,
+             inversion: bool = False) -> torch.Tensor:
+    """Unimodal -> joint KL alignment (SNAG_loss.py:130-202).
+
+    KL(softmax(q) || softmax(p)) row by row, q from the (detached) joint
+    rows, p from the modality's, as torch's ``kl_div(log_softmax(p),
+    softmax(q))`` sums it, written out as q * (log_softmax(q) -
+    log_softmax(p)) so that a masked column (q exactly 0) adds 0; mean
+    over every element of the B x 2B matrix or sum (``reduction``).
+    ``inversion`` takes the opposite KG's intra block.  Each side's logits
+    keep their rows' dtype, as JAX's do (bf16 modality rows under
+    ``--dtype bfloat16``)."""
+    if norm:
+        src_emb = l2norm(src_emb)
+        tar_emb = l2norm(tar_emb)
+    s_i, s_j = src_emb[links[:, 0]], src_emb[links[:, 1]]
+    t_i, t_j = tar_emb[links[:, 0]], tar_emb[links[:, 1]]
+    b = s_i.shape[0]
+    eye = torch.eye(b, dtype=src_emb.dtype, device=src_emb.device)
+
+    def blocks(x, y):
+        # the intra block from y under inversion (the opposite side)
+        intra = y if inversion else x
+        ab = x @ y.T / tau
+        aa = intra @ intra.T / tau - eye * LARGE_NUM
+        if valid is not None:
+            ab = ab + _colmask(valid, ab.dtype)
+            aa = aa + _colmask(valid, aa.dtype)
+        return torch.cat([ab, aa], dim=1)
+
+    def kl(p, q):
+        elem = torch.softmax(q, dim=1) * (torch.log_softmax(q, dim=1)
+                                          - torch.log_softmax(p, dim=1))
+        if valid is not None:
+            elem = torch.where(valid[:, None], elem, torch.zeros_like(elem))
+            rows = torch.clamp(valid.sum(), min=1)
+        else:
+            rows = p.shape[0]
+        if reduction == "sum":
+            return elem.sum()
+        return elem.sum() / (rows * p.shape[1])
+
+    with torch.no_grad():
+        q_ab, q_ba = blocks(t_i, t_j), blocks(t_j, t_i)
+    loss_a = kl(blocks(s_i, s_j), q_ab)
+    loss_b = kl(blocks(s_j, s_i), q_ba)
+    return zoom * (ab_weight * loss_a + (1 - ab_weight) * loss_b)
+
+
+def nca_loss(emb: torch.Tensor, links: torch.Tensor, alpha: float = 15.0,
+             beta: float = 10.0, ep: float = 0.0,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """EVA's NCA alignment loss (EVA_tools.py:80-148).  Its row sums of
+    exp(alpha * s), |s| <= 1, have no static max: ~1e10 a row at alpha 15
+    and B = 3,500, well inside f32."""
+    emb = l2norm(emb)
+    im, s = emb[links[:, 0]], emb[links[:, 1]]
+    b = im.shape[0]
+    eye = torch.eye(b, dtype=emb.dtype, device=emb.device)
+    scores = im @ s.T
+    s_diag = eye * scores
+    s_exp = torch.exp(alpha * (scores - ep))
+    s_exp = s_exp - s_exp * eye
+    if valid is not None:
+        vm = valid.to(emb.dtype)
+        s_exp = s_exp * vm[None, :] * vm[:, None]
+        s_diag = s_diag * vm[:, None]
+        denom = torch.clamp(valid.sum(), min=1)
+    else:
+        denom = b
+    loss_diag = -torch.log(1 + torch.relu(s_diag.sum(dim=0)))
+    per = (torch.log(1 + s_exp.sum(dim=0)) / alpha
+           + torch.log(1 + s_exp.sum(dim=1)) / alpha + loss_diag * beta)
+    if valid is not None:
+        per = torch.where(valid, per, torch.zeros_like(per))
+    return per.sum() / denom

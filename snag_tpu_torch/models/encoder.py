@@ -1,12 +1,16 @@
 """Shared multi-modal encoder.
 
 Port of ``snag_tpu/models/encoder.py::MultiModalEncoder`` (:70-210) with
-the GAT or GCN structure encoder (``--structure_encoder``, :99-109) and
-Mformer fusion (reference SNAG_MMEA/model/SNAG_tools.py:53-156).
+the GAT or GCN structure encoder (``--structure_encoder``, :99-109), the
+optional projection heads (``--use_project_head``, :127-133, :169) and a
+fusion chosen by ``fusion_kind`` (:76, :111-126, :196-206): ``mformer``
+(SNAG, reference SNAG_MMEA/model/SNAG_tools.py:53-156), ``mformer_single``
+(MEAformer: no frozen-weight path), ``mean`` (MCLEA) or ``none``.
 Submodules carry the reference's torch names (``entity_emb``, ``img_fc``,
 ``rel_fc``, ``att_fc``, ``cross_graph_model.layer_stack.{i}`` or
 ``cross_graph_model.gc{1,2}``, ``fusion.fusion_layer.{i}``,
-``fusion.weight_raw``), so a reference state dict loads strictly.
+``fusion.weight_raw`` or ``fusion.weight``, ``{img,att,rel,gph}_pro.l{1,2}``),
+so a reference state dict loads strictly.
 
 Training inputs of the forward: ``entity_noise_gen`` (entity-embedding
 noise at half rates, :151-153), ``dropout_gen`` (None = deterministic) and
@@ -35,7 +39,7 @@ from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops import noise as noise_ops
-from snag_tpu_torch.ops.fusion import MformerFusion, tlinear
+from snag_tpu_torch.ops.fusion import MeanFusion, MformerFusion, tlinear
 from snag_tpu_torch.ops.gnn import GAT, GCN
 
 
@@ -56,17 +60,20 @@ class FeatureStats(NamedTuple):
 
 
 class EncoderOutput(NamedTuple):
+    """None where the fusion kind has no such output: ``joint_fz`` and
+    ``weight_fz`` outside ``mformer``, ``hidden`` and ``weight_norm``
+    outside the Mformer kinds, everything fused under ``none``."""
     gph: Optional[torch.Tensor]
     img: Optional[torch.Tensor]
     rel: Optional[torch.Tensor]
     att: Optional[torch.Tensor]
     name: Optional[torch.Tensor]
     char: Optional[torch.Tensor]
-    joint: torch.Tensor
-    joint_fz: torch.Tensor
-    hidden: torch.Tensor
-    weight_norm: torch.Tensor
-    weight_fz: torch.Tensor
+    joint: Optional[torch.Tensor]
+    joint_fz: Optional[torch.Tensor]
+    hidden: Optional[torch.Tensor]
+    weight_norm: Optional[torch.Tensor]
+    weight_fz: Optional[torch.Tensor]
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -74,14 +81,20 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+FUSION_KINDS = ("mformer", "mformer_single", "mean", "none")
+
+
 class MultiModalEncoder(nn.Module):
     def __init__(self, cfg: Config, ent_num: int, img_feature_dim: int,
                  attr_input_dim: int, rel_input_dim: int,
-                 char_feature_dim: int, generator: torch.Generator):
+                 char_feature_dim: int, generator: torch.Generator,
+                 fusion_kind: str = "mformer"):
         super().__init__()
-        if cfg.use_project_head:
-            raise NotImplementedError("projection heads are not ported")
+        if fusion_kind not in FUSION_KINDS:
+            raise ValueError(f"fusion_kind {fusion_kind!r} is not one of "
+                             f"{FUSION_KINDS}")
         self.cfg = cfg
+        self.fusion_kind = fusion_kind
         dt = compute_dtype(cfg)
         input_dim = cfg.n_units()[0]
         self.entity_emb = nn.Embedding(ent_num, input_dim)
@@ -116,9 +129,25 @@ class MultiModalEncoder(nn.Module):
                 attn_dropout=cfg.attn_dropout,
                 instance_normalization=cfg.instance_normalization, diag=True,
                 dtype=dt)
-        self.fusion = MformerFusion(
-            cfg.hidden_size, cfg.num_attention_heads, cfg.num_hidden_layers,
-            cfg.intermediate_size, bool(cfg.use_intermediate), generator, dt)
+        if fusion_kind in ("mformer", "mformer_single"):
+            self.fusion = MformerFusion(
+                cfg.hidden_size, cfg.num_attention_heads,
+                cfg.num_hidden_layers, cfg.intermediate_size,
+                bool(cfg.use_intermediate), generator, dt,
+                with_fz=fusion_kind == "mformer")
+        elif fusion_kind == "mean":
+            self.fusion = MeanFusion(cfg.inner_view_num)
+
+        if cfg.use_project_head:
+            from snag_tpu_torch.models.heads import ProjectionHead
+            u2 = cfg.n_units()[2]
+            self.img_pro = ProjectionHead(cfg.img_dim, cfg.img_dim,
+                                          cfg.img_dim, generator, cfg.dropout)
+            self.att_pro = ProjectionHead(cfg.attr_dim, cfg.attr_dim,
+                                          cfg.attr_dim, generator, cfg.dropout)
+            self.rel_pro = ProjectionHead(cfg.attr_dim, cfg.attr_dim,
+                                          cfg.attr_dim, generator, cfg.dropout)
+            self.gph_pro = ProjectionHead(u2, u2, u2, generator, cfg.dropout)
 
     def forward(self, feats: FeaturePack, graph: DeviceGraph,
                 entity_noise_gen: Optional[torch.Generator] = None,
@@ -146,8 +175,21 @@ class MultiModalEncoder(nn.Module):
         name = self.name_fc(sel(feats.name)) if (cfg.w_name and feats.name is not None) else None
         char = self.char_fc(sel(feats.char)) if (cfg.w_char and feats.char is not None) else None
 
-        joint, joint_fz, hidden, weight_norm, weight_fz = self.fusion(
-            [img, att, rel, gph, name, char], dropout_gen)
+        if cfg.use_project_head:
+            def head(mod, e):
+                return None if e is None else mod(e, dropout_gen)
+            gph = head(self.gph_pro, gph)
+            img = head(self.img_pro, img)
+            rel = head(self.rel_pro, rel)
+            att = head(self.att_pro, att)
+
+        fusion_inputs = [img, att, rel, gph, name, char]
+        joint = joint_fz = hidden = weight_norm = weight_fz = None
+        if self.fusion_kind in ("mformer", "mformer_single"):
+            joint, joint_fz, hidden, weight_norm, weight_fz = self.fusion(
+                fusion_inputs, dropout_gen)
+        elif self.fusion_kind == "mean":
+            joint = self.fusion(fusion_inputs)
         return EncoderOutput(gph=gph, img=img, rel=rel, att=att, name=name,
                              char=char, joint=joint, joint_fz=joint_fz,
                              hidden=hidden, weight_norm=weight_norm,

@@ -51,7 +51,7 @@ from snag_tpu_torch.ops.fusion import l2norm
 FUSION_ORDER = ("img", "att", "rel", "gph", "name", "char")
 
 
-def _stack_normed(embs) -> torch.Tensor:
+def stack_normed(embs) -> torch.Tensor:
     """(M, N, d) of the l2-normalised rows, each normalised in its own
     dtype, in their common dtype (f32 where any is f32)."""
     normed = [l2norm(e) for e in embs]
@@ -133,7 +133,7 @@ class SNAG(nn.Module):
                                 ab_weight=cfg.ab_weight, weight_norm=w,
                                 valid=valid, matmul_dtype=md)
             return self.multi_loss_layer([one(m, e) for m, e in named])
-        stack = _stack_normed([e for _, e in active])
+        stack = stack_normed([e for _, e in active])
         w_min = None
         if weight_norm is not None:
             # weight_norm: (N_ent, mod_num); the reference scales the
@@ -163,7 +163,7 @@ class SNAG(nn.Module):
         active = [(m, e) for m, e in named if e is not None]
         if len({e.shape[-1] for _, e in active}) != 1:
             return None
-        stack = _stack_normed([e for _, e in active])
+        stack = stack_normed([e for _, e in active])
         zis = stack[:, links[:, 0], :]
         zjs = stack[:, links[:, 1], :]
         md = self._matmul_dtype()

@@ -2,7 +2,10 @@
 
 ``MformerFusion`` is the SNAG fusion transformer over per-entity modality
 tokens (reference SNAG_MMEA/model/SNAG_tools.py:23-51 fusion head,
-:158-298 BertLayer stack).  Module and parameter names are the reference's
+:158-298 BertLayer stack); with ``with_fz=False`` it is MEAformer's
+single-path variant, without ``weight_raw`` (MEAformer_tools.py:25-72).
+``MeanFusion`` is MCLEA's learnable-softmax weighted mean
+(MCLEA_tools.py:20-38).  Module and parameter names are the reference's
 torch names, so a reference state dict loads without renaming.
 
 Training-mode dropout (rate 0.1, hardcoded in the reference) acts at the
@@ -210,13 +213,15 @@ class MformerFusion(nn.Module):
       (SNAG_tools.py:41-43);
     * ``joint_emb``   — attention-weighted concat of normalized input embs;
     * ``joint_emb_fz`` — global learnable-weight path via ``weight_raw``
-      (softmax over the full 6-slot vector, SNAG_tools.py:46-49).
+      (softmax over the full 6-slot vector, SNAG_tools.py:46-49).  With
+      ``with_fz=False`` (MEAformer) there is no such path: ``joint_emb_fz``
+      and ``weight_fz`` are None and the module has no ``weight_raw``.
     """
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  intermediate_size: int, use_intermediate: bool,
                  generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, with_fz: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = dtype
@@ -224,7 +229,7 @@ class MformerFusion(nn.Module):
             BertLayer(hidden_size, num_heads, intermediate_size,
                       use_intermediate, generator, dtype)
             for _ in range(num_layers))
-        self.weight_raw = nn.Parameter(torch.ones(6))
+        self.weight_raw = nn.Parameter(torch.ones(6)) if with_fz else None
 
     def forward(self, embs: List[Optional[torch.Tensor]],
                 dropout_gen: Optional[torch.Generator] = None):
@@ -248,9 +253,30 @@ class MformerFusion(nn.Module):
         joint_emb = torch.cat(
             [weight_norm[:, i:i + 1] * normed[i] for i in range(modal_num)],
             dim=1)
+        if self.weight_raw is None:
+            return joint_emb, None, hidden, weight_norm, None
         # softmax spans all 6 slots even when fewer are active
         # (SNAG_tools.py:46: softmax over the full parameter)
         weight_fz = torch.softmax(self.weight_raw, dim=0)
         joint_emb_fz = torch.cat(
             [weight_fz[i] * normed[i] for i in range(modal_num)], dim=1)
         return joint_emb, joint_emb_fz, hidden, weight_norm, weight_fz
+
+
+class MeanFusion(nn.Module):
+    """MCLEA's MultiModalFusion (MCLEA_tools.py:20-38): softmax-weighted
+    normalised embeddings, stacked and mean-pooled.  The softmax spans all
+    ``modal_num`` slots; absent (None) embeddings are dropped after the
+    weighting, as the reference's list comprehension drops them.  The
+    result is f32 (f32 weights times the rows, as JAX promotes them)."""
+
+    def __init__(self, modal_num: int):
+        super().__init__()
+        self.modal_num = modal_num
+        self.weight = nn.Parameter(torch.ones(modal_num, 1))
+
+    def forward(self, embs: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        weight_norm = torch.softmax(self.weight, dim=0)
+        parts = [weight_norm[i] * l2norm(embs[i])
+                 for i in range(self.modal_num) if embs[i] is not None]
+        return torch.stack(parts, dim=1).mean(dim=1)

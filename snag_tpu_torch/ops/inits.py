@@ -36,3 +36,20 @@ def normal_std(shape: Sequence[int], std: float,
                generator: torch.Generator) -> torch.Tensor:
     return std * torch.randn(tuple(shape), generator=generator,
                              dtype=torch.float32)
+
+
+def xavier_normal_fan(shape: Sequence[int], fan_in: int,
+                      generator: torch.Generator) -> torch.Tensor:
+    """torch ``xavier_normal_`` of a Linear weight (out, in) at an EXPLICIT
+    fan-in, N(0, 2 / (fan_in + out)): EVA's rel_fc draws at the reference's
+    1000-column relation bag (EVA.py:43,55).  The bias of such a layer
+    keeps ``torch_linear`` at the same fan-in (JAX ``torch_linear_bias``)."""
+    return normal_std(shape, math.sqrt(2.0 / (fan_in + shape[0])), generator)
+
+
+def xavier_normal(shape: Sequence[int],
+                  generator: torch.Generator) -> torch.Tensor:
+    """torch ``xavier_normal_`` of a 2-D tensor, N(0, 2 / (rows + cols)):
+    EVA's entity table (EVA.py:53)."""
+    return normal_std(shape, math.sqrt(2.0 / (shape[0] + shape[1])),
+                      generator)

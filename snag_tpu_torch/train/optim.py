@@ -6,6 +6,8 @@ SNAG_MMEA/src/utils.py:25-80):
 * SNAG's three parameter groups by name: ``multi_loss_layer`` (which also
   catches ``multi_loss_layer_2``) at 5x LR without decay; ``weight_raw`` and
   biases without decay; everything else with ``--weight_decay``;
+* the other families' one group, ``--weight_decay`` on every parameter,
+  biases and Kendall log-variances included (optim.py:83-90);
 * ``torch.optim.AdamW`` with ``eps = --adam_epsilon`` (``--optim adam``:
   Adam, no decay), which decays from the parameters before the update,
   like optax's ``adamw``;
@@ -63,13 +65,12 @@ def param_label(name: str) -> str:
 
 def build_optimizer(cfg: Config, model: nn.Module, lr: float
                     ) -> torch.optim.Optimizer:
-    """The SNAG param groups; each group carries its ``lr_scale``."""
-    if cfg.model_name != "SNAG":
-        raise NotImplementedError(f"--model_name {cfg.model_name}: only "
-                                  "SNAG's optimizer groups are ported")
+    """SNAG's param groups, or the other families' single ``decay`` group;
+    each group carries its ``lr_scale``."""
     groups: Dict[str, List[nn.Parameter]] = {k: [] for k in GROUP_LR_SCALE}
     for name, p in model.named_parameters():
-        groups[param_label(name)].append(p)
+        label = param_label(name) if cfg.model_name == "SNAG" else "decay"
+        groups[label].append(p)
     adamw = cfg.optim == "adamw"
     param_groups = [
         {"params": ps, "lr": lr * GROUP_LR_SCALE[label],

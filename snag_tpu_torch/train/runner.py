@@ -11,7 +11,15 @@ weights with the top-3 CSV (:203-206, 395-420).
 
 Data, features and model live on ``cfg.device``; the growing ``train_ill``
 stays a host numpy array and batches are fed capacity-padded with a
-validity mask.  ``train_epoch`` reads the device once, at its end.
+validity mask.  ``train_epoch`` reads the device only after its last
+step.
+
+The family's step: ``TrainStep`` for SNAG, EVA, MCLEA and MEAformer;
+MEAformer with ``--replay 1`` runs ``replay_step`` over the replay buffer
+``replay_neg`` (the last mined hardest negative of each entity, -1 = none
+yet), whose negatives are used once the count of unset entries stops
+changing between epochs (``replay_ready``, MEAformer.py:55-61, 138-148);
+``replay_negatives`` counts the valid ones fed.
 
 ``--checkpoint_every N`` saves the full train state to
 ``<dump>/checkpoint.pt`` every N epochs and ``--resume_from`` continues
@@ -40,7 +48,7 @@ from snag_tpu_torch.models import build_model
 from snag_tpu_torch.models.encoder import prepare_features, prepare_stats
 from snag_tpu_torch.ops.fusion import l2norm
 from snag_tpu_torch.train import il as il_mod
-from snag_tpu_torch.train.step import TrainStep, make_noise_fn
+from snag_tpu_torch.train.step import TrainStep, make_noise_fn, replay_step
 from snag_tpu_torch.utils.checkpoint import (CHECKPOINT_NAME,
                                              load_checkpoint, save_checkpoint)
 from snag_tpu_torch.utils.import_reference import (load_reference_checkpoint,
@@ -64,7 +72,10 @@ class Runner:
             raise RuntimeError(f"--device {cfg.device}: torch.cuda is not "
                                "available (pass --device cpu to run the "
                                "plain PyTorch twins)")
-        if cfg.dtype == "bfloat16" and cfg.structure_encoder == "gcn":
+        # EVA runs f32 whatever --dtype says (its GCN too); the other
+        # families' GCN would compute in bf16
+        if cfg.dtype == "bfloat16" and cfg.structure_encoder == "gcn" \
+                and cfg.model_name != "EVA":
             raise NotImplementedError(
                 "--dtype bfloat16 with --structure_encoder gcn needs a bf16 "
                 "variant of the weighted segment sum kernel (ROADMAP A: "
@@ -121,6 +132,14 @@ class Runner:
         self.timings = {}
         self.last_result: Optional[RankResult] = None
         self.pred_path: Optional[str] = None
+        self.replay_neg: Optional[torch.Tensor] = None
+        self.replay_ready = False
+        self._last_neg_count: Optional[int] = None
+        self.replay_negatives = 0
+        if cfg.model_name == "MEAformer" and cfg.replay:
+            self.replay_neg = torch.full((self.data.ent_num,), -1,
+                                         dtype=torch.int64,
+                                         device=self.device)
 
         self.start_epoch = 0
         if cfg.resume_from:
@@ -171,22 +190,36 @@ class Runner:
             with torch.no_grad():
                 feats = self.noise_fn(self.feats, self.epoch)
         cuda = self.device.type == "cuda"
-        losses, events, aux = [], [], {}
+        losses, events, aux, fed = [], [], {}, []
         for links, valid in self._batches():
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-            loss, aux = self.train_step(links, valid, feats, self.graph,
-                                        self.epoch)
+            if self.replay_neg is None:
+                loss, aux = self.train_step(links, valid, feats, self.graph,
+                                            self.epoch)
+            else:
+                loss, aux, n_fed = replay_step(
+                    self.train_step, self.replay_neg, self.replay_ready,
+                    links, valid, feats, self.graph, self.epoch)
+                fed.append(n_fed)
             losses.append(loss)
             if cuda:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record()
                 events.append((start, end))
 
-        # the one device read of the epoch
+        # the device reads of the epoch, after its last step
         mean_loss = float(torch.stack(losses).mean())
         self.step_ms += [s.elapsed_time(e) for s, e in events]
+        if self.replay_neg is not None:
+            self.replay_negatives += int(torch.stack(fed).sum())
+            if not self.replay_ready:
+                n_unset = int((self.replay_neg < 0).sum())
+                if n_unset == self._last_neg_count:
+                    self.replay_ready = True
+                    self.logger.info("begin replay!")
+                self._last_neg_count = n_unset
         self._last_aux = {}
         for k, v in aux.items():
             if v.dim() == 0:
@@ -202,9 +235,14 @@ class Runner:
     def _joint_emb(self):
         return self.model.joint_emb(self.feats, self.graph)
 
-    def _log_weight(self, w: torch.Tensor):
-        # learned modality weights (main.py:361-373), mean over entities
-        w = w.mean(dim=0).cpu().numpy()
+    def _log_weight(self, w: Optional[torch.Tensor]):
+        # learned modality weights (main.py:361-373), for the families
+        # whose reference logs them; per-entity weights averaged
+        if w is None or self.cfg.model_name not in ("EVA", "MCLEA", "SNAG"):
+            return
+        if w.dim() == 2:
+            w = w.mean(dim=0)
+        w = w.cpu().numpy()
         names = self.cfg.active_modalities()
         desc = "-".join(f"[{m}_{w[i]:.3f}]" for i, m in
                         enumerate(names[:len(w)]))
@@ -414,8 +452,8 @@ class Runner:
         if not osp.exists(path):
             self.logger.info(f"{path} not exist!!")
             return False
-        enc = self.model.multimodal_encoder
-        rel_fc = getattr(enc, "rel_fc", None)
+        rel_fc = next((m for name, m in self.model.named_modules()
+                       if name.split(".")[-1] == "rel_fc"), None)
         sd = load_reference_checkpoint(
             path, rel_in_dim=None if rel_fc is None else rel_fc.in_features)
         own = self.model.state_dict()

@@ -1,9 +1,11 @@
-"""The per-epoch noise function and one training step.
+"""The per-epoch noise function, one training step and MEAformer's replay.
 
 Port of ``snag_tpu/train/step.py`` (``make_noise_fn`` :53,
-``make_train_step`` :70): epoch-seeded feature noise, then per step entity
-noise -> encode -> loss -> backward -> clip -> optimizer update.  Batches
-arrive capacity-padded with a validity mask (see the runner).
+``make_train_step`` :70, ``replay_negative_mask`` :107 and
+``make_meaformer_replay_step`` :121): epoch-seeded feature noise, then per
+step entity noise -> encode -> loss -> backward -> clip -> optimizer
+update.  Batches arrive capacity-padded with a validity mask (see the
+runner).
 
 Randomness: feature and entity noise come from generators seeded from
 (seed, epoch), so every step of an epoch sees the same noise draws (the
@@ -64,7 +66,7 @@ class TrainStep:
 
     def __call__(self, links: torch.Tensor, valid: torch.Tensor,
                  feats: FeaturePack, graph: DeviceGraph, epoch: int,
-                 deterministic: bool = False
+                 deterministic: bool = False, **model_kwargs
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         dev = links.device
@@ -77,9 +79,84 @@ class TrainStep:
 
         self.opt.zero_grad(set_to_none=True)
         loss, aux = self.model(links, valid, feats, graph, entity_gen,
-                               dropout_gen)
+                               dropout_gen, **model_kwargs)
         loss.backward()
         clip_and_step(self.opt, self.params, self.sched(self.count),
                       cfg.clip)
         self.count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def replay_negative_mask(neg: torch.Tensor, batch_ents: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Fixed-shape form of the reference's replay filter
+    ``list(set(neg) - set(batch_ents))`` (MEAformer.py:118-124): a slot
+    survives iff its entity was mined (>= 0), its row is valid, the entity
+    is not in the batch (pads included, as in JAX step.py:107-119) and no
+    earlier valid slot holds it (set semantics)."""
+    pos = torch.arange(neg.shape[0], device=neg.device)
+    in_batch = (neg[:, None] == batch_ents[None, :]).any(dim=1)
+    earlier_equal = ((neg[:, None] == neg[None, :]) & valid[None, :]
+                     & (pos[None, :] < pos[:, None]))
+    return (neg >= 0) & valid & ~in_batch & ~earlier_equal.any(dim=1)
+
+
+def col_to_ent(col: torch.Tensor, first: torch.Tensor,
+               second: torch.Tensor) -> torch.Tensor:
+    """The entity a mined logit column denotes: a column of the ab block
+    is the paired entity (``first``), one past it the same side's
+    (``second``); a replay column maps to the last row's, as in JAX
+    (step.py:176-179)."""
+    b = first.shape[0]
+    in_ab = col < b
+    idx = torch.where(in_ab, col, torch.clamp(col - b, max=b - 1))
+    return torch.where(in_ab, first[idx], second[idx])
+
+
+def update_replay_buffer(buffer: torch.Tensor, ids: torch.Tensor,
+                         values: torch.Tensor, valid: torch.Tensor) -> None:
+    """buffer[ids[i]] = values[i] for the valid rows, in place; where a
+    valid id repeats, the last valid row wins.  Padded rows write nothing
+    (the JAX step writes their entity's old value back, so it loses a
+    valid update of the pads' entity 0, ROADMAP C "Reference gaps").  The
+    scatter has no duplicate target holding different values, so it is
+    deterministic, and it reads nothing back to the host."""
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    later_equal = ((ids[:, None] == ids[None, :]) & valid[None, :]
+                   & (pos[None, :] > pos[:, None]))
+    keep = valid & ~later_equal.any(dim=1)
+    n = buffer.shape[0]
+    # every row that does not write goes to a sink slot past the end, all
+    # with the same value
+    ext = torch.cat([buffer, buffer.new_full((1,), -1)])
+    ext[torch.where(keep, ids, n)] = torch.where(
+        keep, values.to(buffer.dtype), -1)
+    buffer.copy_(ext[:n])
+
+
+def replay_step(step: TrainStep, buffer: torch.Tensor, ready: bool,
+                links: torch.Tensor, valid: torch.Tensor, feats: FeaturePack,
+                graph: DeviceGraph, epoch: int, deterministic: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                           torch.Tensor]:
+    """One MEAformer step with replay negatives (MEAformer.py:102-148, JAX
+    ``make_meaformer_replay_step``).  ``buffer`` (N,) holds the last mined
+    hardest negative entity of each entity, or -1; its entries for the
+    batch are the replay negatives, kept by ``replay_negative_mask`` once
+    ``ready``.  The step's mined columns are mapped to entities and
+    written back into ``buffer`` in place.  Returns (loss, aux, the
+    number of valid replay negatives fed, a device scalar)."""
+    neg_l, neg_r = buffer[links[:, 0]], buffer[links[:, 1]]
+    batch_ents = torch.cat([links[:, 0], links[:, 1]])
+    neg_l_valid = replay_negative_mask(neg_l, batch_ents, valid) & ready
+    neg_r_valid = replay_negative_mask(neg_r, batch_ents, valid) & ready
+    loss, aux = step(links, valid, feats, graph, epoch, deterministic,
+                     replay_neg_l=torch.clamp(neg_l, min=0),
+                     replay_neg_r=torch.clamp(neg_r, min=0),
+                     replay_neg_valid=neg_l_valid,
+                     replay_neg_valid_r=neg_r_valid)
+    l_ent = col_to_ent(aux.pop("l_neg"), links[:, 1], links[:, 0])
+    r_ent = col_to_ent(aux.pop("r_neg"), links[:, 0], links[:, 1])
+    update_replay_buffer(buffer, links[:, 0], l_ent, valid)
+    update_replay_buffer(buffer, links[:, 1], r_ent, valid)
+    return loss, aux, neg_l_valid.sum() + neg_r_valid.sum()

@@ -8,7 +8,8 @@ the model and the best model's state dicts, the AdamW state, the schedule
 (its step count and the horizon it was built with), ``epoch``, ``stage``,
 the LR, ``best_mrr``, ``early_stop_count``, the epoch losses, the grown
 ``train_ill``, the five ``ILState`` tensors, and the global ``numpy`` and
-``random`` states.
+``random`` states, and MEAformer's replay buffer with its ready flag, the
+last count of unset entries and the count of replay negatives fed.
 
 Contract: a run resumed from a checkpoint repeats the uninterrupted run
 exactly, parameter for parameter and metric for metric.  The batches come
@@ -19,7 +20,7 @@ horizon is saved rather than recomputed: the stage-1 horizon is fixed
 when the stage begins, before promotions grow ``train_ill``, so a
 recomputed one would change every LR after a resume past a promotion (the
 JAX package recomputes it, and its kill-and-resume gate checks only the
-final MRR).  MEAformer's replay buffer waits for that family's port.
+final MRR).
 """
 
 from __future__ import annotations
@@ -85,6 +86,10 @@ def save_checkpoint(runner, path: str) -> str:
         "il": None if il is None else {f: getattr(il, f) for f in IL_FIELDS},
         "np_random": _np_random_state(),
         "py_random": _py_random_state(),
+        "replay": None if runner.replay_neg is None else {
+            "neg": runner.replay_neg, "ready": runner.replay_ready,
+            "last_count": runner._last_neg_count,
+            "fed": runner.replay_negatives},
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -111,5 +116,11 @@ def load_checkpoint(runner, path: str) -> None:
     runner.train_step.count = int(sched["count"])
     if payload["il"] is not None:
         runner.il_state = ILState(**payload["il"])
+    replay = payload.get("replay")
+    if replay is not None:
+        runner.replay_neg = replay["neg"]
+        runner.replay_ready = bool(replay["ready"])
+        runner._last_neg_count = replay["last_count"]
+        runner.replay_negatives = int(replay["fed"])
     _set_np_random_state(payload["np_random"])
     _set_py_random_state(payload["py_random"])

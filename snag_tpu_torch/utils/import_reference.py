@@ -1,13 +1,18 @@
 """Weights carried across: JAX params, reference checkpoints, and back.
 
-The port's modules carry the reference SNAG torch names, so:
+The port's modules carry the reference's torch names (SNAG, MEAformer and
+MCLEA nest the shared encoder under ``multimodal_encoder``; EVA's tree is
+flat), so:
 
 * ``state_dict_from_flax`` maps the JAX package's param tree (nested dicts
   of numpy arrays, e.g. after ``jax.device_get``) onto the port's state
   dict with the rules of ``snag_tpu/utils/import_reference.py::_ref_key_for``
   (:57-100): Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in),
   LayerNorm ``scale`` -> ``weight``, the GCN's ``gc1``/``gc2`` weights
-  (in, out) as they are; ``rel_fc`` keeps the JAX table width;
+  (in, out) as they are; ``rel_fc`` keeps the JAX table width.  Beyond
+  those rules it maps the projection heads (``--use_project_head``,
+  ``{img,att,rel,gph}_pro.l{1,2}``, the reference's ProjectionHead
+  names), which the JAX package's importer leaves unmapped;
 * ``load_reference_checkpoint`` reads a reference ``.pkl``
   (``torch.save(model.state_dict())``, SNAG_MMEA/main.py:481-500) and
   truncates ``rel_fc.weight`` to our relation-table width: both sides use
@@ -78,12 +83,17 @@ def _ref_key_for(keys: Tuple[str, ...]):
     if rest[0] == "fusion":
         if rest[1] == "weight_raw":
             return f"{prefix}fusion.weight_raw", _ID
+        if rest[1] == "weight":         # MCLEA MultiModalFusion.weight
+            return f"{prefix}fusion.weight", _ID
         if rest[1].startswith("layer_"):
             i = rest[1].split("_", 1)[1]
             tail = _FUSION_LAYER.get(tuple(rest[2:]))
             if tail is not None:
                 ref_tail, tf = tail
                 return f"{prefix}fusion.fusion_layer.{i}.{ref_tail}", tf
+
+    if len(rest) == 3 and rest[0].endswith("_pro") and rest[2] == "kernel":
+        return f"{prefix}{rest[0]}.{rest[1]}.weight", _T
 
     if len(keys) == 2 and keys[1] in ("log_vars", "params") and \
             keys[0].endswith(("multi_loss_layer", "multi_loss_layer_2")):

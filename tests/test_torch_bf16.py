@@ -35,10 +35,8 @@ zero in exact arithmetic).  The bf16 ``mma.sync`` schedule of the loss
 kernels is emulated at the end, against an f64 evaluation.
 """
 
-import contextlib
 import copy
 import dataclasses
-import unittest.mock as mock
 
 import jax
 import jax.numpy as jnp
@@ -46,15 +44,8 @@ import numpy as np
 import optax
 import pytest
 import torch
-from jax._src.interpreters import mlir
-from jax._src.lax import lax as lax_internal
-from jax.experimental import pallas as pl
 
-import snag_tpu.ops.gat_attn_primitive as gp
-import snag_tpu.ops.pallas.gat_attention as ga_jax
 import snag_tpu.ops.pallas.ntxent_kernel as nk
-import snag_tpu.ops.pallas.snag_loss_kernel as sk
-import snag_tpu.ops.pallas.tile_segment as tsg
 from snag_tpu.data.graph import build_graph as jax_build_graph
 from snag_tpu.losses.contrastive import \
     snag_bundle_losses as jax_snag_bundle_losses
@@ -77,8 +68,9 @@ from snag_tpu_torch.train.runner import Runner
 from snag_tpu_torch.train.step import TrainStep
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
 from snag_tpu_torch.utils.logging import create_logger
-from torch_port_common import (SMALL, padded_batch, single_thread,
-                               small_argv, snag_pair)
+from torch_port_common import (SMALL, f32_reductions, model_pair,
+                               padded_batch, pallas_interpret, single_thread,
+                               small_argv)
 
 single_thread()
 KERNEL_TOL = 4e-3       # x max |JAX| per output tensor
@@ -87,50 +79,6 @@ GRAD_TOL = 1e-2         # x max |JAX| per optimizer group of parameters
 STEPS_RTOL = 1e-2       # the losses of three AdamW steps
 TAU = 0.1
 BF16 = torch.bfloat16
-
-
-@contextlib.contextmanager
-def pallas_interpret(flat=None):
-    """The JAX package's Pallas paths forced on, in interpret mode; the
-    mixture kernels on 8-row tiles, so that small batches stay small."""
-    orig = pl.pallas_call
-
-    def interp(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-    with contextlib.ExitStack() as stack:
-        for target, name, value in (
-                (pl, "pallas_call", interp),
-                (gp, "pallas_available", lambda: True),
-                (ga_jax, "pallas_available", lambda: True),
-                (nk, "FORCE_INTERPRET", True), (sk, "FORCE_INTERPRET", True),
-                (sk, "RT_F", 8), (sk, "RT_B", 8)):
-            stack.enter_context(mock.patch.object(target, name, value))
-        if flat is not None:
-            stack.enter_context(mock.patch.object(tsg, "FLAT_GRID", flat))
-        yield
-
-
-@contextlib.contextmanager
-def f32_reductions():
-    """JAX's bf16 ``reduce_sum`` lowered as an f32 sum rounded once to
-    bf16 (module docstring); other dtypes unchanged."""
-    orig = mlir._lowerings[lax_internal.reduce_sum_p]
-
-    def lower(ctx, x, *, axes, **kw):
-        if ctx.avals_in[0].dtype != jnp.bfloat16:
-            return orig.rule(ctx, x, axes=axes, **kw)
-
-        def f32_sum(y):
-            return lax_internal.reduce_sum_p.bind(
-                y.astype(jnp.float32), axes=axes, **kw).astype(jnp.bfloat16)
-        return mlir.lower_fun(f32_sum, multiple_results=False)(ctx, x)
-    mlir._lowerings[lax_internal.reduce_sum_p] = type(orig)(
-        rule=lower, inline=orig.inline)
-    try:
-        yield
-    finally:
-        mlir._lowerings[lax_internal.reduce_sum_p] = orig
 
 
 def assert_close_bf16(got, want, name, tol=KERNEL_TOL):
@@ -321,7 +269,7 @@ def test_mixture_twins_match_pallas_bf16(m):
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    return snag_pair(str(tmp_path_factory.mktemp("bf16")), fused_snag_loss=1,
+    return model_pair(str(tmp_path_factory.mktemp("bf16")), fused_snag_loss=1,
                      use_surface=1, lr=5e-4, scheduler="cos",
                      dtype="bfloat16")
 

@@ -211,12 +211,16 @@ def _ntxent_inputs(dev, m, b, d, n_valid, seed):
 # the gradient kernel's tiles (gram_grad.cuh): 32 rows, 64 columns, n8
 # feature tiles in passes of 320 features; d = 1,800 takes two feature
 # chunks (the accumulator holds 1,504 columns on the H100), d = 37 the
-# scalar loads (d % 4 != 0)
+# scalar loads (d % 4 != 0); the families' shapes at batch 3,500:
+# MEAformer's joint loss (M = 1, d = 1,200) and an MCLEA modality's padded
+# last batch (M = 1, d = 300, 1,000 valid)
 @pytest.mark.parametrize("m,b,d,n_valid", [(2, 9, 8, 9), (3, 130, 48, 100),
                                            (2, 257, 300, 257),
                                            (1, 70, 1200, 64),
                                            (2, 300, 1800, 290),
-                                           (4, 75, 37, 70)])
+                                           (4, 75, 37, 70),
+                                           (1, 3500, 1200, 3500),
+                                           (1, 3500, 300, 1000)])
 def test_ntxent_kernels_match_twins(dev, m, b, d, n_valid):
     z, v, coef = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
     lse = nx.streaming_lse_cuda(z, v, 0.1)
@@ -489,9 +493,11 @@ def _embs(dev, n, d, seed, noise=0.5):
     return torch.as_tensor(l, device=dev), torch.as_tensor(r, device=dev)
 
 
+# the last: MCLEA's 300-wide joint at the bench's 10,500 test pairs
 @pytest.mark.parametrize("n,d,use_csls,k", [(150, 32, False, 3),
                                              (301, 64, True, 3),
-                                             (77, 20, True, 10)])
+                                             (77, 20, True, 10),
+                                             (10500, 300, True, 3)])
 def test_rank_kernels_match_twin(dev, n, d, use_csls, k):
     x, y = _embs(dev, n, d, seed=n)
     got = rk.streaming_rank_eval(x, y, k, use_csls, True)
@@ -643,7 +649,8 @@ def test_gat_bf16_autograd_and_refusals(dev):
                                            (4, 257, 300, 257),
                                            (1, 70, 1200, 64),
                                            (2, 300, 1800, 290),
-                                           (4, 75, 37, 70)])
+                                           (4, 75, 37, 70),
+                                           (1, 3500, 1200, 3500)])
 def test_ntxent_bf16_kernels_match_twins(dev, m, b, d, n_valid):
     z, v, coef = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
     z = z.to(torch.bfloat16)

@@ -36,7 +36,7 @@ from snag_tpu_torch.ops.gat_agg import gat_aggregate, reverse_weights
 from snag_tpu_torch.ops.gnn import GCN
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
 from torch_port_common import (padded_batch, single_thread, small_argv,
-                               snag_pair)
+                               model_pair)
 
 single_thread()
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -218,7 +218,7 @@ def test_gcn_module_and_param_grads_match_jax():
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    return snag_pair(str(tmp_path_factory.mktemp("gcn")),
+    return model_pair(str(tmp_path_factory.mktemp("gcn")),
                      structure_encoder="gcn", fused_snag_loss=1, use_surface=1)
 
 

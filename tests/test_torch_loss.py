@@ -32,7 +32,7 @@ from snag_tpu_torch.losses.multitask import (AutomaticWeightedLoss,
                                              KendallLossLayer)
 from snag_tpu_torch.ops.cuda import ntxent as tnx
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
-from torch_port_common import padded_batch, single_thread, snag_pair
+from torch_port_common import padded_batch, single_thread, model_pair
 
 single_thread()
 ICL_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -105,8 +105,13 @@ def test_icl_loss_stacked_and_simple_route_match_jax():
     np.testing.assert_allclose(got.item(), float(want), **ICL_TOL)
     np.testing.assert_allclose(ta.grad.numpy(), np.asarray(ga), **ICL_TOL)
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), **ICL_TOL)
-    with pytest.raises(NotImplementedError, match="replay"):
-        icl_loss(ta, tl, inversion=True)
+    # inversion leaves the simple route for the dense one
+    want_inv = jax_icl_loss(jnp.asarray(a), jnp.asarray(links), tau=0.1,
+                            ab_weight=0.5, valid=jnp.asarray(valid),
+                            inversion=True)
+    got_inv = icl_loss(torch.from_numpy(a), tl, tau=0.1, ab_weight=0.5,
+                       valid=tv, inversion=True)
+    np.testing.assert_allclose(got_inv.item(), float(want_inv), **ICL_TOL)
 
 
 def test_multitask_layers_value_and_grads_match_jax():
@@ -137,7 +142,7 @@ def test_multitask_layers_value_and_grads_match_jax():
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    return snag_pair(str(tmp_path_factory.mktemp("loss")), fused_snag_loss=0)
+    return model_pair(str(tmp_path_factory.mktemp("loss")), fused_snag_loss=0)
 
 
 def _jax_loss(pair, links, valid, fused=0):

@@ -36,7 +36,7 @@ from snag_tpu_torch.train.runner import Runner
 from snag_tpu_torch.utils.checkpoint import CHECKPOINT_NAME, IL_FIELDS
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
 from snag_tpu_torch.utils.logging import get_dump_path
-from torch_port_common import (configs, jax_snag_params, single_thread,
+from torch_port_common import (configs, jax_params, single_thread,
                                small_argv)
 
 single_thread()
@@ -175,7 +175,7 @@ def test_saved_model_loads_in_jax(full, tmp_path):
     jdata = jax_load_data(jcfg)
     jmodel = jax_build_model(jcfg, jdata)
     jfeats = jax_prepare_features(jcfg, jdata)
-    template = jax_snag_params(jmodel, jfeats, jdata.graph,
+    template = jax_params(jmodel, jfeats, jdata.graph,
                                jax.random.PRNGKey(0))
     params = import_reference_checkpoint(template, _saved_pkl(runner))
     back = state_dict_from_flax(jax.device_get(params))

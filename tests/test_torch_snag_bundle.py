@@ -33,7 +33,7 @@ from snag_tpu_torch.ops.cuda import ntxent as tnx
 from snag_tpu_torch.ops.cuda import snag_loss as tsl
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
 from torch_port_common import (padded_batch, single_thread, small_argv,
-                               snag_pair)
+                               model_pair)
 
 single_thread()
 VAL_TOL = dict(rtol=3e-5, atol=3e-5)
@@ -145,7 +145,7 @@ def test_wrappers_dispatch_and_refuse():
 def pair(tmp_path_factory):
     """All six modalities: with four, two weight_raw slots have a
     gradient that is zero in exact arithmetic (ROADMAP C)."""
-    return snag_pair(str(tmp_path_factory.mktemp("bundle")), fused_snag_loss=1,
+    return model_pair(str(tmp_path_factory.mktemp("bundle")), fused_snag_loss=1,
                      use_surface=1)
 
 

@@ -42,14 +42,14 @@ from snag_tpu_torch.utils.import_reference import (_leaves, _ref_key_for,
                                                    state_dict_from_flax)
 from snag_tpu_torch.utils.logging import create_logger
 from torch_port_common import (SMALL, padded_batch, single_thread,
-                               small_argv, snag_pair)
+                               small_argv, model_pair)
 
 single_thread()
 
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    return snag_pair(str(tmp_path_factory.mktemp("train")), fused_snag_loss=0,
+    return model_pair(str(tmp_path_factory.mktemp("train")), fused_snag_loss=0,
                      lr=5e-4, scheduler="cos", use_surface=1)
 
 

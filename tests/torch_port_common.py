@@ -1,5 +1,11 @@
 """Shared set-up of the ``test_torch_*`` files: one small SNAG geometry,
-built as a JAX-package config and as a port config from the same fields."""
+built as a JAX-package config and as a port config from the same fields
+(``model_name`` switches the family), the same model in both packages with
+its weights carried across, and the JAX package's Pallas paths in
+interpret mode."""
+
+import contextlib
+import unittest.mock as mock
 
 import torch
 
@@ -25,28 +31,36 @@ def configs(data_root: str, **overrides):
                            data_root=data_root))
 
 
-def jax_snag_params(model, feats, graph, key):
-    """The JAX package's SNAG param tree for an inference run: the encoder
-    from a jitted init of ``joint_emb`` plus the Kendall layer's zero
-    log-variances.  That is the tree ``create_train_state`` builds without
-    ``--awloss``, made without tracing the training loss."""
+# the Kendall layers each family's training loss adds to its joint_emb tree
+KENDALL_LAYERS = {"SNAG": ("multi_loss_layer",), "EVA": (),
+                  "MCLEA": ("multi_loss_layer", "align_multi_loss_layer"),
+                  "MEAformer": ("multi_loss_layer",)}
+
+
+def jax_params(model, feats, graph, key):
+    """The JAX package's param tree of ``model`` (any ported family) for
+    an inference run: the tree of a jitted init of ``joint_emb`` plus the
+    Kendall layers' zero log-variances.  That is the tree
+    ``create_train_state`` builds (without ``--awloss``), made without
+    tracing the training loss."""
     import jax
     import jax.numpy as jnp
-    from snag_tpu.models.snag import SNAG
     params = jax.jit(lambda k: model.init(
-        {"params": k}, feats, graph, method=SNAG.joint_emb))(key)["params"]
-    return {**params, "multi_loss_layer": {"log_vars": jnp.zeros((6,))}}
+        {"params": k}, feats, graph, method=type(model).joint_emb))(key)
+    return {**params["params"],
+            **{name: {"log_vars": jnp.zeros((6,))}
+               for name in KENDALL_LAYERS[model.cfg.model_name]}}
 
 
 def fast_create_train_state(cfg, model, feats, graph, tx, seed,
                             extra_init_kwargs=None):
     """Drop-in for ``snag_tpu.train.step.create_train_state`` with the
-    same key split, built on ``jax_snag_params``."""
+    same key split, built on ``jax_params``."""
     import jax
     import jax.numpy as jnp
     from snag_tpu.train.step import TrainState
     init_rng, _, base_key = jax.random.split(jax.random.PRNGKey(seed), 3)
-    params = jax_snag_params(model, feats, graph, init_rng)
+    params = jax_params(model, feats, graph, init_rng)
     return TrainState(params=params, opt_state=tx.init(params),
                       step=jnp.zeros((), jnp.int32), base_key=base_key)
 
@@ -71,8 +85,9 @@ def single_thread():
     torch.set_num_threads(1)
 
 
-def snag_pair(data_root: str, **overrides):
-    """The same small SNAG in both packages, weights carried across.
+def model_pair(data_root: str, **overrides):
+    """The same small model (SNAG unless ``model_name`` says otherwise) in
+    both packages, weights carried across.
 
     Returns a dict with the JAX side (``jcfg``, ``jmodel``, ``jdata``,
     ``jfeats``, ``params`` as numpy) and the port side (``tcfg``,
@@ -93,10 +108,11 @@ def snag_pair(data_root: str, **overrides):
     jdata = jax_load_data(jcfg)
     jmodel = jax_build_model(jcfg, jdata)
     jfeats = jax_features(jcfg, jdata)
-    params = jax.device_get(jax_snag_params(
+    params = jax.device_get(jax_params(
         jmodel, jfeats, jdata.graph, jax.random.PRNGKey(jcfg.random_seed)))
-    params["multi_loss_layer"]["log_vars"] = np.linspace(
-        -0.3, 0.4, 6).astype(np.float32)
+    for i, name in enumerate(KENDALL_LAYERS[jcfg.model_name]):
+        params[name]["log_vars"] = np.linspace(
+            -0.3 + 0.1 * i, 0.4 - 0.2 * i, 6).astype(np.float32)
     tdata = load_data(tcfg)
     tmodel = build_model(tcfg, tdata, torch.Generator().manual_seed(0))
     tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
@@ -125,3 +141,57 @@ def small_argv(data_path, **extra):
             continue
         argv += [f"--{k}"] + ([] if v == "" else [str(v)])
     return argv
+
+
+@contextlib.contextmanager
+def pallas_interpret(flat=None):
+    """The JAX package's Pallas paths forced on, in interpret mode; the
+    mixture kernels on 8-row tiles, so that small batches stay small."""
+    from jax.experimental import pallas as pl
+    import snag_tpu.ops.gat_attn_primitive as gp
+    import snag_tpu.ops.pallas.gat_attention as ga_jax
+    import snag_tpu.ops.pallas.ntxent_kernel as nk
+    import snag_tpu.ops.pallas.snag_loss_kernel as sk
+    import snag_tpu.ops.pallas.tile_segment as tsg
+    orig = pl.pallas_call
+
+    def interp(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+    with contextlib.ExitStack() as stack:
+        for target, name, value in (
+                (pl, "pallas_call", interp),
+                (gp, "pallas_available", lambda: True),
+                (ga_jax, "pallas_available", lambda: True),
+                (nk, "FORCE_INTERPRET", True), (sk, "FORCE_INTERPRET", True),
+                (sk, "RT_F", 8), (sk, "RT_B", 8)):
+            stack.enter_context(mock.patch.object(target, name, value))
+        if flat is not None:
+            stack.enter_context(mock.patch.object(tsg, "FLAT_GRID", flat))
+        yield
+
+
+@contextlib.contextmanager
+def f32_reductions():
+    """JAX's bf16 ``reduce_sum`` lowered as an f32 sum rounded once to
+    bf16 (XLA's CPU backend adds bf16 reductions in bf16, see
+    ``test_torch_bf16.py``); other dtypes unchanged."""
+    import jax.numpy as jnp
+    from jax._src.interpreters import mlir
+    from jax._src.lax import lax as lax_internal
+    orig = mlir._lowerings[lax_internal.reduce_sum_p]
+
+    def lower(ctx, x, *, axes, **kw):
+        if ctx.avals_in[0].dtype != jnp.bfloat16:
+            return orig.rule(ctx, x, axes=axes, **kw)
+
+        def f32_sum(y):
+            return lax_internal.reduce_sum_p.bind(
+                y.astype(jnp.float32), axes=axes, **kw).astype(jnp.bfloat16)
+        return mlir.lower_fun(f32_sum, multiple_results=False)(ctx, x)
+    mlir._lowerings[lax_internal.reduce_sum_p] = type(orig)(
+        rule=lower, inline=orig.inline)
+    try:
+        yield
+    finally:
+        mlir._lowerings[lax_internal.reduce_sum_p] = orig

@@ -40,7 +40,9 @@ the exit code is non-zero:
    bitwise repeat and its gathered GB/s, its registers and spills, and
    ``torch.sparse.mm`` as the library yardstick; then the six bf16 entries
    (``--dtype bfloat16``: both GAT kernels, the NT-Xent and mixture lse and
-   gradients, on bf16 operands) against their bf16 twins on CPU copies at
+   gradients, on bf16 operands; both gradients on their own kernel,
+   ``csrc/gram_grad_bf16.cuh``, whose plans, registers and spills it
+   prints) against their bf16 twins on CPU copies at
    the main path's shapes (the GAT inputs above rounded to bf16, NT-Xent
    IIR, the mixture's full M = 4 batch), within 4e-3 x max
    |twin| per output, with bitwise repeats and the same timings, their
@@ -504,9 +506,26 @@ def kernel_ptxas(lib, names):
     for entry, regs, st, ld in ptxas_usage(lib.compiler_log, names):
         m = re.search(r"\d([a-z_]+?_kernel)I(.*?)EEv", entry)
         name = (f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)', m.group(2)))}>"
-                if m else entry)
+                if m else plain_kernel_name(entry))
         out.append((name, regs, st, ld))
     return out
+
+
+def plain_kernel_name(entry):
+    """The ``..._kernel`` identifier of a mangled non-template entry (each
+    name is its length, then its characters), or the entry itself."""
+    i = 0
+    while i < len(entry):
+        m = re.match(r"\d+", entry[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + len(m.group())
+        ident = entry[start:start + int(m.group())]
+        if ident.endswith("_kernel"):
+            return ident
+        i = start + len(ident)
+    return entry
 
 
 def gat_ptxas(lib, kernel):
@@ -977,6 +996,27 @@ def phase_mixture(tau=0.1):
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
 
 
+def plan_text(plan):
+    """A gradient's launch plan (``ntxent.grad_plan``,
+    ``snag_loss.grad_plan_bf16``) for a log line."""
+    text = (f"{plan['chunks']} chunk(s), depth {plan['depth']}, "
+            f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM")
+    if "rows" in plan:
+        text += (f", {plan['rows']} rows a block"
+                 f"{', resident' if plan['resident'] else ', streamed'}, "
+                 f"clusters of {plan['cluster']}")
+    return text
+
+
+def bf16_grad_k_products(plan, mix):
+    """How many times the bf16 gradient computes each K_m: once per block
+    where the rows stay resident (one chunk) or a cluster splits them, once
+    per chunk where they stream."""
+    if plan["resident"] or (not mix and plan["cluster"] > 1):
+        return 1
+    return plan["chunks"]
+
+
 def phase_loss_bf16(tau=0.1):
     """The four bf16 loss entries against their bf16 twins on CPU copies
     at the main path's shapes: NT-Xent at IIR (M = 4, B = 3,500, d = 300)
@@ -984,12 +1024,18 @@ def phase_loss_bf16(tau=0.1):
     f32 phases with z rounded to bf16; also NT-Xent at MEAformer's joint
     shape (M = 1, d = 1,200).  Each output within ``BF16_TOL`` x max
     |twin|; two runs give the same bits.  Prints the plans and the
-    TFLOP/s, executed and least, as the f32 phases do; the bound is the
-    bf16 dense rate.  Returns the JSON records of the four kernels."""
+    TFLOP/s, executed and least, as the f32 phases do, and the registers
+    and spills of the two gradient kernels (``csrc/gram_grad_bf16.cuh``);
+    the bound is the bf16 dense rate.  Returns the JSON records of the
+    four kernels."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     from snag_tpu_torch.ops.cuda import snag_loss as sl
     bf = torch.bfloat16
+    for lib in (nx._library(), sl._library()):
+        for name, regs, st, ld in kernel_ptxas(lib, ("grad_bf16",)):
+            say("loss_bf16", f"ptxas {name}: {regs} registers, spill stores "
+                f"{st} B, loads {ld} B")
     label, m, b, d, n_valid = NTXENT_SHAPES[0]
     z, v, coef = _ntxent_inputs(m, b, d, n_valid, SEED)
     z = z.to(bf)
@@ -1014,7 +1060,7 @@ def phase_loss_bf16(tau=0.1):
              z, lse, coef, v, tau), DEVICE_KERNELS[nx.STATS_GRAD_BF16.name]),
          "grad_twin": median_ms(lambda: nx.ntxent_grad_twin(
              z, lse, coef, v, tau))}
-    executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
+    executed = 2 * m * n2 * n2 * d * (bf16_grad_k_products(plan, False) + 1)
     say("loss_bf16", f"ntxent {label} (M={m}, B={b}, d={d}): max|lse err| "
         f"{e_lse:.3e} | max|dz err| {e_dz:.3e} of max|dz| "
         f"{dz.abs().max().item():.3e} (<= {BF16_TOL} x max, bitwise repeats)"
@@ -1025,9 +1071,7 @@ def phase_loss_bf16(tau=0.1):
         f"{t['grad']:.3f} ms, device {t['grad_dev']:.3f} ms "
         f"({executed / t['grad_dev'] / 1e9:.1f} executed, "
         f"{(k_flops + wz_flops) / t['grad_dev'] / 1e9:.1f} least TFLOP/s; "
-        f"{plan['chunks']} chunk(s), depth {plan['depth']}, "
-        f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM) "
-        f"twin {t['grad_twin']:.3f} ms")
+        f"{plan_text(plan)}) twin {t['grad_twin']:.3f} ms")
     rows = [row(nx.STATS_LSE_BF16.name, e_lse, t["lse"], t["lse_dev"],
                 t["lse_twin"], 2 * m * n2 * d + 4 * (n2 + m * n2), k_flops,
                 flop_per_s=BF16_FLOP_PER_S),
@@ -1060,10 +1104,9 @@ def phase_loss_bf16(tau=0.1):
         f"{e_lse:.3e} | max|dz err| {e_dz:.3e} of max|dz| "
         f"{dz.abs().max().item():.3e} (<= {BF16_TOL} x max, bitwise repeats)"
         f" | lse device {lse_dev:.3f} ms | grad device {grad_dev:.3f} ms "
-        f"({plan['chunks']} chunk(s), {plan['splits']} split(s))")
+        f"({plan_text(plan)})")
     del z, v, coef, lse, dz
     torch.cuda.empty_cache()
-    cap = sl._grad_cap(sl._library(), torch.device("cuda"))
     first = None
     for i, (label, m, b, d, n_valid) in enumerate(MIXTURE_SHAPES[:1]):
         z, alpha, beta, v, coef = _mixture_inputs(m, b, d, n_valid, SEED + i)
@@ -1093,8 +1136,10 @@ def phase_loss_bf16(tau=0.1):
                  z, alpha, beta, lse, coef, v, tau))}
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
-        groups = -(-m // sl.modality_group(m, d, cap))
-        executed = 2 * n2 * n2 * d * (groups * m + m)
+        # each modality's block computes its own K_m, which its cluster
+        # shares
+        plan = sl.grad_plan_bf16(m, n2, d, z.device)
+        executed = 2 * n2 * n2 * d * m * (bf16_grad_k_products(plan, True) + 1)
         say("loss_bf16", f"mixture {label} (M={m}, B={b}, d={d}, {n_valid} "
             f"valid): max|lse err| {e_lse:.3e} | max|err| dz {errs[0]:.3e} "
             f"dalpha {errs[1]:.3e} dbeta {errs[2]:.3e} (<= {BF16_TOL} x max,"
@@ -1104,7 +1149,7 @@ def phase_loss_bf16(tau=0.1):
             f"{t['grad']:.3f} ms, device {t['grad_dev']:.3f} ms "
             f"({executed / t['grad_dev'] / 1e9:.1f} executed, "
             f"{(k_flops + wz_flops) / t['grad_dev'] / 1e9:.1f} least "
-            f"TFLOP/s) twin {t['grad_twin']:.3f} ms")
+            f"TFLOP/s; {plan_text(plan)}) twin {t['grad_twin']:.3f} ms")
         if first is None:
             # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
             first = [row(sl.STATS_LSE_BF16.name, e_lse, t["lse"],
@@ -1718,10 +1763,13 @@ def main() -> int:
         SEGMENT_KERNEL: ("snag_tpu_torch/csrc/tile_segment.cu",
                          "snag_tpu/ops/pallas/tile_segment.py:242"),
     }
-    # each bf16 entry: the same source and TPU kernel as its f32 one
+    # each bf16 entry: the same source and TPU kernel as its f32 one, but
+    # for the gradients, which have a kernel of their own
     meta.update({f"{name}_bf16": meta[name] for name in (
-        "gat_attention_fwd", "gat_bwd", "ntxent_lse", "ntxent_grad",
-        "mixture_lse", "mixture_grad")})
+        "gat_attention_fwd", "gat_bwd", "ntxent_lse", "mixture_lse")})
+    meta.update({f"{name}_bf16": ("snag_tpu_torch/csrc/gram_grad_bf16.cuh",
+                                  meta[name][1])
+                 for name in ("ntxent_grad", "mixture_grad")})
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],
                 "launches": sum(run[r["name"]] for run in runs),

@@ -54,7 +54,8 @@ time of the kernels the call launched, named as in
 
 It prints one JSON line with the card's name and power limit, and writes it
 to FILE.  With ``--against`` it fails unless every digest equals that of
-an earlier run's FILE: the check that two builds compute the same bits.
+an earlier run's FILE: the check that two builds compute the same bits;
+it also prints each record's ``device_ms`` in both runs.
 A section the earlier run does not have at all (the bf16 sections against
 a checkout without bf16 entries) is reported and skipped.
 Run each checkout in its own process (two packages of one name cannot
@@ -144,6 +145,12 @@ def main() -> int:
                 verdict = ("bit-identical" if ok else
                            "MISSING in" if theirs is None else "DIFFERENT")
                 print(f"{kind} {label}: {verdict} to {other['root']}")
+        for kind in SECTIONS:
+            for label, rec in out.get(kind, {}).items():
+                theirs = other.get(kind, {}).get(label, {})
+                if "device_ms" in rec and "device_ms" in theirs:
+                    print(f"{kind} {label}: device_ms {theirs['device_ms']:.4f}"
+                          f" ({other['root']}) -> {rec['device_ms']:.4f}")
         if not same:
             return 1
     return 0

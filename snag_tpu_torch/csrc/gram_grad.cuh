@@ -9,14 +9,10 @@
 // NT-Xent: dz_m = W_m z_m.  The mixture adds two channels built from every
 // K_m (snag_loss.cu has their formulas) and also writes dalpha and dbeta.
 //
-// Both products, K and W z, run on the tensor cores (tile_mma.cuh): for
-// fp32 z (Op = float) in 3xTF32; for bf16 z (Op = __nv_bfloat16) in one
-// bf16 product, with W rounded to bf16 for W z and, for the mixtures, the
-// channel's own K rounded to bf16 where the channel's weight, dalpha and
-// dbeta read it (the mixtures themselves take the fp32 K), the rounding
-// points of the Pallas kernels.  Each k8 (bf16: k16) step of K starts from
-// zero and is added in fp32, because the tensor cores truncate when they
-// accumulate.
+// Both products, K and W z, run on the tensor cores in 3xTF32
+// (tile_mma.cuh).  Each k8 step of K starts from zero and is added in
+// fp32, because the tensor cores truncate when they accumulate.  fp32 z
+// only: bf16 z has its own kernel, gram_grad_bf16.cuh.
 //
 // A block of 8 warps owns 32 rows and walks a share of the column tiles of
 // 64.  Per tile it computes the K tiles it needs into registers (C
@@ -39,12 +35,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tile_mma.cuh"
 
@@ -91,27 +84,14 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int KD = 32;
 constexpr int KD_STRIDE = KD + 8;                 // 40 = 8 mod 32
 constexpr int K_SLOT = (ROWS + COLS) * KD_STRIDE;
-// bf16: fragments take k slots 2t, 2t + 1, 2t + 8, 2t + 9 from elements
-// 4t .. 4t + 3 of each k16 slice, one 64-bit load; rows of 96 bytes put a
-// half-warp's loads on distinct banks
-constexpr int KD_STRIDE_BF16 = KD + 16;
 // W z: a pass covers up to PASS_TILES n8 feature tiles; warp w takes the
 // pass's tiles w, w + WARPS, ... over both m16 row tiles.  A Z step stages
-// 8 rows of z (bf16: 16 rows, the same bytes) over the pass's features.
+// 8 rows of z over the pass's features.
 constexpr int NT = 5;
 constexpr int PASS_TILES = WARPS * NT;            // 320 features
 constexpr int Z_STRIDE = 8 * PASS_TILES + 4;      // 324 = 4 mod 32
 constexpr int Z_SLOT = 8 * Z_STRIDE;
 constexpr int SLOT = K_SLOT > Z_SLOT ? K_SLOT : Z_SLOT;
-static_assert((ROWS + COLS) * KD_STRIDE_BF16 * 2 <= SLOT * 4 &&
-              16 * Z_STRIDE * 2 <= SLOT * 4, "a bf16 step exceeds a slot");
-
-// the columns of the tile that one Z step stages: 8 rows of fp32 z, 16 of
-// bf16 z
-template <typename Op>
-__host__ __device__ constexpr int z_rows() {
-  return std::is_same<Op, float>::value ? 8 : 16;
-}
 constexpr int MIN_DEPTH = 2, MAX_DEPTH = 4;       // slots in the cp.async ring
 constexpr int W_STRIDE = COLS + 8;                // 72 = 8 mod 32
 constexpr int W_FLOATS = ROWS * W_STRIDE;
@@ -202,119 +182,6 @@ __device__ __forceinline__ void load_z(const float* __restrict__ zm, int n,
       const bool ok = okr && f0 + f < d;
       cp_async4(dst + f, ok ? src + f : zm, ok);
     }
-  }
-}
-
-// The bf16 K step: as load_k, 8-byte copies of 4 elements (VEC, d % 4 ==
-// 0), else plain loads and stores, which the barrier before the step's
-// compute publishes.
-template <bool VEC>
-__device__ __forceinline__ void load_k(const __nv_bfloat16* __restrict__ zm,
-                                       int n, int d, int row0, int col0,
-                                       int k0, __nv_bfloat16* buf) {
-  constexpr int R = ROWS + COLS;
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(zm);
-  uint16_t* dst = reinterpret_cast<uint16_t*>(buf);
-  if (VEC) {
-    for (int i = threadIdx.x; i < R * KD / 4; i += THREADS) {
-      const int r = i / (KD / 4), k = (i % (KD / 4)) * 4;
-      const int gr = r < ROWS ? row0 + r : col0 + r - ROWS;
-      const bool ok = gr < n && k0 + k < d;
-      cp_async8(dst + r * KD_STRIDE_BF16 + k,
-                ok ? src + (size_t)gr * d + k0 + k : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * KD; i += THREADS) {
-      const int r = i / KD, k = i % KD;
-      const int gr = r < ROWS ? row0 + r : col0 + r - ROWS;
-      dst[r * KD_STRIDE_BF16 + k] =
-          gr < n && k0 + k < d ? src[(size_t)gr * d + k0 + k] : uint16_t{0};
-    }
-  }
-}
-
-// The bf16 Z step: rows [c0, c0 + 16) of z_m, features [f0, f0 + nf), into
-// buf[16][Z_STRIDE], warp w staging rows w and w + 8.
-template <bool VEC>
-__device__ __forceinline__ void load_z(const __nv_bfloat16* __restrict__ zm,
-                                       int n, int d, int c0, int f0, int nf,
-                                       __nv_bfloat16* buf) {
-  static_assert(WARPS == 8, "two warps' rows per staged pair");
-  const uint16_t* src0 = reinterpret_cast<const uint16_t*>(zm);
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = threadIdx.x / 32 + 8 * half;
-    const bool okr = c0 + r < n;
-    const uint16_t* src = src0 + (size_t)(c0 + r) * d + f0;
-    uint16_t* dst = reinterpret_cast<uint16_t*>(buf) + r * Z_STRIDE;
-    if (VEC) {
-      for (int f = 4 * lane; f < nf; f += 128) {
-        const bool ok = okr && f0 + f < d;
-        cp_async8(dst + f, ok ? src + f : src0, ok);
-      }
-    } else {
-      for (int f = lane; f < nf; f += 32)
-        dst[f] = okr && f0 + f < d ? src[f] : uint16_t{0};
-    }
-  }
-}
-
-// acc[nt] += this warp's n8 tile nt of the staged bf16 K slice: per k16
-// slice one bf16 product from zero, added in fp32.
-__device__ __forceinline__ void k_step(const __nv_bfloat16* buf,
-                                       float (&acc)[2][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* ar = buf + ((warp % 2) * 16 + g) * KD_STRIDE_BF16 + 4 * t;
-  const __nv_bfloat16* br =
-      buf + (ROWS + (warp / 2) * 16 + g) * KD_STRIDE_BF16 + 4 * t;
-#pragma unroll
-  for (int kk = 0; kk < KD; kk += 16) {
-    const uint2 a0 = *reinterpret_cast<const uint2*>(ar + kk);
-    const uint2 a1 = *reinterpret_cast<const uint2*>(ar + kk + 8 * KD_STRIDE_BF16);
-    const uint32_t a[4] = {a0.x, a1.x, a0.y, a1.y};
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const uint2 bv = *reinterpret_cast<const uint2*>(
-          br + nt * 8 * KD_STRIDE_BF16 + kk);
-      const uint32_t b[2] = {bv.x, bv.y};
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(p, a, b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] += p[e];
-    }
-  }
-}
-
-// part[i][mt] += bf16(W) (rows mt * 16 .., columns 16 s .. 16 s + 16) times
-// the staged 16 rows of bf16 z over this warp's i-th n8 feature tile of the
-// pass.  W's columns 16 s + 4t .. 4t + 3 feed k slots 2t, 2t + 1, 2t + 8,
-// 2t + 9, and so do z's rows 4t .. 4t + 3.
-__device__ __forceinline__ void z_step(const __nv_bfloat16* buf, const float* w,
-                                       int s, int cnt, float (&part)[NT][2][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  uint32_t a[2][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const float* wr = w + (mt * 16 + g) * W_STRIDE + 16 * s + 4 * t;
-    const float4 w0 = *reinterpret_cast<const float4*>(wr);
-    const float4 w1 = *reinterpret_cast<const float4*>(wr + 8 * W_STRIDE);
-    a[mt][0] = pack_bf16(w0.x, w0.y);
-    a[mt][1] = pack_bf16(w1.x, w1.y);
-    a[mt][2] = pack_bf16(w0.z, w0.w);
-    a[mt][3] = pack_bf16(w1.z, w1.w);
-  }
-  const uint16_t* zb = reinterpret_cast<const uint16_t*>(buf) + 4 * t * Z_STRIDE + g;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int lt = min(warp + WARPS * i, cnt - 1);
-    const uint16_t* col = zb + 8 * lt;
-    const uint32_t b[2] = {pack_raw(col[0], col[Z_STRIDE]),
-                           pack_raw(col[2 * Z_STRIDE], col[3 * Z_STRIDE])};
-    mma_bf16(part[i][0], a[0], b);
-    mma_bf16(part[i][1], a[1], b);
   }
 }
 
@@ -442,10 +309,8 @@ struct Rows {
 
 // The weight of modality m (K tile k[km]) for the current column tile
 // into w (fp32).  MIX: the combined weight W_m + W_a alpha_r alpha_c +
-// W_f beta_m, and its dalpha and dbeta terms into da and db.  K_BF16: the
-// channel's weight, dalpha and dbeta read K rounded to bf16 (the Pallas
-// mixture gradient keeps its K tiles in z's dtype).
-template <bool MIX, int KM, bool K_BF16 = false>
+// W_f beta_m, and its dalpha and dbeta terms into da and db.
+template <bool MIX, int KM>
 __device__ __forceinline__ void weight_tile(
     const float (&k)[KM][2][4], const float (&w_a)[2][4],
     const float (&w_f)[2][4], const Rows& R, const int (&gc)[4],
@@ -476,8 +341,7 @@ __device__ __forceinline__ void weight_tile(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int h = i / 2, j = 2 * nt + i % 2;
-      const float kv = K_BF16 ? __bfloat162float(__float2bfloat16_rn(kt[nt][i]))
-                              : kt[nt][i];
+      const float kv = kt[nt][i];
       float wv = 0.f;
       if (R.ok[h] && okc[j]) {
         wv = w_channel(kv * inv_tau, lm_r[h], lm_c[j], cm_r[h], cm_c[j],
@@ -498,18 +362,16 @@ __device__ __forceinline__ void weight_tile(
 // dz, dalpha and per-block dbeta partials (split 0) or the split's
 // partials in part.  !MIX: alpha, beta and dalpha unused, lse and coef
 // (nm, n2), mg = 1, blockIdx.y = batch * chunks + chunk; dz (split 0) or
-// the split's dz partials in part.  Op: z's type, float or __nv_bfloat16;
-// dz and everything else are fp32 either way.
-template <bool MIX, bool VEC, typename Op = float>
+// the split's dz partials in part.
+template <bool MIX, bool VEC>
 __device__ __forceinline__ void gram_grad(
-    const Op* __restrict__ z, const float* __restrict__ alpha,
+    const float* __restrict__ z, const float* __restrict__ alpha,
     const float* __restrict__ beta, const float* __restrict__ lse,
     const float* __restrict__ coef, const float* __restrict__ v,
     float* __restrict__ dz, float* __restrict__ dalpha,
     float* __restrict__ part, int nm, int mg, int chunks, int n2, int d,
     float inv_tau, int depth) {
-  constexpr bool BF16 = !std::is_same<Op, float>::value;
-  constexpr int ZS = z_rows<Op>();
+  constexpr int ZS = 8;
   constexpr int Z_STEPS = COLS / ZS;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
@@ -567,7 +429,7 @@ __device__ __forceinline__ void gram_grad(
   auto issue = [&]() {
     if (issued < steps) {
       const int col0 = ld.ct * COLS;
-      Op* buf = reinterpret_cast<Op*>(ring + sl * SLOT);
+      float* buf = ring + sl * SLOT;
       if (ld.k) {
         load_k<VEC>(z + (size_t)(mk0 + ld.m) * n2 * d, n2, d, row0, col0,
                     ld.s * KD, buf);
@@ -583,11 +445,11 @@ __device__ __forceinline__ void gram_grad(
     sl = sl + 1 == depth ? 0 : sl + 1;
   };
   // waits for the next step's slot; every thread is done with the last one
-  auto next = [&]() -> const Op* {
+  auto next = [&]() -> const float* {
     cp_async_wait_dyn(depth - 2);
     __syncthreads();
     issue();
-    const Op* buf = reinterpret_cast<const Op*>(ring + sc * SLOT);
+    const float* buf = ring + sc * SLOT;
     sc = sc + 1 == depth ? 0 : sc + 1;
     return buf;
   };
@@ -683,10 +545,9 @@ __device__ __forceinline__ void gram_grad(
     for (int mi = 0; mi < nmy; ++mi) {
       if (mi > 0) __syncthreads();   // every warp is done with the last W
       float da[2], db;
-      weight_tile<MIX, KM, MIX && BF16>(k, w_a, w_f, R, gc, okc, v_c, alpha,
-                                        beta, lse, coef, m0 + mi,
-                                        MIX ? m0 + mi : 0, nm, n2, inv_tau, w,
-                                        da, db);
+      weight_tile<MIX, KM>(k, w_a, w_f, R, gc, okc, v_c, alpha, beta, lse,
+                           coef, m0 + mi, MIX ? m0 + mi : 0, nm, n2, inv_tau,
+                           w, da, db);
       if (MIX) {
 #pragma unroll
         for (int j = 0; j < MAX_MOD; ++j) {
@@ -807,36 +668,6 @@ ntxent_grad_mma_kernel(const float* __restrict__ z,
                        int d, float inv_tau, int depth) {
   gram_grad<false, VEC>(z, nullptr, nullptr, lse, coef, v, dz, nullptr, part,
                         nm, 1, chunks, n2, d, inv_tau, depth);
-}
-
-// The bf16-operand instantiations, named apart too; the same shared memory
-// and occupancy as their fp32 twins.
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 1)
-mixture_grad_bf16_kernel(const __nv_bfloat16* __restrict__ z,
-                         const float* __restrict__ alpha,
-                         const float* __restrict__ beta,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ coef,
-                         const float* __restrict__ v, float* __restrict__ dz,
-                         float* __restrict__ dalpha, float* __restrict__ part,
-                         int nm, int mg, int n2, int d, float inv_tau,
-                         int depth) {
-  gram_grad<true, VEC, __nv_bfloat16>(z, alpha, beta, lse, coef, v, dz, dalpha,
-                                      part, nm, mg, 1, n2, d, inv_tau, depth);
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-ntxent_grad_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ coef,
-                            const float* __restrict__ v, float* __restrict__ dz,
-                            float* __restrict__ part, int nm, int chunks,
-                            int n2, int d, float inv_tau, int depth) {
-  gram_grad<false, VEC, __nv_bfloat16>(z, nullptr, nullptr, lse, coef, v, dz,
-                                       nullptr, part, nm, 1, chunks, n2, d,
-                                       inv_tau, depth);
 }
 
 }  // namespace grad

@@ -46,15 +46,18 @@
 // shallowest ring (d > 1,504 on the H100), blockIdx.y also walks balanced
 // feature chunks, each recomputing S over the whole d.
 //
-// ntxent_lse_bf16 and ntxent_grad_bf16: the same kernels on bf16 z (the
-// JAX package's bf16 path casts the unit rows to bf16 before both Pallas
-// kernels), the products on the bf16 tensor cores, one m16n8k16 mma.sync
-// with fp32 accumulation, whose products are exact, so one product keeps
-// fp32's accumulation error.  lse: S from the bf16 operands in fp32, all
-// after it fp32.  Gradient: S likewise, W rounded to bf16 before W z (the
-// Pallas kernel's w.astype(z.dtype), ntxent_kernel.py:157), dz fp32.  The
-// bound is then the flops over the bf16 dense rate, 989 TFLOP/s, and the
-// operand bytes halve; tiles, plans and scratch are the fp32 kernels'.
+// ntxent_lse_bf16 and ntxent_grad_bf16: bf16 z (the JAX package's bf16
+// path casts the unit rows to bf16 before both Pallas kernels), the
+// products on the bf16 tensor cores, one m16n8k16 mma.sync with fp32
+// accumulation, whose products are exact, so one product keeps fp32's
+// accumulation error.  lse: the same kernel, S from the bf16 operands in
+// fp32, all after it fp32.  Gradient: gram_grad_bf16.cuh's kernel, built
+// for bf16 (a warp's 16-row strip, W from K's C fragments in registers,
+// dz in registers, the block's rows resident and one staging of each
+// column tile up to d = 304; past it the chunks' blocks form a cluster
+// that splits K's rows); S likewise, W rounded to bf16 before W z
+// (the Pallas kernel's w.astype(z.dtype), ntxent_kernel.py:157), dz fp32.
+// The bound is the flops over the bf16 dense rate, 989 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +67,7 @@
 #include <type_traits>
 
 #include "gram_grad.cuh"
+#include "gram_grad_bf16.cuh"
 #include "gram_lse.cuh"
 
 namespace {
@@ -138,8 +142,7 @@ struct Kernels<__nv_bfloat16> {
   static constexpr auto lse_vec = ntxent_lse_bf16_mma_kernel<true>;
   static constexpr auto lse_scalar = ntxent_lse_bf16_mma_kernel<false>;
   static constexpr auto lse_sum = ntxent_lse_bf16_sum_kernel;
-  static constexpr auto grad_vec = grad::ntxent_grad_bf16_mma_kernel<true>;
-  static constexpr auto grad_scalar = grad::ntxent_grad_bf16_mma_kernel<false>;
+  static constexpr auto grad_kernel = grad16::ntxent_grad_bf16_mma_kernel;
   static constexpr auto grad_sum = ntxent_grad_bf16_sum_kernel;
 };
 
@@ -150,23 +153,35 @@ int lse_setup(int m, int n2, LsePlan& plan) {
       reinterpret_cast<const void*>(Kernels<Op>::lse_scalar), m, n2, plan);
 }
 
-// Lets the gradient kernel take all the shared memory a block may opt in
-// to on the current device, then plans a launch (gram_grad.cuh).
-template <typename Op>
-int ntxent_plan(int m, int n2, int d, GradPlan& plan) {
+// Lets the kernels take all the shared memory a block may opt in to on the
+// current device.
+int opt_in(const void* const* kernels, int n) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(Kernels<Op>::grad_vec,
+  for (int i = 0; i < n && err == cudaSuccess; ++i)
+    err = cudaFuncSetAttribute(kernels[i],
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(Kernels<Op>::grad_scalar,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return grad_plan<false>(reinterpret_cast<const void*>(Kernels<Op>::grad_vec),
-                          m, 1, n2, d, plan);
+  return static_cast<int>(err);
+}
+
+// Plans an fp32 gradient launch (gram_grad.cuh).
+int ntxent_plan(int m, int n2, int d, GradPlan& plan) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(Kernels<float>::grad_vec),
+      reinterpret_cast<const void*>(Kernels<float>::grad_scalar)};
+  const int err = opt_in(kernels, 2);
+  if (err) return err;
+  return grad_plan<false>(kernels[0], m, 1, n2, d, plan);
+}
+
+// Plans a bf16 gradient launch (gram_grad_bf16.cuh).
+int ntxent_plan_bf16(int m, int n2, int d, grad16::Plan& plan) {
+  const void* kernel = reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::grad_kernel);
+  const int err = opt_in(&kernel, 1);
+  if (err) return err;
+  return grad16::plan<false>(kernel, m, n2, d, plan);
 }
 
 // 16-byte copies of 4 floats, or 8-byte copies of 4 bf16
@@ -219,11 +234,10 @@ int lse_entry(const Op* z, const float* v, float* part, float* lse, int m,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Op>
 long grad_plan_entry(int m, int n2, int d, int* out) {
   if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
   GradPlan plan;
-  const int err = ntxent_plan<Op>(m, n2, d, plan);
+  const int err = ntxent_plan(m, n2, d, plan);
   if (err) return -static_cast<long>(err);
   if (out) {
     out[0] = plan.chunks;
@@ -234,26 +248,86 @@ long grad_plan_entry(int m, int n2, int d, int* out) {
   return static_cast<long>(plan.scratch);
 }
 
-template <typename Op>
-int grad_entry(const Op* z, const float* lse, const float* coef,
+int grad_entry(const float* z, const float* lse, const float* coef,
                const float* v, float* dz, float* part, int m, int n2, int d,
                float inv_tau, void* stream) {
   if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
   GradPlan plan;
-  int err = ntxent_plan<Op>(m, n2, d, plan);
+  int err = ntxent_plan(m, n2, d, plan);
   if (err) return err;
   const dim3 grid((n2 + grad::ROWS - 1) / grad::ROWS, m * plan.chunks,
                   plan.splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    Kernels<Op>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
+    Kernels<float>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
         z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
   else
-    Kernels<Op>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
+    Kernels<float>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
         z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
   err = static_cast<int>(cudaGetLastError());
   if (err || plan.splits == 1) return err;
-  Kernels<Op>::grad_sum<<<1024, REDUCE_THREADS, 0, s>>>(
+  Kernels<float>::grad_sum<<<1024, REDUCE_THREADS, 0, s>>>(
+      dz, part, (size_t)m * n2 * d, plan.splits - 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+long grad_plan_entry_bf16(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  grad16::Plan plan;
+  const int err = ntxent_plan_bf16(m, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.chunks;
+    out[1] = plan.depth;
+    out[2] = plan.splits;
+    out[3] = plan.per_sm;
+    out[4] = plan.rows;
+    out[5] = plan.resident;
+    out[6] = plan.cluster;
+  }
+  return static_cast<long>(plan.scratch);
+}
+
+int grad_entry_bf16(const __nv_bfloat16* z, const float* lse,
+                    const float* coef, const float* v, float* dz, float* part,
+                    int m, int n2, int d, float inv_tau, void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  grad16::Plan plan;
+  int err = ntxent_plan_bf16(m, n2, d, plan);
+  if (err) return err;
+  const dim3 grid((n2 + grad16::ROWS - 1) / grad16::ROWS, m * plan.chunks,
+                  plan.splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // rows of 16-byte multiples: z itself, or its padded copy
+  const int ld = grad16::z_stride(d);
+  if (ld != d) {
+    __nv_bfloat16* zp = reinterpret_cast<__nv_bfloat16*>(part + plan.pad_at);
+    grad16::ntxent_grad_bf16_pad_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
+        z, zp, (size_t)m * n2, d, ld);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    z = zp;
+  }
+  // 2, 4 or 8 chunks: a cluster of a row block's chunk blocks
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(grad16::THREADS);
+  cfg.dynamicSmemBytes = plan.bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = plan.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, Kernels<__nv_bfloat16>::grad_kernel, z, lse, coef, v, dz, part, m,
+      plan.chunks, n2, d, inv_tau, plan.depth, ld));
+  if (err) return err;
+  err = static_cast<int>(cudaGetLastError());
+  if (err || plan.splits == 1) return err;
+  Kernels<__nv_bfloat16>::grad_sum<<<1024, REDUCE_THREADS, 0, s>>>(
       dz, part, (size_t)m * n2 * d, plan.splits - 1);
   return static_cast<int>(cudaGetLastError());
 }
@@ -286,7 +360,7 @@ int ntxent_lse(const float* z, const float* v, float* part, float* lse, int m,
 // first), or a negative CUDA error; if out is not null, writes {feature
 // chunks, ring depth, column splits, blocks per SM} to it.
 long ntxent_grad_plan(int m, int n2, int d, int* out) {
-  return grad_plan_entry<float>(m, n2, d, out);
+  return grad_plan_entry(m, n2, d, out);
 }
 
 // z (m, n2, d), lse and coef (m, n2), v (n2,); writes dz (m, n2, d) in
@@ -308,14 +382,18 @@ int ntxent_lse_bf16(const __nv_bfloat16* z, const float* v, float* part,
   return lse_entry(z, v, part, lse, m, n2, d, inv_tau, stream);
 }
 
+// The bf16 gradient's plan (gram_grad_bf16.cuh): {feature chunks, ring
+// depth, column splits, blocks per SM, rows per block, rows resident,
+// blocks a cluster} to out.
 long ntxent_grad_bf16_plan(int m, int n2, int d, int* out) {
-  return grad_plan_entry<__nv_bfloat16>(m, n2, d, out);
+  return grad_plan_entry_bf16(m, n2, d, out);
 }
 
 int ntxent_grad_bf16(const __nv_bfloat16* z, const float* lse,
                      const float* coef, const float* v, float* dz, float* part,
                      int m, int n2, int d, float inv_tau, void* stream) {
-  return grad_entry(z, lse, coef, v, dz, part, m, n2, d, inv_tau, stream);
+  return grad_entry_bf16(z, lse, coef, v, dz, part, m, n2, d, inv_tau,
+                         stream);
 }
 
 }  // extern "C"

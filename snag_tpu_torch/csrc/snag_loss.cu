@@ -67,17 +67,22 @@
 // block, written as per-block partials and reduced in a fixed order: no
 // atomics, two runs give the same bits.
 //
-// mixture_lse_bf16 and mixture_grad_bf16: the same kernels on bf16 z (the
-// JAX package's bf16 path casts the unit rows to bf16 before both Pallas
-// kernels), their products on the bf16 tensor cores, one m16n8k16
-// mma.sync with fp32 accumulation.  The rounding points are the Pallas
-// kernels' (snag_loss_kernel.py:185-226): lse takes K from the bf16
-// operands in fp32 and all after it in fp32; the gradient builds mix_a and
-// mix_f from that fp32 K, while each modality's own weight W_m, its dalpha
-// term and its dbeta term read K rounded to bf16 (the kernel's K scratch
-// is in z's dtype), and W_tot is rounded to bf16 before W_tot z.  The bound
-// is the flops over the bf16 dense rate, 989 TFLOP/s; tiles, plans and
-// scratch are the fp32 kernels'.
+// mixture_lse_bf16 and mixture_grad_bf16: bf16 z (the JAX package's bf16
+// path casts the unit rows to bf16 before both Pallas kernels), their
+// products on the bf16 tensor cores, one m16n8k16 mma.sync with fp32
+// accumulation.  The rounding points are the Pallas kernels'
+// (snag_loss_kernel.py:185-226): lse takes K from the bf16 operands in
+// fp32 and all after it in fp32; the gradient builds mix_a and mix_f from
+// that fp32 K, while each modality's own weight W_m, its dalpha term and
+// its dbeta term read K rounded to bf16 (the kernel's K scratch is in z's
+// dtype), and W_tot is rounded to bf16 before W_tot z.  The bound is the
+// flops over the bf16 dense rate, 989 TFLOP/s.  mixture_lse_bf16 is the
+// fp32 lse kernel on bf16 operands; mixture_grad_bf16 is
+// gram_grad_bf16.cuh's kernel with MIX = true: a block owns 128 rows of one
+// modality's dz in registers (feature chunks past d = 304), walks every
+// modality's K per 64-column tile for the mixtures, and W_tot never leaves
+// registers.  It has no modality groups and no accumulator cap: its plan
+// is mixture_grad_bf16_plan.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +92,7 @@
 #include <type_traits>
 
 #include "gram_grad.cuh"
+#include "gram_grad_bf16.cuh"
 #include "gram_lse.cuh"
 
 namespace {
@@ -134,7 +140,8 @@ mixture_lse_bf16_sum_kernel(const float* __restrict__ part,
 }
 
 // ------------------------------------------------------------- mixture_grad
-// The kernel is grad::mixture_grad_kernel of gram_grad.cuh.
+// The kernel is grad::mixture_grad_kernel of gram_grad.cuh (bf16:
+// grad16::mixture_grad_bf16_kernel of gram_grad_bf16.cuh).
 
 // dbeta[m] = 1/2 sum_b part[b, m], in a fixed order: one block per m.
 __device__ __forceinline__ void mixture_dbeta(const float* __restrict__ part,
@@ -199,8 +206,7 @@ struct Kernels<__nv_bfloat16> {
   static constexpr auto lse_vec = mixture_lse_bf16_mma_kernel<true>;
   static constexpr auto lse_scalar = mixture_lse_bf16_mma_kernel<false>;
   static constexpr auto lse_sum = mixture_lse_bf16_sum_kernel;
-  static constexpr auto grad_vec = grad::mixture_grad_bf16_kernel<true>;
-  static constexpr auto grad_scalar = grad::mixture_grad_bf16_kernel<false>;
+  static constexpr auto grad_kernel = grad16::mixture_grad_bf16_kernel;
   static constexpr auto dbeta = mixture_dbeta_bf16_kernel;
   static constexpr auto sum = mixture_sum_bf16_kernel;
 };
@@ -262,55 +268,119 @@ int lse_entry(const Op* z, const float* alpha, const float* beta,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Op>
 int grad_plan_of(int m, int mg, int n2, int d, GradPlan& plan) {
-  return grad_plan<true>(reinterpret_cast<const void*>(Kernels<Op>::grad_vec),
+  return grad_plan<true>(reinterpret_cast<const void*>(Kernels<float>::grad_vec),
                          m, mg, n2, d, plan);
 }
 
-template <typename Op>
 long grad_scratch_entry(int m, int mg, int n2, int d) {
   if (check_shape(m, n2, d) || mg < 1 || mg > m)
     return -static_cast<long>(cudaErrorInvalidValue);
   GradPlan plan;
-  const int err = grad_plan_of<Op>(m, mg, n2, d, plan);
+  const int err = grad_plan_of(m, mg, n2, d, plan);
   return err ? -static_cast<long>(err) : static_cast<long>(plan.scratch);
 }
 
+// dalpha and dz += the column splits' partials, then dbeta from the
+// per-block partials (nb row blocks), each in a fixed order.
 template <typename Op>
-int grad_entry(const Op* z, const float* alpha, const float* beta,
+int sum_splits(float* dz, float* dalpha, float* dbeta, float* part, int m,
+               int n2, int d, int nb, int splits, cudaStream_t s) {
+  if (splits > 1) {
+    const size_t parts = (size_t)splits * nb * m;
+    const size_t n_da = (size_t)n2 * m, n_dz = (size_t)m * n2 * d;
+    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
+        dalpha, part + parts, n_da, splits - 1);
+    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
+        dz, part + parts + (splits - 1) * n_da, n_dz, splits - 1);
+  }
+  Kernels<Op>::dbeta<<<m, REDUCE_THREADS, 0, s>>>(part, dbeta, splits * nb, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int grad_entry(const float* z, const float* alpha, const float* beta,
                const float* lse, const float* coef, const float* v, float* dz,
                float* dalpha, float* dbeta, float* part, int m, int mg, int n2,
                int d, float inv_tau, void* stream) {
   if (check_shape(m, n2, d) || mg < 1 || mg > m)
     return static_cast<int>(cudaErrorInvalidValue);
   GradPlan plan;
-  int err = grad_plan_of<Op>(m, mg, n2, d, plan);
+  int err = grad_plan_of(m, mg, n2, d, plan);
   if (err) return err;
   const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
   const dim3 grid(nb, (m + mg - 1) / mg, plan.splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    Kernels<Op>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
+    Kernels<float>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
         z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
         plan.depth);
   else
-    Kernels<Op>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
+    Kernels<float>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
         z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
         plan.depth);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  if (plan.splits > 1) {
-    const size_t parts = (size_t)plan.splits * nb * m;
-    const size_t n_da = (size_t)n2 * m, n_dz = (size_t)m * n2 * d;
-    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
-        dalpha, part + parts, n_da, plan.splits - 1);
-    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
-        dz, part + parts + (plan.splits - 1) * n_da, n_dz, plan.splits - 1);
+  return sum_splits<float>(dz, dalpha, dbeta, part, m, n2, d, nb, plan.splits,
+                           s);
+}
+
+// Lets the bf16 gradient kernel take all the shared memory a block may opt
+// in to on the current device, then plans a launch (gram_grad_bf16.cuh).
+int grad_plan_bf16(int m, int n2, int d, grad16::Plan& plan) {
+  int dev = 0, optin = 0;
+  const void* kernel = reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::grad_kernel);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return grad16::plan<true>(kernel, m, n2, d, plan);
+}
+
+int grad_entry_bf16(const __nv_bfloat16* z, const float* alpha,
+                    const float* beta, const float* lse, const float* coef,
+                    const float* v, float* dz, float* dalpha, float* dbeta,
+                    float* part, int m, int n2, int d, float inv_tau,
+                    void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  grad16::Plan plan;
+  int err = grad_plan_bf16(m, n2, d, plan);
+  if (err) return err;
+  const int nb = (n2 + grad16::ROWS - 1) / grad16::ROWS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // rows of 16-byte multiples: z itself, or its padded copy
+  const int ld = grad16::z_stride(d);
+  if (ld != d) {
+    __nv_bfloat16* zp = reinterpret_cast<__nv_bfloat16*>(part + plan.pad_at);
+    grad16::mixture_grad_bf16_pad_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
+        z, zp, (size_t)m * n2, d, ld);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    z = zp;
   }
-  Kernels<Op>::dbeta<<<m, REDUCE_THREADS, 0, s>>>(part, dbeta,
-                                                  plan.splits * nb, m);
-  return static_cast<int>(cudaGetLastError());
+  // a cluster of the m modality blocks of each row block, chunk and split
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nb, m * plan.chunks, plan.splits);
+  cfg.blockDim = dim3(grad16::THREADS);
+  cfg.dynamicSmemBytes = plan.bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = m;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, Kernels<__nv_bfloat16>::grad_kernel, z, alpha, beta, lse, coef, v,
+      dz, dalpha, part, m, plan.chunks, n2, d, inv_tau, plan.depth, ld));
+  if (err) return err;
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return sum_splits<__nv_bfloat16>(dz, dalpha, dbeta, part, m, n2, d, nb,
+                                   plan.splits, s);
 }
 
 }  // namespace
@@ -338,9 +408,9 @@ int mixture_lse(const float* z, const float* alpha, const float* beta,
   return lse_entry(z, alpha, beta, v, part, lse, m, n2, d, inv_tau, stream);
 }
 
-// Once per device, before the first mixture_grad on it: lets the gradient
-// kernels (fp32 and bf16) take all the shared memory a block may opt in
-// to, and returns the largest (modalities per block) x (d rounded up to a
+// Once per device, before the first mixture_grad on it: lets the fp32
+// gradient kernels take all the shared memory a block may opt in to, and
+// returns the largest (modalities per block) x (d rounded up to a
 // multiple of 8) its row accumulator then holds, or a negative CUDA error.
 int mixture_grad_init(void) {
   int dev = 0, optin = 0;
@@ -349,9 +419,7 @@ int mixture_grad_init(void) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const void* kernels[] = {
       reinterpret_cast<const void*>(Kernels<float>::grad_vec),
-      reinterpret_cast<const void*>(Kernels<float>::grad_scalar),
-      reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::grad_vec),
-      reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::grad_scalar)};
+      reinterpret_cast<const void*>(Kernels<float>::grad_scalar)};
   for (const void* k : kernels)
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -365,7 +433,7 @@ int mixture_grad_init(void) {
 // dbeta partials, and the dalpha and dz partials of the column splits past
 // the first), or a negative CUDA error.  Call after mixture_grad_init.
 long mixture_grad_scratch(int m, int mg, int n2, int d) {
-  return grad_scratch_entry<float>(m, mg, n2, d);
+  return grad_scratch_entry(m, mg, n2, d);
 }
 
 // z, alpha, beta, v as for mixture_lse; lse and coef (m + 2, n2); writes
@@ -394,17 +462,38 @@ int mixture_lse_bf16(const __nv_bfloat16* z, const float* alpha,
   return lse_entry(z, alpha, beta, v, part, lse, m, n2, d, inv_tau, stream);
 }
 
-long mixture_grad_bf16_scratch(int m, int mg, int n2, int d) {
-  return grad_scratch_entry<__nv_bfloat16>(m, mg, n2, d);
+// How mixture_grad_bf16 runs at this shape on the current device: returns
+// the floats of scratch it needs (per-block dbeta partials, and the
+// dalpha and dz partials of the column splits past the first), or a
+// negative CUDA error; if out is not null, writes {feature chunks, ring
+// depth, column splits, blocks per SM, rows per block, rows resident,
+// blocks a cluster} to it.  Every modality and any d: no init, no modality groups.
+long mixture_grad_bf16_plan(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  grad16::Plan plan;
+  const int err = grad_plan_bf16(m, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.chunks;
+    out[1] = plan.depth;
+    out[2] = plan.splits;
+    out[3] = plan.per_sm;
+    out[4] = plan.rows;
+    out[5] = plan.resident;
+    out[6] = plan.cluster;
+  }
+  return static_cast<long>(plan.scratch);
 }
 
+// As mixture_grad on bf16 z, without modality groups; part holds
+// mixture_grad_bf16_plan floats.
 int mixture_grad_bf16(const __nv_bfloat16* z, const float* alpha,
                       const float* beta, const float* lse, const float* coef,
                       const float* v, float* dz, float* dalpha, float* dbeta,
-                      float* part, int m, int mg, int n2, int d, float inv_tau,
+                      float* part, int m, int n2, int d, float inv_tau,
                       void* stream) {
-  return grad_entry(z, alpha, beta, lse, coef, v, dz, dalpha, dbeta, part, m,
-                    mg, n2, d, inv_tau, stream);
+  return grad_entry_bf16(z, alpha, beta, lse, coef, v, dz, dalpha, dbeta,
+                         part, m, n2, d, inv_tau, stream);
 }
 
 }  // extern "C"

@@ -133,3 +133,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy of it where its data does not start on a
+    16-byte boundary (kernels that stage rows by 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -31,9 +31,11 @@ Twins: ``streaming_lse_twin`` and ``ntxent_grad_twin``, the same formulas
 on the dense (M, 2B, 2B) matrix.
 
 bf16: a bf16 z (the JAX package's matmul dtype under ``--dtype bfloat16``,
-contrastive.py:364-366) takes ``ntxent_lse_bf16`` and ``ntxent_grad_bf16``,
-the same kernels with their products on the bf16 tensor cores, counted
-apart (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The rounding points are
+contrastive.py:364-366) takes ``ntxent_lse_bf16``, the lse kernel with its
+products on the bf16 tensor cores, and ``ntxent_grad_bf16``, the gradient
+kernel built for bf16 (``csrc/gram_grad_bf16.cuh``: 128-row blocks, W and
+dz in registers, the rows resident up to d = 304), counted apart
+(``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The rounding points are
 the Pallas kernels': S from the bf16 operands in f32 (their products are
 exact), everything after it f32, and the gradient's W rounded to bf16
 before W z (ntxent_kernel.py:157); lse and dz are f32.
@@ -54,9 +56,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
-                                          load_library, ptr, require,
-                                          stream_of)
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, aligned16, check,
+                                          dtype_suffix, load_library, ptr,
+                                          require, stream_of)
 
 STATS_LSE = KernelStats("ntxent_lse")
 STATS_GRAD = KernelStats("ntxent_grad")
@@ -76,6 +78,10 @@ def stack(zis: torch.Tensor, zjs: torch.Tensor,
 
 
 KSLICE = 16     # the bf16 kernels' k16 steps (mma.sync m16n8k16)
+# the bf16 gradients' W z (csrc/gram_grad_bf16.cuh): a column tile's
+# WZ_COLS / KSLICE k16 slices accumulate from zero in one mma.sync
+# accumulator, and each tile's sum is added in f32 in column order
+WZ_COLS = 64
 
 
 def gram(z: torch.Tensor) -> torch.Tensor:
@@ -175,20 +181,28 @@ def lse_plan(m: int, n2: int, d: int, device: torch.device,
     return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
 
 
+GRAD_PLAN = ("chunks", "depth", "splits", "blocks_per_sm")
+# the bf16 gradient's plan also says how many rows a block owns, whether
+# they stay resident in shared memory and how many blocks form a cluster
+# (csrc/gram_grad_bf16.cuh)
+GRAD_PLAN_BF16 = GRAD_PLAN + ("rows", "resident", "cluster")
+
+
 def grad_plan(m: int, n2: int, d: int, device: torch.device,
               dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """How ``ntxent_grad`` (``ntxent_grad_bf16`` for a bf16 ``dtype``) runs
     at (m, n2, d) on ``device``: its feature chunks, ring depth, column
-    splits, blocks per SM and floats of scratch."""
+    splits, blocks per SM, floats of scratch and, for bf16, rows per block,
+    whether they stay resident and blocks a cluster."""
     built = _library()
     name = f"ntxent_grad{_suffix(dtype)}_plan"
-    out = (ctypes.c_int * 4)()
+    keys = GRAD_PLAN_BF16 if dtype == torch.bfloat16 else GRAD_PLAN
+    out = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         floats = getattr(built.lib, name)(m, n2, d, out)
     if floats < 0:
         check(built, -floats, name)
-    return dict(zip(("chunks", "depth", "splits", "blocks_per_sm"), out),
-                scratch=floats)
+    return dict(zip(keys, out), scratch=floats)
 
 
 def _check_z(z: torch.Tensor, v: torch.Tensor):
@@ -233,6 +247,8 @@ def ntxent_grad_cuda(z: torch.Tensor, lse: torch.Tensor, coef: torch.Tensor,
     require(coef, "coef", torch.float32, (m, n2), z.device)
     built = _library()
     stats = STATS_GRAD_BF16 if z.dtype == torch.bfloat16 else STATS_GRAD
+    if z.dtype == torch.bfloat16:
+        z = aligned16(z)
     plan = grad_plan(m, n2, d, z.device, z.dtype)
     with torch.cuda.device(z.device):
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)

@@ -38,9 +38,15 @@ on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
 (snag_tpu/losses/contrastive.py:390-408).
 
 bf16: a bf16 z (the JAX package's matmul dtype under ``--dtype bfloat16``,
-snag.py:86-87, 168-170) takes ``mixture_lse_bf16`` and
-``mixture_grad_bf16``, the same kernels with their products on the bf16
-tensor cores, counted apart (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).
+snag.py:86-87, 168-170) takes ``mixture_lse_bf16``, the lse kernel with
+its products on the bf16 tensor cores, and ``mixture_grad_bf16``, the
+gradient kernel built for bf16 (``csrc/gram_grad_bf16.cuh``: a block owns
+128 rows of one modality's dz in registers, in feature chunks past
+d = 304, and the M blocks of a row block form a cluster that shares each
+modality's K tile for the mixtures), counted apart
+(``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The bf16 gradient has no
+modality groups and no accumulator cap; ``grad_plan_bf16`` says how it
+runs.
 The rounding points are the Pallas kernels' (snag_loss_kernel.py:185-226):
 K from the bf16 operands in f32; mix_a and mix_f from that f32 K; each
 modality's own weight W_m, its dalpha term and its dbeta term from K
@@ -58,10 +64,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
-                                          load_library, ptr, require,
-                                          stream_of)
-from snag_tpu_torch.ops.cuda.ntxent import gram
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, aligned16, check,
+                                          dtype_suffix, load_library, ptr,
+                                          require, stream_of)
+from snag_tpu_torch.ops.cuda.ntxent import GRAD_PLAN_BF16, gram
 
 STATS_LSE = KernelStats("mixture_lse")
 STATS_GRAD = KernelStats("mixture_grad")
@@ -147,13 +153,17 @@ def _library():
             fn = getattr(lib, f"mixture_lse{sfx}_plan")
             fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_long
+            # the bf16 gradient takes no modality group
             fn = getattr(lib, f"mixture_grad{sfx}")
             fn.argtypes = [ctypes.c_void_p] * 10 \
-                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+                + [ctypes.c_int] * (3 if sfx else 4) \
+                + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            fn = getattr(lib, f"mixture_grad{sfx}_scratch")
-            fn.argtypes = [ctypes.c_int] * 4
-            fn.restype = ctypes.c_long
+        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 4
+        lib.mixture_grad_scratch.restype = ctypes.c_long
+        lib.mixture_grad_bf16_plan.argtypes = [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        lib.mixture_grad_bf16_plan.restype = ctypes.c_long
         lib.mixture_grad_init.argtypes = []
         lib.mixture_grad_init.restype = ctypes.c_int
     return built
@@ -178,8 +188,23 @@ def lse_plan(m: int, n2: int, d: int, device: torch.device,
     return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
 
 
+def grad_plan_bf16(m: int, n2: int, d: int,
+                   device: torch.device) -> Dict[str, int]:
+    """How ``mixture_grad_bf16`` runs at (m, n2, d) on ``device``: its
+    feature chunks, ring depth, column splits, blocks per SM, rows per
+    block, whether they stay resident, blocks a cluster (M: the modalities
+    of a row block) and floats of scratch."""
+    built = _library()
+    out = (ctypes.c_int * len(GRAD_PLAN_BF16))()
+    with torch.cuda.device(device):
+        floats = built.lib.mixture_grad_bf16_plan(m, n2, d, out)
+    if floats < 0:
+        check(built, -floats, "mixture_grad_bf16_plan")
+    return dict(zip(GRAD_PLAN_BF16, out), scratch=floats)
+
+
 def _grad_cap(built, device: torch.device) -> int:
-    """The largest (modalities per block) x d of the gradient kernel's
+    """The largest (modalities per block) x d of the fp32 gradient kernel's
     shared row accumulator on ``device``, set up there at the first call."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -192,7 +217,7 @@ def _grad_cap(built, device: torch.device) -> int:
 
 
 def modality_group(m: int, d: int, cap: int) -> int:
-    """Modalities per block of the gradient kernel: as few groups as the
+    """Modalities per block of the fp32 gradient kernel: as few groups as the
     accumulator (``cap`` columns, d rounded up to its feature tiles) allows,
     of balanced size."""
     most = min(m, cap // (-(-d // FEATURE_TILE) * FEATURE_TILE))
@@ -251,20 +276,26 @@ def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
     require(lse, "lse", torch.float32, (m + 2, n2), z.device)
     require(coef, "coef", torch.float32, (m + 2, n2), z.device)
     built = _library()
-    stats = STATS_GRAD_BF16 if z.dtype == torch.bfloat16 else STATS_GRAD
+    bf16 = z.dtype == torch.bfloat16
+    stats = STATS_GRAD_BF16 if bf16 else STATS_GRAD
     with torch.cuda.device(z.device):
-        mg = modality_group(m, d, _grad_cap(built, z.device))
+        if bf16:
+            z = aligned16(z)
+            floats = grad_plan_bf16(m, n2, d, z.device)["scratch"]
+            shape = (m, n2, d)
+        else:
+            mg = modality_group(m, d, _grad_cap(built, z.device))
+            floats = built.lib.mixture_grad_scratch(m, mg, n2, d)
+            if floats < 0:
+                check(built, -floats, "mixture_grad_scratch")
+            shape = (m, mg, n2, d)
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         dalpha = torch.empty(n2, m, dtype=torch.float32, device=z.device)
         dbeta = torch.empty(m, dtype=torch.float32, device=z.device)
-        name = f"{stats.name}_scratch"
-        floats = getattr(built.lib, name)(m, mg, n2, d)
-        if floats < 0:
-            check(built, -floats, name)
         part = torch.empty(floats, dtype=torch.float32, device=z.device)
         err = getattr(built.lib, stats.name)(
             ptr(z), ptr(alpha), ptr(beta), ptr(lse), ptr(coef), ptr(v),
-            ptr(dz), ptr(dalpha), ptr(dbeta), ptr(part), m, mg, n2, d,
+            ptr(dz), ptr(dalpha), ptr(dbeta), ptr(part), *shape,
             1.0 / tau, stream_of(z))
     check(built, err, stats.name)
     stats.launches += 1

@@ -426,17 +426,20 @@ def mm_k16(a, b):
 
 
 def mm_wz(w, z):
-    """(M, R, n2) x (M, n2, d) the way the gradient kernel takes W z: per
-    64-column tile, its four k16 slices accumulate in one m16n8k16
-    accumulator (truncating), and each tile's sum is added in f32."""
+    """(M, R, n2) x (M, n2, d) the way the bf16 gradient kernels take W z
+    (csrc/gram_grad_bf16.cuh: W in registers as the A fragments of a
+    warp's 16-row strip): per column tile of ``WZ_COLS`` = 64, its four k16
+    slices accumulate in one m16n8k16 accumulator from zero (truncating),
+    and each tile's sum is added in f32, in column order."""
+    cols, ks = tnx.WZ_COLS, tnx.KSLICE
     out = np.zeros((w.shape[0], w.shape[1], z.shape[2]), np.float32)
-    for c0 in range(0, w.shape[2], 64):
+    for c0 in range(0, w.shape[2], cols):
         part = np.zeros(out.shape, np.float32)
-        for k0 in range(c0, min(c0 + 64, w.shape[2]), 16):
+        for k0 in range(c0, min(c0 + cols, w.shape[2]), ks):
             part = _round_to_zero_f32(
                 part.astype(np.float64)
-                + np.matmul(w[:, :, k0:k0 + 16].astype(np.float64),
-                            z[:, k0:k0 + 16, :].astype(np.float64)))
+                + np.matmul(w[:, :, k0:k0 + ks].astype(np.float64),
+                            z[:, k0:k0 + ks, :].astype(np.float64)))
         out = (out + part).astype(np.float32)
     return out
 
@@ -453,11 +456,13 @@ def _round_bf16(x):
 @pytest.mark.parametrize("m,b,d", [(4, 48, 300), (6, 40, 64), (2, 100, 1800)])
 def test_bf16_mma_schedule_is_far_inside_the_card_limit(m, b, d):
     """K = z z^T (both lse kernels and both gradients: k16 slices from zero,
-    truncated, added in f32) and W z (the gradients: a column tile's four
-    k16 slices in one accumulator, the tiles added in f32) on bf16
+    truncated, added in f32) and W z (the gradients: a 64-column tile's
+    four k16 slices in one accumulator, the tiles added in f32) on bf16
     operands, against f64 products of the same operands: within 1e-5 x
     max, 400x inside the card's 4e-3 limit, so that the limit measures the
-    kernels' bf16 rounding points, not their accumulation."""
+    kernels' bf16 rounding points, not their accumulation.  The gradient
+    kernels' whole order of adds, column splits included, is
+    tests/test_torch_grad_bf16_schedule.py's."""
     rng = np.random.default_rng(m * b)
     z = _unit(rng, m, 2 * b, d)
     z[:, b:] = z[:, :b] + 0.5 * z[:, b:]

@@ -645,12 +645,27 @@ def test_gat_bf16_autograd_and_refusals(dev):
         ts.weighted_segment_sum(x.to(torch.bfloat16), g.w[:, None], g)
 
 
+# the bf16 gradient's tiles (gram_grad_bf16.cuh): 128 rows a block, 64
+# columns a tile, 38 n8 feature tiles a chunk (304 features), K slabs of
+# 128 features where the rows stream.  2B = 194, 200, 66: neither a multiple
+# of the row nor of the column tile, 2B = 128 one row block; d = 304 the
+# widest resident run, 296 an odd number of feature tiles, 305 the first
+# of two chunks, 1,200 and 1,800 four and eight chunks in a cluster that
+# splits K's rows, 2,440 nine chunks that stream their rows; z padded to
+# 16-byte rows where d % 8 != 0 (d = 37, 300, 305, 1,204); every case has
+# an all-zero row
 @pytest.mark.parametrize("m,b,d,n_valid", [(2, 9, 8, 9), (3, 130, 48, 100),
                                            (4, 257, 300, 257),
                                            (1, 70, 1200, 64),
                                            (2, 300, 1800, 290),
                                            (4, 75, 37, 70),
-                                           (1, 3500, 1200, 3500)])
+                                           (1, 3500, 1200, 3500),
+                                           (2, 97, 304, 97),
+                                           (3, 64, 296, 60),
+                                           (1, 100, 305, 100),
+                                           (2, 33, 1204, 33),
+                                           (1, 40, 2440, 40),
+                                           (1, 3500, 300, 1000)])
 def test_ntxent_bf16_kernels_match_twins(dev, m, b, d, n_valid):
     z, v, coef = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
     z = z.to(torch.bfloat16)
@@ -667,10 +682,39 @@ def test_ntxent_bf16_kernels_match_twins(dev, m, b, d, n_valid):
     assert torch.equal(lse, again[0]) and torch.equal(dz, again[1])
 
 
+def test_ntxent_bf16_grad_plan(dev):
+    """128 rows a block; one chunk with the rows resident up to d = 304;
+    past it 2, 4 or 8 balanced chunks of at most 38 feature tiles whose
+    blocks form a cluster that splits K's rows, past 8 x 304 features
+    chunks that stream their rows; at the IIR shape 220 blocks of one an
+    SM, three splits (five full waves on 132 SMs)."""
+    bf = torch.bfloat16
+    iir = nx.grad_plan(4, 7000, 300, dev, bf)
+    assert (iir["chunks"], iir["rows"], iir["resident"], iir["cluster"],
+            iir["blocks_per_sm"]) == (1, 128, 1, 1, 1), iir
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert iir["splits"] == 3, iir
+    # the splits' partials, then z padded to rows of 304 (d % 8 != 0)
+    assert iir["scratch"] == (iir["splits"] - 1) * 4 * 7000 * 300 \
+        + 4 * 7000 * 304 // 2
+    for d, chunks, cluster in ((8, 1, 1), (304, 1, 1), (305, 2, 2),
+                               (608, 2, 2), (609, 4, 4), (1200, 4, 4),
+                               (1800, 8, 8), (2440, 9, 1)):
+        p = nx.grad_plan(2, 7000, d, dev, bf)
+        assert (p["chunks"], p["resident"], p["cluster"]) == (
+            chunks, int(chunks == 1), cluster), p
+        assert p["depth"] >= 2 and p["rows"] == 128
+
+
 @pytest.mark.parametrize("m,b,d,n_valid", [(1, 9, 8, 9), (4, 130, 48, 100),
                                            (4, 257, 300, 257),
                                            (6, 70, 300, 64), (4, 75, 37, 70),
-                                           (6, 100, 300, 100)])
+                                           (6, 100, 300, 100),
+                                           (4, 64, 304, 64),
+                                           (3, 97, 305, 90),
+                                           (1, 500, 1200, 500),
+                                           (2, 40, 1800, 40),
+                                           (6, 33, 1204, 33)])
 def test_mixture_bf16_kernels_match_twins(dev, m, b, d, n_valid):
     z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, n_valid, seed=b)
     z = z.to(torch.bfloat16)
@@ -687,3 +731,30 @@ def test_mixture_bf16_kernels_match_twins(dev, m, b, d, n_valid):
                                   coef, v, 0.1))
     for a, w in zip(got, again):
         assert torch.equal(a, w)
+
+
+def test_mixture_bf16_grad_has_no_cap(dev):
+    """The fp32 gradient holds (modalities per block) x d within its shared
+    accumulator's cap (test_mixture_wrappers_refuse_what_the_kernels_do_
+    not_take); the bf16 one keeps one modality's dz in registers, in
+    feature chunks, so it takes every M and d: past the fp32 cap at M = 1,
+    and M = 6 at d = 1,800 in one group.  Its rows stay resident in one
+    chunk, as NT-Xent's do (the cluster shares each modality's K)."""
+    bf = torch.bfloat16
+    p = sl.grad_plan_bf16(4, 7000, 300, dev)
+    assert (p["chunks"], p["rows"], p["resident"], p["cluster"]) == (
+        1, 128, 1, 4), p
+    assert sl.grad_plan_bf16(6, 7000, 1800, dev)["chunks"] == 6
+    cap = sl._grad_cap(sl._library(), dev)
+    d = cap + 8
+    assert sl.grad_plan_bf16(1, 40, d, dev)["chunks"] == -(-d // 304)
+    z, alpha, beta, v, coef = _mixture_inputs(dev, 1, 20, d, 20, seed=3)
+    z = z.to(bf)
+    coef = coef / 20
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, on_cpu(sl.mixture_grad_twin, z, alpha, beta, lse,
+                                  coef, v, 0.1))
+    with pytest.raises(ValueError, match="exceeds"):
+        sl.mixture_grad_cuda(z.float(), alpha, beta, lse, coef, v, 0.1)

@@ -38,9 +38,10 @@ the exit code is non-zero:
    the weighted segment sum (a warp per CSR row too) the forward on the
    GCN's adjacency and the backward's launch on ``w_rev``, each with a
    bitwise repeat and its gathered GB/s, its registers and spills, and
-   ``torch.sparse.mm`` as the library yardstick; then the six bf16 entries
+   ``torch.sparse.mm`` as the library yardstick; then the seven bf16 entries
    (``--dtype bfloat16``: both GAT kernels, the NT-Xent and mixture lse and
-   gradients, on bf16 operands; both gradients on their own kernel,
+   gradients, the weighted segment sum, on bf16 operands; both gradients on
+   their own kernel,
    ``csrc/gram_grad_bf16.cuh``, whose plans, registers and spills it
    prints) against their bf16 twins on CPU copies at
    the main path's shapes (the GAT inputs above rounded to bf16, NT-Xent
@@ -49,7 +50,13 @@ the exit code is non-zero:
    bound at the bf16 dense rate of 989 TFLOP/s; the NT-Xent kernels also
    at the other families' shapes (M = 1: MEAformer's joint loss at
    d = 1,200, f32 and bf16; an MCLEA modality's padded last batch at
-   d = 300) and both rank sweeps also at MCLEA's 300-wide joint;
+   d = 300) and both rank sweeps also at MCLEA's 300-wide joint; the bf16
+   segment sum (``segment_bf16``) on the bench graph's bf16 adjacency, its
+   forward and its backward's reverse-edge launch with each term rounded
+   to bf16, against the twin on CPU copies within 4e-3 x max |twin| (and
+   rtol = atol = 1e-5: its f32 outputs add terms both sides form alike),
+   with bitwise repeats, its registers and spills, gathered GB/s, and
+   ``torch.sparse.mm`` on the bf16 CSR adjacency where cuSPARSE takes it;
 4. a small input through the port on the GPU and on the CPU (twins):
    embeddings and ranks must agree; then three deterministic train steps
    from the same init, with the fused loss, without it, and with the GCN
@@ -70,7 +77,9 @@ the exit code is non-zero:
    the f32 one) and bf16 serving from a seeded init (``slice_bf16``);
 7. the GCN encoder (``--structure_encoder gcn``) at the same geometry:
    serving, then 6 training epochs; the segment sum, mixture, NT-Xent and
-   rank kernels must have launched and the GAT kernels not;
+   rank kernels must have launched and the GAT kernels not; then the same
+   with ``--dtype bfloat16`` (``gcn_bf16``): exactly the bf16 segment sum,
+   the four bf16 loss entries and the two f32 rank sweeps launch;
 8. the other families through ``main`` at the bench geometry with
    ``--model_name`` switched (``phase_families``): EVA (its GCN; serving
    from a seeded init, then 10 epochs with IL from epoch 2, promotion at
@@ -169,6 +178,7 @@ DEVICE_KERNELS = {
     "mixture_grad": ("mixture_grad", "mixture_dbeta", "mixture_sum"),
     "weighted_segment_sum": ("weighted_segment_sum",),
     # the bf16 entries (--dtype bfloat16), named apart: "<f32 name>_bf16"
+    "weighted_segment_sum_bf16": ("weighted_segment_sum_bf16",),
     "gat_attention_fwd_bf16": ("gat_attention_fwd_bf16",),
     "gat_bwd_bf16": ("gat_bwd_bf16",),
     "ntxent_lse_bf16": ("ntxent_lse_bf16",),
@@ -180,9 +190,14 @@ DEVICE_KERNELS = {
 SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
 GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
 SEGMENT_KERNEL = "weighted_segment_sum"
+SEGMENT_BF16 = "weighted_segment_sum_bf16"
+# the bf16 entries of the GAT configuration's path
 BF16_KERNELS = {"gat_attention_fwd_bf16", "gat_bwd_bf16", "ntxent_lse_bf16",
                 "ntxent_grad_bf16", "mixture_lse_bf16", "mixture_grad_bf16"}
 RANK_KERNELS = {"rank_topk_mean", "rank_counts"}
+# the bf16 GCN's: its segment sum, the four loss entries, the f32 rank sweeps
+GCN_BF16_KERNELS = ({SEGMENT_BF16} | BF16_KERNELS | RANK_KERNELS) - {
+    "gat_attention_fwd_bf16", "gat_bwd_bf16"}
 BF16 = ["--dtype", "bfloat16"]
 # the MCLEA and MEAformer presets' temperatures (scripts/run_mclea.sh,
 # run_meaformer.sh)
@@ -1255,6 +1270,99 @@ def phase_segment(graph_np):
                library)
 
 
+def segment_bf16_ptxas(lib):
+    """(label, registers, spill store bytes, spill load bytes) of
+    ``weighted_segment_sum_bf16_kernel<HB, VEC, G, ROUND_TERM>`` at C = 300,
+    one head, forward and ``round_term``, at <1, 1, 4> (single bf16) and
+    <4, 4, 4> (the most registers)."""
+    out = []
+    for hb, vec, g, rt in ((1, 4, 3, 0), (1, 4, 3, 1), (1, 1, 4, 0),
+                           (4, 4, 4, 1)):
+        pattern = (f"weighted_segment_sum_bf16_kernelILi{hb}ELi{vec}ELi{g}"
+                   f"ELb{rt}E")
+        for _, regs, st, ld in kernel_ptxas(lib, (pattern,)):
+            out.append((f"weighted_segment_sum_bf16_kernel<{hb},{vec},{g},"
+                        f"{'true' if rt else 'false'}>", regs, st, ld))
+    return out
+
+
+def segment_bf16_inputs(graph_np):
+    """``segment_inputs`` at C = 300, H = 1 in bf16: (graph, x, e, e[rev],
+    g_agg) with e the bf16 adjacency ``w_bf16`` and e[rev] ``w_rev_bf16``,
+    which the bf16 GCN's forward and backward take."""
+    import torch
+    g, x, e, e_rev, g_agg = segment_inputs(graph_np)
+    bf = torch.bfloat16
+    if not (torch.equal(g.w_bf16[:, None], e.to(bf))
+            and torch.equal(g.w_rev_bf16[:, None], e_rev.to(bf))):
+        raise AssertionError("DeviceGraph.w_bf16 or w_rev_bf16 differs from "
+                             "w or w[rev] rounded to bf16")
+    return g, x.to(bf), g.w_bf16[:, None], g.w_rev_bf16[:, None], g_agg.to(bf)
+
+
+def phase_segment_bf16(graph_np):
+    """The bf16 entry at the bench graph with the bf16 GCN's weights
+    (H = 1): the forward and the backward's reverse-edge launch (on
+    ``w_rev_bf16``, each term rounded to bf16) against the twin on CPU
+    copies, within ``BF16_TOL`` x max |twin| and rtol = atol = 1e-5 (f32
+    outputs of terms both sides form alike), each with a bitwise repeat;
+    registers and spills, the GB/s of the bf16 x rows it gathers (E C 2
+    bytes over its device time), and ``torch.sparse.mm`` on the bf16 CSR
+    adjacency as the library yardstick where cuSPARSE takes bf16."""
+    import torch
+    from snag_tpu_torch.ops.cuda import tile_segment as ts
+    for name, regs, st, ld in segment_bf16_ptxas(ts._library()):
+        say("segment_bf16", f"ptxas {name}: {regs} registers, spill stores "
+            f"{st} B, loads {ld} B")
+    g, x, e, e_rev, g_agg = segment_bf16_inputs(graph_np)
+    (n, c), m_e = x.shape, g.n_edges
+    names = DEVICE_KERNELS[ts.STATS_BF16.name]
+
+    def fwd():
+        return ts.weighted_segment_sum_cuda(x, e, g)
+
+    def bwd():
+        return ts.weighted_segment_sum_cuda(g_agg, e_rev, g, round_term=True)
+
+    def twin_bwd(*args):
+        return ts.weighted_segment_sum_twin(*args, round_term=True)
+    got = repeat_bitwise(fwd, "segment_bf16 forward")
+    got_bwd = repeat_bitwise(bwd, "segment_bf16 backward launch")
+    want = on_cpu(ts.weighted_segment_sum_twin, x, e, g)
+    want_bwd = on_cpu(twin_bwd, g_agg, e_rev, g)
+    errs = bf16_errors("weighted_segment_sum_bf16", [*got, got_bwd[0]],
+                       [*want, want_bwd[0]])
+    for a, w in zip((*got, got_bwd[0]), (*want, want_bwd[0])):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    ms, ms_bwd = median_ms(fwd), median_ms(bwd)
+    dev, dev_bwd = device_ms(fwd, names), device_ms(bwd, names)
+    plain = median_ms(lambda: ts.weighted_segment_sum_twin(x, e, g))
+    adj = torch.sparse_csr_tensor(g.row_ptr, g.col, g.w_bf16, (n, n))
+    try:
+        lib_out = torch.sparse.mm(adj, x)
+        lib_err = (lib_out.float() - want[0][:, 0]).abs().max().item()
+        library = median_ms(lambda: torch.sparse.mm(adj, x))
+        lib_text = (f"torch.sparse.mm (bf16 CSR) {library:.4f} ms, max|err| "
+                    f"{lib_err:.3e} (its output is bf16)")
+    except (RuntimeError, NotImplementedError) as err:
+        library = None
+        lib_text = (f"torch.sparse.mm on the bf16 CSR adjacency raised: "
+                    f"{str(err).splitlines()[0][:160]}")
+    plan = ts.launch_plan(c, 1, 4)
+    say("segment_bf16", f"N={n} E={m_e} C={c} H=1: max|err| agg "
+        f"{errs[0]:.3e} rowsum {errs[1]:.3e} backward launch {errs[2]:.3e} "
+        f"(limit {BF16_TOL} x max|twin|; rtol=atol=1e-5 held), bitwise "
+        f"repeats | plan {plan} | kernel {ms:.4f} ms, device {dev:.4f} ms "
+        f"({m_e * c * 2 / dev / 1e6:.1f} GB/s of bf16 x rows gathered) | "
+        f"backward launch {ms_bwd:.4f} ms, device {dev_bwd:.4f} ms "
+        f"({m_e * c * 2 / dev_bwd / 1e6:.1f} GB/s) | twin {plain:.4f} ms | "
+        f"{lib_text}")
+    # x, e, row_ptr, col read once; agg and rowsum written once
+    nbytes = 2 * n * c + 2 * m_e + 4 * (n + 1) + 4 * m_e + 4 * n * c + 4 * n
+    return row(ts.STATS_BF16.name, max(errs), ms, dev, plain, nbytes,
+               2 * m_e * c, library)
+
+
 def phase_small():
     """A small input through the port on the GPU and on the CPU (twins)."""
     import numpy as np
@@ -1520,7 +1628,7 @@ def _train(phase, argv, expected, promotion, check=None):
 
 def f32_kernels():
     from snag_tpu_torch.ops import cuda as kernels
-    return set(kernels.all_stats()) - BF16_KERNELS
+    return set(kernels.all_stats()) - BF16_KERNELS - {SEGMENT_BF16}
 
 
 def phase_train():
@@ -1560,6 +1668,22 @@ def phase_gcn(data):
                     {SEGMENT_KERNEL, "rank_topk_mean", "rank_counts"})
     trained = _train("gcn_train", args + GCN_TRAIN_ARGS,
                      f32_kernels() - GAT_KERNELS, promotion=False)
+    return {k: served[k] + trained[k] for k in served}
+
+
+def phase_gcn_bf16(data):
+    """The GCN encoder in bf16 at the bench geometry: serving from a seeded
+    init (the bf16 segment sum and the f32 rank sweeps), then 6 training
+    epochs (``GCN_BF16_KERNELS``): no GAT kernel, no f32 segment sum, no
+    twin."""
+    args = gcn_args(BENCH_ARGS) + BF16
+    pkl = _seeded_checkpoint(args, data, "seeded_init_gcn_bf16.pkl")
+    served = _serve("gcn_bf16_serve", args, pkl, {SEGMENT_BF16} | RANK_KERNELS)
+    trained = _train("gcn_bf16_train", args + GCN_TRAIN_ARGS,
+                     GCN_BF16_KERNELS, promotion=False)
+    say("gcn_bf16_train", f"median warm step: bf16 "
+        f"{WARM_STEP_MS['gcn_bf16_train']:.3f} ms, f32 (phase gcn_train) "
+        f"{WARM_STEP_MS['gcn_train']:.3f} ms")
     return {k: served[k] + trained[k] for k in served}
 
 
@@ -1734,11 +1858,12 @@ def main() -> int:
     rows += [phase_gat(data.graph, bf16=True),
              phase_gat_bwd(data.graph, bf16=True)]
     rows += phase_loss_bf16()
+    rows.append(phase_segment_bf16(data.graph))
     phase_small()
     phase_train_small_all()
     phase_train_small_bf16()
     runs = [phase_slice(data), phase_train(), phase_train_bf16(),
-            phase_slice_bf16(data), phase_gcn(data)]
+            phase_slice_bf16(data), phase_gcn(data), phase_gcn_bf16(data)]
     runs += phase_families(data)
     del data
     runs.append(phase_files())
@@ -1766,7 +1891,8 @@ def main() -> int:
     # each bf16 entry: the same source and TPU kernel as its f32 one, but
     # for the gradients, which have a kernel of their own
     meta.update({f"{name}_bf16": meta[name] for name in (
-        "gat_attention_fwd", "gat_bwd", "ntxent_lse", "mixture_lse")})
+        "gat_attention_fwd", "gat_bwd", "ntxent_lse", "mixture_lse",
+        SEGMENT_KERNEL)})
     meta.update({f"{name}_bf16": ("snag_tpu_torch/csrc/gram_grad_bf16.cuh",
                                   meta[name][1])
                  for name in ("ntxent_grad", "mixture_grad")})

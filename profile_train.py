@@ -17,14 +17,15 @@ structure encoder (``chip_smoke.gcn_args``).  For each it prints:
   own, are left out and printed apart, as are copies and memsets;
 * device ms per step by kind: each hand-written kernel of the port
   (``chip_smoke.DEVICE_KERNELS``: the mixture and NT-Xent gradient and
-  lse, the GAT backward and forward, the weighted segment sum), cuBLAS
+  lse, the GAT backward and forward, the weighted segment sum; each bf16
+  entry, ``weighted_segment_sum_bf16`` among them, a kind apart), cuBLAS
   GEMMs and everything else (elementwise, index, reduce, optimizer);
 * the 15 kernels with the most device time;
 * the median step of the untraced epochs after the first (CUDA events,
   ``step_ms``).
 
-With ``--dtype bfloat16`` it profiles the GAT configuration in bf16 alone
-(the GCN has no bf16 path); the bf16 entries are kinds of their own.
+With ``--dtype bfloat16`` it profiles both configurations, the GAT and
+then the GCN, in bf16; the bf16 entries are kinds of their own.
 With ``--model_name EVA``, ``MCLEA`` or ``MEAformer`` it profiles that
 family alone at the same geometry (``chip_smoke.family_args``: EVA on its
 GCN, MCLEA and MEAformer on the GAT with their presets' temperatures),
@@ -151,12 +152,9 @@ def main() -> int:
         profile_config(label + suffix,
                        family_args(args.model_name, *replay, *bf16))
         return 0
-    if bf16:
-        profile_config("gat_bf16", BENCH_ARGS + bf16)
-        return 0
-    profile_config("gat", BENCH_ARGS)
+    profile_config("gat" + suffix, BENCH_ARGS + bf16)
     torch.cuda.empty_cache()
-    profile_config("gcn", gcn_args(BENCH_ARGS))
+    profile_config("gcn" + suffix, gcn_args(BENCH_ARGS) + bf16)
     return 0
 
 

@@ -42,8 +42,11 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   C = 319, H = 2, ``mixture_lse_cuda`` and ``mixture_grad_cuda`` at the
   first two ``MIXTURE_SHAPES`` (the gradient fed the bf16 lse), and
   ``streaming_lse_cuda`` and ``ntxent_grad_cuda`` at ``NTXENT_SHAPES``,
-  each output's sha256 and the median times, in sections named
-  ``<section>_bf16``.
+  and the weighted segment sum at the segment shapes above (the bf16
+  adjacency at H = 1, its backward launch with ``round_term`` on
+  ``w_rev`` in bf16 and g_agg in bf16), each output's sha256 and the
+  median times, in sections named ``<section>_bf16``, with the bf16
+  segment kernel's registers and spills (``chip_smoke.segment_bf16_ptxas``).
 
 Every median ms comes twice: ``ms`` (``chip_smoke.median_ms``, one launch
 between two CUDA events, which under ~0.2 ms also counts the wrapper's
@@ -123,6 +126,10 @@ def main() -> int:
     from snag_tpu_torch.ops.cuda import gat_attention as ga
     if hasattr(ga, "STATS_BF16"):
         out.update(bf16_records(cs, nx, sl, graph))
+    if hasattr(ts, "STATS_BF16"):
+        out["segment_bf16"] = segment_bf16_records(cs, graph)
+        out["ptxas"]["segment_bf16"] = ptxas_records(
+            cs.segment_bf16_ptxas(ts._library()))
 
     line = json.dumps(out)
     print(line)
@@ -158,8 +165,7 @@ def main() -> int:
 
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
             "rank", "gat_fwd", "gat_bwd", "segment")
-SECTIONS += tuple(f"{k}_bf16" for k in SECTIONS
-                  if k not in ("rank", "segment"))
+SECTIONS += tuple(f"{k}_bf16" for k in SECTIONS if k != "rank")
 
 
 def ptxas_records(rows):
@@ -189,6 +195,30 @@ def segment_records(cs, graph):
             for part, t in zip(("agg", "rowsum"), fn()):
                 out[f"{name} {part}"] = {"sha256": digest(t)}
             out[name] = timed(cs, fn, ts.STATS.name)
+        del g, x, e, e_rev, g_agg
+    return out
+
+
+def segment_bf16_records(cs, graph):
+    """The bf16 entry of the weighted segment sum on ``segment_records``'
+    inputs rounded to bf16: one digest per output, and the median times."""
+    import torch
+    from snag_tpu_torch.ops.cuda import tile_segment as ts
+    bf = torch.bfloat16
+    out = {}
+    for label, c, h in (("C300 H1", 300, 1), ("C30 H1", 30, 1),
+                        ("C319 H2", 319, 2), ("C64 H5", 64, 5)):
+        g, x, e, e_rev, g_agg = cs.segment_inputs(graph, c, h)
+        x, e, e_rev, g_agg = (t.to(bf) for t in (x, e, e_rev, g_agg))
+        runs = [(label, lambda: ts.weighted_segment_sum_cuda(x, e, g))]
+        if label == "C300 H1":
+            runs.append(("C300 H1 backward", lambda: (
+                ts.weighted_segment_sum_cuda(g_agg, e_rev, g,
+                                             round_term=True))))
+        for name, fn in runs:
+            for part, t in zip(("agg", "rowsum"), fn()):
+                out[f"{name} {part}"] = {"sha256": digest(t)}
+            out[name] = timed(cs, fn, ts.STATS_BF16.name)
         del g, x, e, e_rev, g_agg
     return out
 
@@ -225,7 +255,8 @@ def bf16_records(cs, nx, sl, graph):
     from snag_tpu_torch.ops.cuda import gat_attention as ga
     from snag_tpu_torch.ops.cuda import gat_bwd as gb
     bf = torch.bfloat16
-    out = {k: {} for k in SECTIONS if k.endswith("_bf16")}
+    out = {k: {} for k in SECTIONS
+           if k.endswith("_bf16") and k != "segment_bf16"}
     for label, c, h in (("C300 H2", 300, 2), ("C319 H2", 319, 2)):
         g, x, s_src, s_dst = cs.gat_inputs(graph, c, h)
         _, xb, sb, db, g_agg, g_rs = cs.gat_bwd_inputs(graph, c, h)

@@ -1,4 +1,5 @@
-// Weighted segment sum over the CSR rows of a graph, for Hopper, f32.
+// Weighted segment sum over the CSR rows of a graph, for Hopper, f32 or
+// bf16 operands.
 //
 // Replaces snag_tpu/ops/pallas/tile_segment.py::tile_weighted_segment_sum
 // (grids _kernel_flat and _kernel).  For every row i, head h and edge
@@ -34,8 +35,24 @@
 // over the row's edges in CSR order from 0 and rowsum a sum in edge order
 // from 0, the bits of the block-per-row kernel this one replaced.  This is
 // the walk of gat_attention.cu without the score and the exp.
+//
+// weighted_segment_sum_bf16: the same walk on bf16 x and e (the JAX GCN
+// under --dtype bfloat16, snag_tpu/ops/gnn.py:43-50), with the Pallas
+// kernel's arithmetic (tile_segment.py:209-234): the one-hot times a bf16
+// e is e itself, the MXU forms each product e x of two bf16 values exactly
+// in fp32 and adds the products in fp32, and rowsum is an fp32 sum of the
+// bf16 e; agg and rowsum are fp32.  A bf16 e times a bf16 x is exact in
+// fp32, so the fmaf chain is that sum.  A lane's slice is 4 bf16, one
+// 8-byte load, as in gat_attention.cu.  ROUND_TERM rounds each edge's term
+// e x to bf16 before the fp32 add: the GCN backward's reverse-edge launch,
+// where JAX rounds every edge's e g to bf16 (snag_tpu/ops/gat_agg.py:104)
+// before its column reduction adds them in fp32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,20 +61,64 @@ constexpr int MAX_GROUPS = 4;   // slices a lane in one column chunk
 constexpr int WARPS = 4;        // rows a block
 constexpr unsigned FULL = 0xffffffffu;
 
+// x rounded to bf16 and back: the JAX package's astype(bfloat16)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// acc + e v: one fmaf, or with ROUND_TERM the product rounded to bf16
+// first (exact in fp32 for bf16 e and v) and then added
+template <bool ROUND_TERM>
+__device__ __forceinline__ void add_term(float& acc, float e, float v) {
+  if constexpr (ROUND_TERM) acc = __fadd_rn(acc, round_bf16(__fmul_rn(e, v)));
+  else acc = fmaf(e, v, acc);
+}
+
 template <int VEC> struct Vec;
 template <> struct Vec<1> {
   using T = float;
-  __device__ static void fma(float& acc, float e, float v) { acc = fmaf(e, v, acc); }
+  template <bool ROUND_TERM>
+  __device__ static void fma(float& acc, float e, float v) {
+    add_term<ROUND_TERM>(acc, e, v);
+  }
 };
 template <> struct Vec<4> {
   using T = float4;
+  template <bool ROUND_TERM>
   __device__ static void fma(float4& acc, float e, float4 v) {
-    acc.x = fmaf(e, v.x, acc.x);
-    acc.y = fmaf(e, v.y, acc.y);
-    acc.z = fmaf(e, v.z, acc.z);
-    acc.w = fmaf(e, v.w, acc.w);
+    add_term<ROUND_TERM>(acc.x, e, v.x);
+    add_term<ROUND_TERM>(acc.y, e, v.y);
+    add_term<ROUND_TERM>(acc.z, e, v.z);
+    add_term<ROUND_TERM>(acc.w, e, v.w);
   }
 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Slice s of a row of x as fp32: VEC floats, or VEC bf16 (their bits
+// shifted into fp32's high half, which is exact).
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_slice(const float* row,
+                                                           int s) {
+  return reinterpret_cast<const typename Vec<VEC>::T*>(row)[s];
+}
+
+template <int VEC>
+__device__ __forceinline__ typename Vec<VEC>::T load_slice(
+    const __nv_bfloat16* row, int s) {
+  if constexpr (VEC == 4) {
+    const uint2 u = reinterpret_cast<const uint2*>(row)[s];
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  } else {
+    return __bfloat162float(row[s]);
+  }
+}
 
 // The launch plan of weighted_segment_sum (ops/cuda/tile_segment.py's
 // launch_plan computes the same): c / vec slices in 32-lane groups, cut
@@ -76,15 +137,14 @@ Plan plan_for(int c, int h, int vec) {
 }
 
 // Heads h0 .. h0+HB-1 (h0 = blockIdx.z * MAX_HEADS) of rows
-// blockIdx.x * WARPS + warp, slices blockIdx.y * 32 G + lane + 32 g.
-template <int HB, int VEC, int G>
-__global__ void __launch_bounds__(32 * WARPS)
-weighted_segment_sum_kernel(const float* __restrict__ x,
-                            const float* __restrict__ e,
-                            const int* __restrict__ row_ptr,
-                            const int* __restrict__ col,
-                            float* __restrict__ agg,
-                            float* __restrict__ rowsum, int n, int c, int h) {
+// blockIdx.x * WARPS + warp, slices blockIdx.y * 32 G + lane + 32 g: the
+// body of both kernels; X is the type of x and e.
+template <typename X, bool ROUND_TERM, int HB, int VEC, int G>
+__device__ __forceinline__ void segment_rows(
+    const X* __restrict__ x, const X* __restrict__ e,
+    const int* __restrict__ row_ptr, const int* __restrict__ col,
+    float* __restrict__ agg, float* __restrict__ rowsum, int n, int c,
+    int h) {
   using V = typename Vec<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -114,23 +174,25 @@ weighted_segment_sum_kernel(const float* __restrict__ x,
     if (lane < m) {
       j_l = col[base + lane];
 #pragma unroll
-      for (int q = 0; q < HB; ++q) e_l[q] = e[(size_t)(base + lane) * h + h0 + q];
+      for (int q = 0; q < HB; ++q)
+        e_l[q] = to_float(e[(size_t)(base + lane) * h + h0 + q]);
     }
 
     for (int k = 0; k < m; ++k) {  // the same k for every lane
       const int j = __shfl_sync(FULL, j_l, k);
-      const V* xr = reinterpret_cast<const V*>(x + (size_t)j * c);
+      const X* xr = x + (size_t)j * c;
       V v[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const int s = s0 + 32 * g;
-        v[g] = s < nv ? xr[s] : V{};
+        v[g] = s < nv ? load_slice<VEC>(xr, s) : V{};
       }
 #pragma unroll
       for (int q = 0; q < HB; ++q) {
         const float ek = __shfl_sync(FULL, e_l[q], k);
 #pragma unroll
-        for (int g = 0; g < G; ++g) Vec<VEC>::fma(acc[q][g], ek, v[g]);
+        for (int g = 0; g < G; ++g)
+          Vec<VEC>::template fma<ROUND_TERM>(acc[q][g], ek, v[g]);
         rs[q] += ek;
       }
     }
@@ -151,33 +213,97 @@ weighted_segment_sum_kernel(const float* __restrict__ x,
   }
 }
 
+template <int HB, int VEC, int G>
+__global__ void __launch_bounds__(32 * WARPS)
+weighted_segment_sum_kernel(const float* __restrict__ x,
+                            const float* __restrict__ e,
+                            const int* __restrict__ row_ptr,
+                            const int* __restrict__ col,
+                            float* __restrict__ agg,
+                            float* __restrict__ rowsum, int n, int c, int h) {
+  segment_rows<float, false, HB, VEC, G>(x, e, row_ptr, col, agg, rowsum, n,
+                                         c, h);
+}
+
+// named apart so that a profile tells the two apart
+template <int HB, int VEC, int G, bool ROUND_TERM>
+__global__ void __launch_bounds__(32 * WARPS)
+weighted_segment_sum_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ e,
+                                 const int* __restrict__ row_ptr,
+                                 const int* __restrict__ col,
+                                 float* __restrict__ agg,
+                                 float* __restrict__ rowsum, int n, int c,
+                                 int h) {
+  segment_rows<__nv_bfloat16, ROUND_TERM, HB, VEC, G>(x, e, row_ptr, col,
+                                                      agg, rowsum, n, c, h);
+}
+
+template <typename X>
 struct Args {
-  const float *x, *e;
+  const X *x, *e;
   const int *row_ptr, *col;
   float *agg, *rowsum;
   int n, c, h;
 };
 
-template <int HB, int VEC, int G>
-void launch_rows(const Args& a, dim3 grid, cudaStream_t s) {
-  weighted_segment_sum_kernel<HB, VEC, G><<<grid, 32 * WARPS, 0, s>>>(
-      a.x, a.e, a.row_ptr, a.col, a.agg, a.rowsum, a.n, a.c, a.h);
+template <typename X, bool ROUND_TERM, int HB, int VEC, int G>
+void launch_rows(const Args<X>& a, dim3 grid, cudaStream_t s) {
+  if constexpr (std::is_same<X, float>::value)
+    weighted_segment_sum_kernel<HB, VEC, G><<<grid, 32 * WARPS, 0, s>>>(
+        a.x, a.e, a.row_ptr, a.col, a.agg, a.rowsum, a.n, a.c, a.h);
+  else
+    weighted_segment_sum_bf16_kernel<HB, VEC, G, ROUND_TERM>
+        <<<grid, 32 * WARPS, 0, s>>>(a.x, a.e, a.row_ptr, a.col, a.agg,
+                                     a.rowsum, a.n, a.c, a.h);
 }
 
-template <int HB, int VEC>
-void launch_groups(const Args& a, dim3 grid, int groups, cudaStream_t s) {
+template <typename X, bool ROUND_TERM, int HB, int VEC>
+void launch_groups(const Args<X>& a, dim3 grid, int groups, cudaStream_t s) {
   switch (groups) {
-    case 1: launch_rows<HB, VEC, 1>(a, grid, s); break;
-    case 2: launch_rows<HB, VEC, 2>(a, grid, s); break;
-    case 3: launch_rows<HB, VEC, 3>(a, grid, s); break;
-    default: launch_rows<HB, VEC, MAX_GROUPS>(a, grid, s); break;
+    case 1: launch_rows<X, ROUND_TERM, HB, VEC, 1>(a, grid, s); break;
+    case 2: launch_rows<X, ROUND_TERM, HB, VEC, 2>(a, grid, s); break;
+    case 3: launch_rows<X, ROUND_TERM, HB, VEC, 3>(a, grid, s); break;
+    default: launch_rows<X, ROUND_TERM, HB, VEC, MAX_GROUPS>(a, grid, s); break;
   }
 }
 
-template <int HB>
-void launch(const Args& a, dim3 grid, int vec, int groups, cudaStream_t s) {
-  if (vec == 4) launch_groups<HB, 4>(a, grid, groups, s);
-  else launch_groups<HB, 1>(a, grid, groups, s);
+template <typename X, bool ROUND_TERM, int HB>
+void launch(const Args<X>& a, dim3 grid, int vec, int groups, cudaStream_t s) {
+  if (vec == 4) launch_groups<X, ROUND_TERM, HB, 4>(a, grid, groups, s);
+  else launch_groups<X, ROUND_TERM, HB, 1>(a, grid, groups, s);
+}
+
+// Heads are taken MAX_HEADS at a time; when h is not a multiple of
+// MAX_HEADS the last group is launched on its own.
+template <typename X, bool ROUND_TERM>
+int segment_sum(const X* x, const X* e, const int* row_ptr, const int* col,
+                float* agg, float* rowsum, int n, int c, int h, int vec,
+                void* stream) {
+  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_for(c, h, vec);
+  if (p.chunks > 65535 || p.full > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned rows = (n + WARPS - 1) / WARPS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.full > 0)
+    launch<X, ROUND_TERM, MAX_HEADS>({x, e, row_ptr, col, agg, rowsum, n, c, h},
+                                     dim3(rows, p.chunks, p.full), vec,
+                                     p.groups, s);
+  if (p.tail > 0) {
+    // the tail group's blockIdx.z is 0: offset the head index instead
+    const int off = p.full * MAX_HEADS;
+    const Args<X> a{x, e + off, row_ptr, col, agg + (size_t)off * c,
+                    rowsum + off, n, c, h};
+    const dim3 grid(rows, p.chunks, 1);
+    switch (p.tail) {
+      case 1: launch<X, ROUND_TERM, 1>(a, grid, vec, p.groups, s); break;
+      case 2: launch<X, ROUND_TERM, 2>(a, grid, vec, p.groups, s); break;
+      default: launch<X, ROUND_TERM, 3>(a, grid, vec, p.groups, s); break;
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -204,35 +330,26 @@ int weighted_segment_sum_plan(int c, int h, int vec, int* out) {
 
 // x (n, c), e (row_ptr[n], h), row_ptr (n+1), col (row_ptr[n]) on the
 // device; agg (n, h, c) and rowsum (n, h) are written in full.  vec is 4
-// when c % 4 == 0 and x is 16-byte aligned, else 1.  Heads are taken
-// MAX_HEADS at a time; when h is not a multiple of MAX_HEADS the last
-// group is launched on its own.
+// when c % 4 == 0 and x is 16-byte aligned, else 1.
 int weighted_segment_sum(const float* x, const float* e, const int* row_ptr,
                          const int* col, float* agg, float* rowsum, int n,
                          int c, int h, int vec, void* stream) {
-  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = plan_for(c, h, vec);
-  if (p.chunks > 65535 || p.full > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned rows = (n + WARPS - 1) / WARPS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.full > 0)
-    launch<MAX_HEADS>({x, e, row_ptr, col, agg, rowsum, n, c, h},
-                      dim3(rows, p.chunks, p.full), vec, p.groups, s);
-  if (p.tail > 0) {
-    // the tail group's blockIdx.z is 0: offset the head index instead
-    const int off = p.full * MAX_HEADS;
-    const Args a{x, e + off, row_ptr, col, agg + (size_t)off * c,
-                 rowsum + off, n, c, h};
-    const dim3 grid(rows, p.chunks, 1);
-    switch (p.tail) {
-      case 1: launch<1>(a, grid, vec, p.groups, s); break;
-      case 2: launch<2>(a, grid, vec, p.groups, s); break;
-      default: launch<3>(a, grid, vec, p.groups, s); break;
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return segment_sum<float, false>(x, e, row_ptr, col, agg, rowsum, n, c, h,
+                                   vec, stream);
+}
+
+// The same on bf16 x and e (agg and rowsum fp32); vec is 4 when c % 4 == 0
+// and x is 8-byte aligned, else 1.  round_term != 0 rounds each edge's
+// term e x to bf16 before it is added.
+int weighted_segment_sum_bf16(const __nv_bfloat16* x, const __nv_bfloat16* e,
+                              const int* row_ptr, const int* col, float* agg,
+                              float* rowsum, int n, int c, int h, int vec,
+                              int round_term, void* stream) {
+  return round_term
+             ? segment_sum<__nv_bfloat16, true>(x, e, row_ptr, col, agg,
+                                                rowsum, n, c, h, vec, stream)
+             : segment_sum<__nv_bfloat16, false>(x, e, row_ptr, col, agg,
+                                                 rowsum, n, c, h, vec, stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,9 @@ its CSR row: the GAT backward kernel relies on it
 (snag_tpu/ops/pallas/gat_bwd.py:17-32) and refuses a graph without it, and
 the backward of the weighted segment sum (``ops/gat_agg.py``) walks rows
 with the weights ``e[rev]``; for the GCN's e, the adjacency itself, those
-are ``DeviceGraph.w_rev``, gathered once when the graph is moved.
+are ``DeviceGraph.w_rev``, gathered once when the graph is moved, as are
+the bf16 copies of both (``w_bf16``, ``w_rev_bf16``) that the GCN takes
+under ``--dtype bfloat16``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ class DeviceGraph(NamedTuple):
     w: torch.Tensor         # (E,) f32, sym-normalised adjacency values
     rev: Optional[torch.Tensor]   # (E,) int64 reverse edge, None if asymmetric
     w_rev: Optional[torch.Tensor] = None   # (E,) f32 w[rev], with rev
+    w_bf16: Optional[torch.Tensor] = None      # (E,) w rounded to bf16
+    w_rev_bf16: Optional[torch.Tensor] = None  # (E,) w_rev rounded to bf16
 
     @property
     def symmetric(self) -> bool:
@@ -74,16 +78,19 @@ class Graph:
         return self.rev is not None
 
     def to_torch(self, device) -> DeviceGraph:
+        w = torch.as_tensor(self.w, device=device)
+        w_rev = (None if self.rev is None
+                 else torch.as_tensor(self.w[self.rev], device=device))
         return DeviceGraph(
             n_nodes=self.n_nodes, n_edges=self.n_edges,
             row_ptr=torch.as_tensor(self.row_ptr, device=device),
             row=torch.as_tensor(self.row.astype(np.int64), device=device),
             col=torch.as_tensor(self.col, device=device),
-            w=torch.as_tensor(self.w, device=device),
+            w=w,
             rev=None if self.rev is None
             else torch.as_tensor(self.rev, device=device),
-            w_rev=None if self.rev is None
-            else torch.as_tensor(self.w[self.rev], device=device))
+            w_rev=w_rev, w_bf16=w.to(torch.bfloat16),
+            w_rev_bf16=None if w_rev is None else w_rev.to(torch.bfloat16))
 
 
 def is_symmetric(n_nodes: int, rows: np.ndarray, cols: np.ndarray) -> bool:

@@ -22,8 +22,9 @@ noise at half rates, :151-153), ``dropout_gen`` (None = deterministic) and
 five projections and the fusion stack compute in bf16 with f32
 parameters, the GAT gathers bf16 rows and returns f32, ``entity_emb``,
 the feature tables and their noise stay f32, and the joint embeddings are
-f32 (f32 weights times modality rows).  The GCN has no bf16 path yet
-(the runner refuses it).
+f32 (f32 weights times modality rows).  The GCN computes its layers'
+``support`` in bf16 and sums it with the bf16 adjacency into f32
+(``ops/gnn.py``); EVA's GCN (``models/eva.py``) stays f32.
 """
 
 from __future__ import annotations
@@ -122,7 +123,7 @@ class MultiModalEncoder(nn.Module):
         if cfg.w_gcn and cfg.structure_encoder == "gcn":
             u = cfg.n_units()
             self.cross_graph_model = GCN(u[0], u[1], u[2], generator,
-                                         dropout=cfg.dropout)
+                                         dropout=cfg.dropout, dtype=dt)
         elif cfg.w_gcn:
             self.cross_graph_model = GAT(
                 cfg.n_units(), cfg.n_heads(), generator, dropout=cfg.dropout,

@@ -24,10 +24,11 @@ def bf16_stats():
     """The launch counts of the bf16-operand entries (``--dtype
     bfloat16``), one per kernel that has one."""
     from snag_tpu_torch.ops.cuda import (gat_attention, gat_bwd, ntxent,
-                                         snag_loss)
+                                         snag_loss, tile_segment)
     return (gat_attention.STATS_BF16, gat_bwd.STATS_BF16,
             ntxent.STATS_LSE_BF16, ntxent.STATS_GRAD_BF16,
-            snag_loss.STATS_LSE_BF16, snag_loss.STATS_GRAD_BF16)
+            snag_loss.STATS_LSE_BF16, snag_loss.STATS_GRAD_BF16,
+            tile_segment.STATS_BF16)
 
 
 def reset_stats() -> None:

@@ -8,13 +8,22 @@ every head h and edge k = i <- j of the row-sorted CSR graph:
     rowsum[i, h] = sum_k e[k, h]
 
 The kernel gathers x[col] itself; the JAX package's (E, C) edge block is
-never built.  One warp owns a row; lane l owns the 4-float (or 1-float)
+never built.  One warp owns a row; lane l owns the 4-element (or 1-element)
 slices l, l + 32, ... of a column chunk, at most ``MAX_GROUPS`` of them, and
 up to ``MAX_HEADS`` heads' accumulators: ``launch_plan`` gives the chunks
 and head groups, so any C and any H are taken.
 
 Twin: ``weighted_segment_sum_twin``, the ``index_add_`` form of
 ``xla_weighted_segment_sum`` (tile_segment.py:341-353).
+
+bf16: bf16 x and e (the JAX GCN under ``--dtype bfloat16``,
+gnn.py:43-50) take ``weighted_segment_sum_bf16``, the same kernel on bf16
+operands, counted apart (``STATS_BF16``).  It follows the Pallas kernel
+(tile_segment.py:209-234): each product e x of two bf16 values is exact in
+f32, the products and rowsum's bf16 e are added in f32, and both outputs
+are f32.  ``round_term`` rounds each edge's term e x to bf16 before it is
+added: the GCN backward's reverse-edge launch, where JAX rounds each
+edge's e g to bf16 (gat_agg.py:104) before it sums them in f32.
 """
 
 from __future__ import annotations
@@ -25,10 +34,13 @@ from typing import NamedTuple, Tuple
 import torch
 
 from snag_tpu_torch.data.graph import DeviceGraph
-from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
-                                          ptr, require, stream_of)
+from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
+                                          load_library, ptr, require,
+                                          stream_of)
 
 STATS = KernelStats("weighted_segment_sum")
+STATS_BF16 = KernelStats("weighted_segment_sum_bf16")
+BF16 = torch.bfloat16
 MAX_HEADS = 4       # heads a launch group
 MAX_GROUPS = 4      # slices a lane in one column chunk
 WARPS = 4           # rows a block
@@ -60,14 +72,22 @@ def launch_plan(c: int, h: int, vec: int) -> LaunchPlan:
 
 
 def weighted_segment_sum_twin(x: torch.Tensor, e: torch.Tensor,
-                              graph: DeviceGraph
+                              graph: DeviceGraph, round_term: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch version: gather, weight, ``index_add_`` over rows."""
+    """Plain-PyTorch version: gather, weight, ``index_add_`` over rows.
+    bf16 x and e are upcast to f32 and multiplied there (exactly), each
+    product rounded to bf16 under ``round_term``, and added in f32."""
     n, c = x.shape
     h = e.shape[1]
-    vals = (e[:, :, None] * x[graph.col.long()][:, None, :]).reshape(-1, h * c)
+    if round_term and x.dtype != BF16:
+        raise ValueError("round_term rounds bf16 terms; x is "
+                         f"{x.dtype}")
+    x, e = x.to(torch.float32), e.to(torch.float32)
+    vals = e[:, :, None] * x[graph.col.long()][:, None, :]
+    if round_term:
+        vals = vals.to(BF16).to(torch.float32)
     agg = torch.zeros(n, h * c, dtype=torch.float32, device=x.device)
-    agg.index_add_(0, graph.row, vals)
+    agg.index_add_(0, graph.row, vals.reshape(-1, h * c))
     rowsum = torch.zeros(n, h, dtype=torch.float32, device=x.device)
     rowsum.index_add_(0, graph.row, e)
     return agg.reshape(n, h, c), rowsum
@@ -78,6 +98,10 @@ def _library():
     fn = built.lib.weighted_segment_sum
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = built.lib.weighted_segment_sum_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         plan = built.lib.weighted_segment_sum_plan
@@ -98,10 +122,11 @@ def kernel_plan(c: int, h: int, vec: int) -> LaunchPlan:
 
 
 def weighted_segment_sum_cuda(x: torch.Tensor, e: torch.Tensor,
-                              graph: DeviceGraph
+                              graph: DeviceGraph, round_term: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; every input must be f32/int32, contiguous
-    and on the same CUDA device."""
+    """Launch the CUDA kernel; x and e must be both f32 or both bf16, the
+    graph int32, every input contiguous and on the same CUDA device;
+    ``round_term`` takes bf16 alone."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"weighted_segment_sum_cuda needs CUDA tensors, "
@@ -113,36 +138,45 @@ def weighted_segment_sum_cuda(x: torch.Tensor, e: torch.Tensor,
     h = e.shape[1]
     if n != graph.n_nodes:
         raise ValueError(f"x has {n} rows, the graph {graph.n_nodes} nodes")
-    require(x, "x", torch.float32, (n, c), dev)
-    require(e, "e", torch.float32, (graph.n_edges, h), dev)
+    bf16 = dtype_suffix(x.dtype, "segment sum kernels") == "_bf16"
+    if round_term and not bf16:
+        raise ValueError("round_term rounds bf16 terms; x is float32")
+    require(x, "x", x.dtype, (n, c), dev)
+    require(e, "e", x.dtype, (graph.n_edges, h), dev)
     require(graph.row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
     require(graph.col, "col", torch.int32, (graph.n_edges,), dev)
-    vec = 4 if (c % 4 == 0 and x.data_ptr() % 16 == 0) else 1
+    vec = 4 if (c % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+                ) else 1
 
     agg = torch.empty(n, h, c, dtype=torch.float32, device=dev)
     rowsum = torch.empty(n, h, dtype=torch.float32, device=dev)
     built = _library()
+    stats = STATS_BF16 if bf16 else STATS
+    args = [ptr(x), ptr(e), ptr(graph.row_ptr), ptr(graph.col), ptr(agg),
+            ptr(rowsum), n, c, h, vec]
+    if bf16:
+        args.append(int(round_term))
     with torch.cuda.device(dev):
-        err = built.lib.weighted_segment_sum(
-            ptr(x), ptr(e), ptr(graph.row_ptr), ptr(graph.col), ptr(agg),
-            ptr(rowsum), n, c, h, vec, stream_of(x))
-    check(built, err, "weighted_segment_sum")
-    STATS.launches += 1
+        err = getattr(built.lib, stats.name)(*args, stream_of(x))
+    check(built, err, stats.name)
+    stats.launches += 1
     return agg, rowsum
 
 
-def weighted_segment_sum(x: torch.Tensor, e: torch.Tensor, graph: DeviceGraph
+def weighted_segment_sum(x: torch.Tensor, e: torch.Tensor, graph: DeviceGraph,
+                         round_term: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (N, C), e (E, H) in CSR edge order.  Returns (agg (N, H, C) f32,
-    rowsum (N, H) f32): the kernel for CUDA tensors, the twin for CPU
-    tensors.  Takes f32 alone: a bf16 x raises (a bf16 GCN waits for a
-    bf16 variant of the kernel, ROADMAP A)."""
-    if x.dtype == torch.bfloat16 or e.dtype == torch.bfloat16:
-        raise TypeError("the weighted segment sum has no bf16 variant "
-                        "(ROADMAP A: bf16 GCN (segment sum))")
+    """x (N, C), e (E, H) in CSR edge order, both f32 or both bf16.
+    Returns (agg (N, H, C) f32, rowsum (N, H) f32): the kernel for CUDA
+    tensors, the twin for CPU tensors.  ``round_term`` (bf16 only) rounds
+    each edge's term to bf16 before it is added."""
+    if x.dtype != e.dtype:
+        raise TypeError(f"x is {x.dtype} and e {e.dtype}: the weighted "
+                        "segment sum takes both float32 or both bfloat16")
     if x.device.type == "cuda":
-        return weighted_segment_sum_cuda(x, e, graph)
+        return weighted_segment_sum_cuda(x, e, graph, round_term)
     if x.device.type != "cpu":
         raise ValueError(f"no weighted segment sum for device {x.device}")
-    STATS.twin_calls += 1
-    return weighted_segment_sum_twin(x, e, graph)
+    bf16 = dtype_suffix(x.dtype, "segment sum kernels") == "_bf16"
+    (STATS_BF16 if bf16 else STATS).twin_calls += 1
+    return weighted_segment_sum_twin(x, e, graph, round_term)

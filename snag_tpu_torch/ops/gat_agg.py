@@ -17,6 +17,13 @@ instead reduces over a col-sorted copy of the edges (:89-112).
 
 The GCN's edge weights are the constant adjacency ``graph.w``, so no path
 needs d_e: an ``e`` that requires a gradient is refused.
+
+bf16 x and e (the GCN under ``--dtype bfloat16``) follow ``_gat_bwd``'s
+rounding points (:89-112): g_agg is rounded to bf16 (:94), each edge's
+term e[rev] g of the reverse-edge launch is rounded to bf16 (:104) and
+added in f32 (``round_term``), and d_x is returned in bf16 (:112).  JAX
+rounds the sum over heads in bf16 as well; only the GCN, with one head,
+reaches this path there, so a bf16 e of more than one head is refused.
 """
 
 from __future__ import annotations
@@ -41,6 +48,11 @@ class _GatAggregate(torch.autograd.Function):
         (e,) = ctx.saved_tensors
         graph = ctx.graph
         e_rev = reverse_weights(e, graph)
+        if e.dtype == torch.bfloat16:
+            part, _ = weighted_segment_sum(
+                g_agg[:, 0].to(torch.bfloat16).contiguous(), e_rev, graph,
+                round_term=True)
+            return part[:, 0].to(torch.bfloat16), None, None
         d_x = None
         for h in range(e.shape[1]):
             part, _ = weighted_segment_sum(g_agg[:, h].contiguous(),
@@ -51,19 +63,28 @@ class _GatAggregate(torch.autograd.Function):
 
 
 def reverse_weights(e: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
-    """e[rev] (E, H): ``graph.w_rev`` when e is the graph's adjacency
-    ``graph.w`` as one head (the same memory), else gathered."""
-    if (graph.w_rev is not None and e.shape == (graph.n_edges, 1)
-            and e.device == graph.w.device and e.dtype == graph.w.dtype
-            and e.data_ptr() == graph.w.data_ptr()):
-        return graph.w_rev[:, None]
+    """e[rev] (E, H): ``graph.w_rev`` (``w_rev_bf16``) when e is the
+    graph's adjacency ``graph.w`` (``w_bf16``) as one head (the same
+    memory), else gathered."""
+    for w, w_rev in ((graph.w, graph.w_rev),
+                     (graph.w_bf16, graph.w_rev_bf16)):
+        if (w_rev is not None and e.shape == (graph.n_edges, 1)
+                and e.device == w.device and e.dtype == w.dtype
+                and e.data_ptr() == w.data_ptr()):
+            return w_rev[:, None]
     return e[graph.rev]
 
 
 def gat_aggregate(x: torch.Tensor, e: torch.Tensor, graph: DeviceGraph
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (N, C); e: (E, H) edge weights in CSR order, constant.
-    Returns (agg (N, H, C) f32, rowsum (N, H) f32)."""
+    """x: (N, C); e: (E, H) edge weights in CSR order, constant; both f32
+    or both bf16 (one head).  Returns (agg (N, H, C) f32, rowsum (N, H)
+    f32)."""
+    if x.dtype == torch.bfloat16 and e.shape[1] != 1:
+        raise NotImplementedError(
+            f"gat_aggregate on bf16 operands takes one head (the GCN's), got "
+            f"{e.shape[1]}: JAX rounds the backward's sum over heads in bf16 "
+            "and no flag runs it (ROADMAP A: bf16 multi-head aggregation)")
     if e.requires_grad:
         raise ValueError("gat_aggregate has no gradient for the edge weights "
                          "e; pass a constant (the GCN's adjacency)")

@@ -12,6 +12,11 @@ Dropout is drawn from an explicit ``torch.Generator``: a forward given
 ``dropout_gen=None`` is deterministic (the JAX package's
 ``deterministic=True``).
 
+``dtype`` (GCN): under ``--dtype bfloat16`` a GCN layer's ``support`` is
+the bf16 product of bf16 x and W (f32 accumulation, ``ops/fusion.Linear``'s
+GEMM), summed with the bf16 adjacency ``graph.w_bf16`` into f32, then the
+f32 bias is added (gnn.py:43-52); its backward follows ``ops/gat_agg.py``.
+
 ``dtype`` (GAT): under ``--dtype bfloat16`` the JAX package's GAT stays
 f32 but for the rows its edges gather: the attention scores come from the
 f32 x, and x enters the attention primitive as bf16 (gnn.py:121-133), whose
@@ -36,11 +41,13 @@ from snag_tpu_torch.ops.noise import dropout
 
 class GraphConvolution(nn.Module):
     """One GCN layer: out = A_norm (x W) + b (layers.py:102-133); weight
-    and bias ~ U(-1/sqrt(out), 1/sqrt(out))."""
+    and bias ~ U(-1/sqrt(out), 1/sqrt(out)), f32 in either dtype."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         stdv = 1.0 / math.sqrt(out_features)
         self.weight = nn.Parameter(inits.uniform_stdv(
             (in_features, out_features), stdv, generator))
@@ -48,8 +55,12 @@ class GraphConvolution(nn.Module):
             (out_features,), stdv, generator))
 
     def forward(self, x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
-        support = x @ self.weight
-        agg, _ = gat_aggregate(support, graph.w[:, None], graph)
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            support, w = x @ self.weight, graph.w
+        else:
+            support, w = x.to(dt) @ self.weight.to(dt), graph.w_bf16
+        agg, _ = gat_aggregate(support, w[:, None], graph)
         return agg[:, 0, :] + self.bias
 
 
@@ -57,11 +68,12 @@ class GCN(nn.Module):
     """2-layer GCN: relu -> dropout -> layer (EVA_tools.py:52-63)."""
 
     def __init__(self, nfeat: int, nhid: int, nout: int,
-                 generator: torch.Generator, dropout: float = 0.0):
+                 generator: torch.Generator, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.gc1 = GraphConvolution(nfeat, nhid, generator)
-        self.gc2 = GraphConvolution(nhid, nout, generator)
+        self.gc1 = GraphConvolution(nfeat, nhid, generator, dtype)
+        self.gc2 = GraphConvolution(nhid, nout, generator, dtype)
 
     def forward(self, x: torch.Tensor, graph: DeviceGraph,
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -72,14 +72,6 @@ class Runner:
             raise RuntimeError(f"--device {cfg.device}: torch.cuda is not "
                                "available (pass --device cpu to run the "
                                "plain PyTorch twins)")
-        # EVA runs f32 whatever --dtype says (its GCN too); the other
-        # families' GCN would compute in bf16
-        if cfg.dtype == "bfloat16" and cfg.structure_encoder == "gcn" \
-                and cfg.model_name != "EVA":
-            raise NotImplementedError(
-                "--dtype bfloat16 with --structure_encoder gcn needs a bf16 "
-                "variant of the weighted segment sum kernel (ROADMAP A: "
-                "bf16 GCN (segment sum))")
         if cfg.mesh_shape:
             raise NotImplementedError("--mesh_shape: multi-GPU is not "
                                       "ported (ROADMAP A: multi-GPU)")

@@ -53,7 +53,6 @@ from snag_tpu.models import build_model as jax_build_model
 from snag_tpu.ops.gat_attn_primitive import gat_attention as jax_gat_attention
 from snag_tpu.train.optim import build_optimizer as jax_build_optimizer
 from snag_tpu_torch.cli.train_mmea import main as port_main
-from snag_tpu_torch.config import Config, finalize_config
 from snag_tpu_torch.data.graph import build_graph
 from snag_tpu_torch.losses.contrastive import snag_bundle_losses
 from snag_tpu_torch.ops.cuda import gat_attention as tga
@@ -62,15 +61,14 @@ from snag_tpu_torch.ops.cuda import ntxent as tnx
 from snag_tpu_torch.ops.cuda import rank_eval as trk
 from snag_tpu_torch.ops.cuda import snag_loss as tsl
 from snag_tpu_torch.ops.cuda import tile_segment as tts
+from snag_tpu_torch.ops.gat_agg import gat_aggregate
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 from snag_tpu_torch.train.optim import param_label
-from snag_tpu_torch.train.runner import Runner
 from snag_tpu_torch.train.step import TrainStep
 from snag_tpu_torch.utils.import_reference import state_dict_from_flax
-from snag_tpu_torch.utils.logging import create_logger
-from torch_port_common import (SMALL, f32_reductions, model_pair,
-                               padded_batch, pallas_interpret, single_thread,
-                               small_argv)
+from torch_port_common import (assert_close_bf16, bf16_np, f32_reductions,
+                               model_pair, padded_batch, pallas_interpret,
+                               single_thread, small_argv)
 
 single_thread()
 KERNEL_TOL = 4e-3       # x max |JAX| per output tensor
@@ -81,27 +79,12 @@ TAU = 0.1
 BF16 = torch.bfloat16
 
 
-def assert_close_bf16(got, want, name, tol=KERNEL_TOL):
-    got = np.asarray(torch.as_tensor(got).to(torch.float32))
-    want = np.asarray(jnp.asarray(want, jnp.float32))
-    assert got.shape == want.shape, name
-    assert np.isfinite(got).all(), name
-    err, scale = np.abs(got - want).max(), np.abs(want).max()
-    assert err <= tol * scale, f"{name}: max|err| {err} > {tol} x {scale}"
-
-
-def _bf16_np(a):
-    """numpy f32 values rounded to bf16 (as f32), the one input both sides
-    take."""
-    return torch.from_numpy(a).to(BF16).to(torch.float32).numpy()
-
-
 def test_jax_cpu_bf16_reduction():
     """The bias gradient of a bf16 ``x + b`` over 4,000 rows: XLA's CPU
     backend sums it in bf16, more than a bf16 ulp (2^-7 relative) off the
     f64 sum of the same bf16 terms in some column; under
     ``f32_reductions`` every column is that sum rounded once to bf16."""
-    g = _bf16_np(np.random.default_rng(0).normal(size=(4000, 8)).astype(
+    g = bf16_np(np.random.default_rng(0).normal(size=(4000, 8)).astype(
         np.float32))
     want = g.astype(np.float64).sum(axis=0)
 
@@ -114,7 +97,7 @@ def test_jax_cpu_bf16_reduction():
     with f32_reductions():
         fixed = bias_grad()
     assert (np.abs(plain - want) > 2.0 ** -7 * np.abs(want)).any()
-    np.testing.assert_array_equal(fixed, _bf16_np(want.astype(np.float32)))
+    np.testing.assert_array_equal(fixed, bf16_np(want.astype(np.float32)))
 
 
 # --------------------------------------------------------------- GAT kernels
@@ -125,7 +108,7 @@ def _gat_inputs(n=300, n_tri=900, c=48, h=2, seed=5):
            for _ in range(n_tri)]
     # a hub row past the tiled grid's chunk cap: the tiled run spills
     tri += [(int(rng.integers(n)), 0, 7) for _ in range(300)]
-    x = _bf16_np(rng.normal(size=(n, c)).astype(np.float32))
+    x = bf16_np(rng.normal(size=(n, c)).astype(np.float32))
     s_src = rng.normal(size=(n, h)).astype(np.float32)
     s_dst = rng.normal(size=(n, h)).astype(np.float32)
     g_agg = rng.normal(size=(n, h, c)).astype(np.float32)
@@ -186,7 +169,7 @@ def test_ntxent_twins_match_pallas_bf16(m, b, d, n_valid):
     zjs = zis + 0.3 * _unit(rng, m, b, d)
     zjs /= np.linalg.norm(zjs, axis=-1, keepdims=True)
     zis[0, 2] = 0.0                                   # an all-zero row
-    zis, zjs = _bf16_np(zis), _bf16_np(zjs)
+    zis, zjs = bf16_np(zis), bf16_np(zjs)
     valid = None if n_valid is None else np.arange(b) < n_valid
     coef_a = rng.uniform(0.1, 1.0, size=(m, b)).astype(np.float32)
     coef_b = rng.uniform(0.1, 1.0, size=(m, b)).astype(np.float32)
@@ -228,7 +211,7 @@ def _bundle_inputs(m, b, d, seed):
     w_min = np.abs(rng.normal(size=(m, b))).astype(np.float32)
     valid = np.arange(b) < b - 5
     cot = np.linspace(0.5, 1.5, m + 2).astype(np.float32)
-    return (_bf16_np(zis), _bf16_np(zjs), a_i, a_j, beta, w_min), valid, cot
+    return (bf16_np(zis), bf16_np(zjs), a_i, a_j, beta, w_min), valid, cot
 
 
 @pytest.mark.parametrize("m", [4, 6])
@@ -381,17 +364,18 @@ def test_cli_trains_and_serves_bf16_on_cpu(tmp_path):
 
 # -------------------------------------------------------------- refusals
 
-def test_bf16_gcn_and_f32_only_entries_refuse(tmp_path):
-    cfg = finalize_config(Config(device="cpu", **{
-        **SMALL, "structure_encoder": "gcn", "dtype": "bfloat16"}),
-        data_root=str(tmp_path))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A: bf16 GCN \(segment sum\)"):
-        Runner(cfg, create_logger(name="bf16_gcn"))
+def test_bf16_gcn_and_f32_only_entries_refuse():
+    """The bf16 GCN's aggregation refuses a mix of f32 and bf16 operands
+    and more than one bf16 head; the f32-only entries refuse bf16."""
     g = build_graph(4, [(0, 0, 1), (2, 0, 3)]).to_torch("cpu")
     x = torch.zeros(4, 8, dtype=BF16)
-    with pytest.raises(TypeError, match="bf16"):
+    with pytest.raises(TypeError, match="both float32 or both bfloat16"):
         tts.weighted_segment_sum(x, g.w[:, None], g)
+    with pytest.raises(TypeError, match="both float32 or both bfloat16"):
+        tts.weighted_segment_sum(x.float(), g.w_bf16[:, None], g)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A: bf16 multi-head aggregation"):
+        gat_aggregate(x, g.w_bf16[:, None].repeat(1, 2), g)
     with pytest.raises(TypeError, match="bf16"):
         trk.streaming_rank_eval(x, x, 3, True, False)
     with pytest.raises(TypeError):

@@ -21,7 +21,10 @@ on bf16 operands) are held against their bf16 twins on CPU copies of the
 inputs at max |err| <= 4e-3 x max |twin| per output, about one bf16 ulp
 of the output's scale, with bitwise repeats.  The weighted segment
 sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
-atol = 1e-5, and two runs give the same bits.  The rank
+atol = 1e-5, and two runs give the same bits; so does its bf16 entry,
+whose terms are exact in f32 (or, with ``round_term``, rounded to bf16
+alike on both sides) and whose outputs are f32, well inside 4e-3 x max
+|twin|.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
 may flip: ranks must agree on >= 99 % of queries; tie rules are checked on
 the kernel's own exact ties; two runs, and runs with any number of column
@@ -468,6 +471,77 @@ def test_gcn_backward_takes_the_cached_reverse_weights(dev):
     torch.testing.assert_close(xg.grad, want, rtol=1e-5, atol=1e-5)
 
 
+# bf16 slices of 4 (8-byte loads) at C = 300 and 64; single bf16 at the odd
+# C = 30 and 319; H = 1-5, a full head group and a tail at 5
+SEGMENT_BF16_WIDTHS = [(300, 1), (30, 1), (319, 2), (64, 3), (300, 4),
+                       (64, 5)]
+
+
+def _segment_bf16_inputs(dev, c, h, seed):
+    g, x, e = _segment_inputs(dev, c, h, seed=seed)
+    g_agg = torch.randn(g.n_nodes, c, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    return (g, x.to(torch.bfloat16), e.to(torch.bfloat16),
+            e[g.rev].to(torch.bfloat16), g_agg.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("c,h", SEGMENT_BF16_WIDTHS)
+def test_weighted_segment_sum_bf16_matches_twin(dev, c, h):
+    """The bf16 entry, forward and the backward's reverse-edge launch with
+    each term rounded to bf16, against the twin on CPU copies: the f32
+    outputs of exact (or identically rounded) terms added in another order,
+    rtol = atol = 1e-5, which is well inside 4e-3 x max |twin|; two runs
+    give the same bits."""
+    g, x, e, e_rev, g_agg = _segment_bf16_inputs(dev, c, h, seed=c + h)
+    before = (ts.STATS_BF16.launches, ts.STATS.launches)
+    for args, kw in (((x, e, g), {}),
+                     ((g_agg, e_rev, g), {"round_term": True})):
+        got = ts.weighted_segment_sum_cuda(*args, **kw)
+        again = ts.weighted_segment_sum_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = on_cpu(lambda *a: ts.weighted_segment_sum_twin(*a, **kw),
+                      *args)
+        for a, w, b in zip(got, want, again):
+            assert a.dtype == torch.float32
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+            assert torch.equal(a, b)
+    assert (ts.STATS_BF16.launches, ts.STATS.launches) == (before[0] + 4,
+                                                           before[1])
+
+
+def test_weighted_segment_sum_bf16_rounds_each_term(dev):
+    """``round_term`` changes the sum by the terms' roundings: without it
+    the launch gives the twin's unrounded sum, and the two differ."""
+    g, _, _, e_rev, g_agg = _segment_bf16_inputs(dev, 300, 1, seed=3)
+    rounded, _ = ts.weighted_segment_sum_cuda(g_agg, e_rev, g,
+                                              round_term=True)
+    exact, _ = ts.weighted_segment_sum_cuda(g_agg, e_rev, g)
+    want, _ = on_cpu(ts.weighted_segment_sum_twin, g_agg, e_rev, g)
+    torch.testing.assert_close(exact, want, rtol=1e-5, atol=1e-5)
+    assert (rounded - exact).abs().max().item() > 1e-4
+
+
+def test_gcn_bf16_autograd_on_the_card(dev):
+    """``gat_aggregate`` on bf16 operands (the bf16 GCN's): the forward and
+    the bf16 d_x from ``w_rev_bf16`` against the twins on CPU copies."""
+    g, x, _, _, _ = _segment_bf16_inputs(dev, 300, 1, seed=11)
+    e = g.w_bf16[:, None]
+    assert reverse_weights(e, g).data_ptr() == g.w_rev_bf16.data_ptr()
+    xg = x.clone().requires_grad_()
+    agg, rs = gat_aggregate(xg, e, g)
+    g_agg = torch.randn_like(agg)
+    (agg * g_agg).sum().backward()
+    torch.cuda.synchronize()
+    want = on_cpu(ts.weighted_segment_sum_twin, x, e, g)
+    torch.testing.assert_close(agg, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, want[1], rtol=1e-5, atol=1e-5)
+    d_x, _ = on_cpu(lambda *a: ts.weighted_segment_sum_twin(
+        *a, round_term=True), g_agg[:, 0].to(torch.bfloat16),
+        g.w_rev_bf16[:, None], g)
+    assert xg.grad.dtype == torch.bfloat16
+    assert_bf16_close([xg.grad], [d_x[:, 0].to(torch.bfloat16)])
+
+
 def test_gat_aggregate_backward_launches_the_kernel(dev):
     g, x, e = _segment_inputs(dev, 48, 2, seed=3)
     before = ts.STATS.launches
@@ -641,7 +715,8 @@ def test_gat_bf16_autograd_and_refusals(dev):
     with pytest.raises(TypeError):
         gb.gat_backward_cuda(xs[0].detach(), s_src, s_dst,
                              torch.ones_like(agg), torch.ones_like(rs), g)
-    with pytest.raises(TypeError):
+    # a mix of bf16 and f32 operands is refused
+    with pytest.raises(TypeError, match="both float32 or both bfloat16"):
         ts.weighted_segment_sum(x.to(torch.bfloat16), g.w[:, None], g)
 
 

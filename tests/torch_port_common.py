@@ -80,6 +80,25 @@ def assert_graph_equal(jg, tg):
     assert tg.row_ptr[-1] == tg.n_edges
 
 
+def bf16_np(a):
+    """numpy f32 values rounded to bf16 (as f32): the one input both
+    packages take."""
+    return torch.from_numpy(a).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def assert_close_bf16(got, want, name, tol=4e-3):
+    """max |err| <= tol x max |want| (a JAX array or numpy), every value
+    finite; the default is about one bf16 ulp of the output's scale."""
+    import jax.numpy as jnp
+    import numpy as np
+    got = np.asarray(torch.as_tensor(got).detach().to(torch.float32))
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape, name
+    assert np.isfinite(got).all(), name
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= tol * scale, f"{name}: max|err| {err} > {tol} x {scale}"
+
+
 def single_thread():
     # tier-1 runs several xdist workers; one intra-op thread each
     torch.set_num_threads(1)

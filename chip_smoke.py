@@ -40,15 +40,15 @@ the exit code is non-zero:
    bitwise repeat and its gathered GB/s, its registers and spills, and
    ``torch.sparse.mm`` as the library yardstick; then the seven bf16 entries
    (``--dtype bfloat16``: both GAT kernels, the NT-Xent and mixture lse and
-   gradients, the weighted segment sum, on bf16 operands; both gradients on
-   their own kernel,
-   ``csrc/gram_grad_bf16.cuh``, whose plans, registers and spills it
-   prints) against their bf16 twins on CPU copies at
-   the main path's shapes (the GAT inputs above rounded to bf16, NT-Xent
-   IIR, the mixture's full M = 4 batch), within 4e-3 x max
-   |twin| per output, with bitwise repeats and the same timings, their
-   bound at the bf16 dense rate of 989 TFLOP/s; the NT-Xent kernels also
-   at the other families' shapes (M = 1: MEAformer's joint loss at
+   gradients, the weighted segment sum, on bf16 operands; both gradients and
+   both lse on kernels of their own, ``csrc/gram_grad_bf16.cuh`` and
+   ``csrc/gram_lse_bf16.cuh``, whose plans, registers and spills it
+   prints; the mixture gradient with ``mixture_kpos_bf16``) against their
+   bf16 twins on CPU copies at the main path's shapes (the GAT inputs
+   above rounded to bf16, NT-Xent IIR, the mixture's full M = 4 batch),
+   within 4e-3 x max |twin| per output, with bitwise repeats and the same
+   timings, their bound at the bf16 dense rate of 989 TFLOP/s; the NT-Xent
+   kernels also at the other families' shapes (M = 1: MEAformer's joint loss at
    d = 1,200, f32 and bf16; an MCLEA modality's padded last batch at
    d = 300) and both rank sweeps also at MCLEA's 300-wide joint; the bf16
    segment sum (``segment_bf16``) on the bench graph's bf16 adjacency, its
@@ -185,7 +185,7 @@ DEVICE_KERNELS = {
     "ntxent_grad_bf16": ("ntxent_grad_bf16",),
     "mixture_lse_bf16": ("mixture_lse_bf16",),
     "mixture_grad_bf16": ("mixture_grad_bf16", "mixture_dbeta_bf16",
-                          "mixture_sum_bf16"),
+                          "mixture_sum_bf16", "mixture_kpos_bf16"),
 }
 SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
 GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
@@ -868,7 +868,7 @@ def phase_ntxent(tau=0.1):
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
         executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
-        lse_executed = 2 * m * lp["pairs"] * lp["tile"] ** 2 * d
+        lse_executed = lse_executed_flops(lp, m, d)
         if i == 0:
             first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_dev"],
                       ms["lse_twin"], 4 * (m * n2 * d + n2 + m * n2), k_flops),
@@ -980,7 +980,7 @@ def phase_mixture(tau=0.1):
         rates = (f"{executed / ms['grad_dev'] / 1e9:.1f} executed, "
                  f"{(k_flops + wz_flops) / ms['grad_dev'] / 1e9:.1f} least")
         lp = sl.lse_plan(m, n2, d, z.device)
-        lse_executed = 2 * m * lp["pairs"] * lp["tile"] ** 2 * d
+        lse_executed = lse_executed_flops(lp, m, d)
         if i == 0:
             # in z, alpha, beta, v (+ lse, coef); out lse (dz, dalpha, dbeta)
             first = [(sl.STATS_LSE.name, ms["lse"], ms["lse_dev"],
@@ -1023,6 +1023,25 @@ def plan_text(plan):
     return text
 
 
+def lse_plan_text(plan):
+    """An lse kernel's launch plan (``ntxent.lse_plan``,
+    ``snag_loss.lse_plan``) for a log line; the bf16 plan also has its
+    persistent blocks, ring and warps."""
+    text = (f"tile {plan['tile']}, {plan['pairs']} pairs, "
+            f"{plan['blocks_per_sm']} block(s)/SM")
+    if "blocks" in plan:
+        text += (f", {plan['blocks']} persistent blocks of {plan['warps']} "
+                 f"warps, {plan['depth']} slots of {plan['slab']} features")
+    return text
+
+
+def lse_executed_flops(plan, pair_channels, d):
+    """The flops an lse kernel executes: every tile pair's T^2 products
+    over d, for each K channel of a pair (NT-Xent's batches, the
+    mixture's modalities)."""
+    return 2 * pair_channels * plan["pairs"] * plan["tile"] ** 2 * d
+
+
 def bf16_grad_k_products(plan, mix):
     """How many times the bf16 gradient computes each K_m: once per block
     where the rows stay resident (one chunk) or a cluster splits them, once
@@ -1041,14 +1060,18 @@ def phase_loss_bf16(tau=0.1):
     |twin|; two runs give the same bits.  Prints the plans and the
     TFLOP/s, executed and least, as the f32 phases do, and the registers
     and spills of the two gradient kernels (``csrc/gram_grad_bf16.cuh``);
-    the bound is the bf16 dense rate.  Returns the JSON records of the
-    four kernels."""
+    the bound is the bf16 dense rate; and the lse kernels' plans (persistent
+    blocks over tile pairs, ``csrc/gram_lse_bf16.cuh``), registers and
+    spills.  The mixture gradient reads each positive pair's K from
+    ``mixture_kpos_bf16`` (the exact dot rounded once to bf16), as its
+    twin does.  Returns the JSON records of the four kernels."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     from snag_tpu_torch.ops.cuda import snag_loss as sl
     bf = torch.bfloat16
     for lib in (nx._library(), sl._library()):
-        for name, regs, st, ld in kernel_ptxas(lib, ("grad_bf16",)):
+        for name, regs, st, ld in kernel_ptxas(
+                lib, ("grad_bf16", "lse_bf16", "kpos_bf16")):
             say("loss_bf16", f"ptxas {name}: {regs} registers, spill stores "
                 f"{st} B, loads {ld} B")
     label, m, b, d, n_valid = NTXENT_SHAPES[0]
@@ -1080,9 +1103,9 @@ def phase_loss_bf16(tau=0.1):
         f"{e_lse:.3e} | max|dz err| {e_dz:.3e} of max|dz| "
         f"{dz.abs().max().item():.3e} (<= {BF16_TOL} x max, bitwise repeats)"
         f" | lse kernel {t['lse']:.3f} ms, device {t['lse_dev']:.3f} ms "
-        f"({k_flops / t['lse_dev'] / 1e9:.1f} least TFLOP/s; tile "
-        f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
-        f"block(s)/SM) twin {t['lse_twin']:.3f} ms | grad kernel "
+        f"({lse_executed_flops(lp, m, d) / t['lse_dev'] / 1e9:.1f} executed, "
+        f"{k_flops / t['lse_dev'] / 1e9:.1f} least TFLOP/s; "
+        f"{lse_plan_text(lp)}) twin {t['lse_twin']:.3f} ms | grad kernel "
         f"{t['grad']:.3f} ms, device {t['grad_dev']:.3f} ms "
         f"({executed / t['grad_dev'] / 1e9:.1f} executed, "
         f"{(k_flops + wz_flops) / t['grad_dev'] / 1e9:.1f} least TFLOP/s; "
@@ -1111,6 +1134,7 @@ def phase_loss_bf16(tau=0.1):
     e_dz, = bf16_errors(f"ntxent_grad_bf16 {label}", [dz], on_cpu(
         lambda *a: [nx.ntxent_grad_twin(*a)], z, lse, coef, v, tau))
     plan = nx.grad_plan(m, 2 * b, d, z.device, bf)
+    lp = nx.lse_plan(m, 2 * b, d, z.device, bf)
     lse_dev = device_ms(lambda: nx.streaming_lse_cuda(z, v, tau),
                         DEVICE_KERNELS[nx.STATS_LSE_BF16.name])
     grad_dev = device_ms(lambda: nx.ntxent_grad_cuda(z, lse, coef, v, tau),
@@ -1118,8 +1142,8 @@ def phase_loss_bf16(tau=0.1):
     say("loss_bf16", f"ntxent {label} (M={m}, B={b}, d={d}): max|lse err| "
         f"{e_lse:.3e} | max|dz err| {e_dz:.3e} of max|dz| "
         f"{dz.abs().max().item():.3e} (<= {BF16_TOL} x max, bitwise repeats)"
-        f" | lse device {lse_dev:.3f} ms | grad device {grad_dev:.3f} ms "
-        f"({plan_text(plan)})")
+        f" | lse device {lse_dev:.3f} ms ({lse_plan_text(lp)}) | grad "
+        f"device {grad_dev:.3f} ms ({plan_text(plan)})")
     del z, v, coef, lse, dz
     torch.cuda.empty_cache()
     first = None
@@ -1154,13 +1178,16 @@ def phase_loss_bf16(tau=0.1):
         # each modality's block computes its own K_m, which its cluster
         # shares
         plan = sl.grad_plan_bf16(m, n2, d, z.device)
+        lp = sl.lse_plan(m, n2, d, z.device, bf)
         executed = 2 * n2 * n2 * d * m * (bf16_grad_k_products(plan, True) + 1)
         say("loss_bf16", f"mixture {label} (M={m}, B={b}, d={d}, {n_valid} "
             f"valid): max|lse err| {e_lse:.3e} | max|err| dz {errs[0]:.3e} "
             f"dalpha {errs[1]:.3e} dbeta {errs[2]:.3e} (<= {BF16_TOL} x max,"
             f" bitwise repeats) | lse kernel {t['lse']:.3f} ms, device "
-            f"{t['lse_dev']:.3f} ms ({k_flops / t['lse_dev'] / 1e9:.1f} "
-            f"least TFLOP/s) twin {t['lse_twin']:.3f} ms | grad kernel "
+            f"{t['lse_dev']:.3f} ms "
+            f"({lse_executed_flops(lp, m, d) / t['lse_dev'] / 1e9:.1f} "
+            f"executed, {k_flops / t['lse_dev'] / 1e9:.1f} least TFLOP/s; "
+            f"{lse_plan_text(lp)}) twin {t['lse_twin']:.3f} ms | grad kernel "
             f"{t['grad']:.3f} ms, device {t['grad_dev']:.3f} ms "
             f"({executed / t['grad_dev'] / 1e9:.1f} executed, "
             f"{(k_flops + wz_flops) / t['grad_dev'] / 1e9:.1f} least "

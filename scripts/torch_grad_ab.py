@@ -4,6 +4,7 @@ the two GAT kernels and the weighted segment sum of a checkout of the
 PyTorch port, timed and fingerprinted on one NVIDIA GPU.
 
     python3 scripts/torch_grad_ab.py [--root DIR] [--out FILE] [--against FILE]
+                                     [--changed SECTION ...]
 
 Imports ``snag_tpu_torch`` from DIR (default: this checkout), builds its
 kernels there, and on ``chip_smoke.py``'s inputs runs
@@ -58,7 +59,10 @@ time of the kernels the call launched, named as in
 It prints one JSON line with the card's name and power limit, and writes it
 to FILE.  With ``--against`` it fails unless every digest equals that of
 an earlier run's FILE: the check that two builds compute the same bits;
-it also prints each record's ``device_ms`` in both runs.
+it also prints each record's ``device_ms`` in both runs.  ``--changed``
+names the sections (e.g. ``mixture_lse_bf16``) whose bits a change is
+meant to move: their digests are still compared and reported, but a
+difference there does not fail the run.
 A section the earlier run does not have at all (the bf16 sections against
 a checkout without bf16 entries) is reported and skipped.
 Run each checkout in its own process (two packages of one name cannot
@@ -94,6 +98,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(ROOT))
     ap.add_argument("--out")
     ap.add_argument("--against")
+    ap.add_argument("--changed", nargs="*", default=[], choices=SECTIONS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -148,9 +153,11 @@ def main() -> int:
                     continue
                 theirs = other.get(kind, {}).get(label, {}).get("sha256")
                 ok = rec["sha256"] == theirs
-                same &= ok
+                same &= ok or kind in args.changed
                 verdict = ("bit-identical" if ok else
-                           "MISSING in" if theirs is None else "DIFFERENT")
+                           "MISSING in" if theirs is None else
+                           "DIFFERENT (--changed)" if kind in args.changed
+                           else "DIFFERENT")
                 print(f"{kind} {label}: {verdict} to {other['root']}")
         for kind in SECTIONS:
             for label, rec in out.get(kind, {}).items():

@@ -6,18 +6,21 @@
 //     W = ((c != r)(coef_r p_row v_c + p_col coef_c v_r)
 //          - [c == pos(r)](coef_r + coef_c)) / tau,
 // NT-Xent dz_m = bf16(W_m) z_m; the mixture dz_m = bf16(W_m(bf16 K_m) +
-// W_a alpha_rm alpha_cm + W_f beta_m) z_m, dalpha and dbeta.
+// W_a alpha_rm alpha_cm + W_f beta_m) z_m, dalpha and dbeta, where at a
+// row's positive partner bf16 K_m is kpos, the exact dot rounded once to
+// bf16 (mixture_kpos_bf16_kernel, below).
 //
 // Both products run as one bf16 mma.sync.m16n8k16 with fp32 accumulation
 // (tile_mma.cuh).  The rounding points are the Pallas kernels': K from the
 // bf16 operands in fp32, each k16 slice from zero and added in fp32 in
 // increasing k (the tensor cores truncate when they accumulate); the two
 // mixtures from that fp32 K, in increasing m; the channel's own K rounded
-// to bf16 where W_m, dalpha and dbeta read it; W rounded to bf16 before
-// W z.  W z takes a column tile's four k16 slices in one accumulator from
-// zero and adds the tile's sum in fp32; column splits add their partials
-// in a fixed order in a second kernel.  No float atomics: two runs give
-// the same bits.
+// to bf16 where W_m, dalpha and dbeta read it (at the positive partner
+// kpos instead, a value the twin computes alike); W rounded to bf16
+// before W z.  W z takes a column tile's four k16 slices in one
+// accumulator from zero and adds the tile's sum in fp32; column splits add
+// their partials in a fixed order in a second kernel.  No float atomics:
+// two runs give the same bits.
 //
 // What bounds it on the H100 is arithmetic: M K products and M W z
 // products of 2 n2^2 d flops each at the bf16 dense rate, 989 TFLOP/s, and
@@ -335,7 +338,8 @@ struct Rows {
 // The kernel's body.  NT-Xent (!MIX): z (nm, n2, d), lse and coef (nm,
 // n2).  MIX: alpha (n2, nm), beta (nm,), lse and coef (nm + 2, n2), and
 // the launch's clusters are the nm blocks of a row block, chunk and split
-// (rank = own).  blockIdx.y = chunk x nm + own; split 0 writes dz (and,
+// (rank = own), and kpos (nm, n2) is the own channel's K at each row's
+// positive partner.  blockIdx.y = chunk x nm + own; split 0 writes dz (and,
 // chunk 0 of MIX, dalpha and a per-block dbeta partial), split s > 0 its
 // partials in part (the layout of gram_grad.cuh's kernels).  z's rows lie
 // at a stride of ld (a multiple of 8, z 16-byte aligned).
@@ -344,9 +348,9 @@ __device__ __forceinline__ void gram_grad_bf16(
     const __nv_bfloat16* __restrict__ z, const float* __restrict__ alpha,
     const float* __restrict__ beta, const float* __restrict__ lse,
     const float* __restrict__ coef, const float* __restrict__ v,
-    float* __restrict__ dz, float* __restrict__ dalpha,
-    float* __restrict__ part, int nm, int chunks, int n2, int d,
-    float inv_tau, int depth, int ld) {
+    const float* __restrict__ kpos, float* __restrict__ dz,
+    float* __restrict__ dalpha, float* __restrict__ part, int nm, int chunks,
+    int n2, int d, float inv_tau, int depth, int ld) {
   extern __shared__ __align__(16) unsigned char smem16[];
   const bool res = resident(chunks);
   // rc > 1: the cluster of the rc chunk blocks splits K's rows (NT-Xent)
@@ -595,6 +599,7 @@ __device__ __forceinline__ void gram_grad_bf16(
         const size_t co = (size_t)own * n2 + (okc ? gc : 0);
         float kv = k[j][e];
         if (MIX) kv = e % 2 ? bf16_hi(kb[j][e / 2]) : bf16_lo(kb[j][e / 2]);
+        if (MIX && oh && R.ok[h]) kv = kpos[(size_t)own * n2 + R.gr[h]];
         float wv = 0.f;
         if (ok)
           wv = w_channel(kv * inv_tau, lse[ro], lse[co], coef[ro], coef[co],
@@ -707,12 +712,13 @@ mixture_grad_bf16_kernel(const __nv_bfloat16* __restrict__ z,
                          const float* __restrict__ beta,
                          const float* __restrict__ lse,
                          const float* __restrict__ coef,
-                         const float* __restrict__ v, float* __restrict__ dz,
-                         float* __restrict__ dalpha, float* __restrict__ part,
-                         int nm, int chunks, int n2, int d, float inv_tau,
-                         int depth, int ld) {
-  gram_grad_bf16<true>(z, alpha, beta, lse, coef, v, dz, dalpha, part, nm,
-                       chunks, n2, d, inv_tau, depth, ld);
+                         const float* __restrict__ v,
+                         const float* __restrict__ kpos,
+                         float* __restrict__ dz, float* __restrict__ dalpha,
+                         float* __restrict__ part, int nm, int chunks, int n2,
+                         int d, float inv_tau, int depth, int ld) {
+  gram_grad_bf16<true>(z, alpha, beta, lse, coef, v, kpos, dz, dalpha, part,
+                       nm, chunks, n2, d, inv_tau, depth, ld);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -722,8 +728,8 @@ ntxent_grad_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
                             const float* __restrict__ v, float* __restrict__ dz,
                             float* __restrict__ part, int nm, int chunks,
                             int n2, int d, float inv_tau, int depth, int ld) {
-  gram_grad_bf16<false>(z, nullptr, nullptr, lse, coef, v, dz, nullptr, part,
-                        nm, chunks, n2, d, inv_tau, depth, ld);
+  gram_grad_bf16<false>(z, nullptr, nullptr, lse, coef, v, nullptr, dz,
+                        nullptr, part, nm, chunks, n2, d, inv_tau, depth, ld);
 }
 
 // zp (rows, ld) = z (rows, d) with zeros past d: rows of 16-byte multiples.
@@ -745,6 +751,39 @@ __device__ __forceinline__ void pad_rows(const __nv_bfloat16* __restrict__ z,
       w[q] = lo | (hi << 16);
     }
     *reinterpret_cast<uint4*>(zp + r * ld + f0) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// x rounded once to bf16 (to nearest, ties to even), as a float: to fp32
+// toward zero with the last bit set where that was inexact (round to odd),
+// then to bf16; the twin's snag_loss.round_bf16_once.
+__device__ __forceinline__ float round_bf16_once(double x) {
+  uint32_t b = __float_as_uint(__double2float_rz(x));
+  if ((double)__uint_as_float(b) != x) b |= 1u;
+  return __bfloat162float(__float2bfloat16_rn(__uint_as_float(b)));
+}
+
+// kpos[m, r] = <z_m[r], z_m[pos(r)]> rounded once to bf16: the products of
+// two bf16 are exact in fp32 and their sum exact in f64 at the loss's
+// widths, so both this kernel and the twin (snag_loss.positive_k) round
+// the same value.  A warp a row, lanes over features, fixed order.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_kpos_bf16_kernel(const __nv_bfloat16* __restrict__ z,
+                         float* __restrict__ kpos, int nm, int n2, int d) {
+  const int lane = threadIdx.x % 32;
+  const size_t rows = (size_t)nm * n2;
+  for (size_t i = ((size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x) / 32;
+       i < rows; i += (size_t)gridDim.x * REDUCE_THREADS / 32) {
+    const int m = (int)(i / n2), r = (int)(i % n2);
+    const int p = r < n2 / 2 ? r + n2 / 2 : r - n2 / 2;
+    const __nv_bfloat16* a = z + ((size_t)m * n2 + r) * d;
+    const __nv_bfloat16* b = z + ((size_t)m * n2 + p) * d;
+    double s = 0.0;
+    for (int f = lane; f < d; f += 32)
+      s += (double)(__bfloat162float(a[f]) * __bfloat162float(b[f]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) kpos[i] = round_bf16_once(s);
   }
 }
 
@@ -781,12 +820,13 @@ size_t pad_floats(int m, int n2, int d) {
 //   splits   blocks that share a row block's column tiles, chosen so that
 //            the last wave fills the SMs (gram_grad.cuh's rule);
 //   scratch  the floats of partials (and, for the mixture, of per-block
-//            dbeta), in gram_grad.cuh's layout, then, where d % 8 != 0,
-//            z's padded copy (from pad_offset).
+//            dbeta), in gram_grad.cuh's layout, for the mixture kpos (from
+//            kpos_at), then, where d % 8 != 0, z's padded copy (from
+//            pad_offset).
 // kernel must already take all the shared memory a block may opt in to.
 struct Plan {
   int chunks, depth, splits, per_sm, rows, resident, cluster;
-  size_t bytes, scratch, pad_at;
+  size_t bytes, scratch, kpos_at, pad_at;
 };
 
 template <bool MIX>
@@ -833,6 +873,8 @@ int plan(const void* kernel, int m, int n2, int d, Plan& p) {
   p.scratch = (size_t)(p.splits - 1) * n_dz;
   if (MIX)
     p.scratch += (size_t)p.splits * nb * m + (size_t)(p.splits - 1) * n2 * m;
+  p.kpos_at = p.scratch;
+  if (MIX) p.scratch += (size_t)m * n2;
   p.pad_at = pad_offset(p.scratch);
   if (d % 8) p.scratch = p.pad_at + pad_floats(m, n2, d);
   return 0;

@@ -1,9 +1,11 @@
-// The row-logsumexp of Gram channels K_m = z_m z_m^T, shared by the
-// mixture lse (snag_loss.cu, MIX = true) and the NT-Xent lse (ntxent.cu,
-// MIX = false).  z is (M, n2, d) with unit rows and v (n2,) marks valid
-// columns.  NT-Xent: one channel per batch, K_m.  Mixture: the M channels
-// K_m, then mix_a = sum_m alpha[r,m] alpha[c,m] K_m and mix_f = sum_m
-// beta[m] K_m.  With the static max 1/tau (|channel| <= 1 for unit rows):
+// The row-logsumexp of Gram channels K_m = z_m z_m^T on fp32 z, shared by
+// the mixture lse (snag_loss.cu, MIX = true) and the NT-Xent lse
+// (ntxent.cu, MIX = false); bf16 z has its own kernel, gram_lse_bf16.cuh,
+// which takes tile_pair and sum_partials from here.  z is (M, n2, d) with
+// unit rows and v (n2,) marks valid columns.  NT-Xent: one channel per
+// batch, K_m.  Mixture: the M channels K_m, then mix_a = sum_m alpha[r,m]
+// alpha[c,m] K_m and mix_f = sum_m beta[m] K_m.  With the static max
+// 1/tau (|channel| <= 1 for unit rows):
 //     lse[ch, r] = log(sum_{c != r} v[c] exp(channel[r, c] / tau - 1/tau)
 //                      + 1e-30) + 1/tau.
 //
@@ -15,14 +17,12 @@
 // Each exp e(r, c) adds e v[c] to row r's sum and, when I < J, e v[r] to
 // row c's; the diagonal pair adds row sums only, c != r.
 //
-// K runs on the tensor cores (tile_mma.cuh).  For fp32 z (Op = float) in
-// 3xTF32, each operand split into hi / lo once per fragment load; for bf16
-// z (Op = __nv_bfloat16) in one bf16 product, fp32 accumulation.  Each k8
-// (bf16: k16) step starts from zero and is added in fp32, because the
-// tensor cores truncate when they accumulate.  Eight warps cover the
-// (T x T) tile as 2 x 4 warp tiles of (T/2 x T/4); operands come from z's
-// rows by 16-byte (bf16: 8-byte) cp.async into a ring of DEPTH slots, KD
-// deep (rows >= n2 and depth >= d read as 0).
+// K runs on the tensor cores in 3xTF32 (tile_mma.cuh), each operand split
+// into hi / lo once per fragment load; each k8 step starts from zero and is
+// added in fp32, because the tensor cores truncate when they accumulate.
+// Eight warps cover the (T x T) tile as 2 x 4 warp tiles of (T/2 x T/4);
+// operands come from z's rows by 16-byte cp.async into a ring of DEPTH
+// slots, KD deep (rows >= n2 and depth >= d read as 0).
 //
 // No float atomics: block (I, J) writes its row partials of channel ch to
 // part[ch][J][rows of I] and, when I < J, its column partials to
@@ -32,12 +32,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tile_mma.cuh"
 
@@ -48,30 +45,19 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int WR = 2, WC = 4;              // the warp grid over the tile
 constexpr int KD = 16;                     // depth of one ring slot
-// fp32: fragments take k slots t and t + 4 from elements 2t and 2t + 1 of
-// each k8 slice (tile_mma.cuh), one 64-bit load; 24 = 24 mod 32 keeps a
-// half-warp's loads on distinct banks.  bf16: slots 2t, 2t + 1, 2t + 8,
-// 2t + 9 from elements 4t .. 4t + 3 of the k16 slice, one 64-bit load;
-// rows of 32 bytes put a half-warp's loads on 128 consecutive bytes.
-template <typename Op>
-__host__ __device__ constexpr int kd_stride() {
-  return std::is_same<Op, float>::value ? KD + 8 : KD;
-}
-constexpr int KD_STRIDE = kd_stride<float>();
+// fragments take k slots t and t + 4 from elements 2t and 2t + 1 of each
+// k8 slice (tile_mma.cuh), one 64-bit load; 24 = 24 mod 32 keeps a
+// half-warp's loads on distinct banks
+constexpr int KD_STRIDE = KD + 8;
 constexpr int DEPTH = 4;                   // slots in the cp.async ring
 constexpr int SUM_THREADS = 256;
 constexpr float EPS = 1e-30f;
 
 // a block's shared memory: the ring (rows of I, then of J) and the row and
 // column partials of its warps
-template <int T, typename Op = float>
-__host__ __device__ constexpr size_t ring_bytes() {
-  return sizeof(Op) * (size_t)DEPTH * 2 * T * kd_stride<Op>();
-}
-
-template <int T, typename Op = float>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return ring_bytes<T, Op>() + sizeof(float) * (WC + WR) * T;
+template <int T>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * ((size_t)DEPTH * 2 * T * KD_STRIDE + (WC + WR) * T);
 }
 
 // The unordered tile pair (I <= J) of linear index p over the upper
@@ -89,36 +75,7 @@ __device__ __forceinline__ void tile_pair(int p, int n, int& I, int& J) {
 }
 
 // One ring slot: rows [row0, row0 + T) of zm into buf[0 .. T) and rows
-// [col0, col0 + T) into buf[T .. 2T), depth [k0, k0 + KD).  bf16: 8-byte
-// copies of 4 elements (VEC, d % 4 == 0), else plain loads and stores,
-// which the barrier before the slot's compute publishes.
-template <bool VEC, int T>
-__device__ __forceinline__ void load_slice(const __nv_bfloat16* __restrict__ zm,
-                                           int n2, int d, int row0, int col0,
-                                           int k0, __nv_bfloat16* buf) {
-  constexpr int S = kd_stride<__nv_bfloat16>();
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(zm);
-  uint16_t* dst = reinterpret_cast<uint16_t*>(buf);
-  if (VEC) {
-    static_assert(2 * T * KD / 4 % THREADS == 0, "a slot's 8-byte copies");
-#pragma unroll
-    for (int q = 0; q < 2 * T * KD / 4 / THREADS; ++q) {
-      const int i = threadIdx.x + q * THREADS;
-      const int r = i / (KD / 4), k = (i % (KD / 4)) * 4;
-      const int gr = r < T ? row0 + r : col0 + r - T;
-      const bool ok = gr < n2 && k0 + k < d;
-      cp_async8(dst + r * S + k, ok ? src + (size_t)gr * d + k0 + k : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 2 * T * KD; i += THREADS) {
-      const int r = i / KD, k = i % KD;
-      const int gr = r < T ? row0 + r : col0 + r - T;
-      dst[r * S + k] = gr < n2 && k0 + k < d ? src[(size_t)gr * d + k0 + k]
-                                             : uint16_t{0};
-    }
-  }
-}
-
+// [col0, col0 + T) into buf[T .. 2T), depth [k0, k0 + KD).
 template <bool VEC, int T>
 __device__ __forceinline__ void load_slice(const float* __restrict__ zm,
                                            int n2, int d, int row0, int col0,
@@ -179,39 +136,6 @@ __device__ __forceinline__ void k_step(const float* buf,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] += p[e];
       }
-    }
-  }
-}
-
-// acc += this warp's (T/2 x T/4) tile of the staged bf16 slice: one k16
-// product from zero, added in fp32.
-template <int T, int MT, int NT>
-__device__ __forceinline__ void k_step(const __nv_bfloat16* buf,
-                                       float (&acc)[MT][NT][4]) {
-  constexpr int S = kd_stride<__nv_bfloat16>();
-  static_assert(KD == 16, "one k16 product a slot");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const __nv_bfloat16* ar = buf + ((warp % WR) * (T / WR) + g) * S + 4 * t;
-  const __nv_bfloat16* br = buf + (T + (warp / WR) * (T / WC) + g) * S + 4 * t;
-  uint32_t b[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const uint2 v = *reinterpret_cast<const uint2*>(br + j * 8 * S);
-    b[j][0] = v.x;
-    b[j][1] = v.y;
-  }
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const uint2 a0 = *reinterpret_cast<const uint2*>(ar + i * 16 * S);
-    const uint2 a1 = *reinterpret_cast<const uint2*>(ar + (i * 16 + 8) * S);
-    const uint32_t a[4] = {a0.x, a1.x, a0.y, a1.y};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float p[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(p, a, b[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += p[e];
     }
   }
 }
@@ -312,20 +236,19 @@ __device__ __forceinline__ void channel_sums(
 
 // The kernel's body.  part is (channels, tiles, n2): NT-Xent's channels
 // are its batches (blockIdx.y), the mixture's are [K_0 .. K_{nm-1} | mix_a
-// | mix_f].  !MIX: alpha and beta unused, nm = 1.  Op: z's type, float or
-// __nv_bfloat16; everything after K is fp32 either way.
-template <bool MIX, bool VEC, int T, typename Op = float>
+// | mix_f].  !MIX: alpha and beta unused, nm = 1.
+template <bool MIX, bool VEC, int T>
 __device__ __forceinline__ void gram_lse(
-    const Op* __restrict__ z, const float* __restrict__ alpha,
+    const float* __restrict__ z, const float* __restrict__ alpha,
     const float* __restrict__ beta, const float* __restrict__ v,
     float* __restrict__ part, int nm, int n2, int d, float inv_tau) {
   constexpr int MT = T / (16 * WR);     // m16 tiles of a warp
   constexpr int NT = T / (8 * WC);      // n8 tiles of a warp
-  constexpr int SLOT = 2 * T * kd_stride<Op>();
+  constexpr int SLOT = 2 * T * KD_STRIDE;
   static_assert(MT * 16 * WR == T && NT * 8 * WC == T, "T % 32 != 0");
   extern __shared__ __align__(16) float smem[];
-  Op* ring = reinterpret_cast<Op*>(smem);
-  float* red_r = smem + ring_bytes<T, Op>() / sizeof(float);   // [WC][T]
+  float* ring = smem;
+  float* red_r = ring + DEPTH * SLOT;   // [WC][T]
   float* red_c = red_r + WC * T;        // [WR][T]
 
   const int tiles = (n2 + T - 1) / T;
@@ -353,7 +276,7 @@ __device__ __forceinline__ void gram_lse(
   };
   // waits for step q's slot; every thread is done with step q - 1's, whose
   // slot takes step q + DEPTH - 1
-  auto next = [&](int q) -> const Op* {
+  auto next = [&](int q) -> const float* {
     cp_async_wait<DEPTH - 2>();
     __syncthreads();
     issue(q + DEPTH - 1);
@@ -453,9 +376,8 @@ struct LsePlan {
 };
 
 // kernel_vec / kernel_scalar: the two instantiations of one lse kernel of
-// tile T and operand type Op; lets both take their shared memory and plans
-// a launch.
-template <int T, typename Op = float>
+// tile T; lets both take their shared memory and plans a launch.
+template <int T>
 int lse_plan(const void* kernel_vec, const void* kernel_scalar, int channels,
              int n2, LsePlan& plan) {
   plan.tile = T;
@@ -463,7 +385,7 @@ int lse_plan(const void* kernel_vec, const void* kernel_scalar, int channels,
   // tile_pair's int arithmetic needs tiles^2 < 2^31
   if (plan.tiles > 46340) return static_cast<int>(cudaErrorInvalidConfiguration);
   plan.pairs = plan.tiles * (plan.tiles + 1) / 2;
-  plan.bytes = lse::smem_bytes<T, Op>();
+  plan.bytes = lse::smem_bytes<T>();
   plan.scratch = (size_t)channels * plan.tiles * n2;
   cudaError_t err = cudaFuncSetAttribute(
       kernel_vec, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.bytes);

@@ -50,13 +50,16 @@
 // path casts the unit rows to bf16 before both Pallas kernels), the
 // products on the bf16 tensor cores, one m16n8k16 mma.sync with fp32
 // accumulation, whose products are exact, so one product keeps fp32's
-// accumulation error.  lse: the same kernel, S from the bf16 operands in
-// fp32, all after it fp32.  Gradient: gram_grad_bf16.cuh's kernel, built
-// for bf16 (a warp's 16-row strip, W from K's C fragments in registers,
-// dz in registers, the block's rows resident and one staging of each
-// column tile up to d = 304; past it the chunks' blocks form a cluster
-// that splits K's rows); S likewise, W rounded to bf16 before W z
-// (the Pallas kernel's w.astype(z.dtype), ntxent_kernel.py:157), dz fp32.
+// accumulation error.  lse: gram_lse_bf16.cuh's kernel with MIX = false
+// (persistent blocks that walk tile pairs of 128 rows, a ring of 64-feature
+// slabs that runs on across pairs, 8 warps, two blocks an SM), S from the
+// bf16 operands in fp32, all after it fp32.  Gradient:
+// gram_grad_bf16.cuh's kernel, built for bf16 (a warp's 16-row strip, W
+// from K's C fragments in registers, dz in registers, the block's rows
+// resident and one staging of each column tile up to d = 304; past it the
+// chunks' blocks form a cluster that splits K's rows); S likewise, W
+// rounded to bf16 before W z (the Pallas kernel's w.astype(z.dtype),
+// ntxent_kernel.py:157), dz fp32.
 // The bound is the flops over the bf16 dense rate, 989 TFLOP/s.
 
 #include <cuda_bf16.h>
@@ -69,6 +72,7 @@
 #include "gram_grad.cuh"
 #include "gram_grad_bf16.cuh"
 #include "gram_lse.cuh"
+#include "gram_lse_bf16.cuh"
 
 namespace {
 
@@ -90,15 +94,25 @@ ntxent_lse_sum_kernel(const float* __restrict__ part, float* __restrict__ lse,
   lse::sum_partials(part, lse, m, tiles, n2, inv_tau);
 }
 
-// The bf16 kernels, named apart so that a profile tells them apart.
-template <bool VEC>
-__global__ void __launch_bounds__(lse::THREADS, 1)
-ntxent_lse_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
+// The bf16 kernels, named apart so that a profile tells them apart.  The
+// lse: 8 warps as 2 x 4 tiles of (64 x 32), a three-slot ring, two blocks
+// an SM (gram_lse_bf16.cuh).
+constexpr int LSE16_WR = 2, LSE16_WC = 4, LSE16_DEPTH = 3;
+
+__global__ void __launch_bounds__(32 * LSE16_WR * LSE16_WC, 2)
+ntxent_lse_bf16_mma_kernel(const __grid_constant__ CUtensorMap map,
                            const float* __restrict__ v,
-                           float* __restrict__ part, int n2, int d,
+                           float* __restrict__ part, int m, int n2, int d,
                            float inv_tau) {
-  lse::gram_lse<false, VEC, LSE_TILE, __nv_bfloat16>(z, nullptr, nullptr, v,
-                                                     part, 1, n2, d, inv_tau);
+  lse16::gram_lse_bf16<false, LSE16_WR, LSE16_WC, LSE16_DEPTH>(
+      &map, nullptr, nullptr, v, part, m, n2, d, inv_tau);
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+ntxent_lse_bf16_pad_kernel(const __nv_bfloat16* __restrict__ z,
+                           __nv_bfloat16* __restrict__ zp, size_t rows, int d,
+                           int ld) {
+  grad16::pad_rows(z, zp, rows, d, ld);
 }
 
 __global__ void __launch_bounds__(lse::SUM_THREADS)
@@ -139,18 +153,23 @@ struct Kernels<float> {
 
 template <>
 struct Kernels<__nv_bfloat16> {
-  static constexpr auto lse_vec = ntxent_lse_bf16_mma_kernel<true>;
-  static constexpr auto lse_scalar = ntxent_lse_bf16_mma_kernel<false>;
+  static constexpr auto lse_kernel = ntxent_lse_bf16_mma_kernel;
   static constexpr auto lse_sum = ntxent_lse_bf16_sum_kernel;
   static constexpr auto grad_kernel = grad16::ntxent_grad_bf16_mma_kernel;
   static constexpr auto grad_sum = ntxent_grad_bf16_sum_kernel;
 };
 
-template <typename Op>
 int lse_setup(int m, int n2, LsePlan& plan) {
-  return lse_plan<LSE_TILE, Op>(
-      reinterpret_cast<const void*>(Kernels<Op>::lse_vec),
-      reinterpret_cast<const void*>(Kernels<Op>::lse_scalar), m, n2, plan);
+  return lse_plan<LSE_TILE>(
+      reinterpret_cast<const void*>(Kernels<float>::lse_vec),
+      reinterpret_cast<const void*>(Kernels<float>::lse_scalar), m, n2, plan);
+}
+
+// Plans a bf16 lse launch (gram_lse_bf16.cuh): m batches, m channels.
+int lse_setup_bf16(int m, int n2, int d, lse16::Plan& plan) {
+  return lse16::plan<false, LSE16_WR, LSE16_WC, LSE16_DEPTH>(
+      reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::lse_kernel), m, m,
+      m, n2, d, plan);
 }
 
 // Lets the kernels take all the shared memory a block may opt in to on the
@@ -184,10 +203,9 @@ int ntxent_plan_bf16(int m, int n2, int d, grad16::Plan& plan) {
   return grad16::plan<false>(kernel, m, n2, d, plan);
 }
 
-// 16-byte copies of 4 floats, or 8-byte copies of 4 bf16
-template <typename Op>
-bool vec_ok(const Op* z, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % (4 * sizeof(Op)) == 0;
+// 16-byte copies of 4 floats
+bool vec_ok(const float* z, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
 }
 
 int check_shape(int m, int n2, int d) {
@@ -196,11 +214,10 @@ int check_shape(int m, int n2, int d) {
              : 0;
 }
 
-template <typename Op>
 long lse_plan_entry(int m, int n2, int d, int* out) {
   if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
   LsePlan plan;
-  const int err = lse_setup<Op>(m, n2, plan);
+  const int err = lse_setup(m, n2, plan);
   if (err) return -static_cast<long>(err);
   if (out) {
     out[0] = plan.tile;
@@ -210,27 +227,69 @@ long lse_plan_entry(int m, int n2, int d, int* out) {
   return static_cast<long>(plan.scratch);
 }
 
-template <typename Op>
-int lse_entry(const Op* z, const float* v, float* part, float* lse, int m,
+int lse_entry(const float* z, const float* v, float* part, float* lse, int m,
               int n2, int d, float inv_tau, void* stream) {
   if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
   LsePlan plan;
-  int err = lse_setup<Op>(m, n2, plan);
+  int err = lse_setup(m, n2, plan);
   if (err) return err;
   const dim3 grid(plan.pairs, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    Kernels<Op>::lse_vec<<<grid, lse::THREADS, plan.bytes, s>>>(
+    Kernels<float>::lse_vec<<<grid, lse::THREADS, plan.bytes, s>>>(
         z, v, part, n2, d, inv_tau);
   else
-    Kernels<Op>::lse_scalar<<<grid, lse::THREADS, plan.bytes, s>>>(
+    Kernels<float>::lse_scalar<<<grid, lse::THREADS, plan.bytes, s>>>(
         z, v, part, n2, d, inv_tau);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const long n = (long)m * n2;
-  Kernels<Op>::lse_sum<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
-                         lse::SUM_THREADS, 0, s>>>(part, lse, m, plan.tiles,
-                                                   n2, inv_tau);
+  Kernels<float>::lse_sum<<<
+      (int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS), lse::SUM_THREADS,
+      0, s>>>(part, lse, m, plan.tiles, n2, inv_tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+long lse_plan_entry_bf16(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  lse16::Plan plan;
+  const int err = lse_setup_bf16(m, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) lse16::report(plan, out);
+  return static_cast<long>(plan.scratch);
+}
+
+// z 16-byte aligned (the wrapper sees to it)
+int lse_entry_bf16(const __nv_bfloat16* z, const float* v, float* part,
+                   float* lse, int m, int n2, int d, float inv_tau,
+                   void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  lse16::Plan plan;
+  int err = lse_setup_bf16(m, n2, d, plan);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // rows of 16-byte multiples: z itself, or its padded copy
+  const int ld = grad16::z_stride(d);
+  if (ld != d) {
+    __nv_bfloat16* zp = reinterpret_cast<__nv_bfloat16*>(part + plan.pad_at);
+    ntxent_lse_bf16_pad_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
+        z, zp, (size_t)m * n2, d, ld);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    z = zp;
+  }
+  CUtensorMap map;
+  err = lse16::make_map(&map, z, (long long)m * n2, ld);
+  if (err) return err;
+  Kernels<__nv_bfloat16>::lse_kernel<<<plan.blocks,
+                                       32 * LSE16_WR * LSE16_WC, plan.bytes,
+                                       s>>>(map, v, part, m, n2, d, inv_tau);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long n = (long)m * n2;
+  Kernels<__nv_bfloat16>::lse_sum<<<
+      (int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS), lse::SUM_THREADS,
+      0, s>>>(part, lse, m, plan.tiles, n2, inv_tau);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -345,7 +404,7 @@ const char* snag_error_string(int err) {
 // negative CUDA error; if out is not null, writes {tile, tile pairs,
 // blocks per SM} to it.
 long ntxent_lse_plan(int m, int n2, int d, int* out) {
-  return lse_plan_entry<float>(m, n2, d, out);
+  return lse_plan_entry(m, n2, d, out);
 }
 
 // z (m, n2, d) with unit rows, v (n2,) 0/1 column validity; writes lse
@@ -372,14 +431,18 @@ int ntxent_grad(const float* z, const float* lse, const float* coef,
 }
 
 // The same four on bf16 z; lse, coef, v, dz and the scratch stay fp32.
+// The bf16 lse's plan (gram_lse_bf16.cuh): {tile, tile pairs, blocks per
+// SM, persistent blocks, ring slots, features a slot, warps a block} to
+// out; its scratch also holds z's padded copy where d % 8 != 0.
 long ntxent_lse_bf16_plan(int m, int n2, int d, int* out) {
-  return lse_plan_entry<__nv_bfloat16>(m, n2, d, out);
+  return lse_plan_entry_bf16(m, n2, d, out);
 }
 
+// z 16-byte aligned
 int ntxent_lse_bf16(const __nv_bfloat16* z, const float* v, float* part,
                     float* lse, int m, int n2, int d, float inv_tau,
                     void* stream) {
-  return lse_entry(z, v, part, lse, m, n2, d, inv_tau, stream);
+  return lse_entry_bf16(z, v, part, lse, m, n2, d, inv_tau, stream);
 }
 
 // The bf16 gradient's plan (gram_grad_bf16.cuh): {feature chunks, ring

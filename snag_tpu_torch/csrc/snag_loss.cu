@@ -75,9 +75,19 @@
 // fp32 and all after it in fp32; the gradient builds mix_a and mix_f from
 // that fp32 K, while each modality's own weight W_m, its dalpha term and
 // its dbeta term read K rounded to bf16 (the kernel's K scratch is in z's
-// dtype), and W_tot is rounded to bf16 before W_tot z.  The bound is the
-// flops over the bf16 dense rate, 989 TFLOP/s.  mixture_lse_bf16 is the
-// fp32 lse kernel on bf16 operands; mixture_grad_bf16 is
+// dtype), and W_tot is rounded to bf16 before W_tot z.  One rounding
+// point differs from the Pallas kernel's: at a row's positive partner the
+// own channel's bf16 K is kpos, the exact dot of the two bf16 rows rounded
+// once to bf16 (mixture_kpos_bf16_kernel, M x n2 f64 dots), where Pallas
+// rounds its own f32 sum: at most one bf16 ulp apart.  The kernel's mma
+// order and the twin's slice sums round a positive pair's K (~0.9) apart
+// where its f32 last bits sit on a bf16 boundary, which at tau = 0.1 moves
+// that row's W_m by ~4 %; the exact value rounds one way on both sides.
+// The bound is the flops over the bf16 dense rate, 989 TFLOP/s.
+// mixture_lse_bf16 is gram_lse_bf16.cuh's kernel with MIX = true:
+// persistent blocks of 16 warps that walk pairs of 128-row tiles, every
+// modality over a pair, a ring of 64-feature slabs that runs on across
+// modalities and pairs.  mixture_grad_bf16 is
 // gram_grad_bf16.cuh's kernel with MIX = true: a block owns 128 rows of one
 // modality's dz in registers (feature chunks past d = 304), walks every
 // modality's K per 64-column tile for the mixtures, and W_tot never leaves
@@ -94,6 +104,7 @@
 #include "gram_grad.cuh"
 #include "gram_grad_bf16.cuh"
 #include "gram_lse.cuh"
+#include "gram_lse_bf16.cuh"
 
 namespace {
 
@@ -119,17 +130,29 @@ mixture_lse_sum_kernel(const float* __restrict__ part, float* __restrict__ lse,
   lse::sum_partials(part, lse, channels, tiles, n2, inv_tau);
 }
 
-// The bf16 kernels, named apart so that a profile tells them apart.
-template <bool VEC>
-__global__ void __launch_bounds__(lse::THREADS, 1)
-mixture_lse_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
+// The bf16 kernels, named apart so that a profile tells them apart.  The
+// lse: 16 warps as 4 x 4 tiles of (32 x 32), so that the K tile and the
+// mixtures' running sums fit in 128 registers, a four-slot ring (five or
+// six slots ran slower, as the spills' cache shrank), one block an SM
+// (gram_lse_bf16.cuh).
+constexpr int LSE16_WR = 4, LSE16_WC = 4, LSE16_DEPTH = 4;
+
+__global__ void __launch_bounds__(32 * LSE16_WR * LSE16_WC, 1)
+mixture_lse_bf16_mma_kernel(const __grid_constant__ CUtensorMap map,
                             const float* __restrict__ alpha,
                             const float* __restrict__ beta,
                             const float* __restrict__ v,
                             float* __restrict__ part, int nm, int n2, int d,
                             float inv_tau) {
-  lse::gram_lse<true, VEC, LSE_TILE, __nv_bfloat16>(z, alpha, beta, v, part,
-                                                    nm, n2, d, inv_tau);
+  lse16::gram_lse_bf16<true, LSE16_WR, LSE16_WC, LSE16_DEPTH>(
+      &map, alpha, beta, v, part, nm, n2, d, inv_tau);
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_lse_bf16_pad_kernel(const __nv_bfloat16* __restrict__ z,
+                            __nv_bfloat16* __restrict__ zp, size_t rows, int d,
+                            int ld) {
+  grad16::pad_rows(z, zp, rows, d, ld);
 }
 
 __global__ void __launch_bounds__(lse::SUM_THREADS)
@@ -203,25 +226,31 @@ struct Kernels<float> {
 
 template <>
 struct Kernels<__nv_bfloat16> {
-  static constexpr auto lse_vec = mixture_lse_bf16_mma_kernel<true>;
-  static constexpr auto lse_scalar = mixture_lse_bf16_mma_kernel<false>;
+  static constexpr auto lse_kernel = mixture_lse_bf16_mma_kernel;
   static constexpr auto lse_sum = mixture_lse_bf16_sum_kernel;
   static constexpr auto grad_kernel = grad16::mixture_grad_bf16_kernel;
   static constexpr auto dbeta = mixture_dbeta_bf16_kernel;
   static constexpr auto sum = mixture_sum_bf16_kernel;
 };
 
-template <typename Op>
 int lse_setup(int m, int n2, LsePlan& plan) {
-  return lse_plan<LSE_TILE, Op>(
-      reinterpret_cast<const void*>(Kernels<Op>::lse_vec),
-      reinterpret_cast<const void*>(Kernels<Op>::lse_scalar), m + 2, n2, plan);
+  return lse_plan<LSE_TILE>(
+      reinterpret_cast<const void*>(Kernels<float>::lse_vec),
+      reinterpret_cast<const void*>(Kernels<float>::lse_scalar), m + 2, n2,
+      plan);
 }
 
-// 16-byte copies of 4 floats, or 8-byte copies of 4 bf16
-template <typename Op>
-bool vec_ok(const Op* z, int d) {
-  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % (4 * sizeof(Op)) == 0;
+// Plans a bf16 lse launch (gram_lse_bf16.cuh): m modalities, m + 2
+// channels, each pair once.
+int lse_setup_bf16(int m, int n2, int d, lse16::Plan& plan) {
+  return lse16::plan<true, LSE16_WR, LSE16_WC, LSE16_DEPTH>(
+      reinterpret_cast<const void*>(Kernels<__nv_bfloat16>::lse_kernel), m,
+      m + 2, 1, n2, d, plan);
+}
+
+// 16-byte copies of 4 floats
+bool vec_ok(const float* z, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
 }
 
 int check_shape(int m, int n2, int d) {
@@ -230,11 +259,10 @@ int check_shape(int m, int n2, int d) {
              : 0;
 }
 
-template <typename Op>
 long lse_plan_entry(int m, int n2, int d, int* out) {
   if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
   LsePlan plan;
-  const int err = lse_setup<Op>(m, n2, plan);
+  const int err = lse_setup(m, n2, plan);
   if (err) return -static_cast<long>(err);
   if (out) {
     out[0] = plan.tile;
@@ -244,27 +272,70 @@ long lse_plan_entry(int m, int n2, int d, int* out) {
   return static_cast<long>(plan.scratch);
 }
 
-template <typename Op>
-int lse_entry(const Op* z, const float* alpha, const float* beta,
+int lse_entry(const float* z, const float* alpha, const float* beta,
               const float* v, float* part, float* lse, int m, int n2, int d,
               float inv_tau, void* stream) {
   if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
   LsePlan plan;
-  int err = lse_setup<Op>(m, n2, plan);
+  int err = lse_setup(m, n2, plan);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
-    Kernels<Op>::lse_vec<<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
+    Kernels<float>::lse_vec<<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
         z, alpha, beta, v, part, m, n2, d, inv_tau);
   else
-    Kernels<Op>::lse_scalar<<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
+    Kernels<float>::lse_scalar<<<plan.pairs, lse::THREADS, plan.bytes, s>>>(
         z, alpha, beta, v, part, m, n2, d, inv_tau);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const long n = (long)(m + 2) * n2;
-  Kernels<Op>::lse_sum<<<(int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS),
-                         lse::SUM_THREADS, 0, s>>>(part, lse, m + 2,
-                                                   plan.tiles, n2, inv_tau);
+  Kernels<float>::lse_sum<<<
+      (int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS), lse::SUM_THREADS,
+      0, s>>>(part, lse, m + 2, plan.tiles, n2, inv_tau);
+  return static_cast<int>(cudaGetLastError());
+}
+
+long lse_plan_entry_bf16(int m, int n2, int d, int* out) {
+  if (check_shape(m, n2, d)) return -static_cast<long>(cudaErrorInvalidValue);
+  lse16::Plan plan;
+  const int err = lse_setup_bf16(m, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) lse16::report(plan, out);
+  return static_cast<long>(plan.scratch);
+}
+
+// z 16-byte aligned (the wrapper sees to it)
+int lse_entry_bf16(const __nv_bfloat16* z, const float* alpha,
+                   const float* beta, const float* v, float* part, float* lse,
+                   int m, int n2, int d, float inv_tau, void* stream) {
+  if (check_shape(m, n2, d)) return static_cast<int>(cudaErrorInvalidValue);
+  lse16::Plan plan;
+  int err = lse_setup_bf16(m, n2, d, plan);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // rows of 16-byte multiples: z itself, or its padded copy
+  const int ld = grad16::z_stride(d);
+  if (ld != d) {
+    __nv_bfloat16* zp = reinterpret_cast<__nv_bfloat16*>(part + plan.pad_at);
+    mixture_lse_bf16_pad_kernel<<<1024, REDUCE_THREADS, 0, s>>>(
+        z, zp, (size_t)m * n2, d, ld);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    z = zp;
+  }
+  CUtensorMap map;
+  err = lse16::make_map(&map, z, (long long)m * n2, ld);
+  if (err) return err;
+  Kernels<__nv_bfloat16>::lse_kernel<<<plan.blocks,
+                                       32 * LSE16_WR * LSE16_WC, plan.bytes,
+                                       s>>>(map, alpha, beta, v, part, m, n2,
+                                            d, inv_tau);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long n = (long)(m + 2) * n2;
+  Kernels<__nv_bfloat16>::lse_sum<<<
+      (int)((n + lse::SUM_THREADS - 1) / lse::SUM_THREADS), lse::SUM_THREADS,
+      0, s>>>(part, lse, m + 2, plan.tiles, n2, inv_tau);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -350,6 +421,14 @@ int grad_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   if (err) return err;
   const int nb = (n2 + grad16::ROWS - 1) / grad16::ROWS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the own channel's K at each row's positive partner, rounded once
+  float* kpos = part + plan.kpos_at;
+  grad16::mixture_kpos_bf16_kernel<<<(int)(((size_t)m * n2 * 32 +
+                                            REDUCE_THREADS - 1) /
+                                           REDUCE_THREADS),
+                                     REDUCE_THREADS, 0, s>>>(z, kpos, m, n2, d);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
   // rows of 16-byte multiples: z itself, or its padded copy
   const int ld = grad16::z_stride(d);
   if (ld != d) {
@@ -375,7 +454,8 @@ int grad_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   cfg.numAttrs = 1;
   err = static_cast<int>(cudaLaunchKernelEx(
       &cfg, Kernels<__nv_bfloat16>::grad_kernel, z, alpha, beta, lse, coef, v,
-      dz, dalpha, part, m, plan.chunks, n2, d, inv_tau, plan.depth, ld));
+      static_cast<const float*>(kpos), dz, dalpha, part, m, plan.chunks, n2,
+      d, inv_tau, plan.depth, ld));
   if (err) return err;
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
@@ -396,7 +476,7 @@ const char* snag_error_string(int err) {
 // channel), or a negative CUDA error; if out is not null, writes {tile,
 // tile pairs, blocks per SM} to it.
 long mixture_lse_plan(int m, int n2, int d, int* out) {
-  return lse_plan_entry<float>(m, n2, d, out);
+  return lse_plan_entry(m, n2, d, out);
 }
 
 // z (m, n2, d) unit rows, alpha (n2, m), beta (m,), v (n2,) 0/1 column
@@ -450,16 +530,21 @@ int mixture_grad(const float* z, const float* alpha, const float* beta,
 }
 
 // The same on bf16 z; alpha, beta, v, lse, coef, every output and the
-// scratch stay fp32.
+// scratch stay fp32.  The bf16 lse's plan (gram_lse_bf16.cuh): {tile, tile
+// pairs, blocks per SM, persistent blocks, ring slots, features a slot,
+// warps a block} to out; its scratch also holds z's padded copy where
+// d % 8 != 0.
 long mixture_lse_bf16_plan(int m, int n2, int d, int* out) {
-  return lse_plan_entry<__nv_bfloat16>(m, n2, d, out);
+  return lse_plan_entry_bf16(m, n2, d, out);
 }
 
+// z 16-byte aligned
 int mixture_lse_bf16(const __nv_bfloat16* z, const float* alpha,
                      const float* beta, const float* v, float* part,
                      float* lse, int m, int n2, int d, float inv_tau,
                      void* stream) {
-  return lse_entry(z, alpha, beta, v, part, lse, m, n2, d, inv_tau, stream);
+  return lse_entry_bf16(z, alpha, beta, v, part, lse, m, n2, d, inv_tau,
+                        stream);
 }
 
 // How mixture_grad_bf16 runs at this shape on the current device: returns

@@ -31,8 +31,11 @@ Twins: ``streaming_lse_twin`` and ``ntxent_grad_twin``, the same formulas
 on the dense (M, 2B, 2B) matrix.
 
 bf16: a bf16 z (the JAX package's matmul dtype under ``--dtype bfloat16``,
-contrastive.py:364-366) takes ``ntxent_lse_bf16``, the lse kernel with its
-products on the bf16 tensor cores, and ``ntxent_grad_bf16``, the gradient
+contrastive.py:364-366) takes ``ntxent_lse_bf16``, the lse kernel built for
+bf16 (``csrc/gram_lse_bf16.cuh``: persistent blocks that walk the tile
+pairs, a ring of 64-feature slabs that runs on across pairs, z padded to
+16-byte rows where d % 8 != 0; ``lse_plan`` says how it runs), and
+``ntxent_grad_bf16``, the gradient
 kernel built for bf16 (``csrc/gram_grad_bf16.cuh``: 128-row blocks, W and
 dz in registers, the rows resident up to d = 304), counted apart
 (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The rounding points are
@@ -166,19 +169,28 @@ def _suffix(dtype: torch.dtype) -> str:
     return dtype_suffix(dtype, "NT-Xent kernels")
 
 
+LSE_PLAN = ("tile", "pairs", "blocks_per_sm")
+# the bf16 lse's persistent blocks, ring slots, features a slot and warps
+# a block (csrc/gram_lse_bf16.cuh)
+LSE_PLAN_BF16 = LSE_PLAN + ("blocks", "depth", "slab", "warps")
+
+
 def lse_plan(m: int, n2: int, d: int, device: torch.device,
              dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """How ``ntxent_lse`` (``ntxent_lse_bf16`` for a bf16 ``dtype``) runs
-    at (m, n2, d) on ``device``: its tile, tile pairs (blocks per batch),
-    blocks per SM and floats of scratch."""
+    at (m, n2, d) on ``device``: its tile, tile pairs (f32: blocks per
+    batch), blocks per SM, floats of scratch and, for bf16, the persistent
+    blocks that walk the pairs of every batch, the ring's slots, the
+    features a slot and warps a block."""
     built = _library()
     name = f"ntxent_lse{_suffix(dtype)}_plan"
-    out = (ctypes.c_int * 3)()
+    keys = LSE_PLAN_BF16 if dtype == torch.bfloat16 else LSE_PLAN
+    out = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         floats = getattr(built.lib, name)(m, n2, d, out)
     if floats < 0:
         check(built, -floats, name)
-    return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
+    return dict(zip(keys, out), scratch=floats)
 
 
 GRAD_PLAN = ("chunks", "depth", "splits", "blocks_per_sm")
@@ -225,6 +237,8 @@ def streaming_lse_cuda(z: torch.Tensor, v: torch.Tensor,
     m, n2, d = _check_z(z, v)
     built = _library()
     stats = STATS_LSE_BF16 if z.dtype == torch.bfloat16 else STATS_LSE
+    if z.dtype == torch.bfloat16:
+        z = aligned16(z)
     plan = lse_plan(m, n2, d, z.device, z.dtype)
     with torch.cuda.device(z.device):
         lse = torch.empty(m, n2, dtype=torch.float32, device=z.device)

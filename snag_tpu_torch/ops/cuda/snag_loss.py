@@ -38,12 +38,15 @@ on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
 (snag_tpu/losses/contrastive.py:390-408).
 
 bf16: a bf16 z (the JAX package's matmul dtype under ``--dtype bfloat16``,
-snag.py:86-87, 168-170) takes ``mixture_lse_bf16``, the lse kernel with
-its products on the bf16 tensor cores, and ``mixture_grad_bf16``, the
-gradient kernel built for bf16 (``csrc/gram_grad_bf16.cuh``: a block owns
-128 rows of one modality's dz in registers, in feature chunks past
-d = 304, and the M blocks of a row block form a cluster that shares each
-modality's K tile for the mixtures), counted apart
+snag.py:86-87, 168-170) takes ``mixture_lse_bf16``, the lse kernel built
+for bf16 (``csrc/gram_lse_bf16.cuh``: persistent blocks that walk the
+tile pairs, every modality over a pair, a ring of 64-feature slabs that
+runs on across modalities and pairs; ``lse_plan``), and
+``mixture_grad_bf16``, the gradient kernel built for bf16
+(``csrc/gram_grad_bf16.cuh``: a block owns 128 rows of one modality's dz
+in registers, in feature chunks past d = 304, and the M blocks of a row
+block form a cluster that shares each modality's K tile for the
+mixtures), counted apart
 (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The bf16 gradient has no
 modality groups and no accumulator cap; ``grad_plan_bf16`` says how it
 runs.
@@ -55,6 +58,19 @@ W_tot rounded to bf16 before W_tot z (:214).  alpha, beta, lse, coef and
 every output are f32.  The twin takes K the kernels' way (``ntxent.gram``:
 16-wide feature slices added in order), as W_tot's rounding makes dz
 sensitive to the last bits of mix_a and mix_f.
+
+One rounding point differs from the Pallas kernel's: where W_m, dalpha and
+dbeta read the own-channel K at a row's positive partner, both the kernel
+and the twin take ``positive_k``, the exact dot <z_m[r], z_m[pos(r)]>
+(products of bf16 values are exact in f32, their sum in f64) rounded once
+to bf16.  The Pallas kernel rounds its own f32 sum there, so the two lie
+at most one bf16 ulp apart.  A positive pair's K (~0.9) whose f32 last
+bits sit on a bf16 boundary rounded apart in the kernel (its mma order)
+and the twin (its slice sums); at tau = 0.1 that one ulp moves the row's
+W_m by ~4 %, beyond the card check's limit.  The exact value has one
+rounding, so both sides agree.  Every other K entry keeps the Pallas
+rounding point.  The kernel takes it from a small kernel of its own,
+``mixture_kpos_bf16``, launched by ``mixture_grad_bf16``.
 """
 
 from __future__ import annotations
@@ -67,7 +83,8 @@ import torch
 from snag_tpu_torch.ops.cuda._lib import (KernelStats, aligned16, check,
                                           dtype_suffix, load_library, ptr,
                                           require, stream_of)
-from snag_tpu_torch.ops.cuda.ntxent import GRAD_PLAN_BF16, gram
+from snag_tpu_torch.ops.cuda.ntxent import (GRAD_PLAN_BF16, LSE_PLAN,
+                                            LSE_PLAN_BF16, gram)
 
 STATS_LSE = KernelStats("mixture_lse")
 STATS_GRAD = KernelStats("mixture_grad")
@@ -87,6 +104,36 @@ def _channels(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor
     mix_a = torch.einsum("rm,cm,mrc->rc", alpha, alpha, k)
     mix_f = torch.einsum("m,mrc->rc", beta, k)
     return torch.cat([k, mix_a[None], mix_f[None]], dim=0)
+
+
+def round_bf16_once(x: torch.Tensor) -> torch.Tensor:
+    """Values of x (f64) rounded once to bf16 (to nearest, ties to even),
+    returned as f32.  ``x.to(torch.bfloat16)`` on an f64 tensor rounds
+    through f32, twice; rounding to f32 toward zero and setting the last
+    bit where that was inexact (round to odd) keeps the information a
+    single rounding to bf16 needs."""
+    x = x.to(torch.float64)
+    r = x.to(torch.float32)
+    r = torch.where(r.to(torch.float64).abs() > x.abs(),
+                    torch.nextafter(r, torch.zeros_like(r)), r)
+    odd = (r.to(torch.float64) != x).to(torch.int32)
+    r = (r.view(torch.int32) | odd).view(torch.float32)
+    return r.to(torch.bfloat16).to(torch.float32)
+
+
+def positive_rows(n2: int, device) -> torch.Tensor:
+    """pos(r) = r + B or r - B, the positive partner of each row."""
+    rows = torch.arange(n2, device=device)
+    half = n2 // 2
+    return torch.where(rows < half, rows + half, rows - half)
+
+
+def positive_k(z: torch.Tensor) -> torch.Tensor:
+    """kpos (M, 2B) f32: <z_m[r], z_m[pos(r)]> of a bf16 z, exact (f64
+    sums of exact products), rounded once to bf16 (module docstring)."""
+    z64 = z.to(torch.float64)
+    pos = positive_rows(z.shape[1], z.device)
+    return round_bf16_once((z64 * z64[:, pos]).sum(dim=2))
 
 
 def _off_diagonal(n2: int, device) -> torch.Tensor:
@@ -114,15 +161,16 @@ def mixture_grad_twin(z: torch.Tensor, alpha: torch.Tensor,
     m, n2, _ = z.shape
     ch = _channels(z, alpha, beta)
     bf16 = z.dtype == torch.bfloat16
+    rows = torch.arange(n2, device=z.device)
+    pos = positive_rows(n2, z.device)
     if bf16:
-        ch = torch.cat([ch[:m].to(torch.bfloat16).to(torch.float32), ch[m:]])
+        k_b = ch[:m].to(torch.bfloat16).to(torch.float32)
+        k_b[:, rows, pos] = positive_k(z)
+        ch = torch.cat([k_b, ch[m:]])
         z = z.to(torch.float32)
     k = ch[:m]
     s = ch * inv_tau
     neq = _off_diagonal(n2, z.device)
-    rows = torch.arange(n2, device=z.device)
-    half = n2 // 2
-    pos = torch.where(rows < half, rows + half, rows - half)
     onehot = (rows[None, :] == pos[:, None]).to(torch.float32)
     p_row = torch.exp(torch.clamp(s - lse[:, :, None], max=0.0))
     p_col = torch.exp(torch.clamp(s - lse[:, None, :], max=0.0))
@@ -176,16 +224,19 @@ def _suffix(dtype: torch.dtype) -> str:
 def lse_plan(m: int, n2: int, d: int, device: torch.device,
              dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """How ``mixture_lse`` (``mixture_lse_bf16`` for a bf16 ``dtype``)
-    runs at (m, n2, d) on ``device``: its tile, tile pairs (blocks), blocks
-    per SM and floats of scratch."""
+    runs at (m, n2, d) on ``device``: its tile, tile pairs (f32: blocks),
+    blocks per SM, floats of scratch and, for bf16, the persistent blocks
+    that walk the pairs, the ring's slots, the features a slot and warps a
+    block."""
     built = _library()
     name = f"mixture_lse{_suffix(dtype)}_plan"
-    out = (ctypes.c_int * 3)()
+    keys = LSE_PLAN_BF16 if dtype == torch.bfloat16 else LSE_PLAN
+    out = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         floats = getattr(built.lib, name)(m, n2, d, out)
     if floats < 0:
         check(built, -floats, name)
-    return dict(zip(("tile", "pairs", "blocks_per_sm"), out), scratch=floats)
+    return dict(zip(keys, out), scratch=floats)
 
 
 def grad_plan_bf16(m: int, n2: int, d: int,
@@ -253,6 +304,8 @@ def mixture_lse_cuda(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     m, n2, d = _check(z, alpha, beta, v)
     built = _library()
     stats = STATS_LSE_BF16 if z.dtype == torch.bfloat16 else STATS_LSE
+    if z.dtype == torch.bfloat16:
+        z = aligned16(z)
     plan = lse_plan(m, n2, d, z.device, z.dtype)
     with torch.cuda.device(z.device):
         lse = torch.empty(m + 2, n2, dtype=torch.float32, device=z.device)

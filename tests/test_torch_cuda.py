@@ -808,6 +808,87 @@ def test_mixture_bf16_kernels_match_twins(dev, m, b, d, n_valid):
         assert torch.equal(a, w)
 
 
+# the bf16 lse kernel (gram_lse_bf16.cuh): persistent blocks over pairs of
+# 128-row tiles, 64-feature ring slots, z padded to 16-byte rows where
+# d % 8 != 0 (d = 30, 300, 301; 1,200 runs unpadded in 19 slots); n2
+# ragged (not a multiple of 128), under one tile, or a multiple (B = 64);
+# invalid columns; every case has an all-zero row
+BF16_LSE_CASES = [(1, 50, 30, 50), (2, 97, 300, 80), (3, 130, 301, 130),
+                  (1, 70, 1200, 64), (4, 3500, 300, 1000), (6, 33, 30, 33),
+                  (5, 64, 301, 60), (1, 3500, 1200, 3500)]
+
+
+@pytest.mark.parametrize("m,b,d,n_valid", BF16_LSE_CASES)
+def test_ntxent_lse_bf16_matches_twin(dev, m, b, d, n_valid):
+    z, v, _ = _ntxent_inputs(dev, m, b, d, n_valid, seed=b)
+    z = z.to(torch.bfloat16)
+    lse = nx.streaming_lse_cuda(z, v, 0.1)
+    again = nx.streaming_lse_cuda(z, v, 0.1)
+    torch.cuda.synchronize()
+    assert_bf16_close([lse], on_cpu(lambda *a: [nx.streaming_lse_twin(*a)],
+                                    z, v, 0.1))
+    assert torch.equal(lse, again)
+
+
+# the same edge cases for the mixture, M = 1 to 6
+@pytest.mark.parametrize("m,b,d,n_valid", [(1, 50, 30, 50), (2, 97, 300, 80),
+                                           (3, 130, 301, 130),
+                                           (4, 70, 1200, 64),
+                                           (4, 3500, 300, 1000),
+                                           (6, 33, 30, 33), (5, 64, 301, 60),
+                                           (6, 200, 300, 190)])
+def test_mixture_lse_bf16_matches_twin(dev, m, b, d, n_valid):
+    z, alpha, beta, v, _ = _mixture_inputs(dev, m, b, d, n_valid, seed=b)
+    z = z.to(torch.bfloat16)
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    again = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    torch.cuda.synchronize()
+    assert_bf16_close([lse], on_cpu(lambda *a: [sl.mixture_lse_twin(*a)],
+                                    z, alpha, beta, v, 0.1))
+    assert torch.equal(lse, again)
+
+
+def test_lse_bf16_plans(dev):
+    """128-row tiles, 1,540 pairs at n2 = 7,000; persistent blocks that
+    fill the SMs once (NT-Xent two 8-warp blocks an SM over the pairs of
+    every batch, the mixture one 16-warp block); 64 features a ring slot;
+    scratch: the partials, then z padded to 304-feature rows (d = 300)."""
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pad = (4 * 7000 * 304 + 1) // 2
+    for plan, channels, warps, per_sm in (
+            (nx.lse_plan(4, 7000, 300, dev, bf), 4, 8, 2),
+            (sl.lse_plan(4, 7000, 300, dev, bf), 6, 16, 1)):
+        assert (plan["tile"], plan["pairs"], plan["slab"], plan["warps"],
+                plan["blocks_per_sm"]) == (128, 1540, 64, warps, per_sm), plan
+        assert plan["blocks"] == min(sms * per_sm, 1540 * (4 if warps == 8
+                                                           else 1)), plan
+        part = channels * 55 * 7000
+        assert plan["scratch"] == -(-part // 4) * 4 + pad, plan
+    # d % 8 == 0: no padded copy; a batch smaller than the SMs' blocks
+    small = nx.lse_plan(1, 40, 64, dev, bf)
+    assert (small["pairs"], small["blocks"], small["scratch"]) == (1, 1, 40)
+
+
+# fault C6's seeds (scripts/torch_c6_seeds.py): a positive pair's K whose
+# f32 sum sat on a bf16 boundary rounded apart in the kernel (3439), in the
+# twin (3449), or in both (3566), before both read the exact dot rounded
+# once (snag_loss.positive_k); chip_smoke's M4 inputs at the seed
+@pytest.mark.parametrize("seed", [3439, 3449, 3566])
+def test_mixture_bf16_grad_at_c6_seeds(dev, seed):
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    z, alpha, beta, v, coef = cs._mixture_inputs(4, 3500, 300, 3500, seed)
+    z = z.to(torch.bfloat16)
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, sl.mixture_grad_twin(z, alpha, beta, lse, coef,
+                                                v, 0.1))
+
+
 def test_mixture_bf16_grad_has_no_cap(dev):
     """The fp32 gradient holds (modalities per block) x d within its shared
     accumulator's cap (test_mixture_wrappers_refuse_what_the_kernels_do_

@@ -43,7 +43,8 @@ the exit code is non-zero:
    gradients, the weighted segment sum, on bf16 operands; both gradients and
    both lse on kernels of their own, ``csrc/gram_grad_bf16.cuh`` and
    ``csrc/gram_lse_bf16.cuh``, whose plans, registers and spills it
-   prints; the mixture gradient with ``mixture_kpos_bf16``) against their
+   prints; the mixture gradient with ``mixture_kpos_bf16``, each positive
+   pair's K and W_tot rounded once from f64) against their
    bf16 twins on CPU copies at the main path's shapes (the GAT inputs
    above rounded to bf16, NT-Xent IIR, the mixture's full M = 4 batch),
    within 4e-3 x max |twin| per output, with bitwise repeats and the same
@@ -1062,9 +1063,10 @@ def phase_loss_bf16(tau=0.1):
     and spills of the two gradient kernels (``csrc/gram_grad_bf16.cuh``);
     the bound is the bf16 dense rate; and the lse kernels' plans (persistent
     blocks over tile pairs, ``csrc/gram_lse_bf16.cuh``), registers and
-    spills.  The mixture gradient reads each positive pair's K from
-    ``mixture_kpos_bf16`` (the exact dot rounded once to bf16), as its
-    twin does.  Returns the JSON records of the four kernels."""
+    spills.  The mixture gradient reads each positive pair's K and W_tot
+    from ``mixture_kpos_bf16`` (the exact dot, and W_tot in f64, each
+    rounded once to bf16), as its twin does.  Returns the JSON records of
+    the four kernels."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     from snag_tpu_torch.ops.cuda import snag_loss as sl

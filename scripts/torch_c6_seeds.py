@@ -19,7 +19,8 @@ At every seed whose dz misses the limit against either twin, and at the
 few seeds nearest to it, it also runs the twin on CPU copies and an f64
 evaluation with the same rounding points (K of the bf16 rows exact in
 f64; each modality's own K, where W_m, dalpha and dbeta read it, and W_tot
-rounded once to bf16, ``snag_loss.round_bf16_once``; W_tot z in f64), and
+rounded once to bf16, ``snag_loss.round_bf16_once``, at the positive pairs
+as both sides read it, ``snag_loss.positive_w``; W_tot z in f64), and
 prints the kernel's, the card twin's and the CPU twin's max |err| against
 it, each over max |f64|: the side far from the f64 value is the one whose
 rounding moved.  It also counts the own-channel K entries whose bf16
@@ -54,9 +55,11 @@ NEAREST = 5          # seeds nearest the limit also checked against f64
 def f64_reference(z, alpha, beta, lse, coef, v, tau):
     """(dz, dalpha, dbeta) of ``mixture_grad_twin``'s formulas in f64, with
     its bf16 rounding points: K exact, own-channel K and W_tot rounded to
-    bf16; and the own-channel K rounded to bf16."""
+    bf16 (at the positive pairs W_tot is ``snag_loss.positive_w``, the
+    same f64 formula rounded once); and the own-channel K rounded to bf16,
+    and W_tot before its rounding."""
     import torch
-    from snag_tpu_torch.ops.cuda.snag_loss import round_bf16_once
+    from snag_tpu_torch.ops.cuda.snag_loss import positive_w, round_bf16_once
     f8 = torch.float64
     inv_tau = 1.0 / tau
     zd = z.to(f8)
@@ -85,6 +88,10 @@ def f64_reference(z, alpha, beta, lse, coef, v, tau):
     aa = alpha.T[:, :, None] * alpha.T[:, None, :]
     w_tot_exact = w[:m] + w_a[None] * aa + w_f[None] * beta[:, None, None]
     w_tot = round_bf16_once(w_tot_exact).to(f8)
+    # at the positive pairs, the value both sides read (positive_w)
+    kpos = k_b[:, rows, pos].to(torch.float32)
+    w_tot[:, rows, pos] = positive_w(z, *(t.to(torch.float32) for t in (
+        alpha, beta, lse, coef, v)), tau, kpos).to(f8)
     dz = torch.bmm(w_tot, zd)
     dalpha = torch.einsum("rc,cm,mrc->rm", w_a, alpha, k_b)
     dbeta = 0.5 * torch.einsum("rc,mrc->m", w_f, k_b)

@@ -58,17 +58,38 @@
 // those operands, and d_s_src adds it in row i's CSR order as before.  d_x is
 // the same fmaf chain (edges in order, heads in order, from 0).
 //
-// gat_bwd_bf16: the same two launches on bf16 x and G (T = __nv_bfloat16),
-// with the rounding points of the Pallas kernel on the JAX package's bf16
-// path (gat_attn_primitive.py:137-192, gat_bwd.py:95-125, edgewise_bwd):
-// the node block [G | r | s_src] and [x | s_dst] are bf16, so s_src, s_dst
+// gat_bwd_bf16: the same two launches on bf16 x and G, with the rounding
+// points of the Pallas kernel on the JAX package's bf16 path
+// (gat_attn_primitive.py:137-192, gat_bwd.py:95-125, edgewise_bwd): the
+// node block [G | r | s_src] and [x | s_dst] are bf16, so s_src, s_dst
 // and r are rounded to bf16 here; e stays fp32; d_e sums the exact fp32
 // products of x[j] and G[k]; each edge's d_score is rounded to bf16 (the
 // kernel packs it beside d_x in the bf16 block it reduces), and so is its
 // d_x term, a bf16 sum over heads of bf16(bf16(e_h) G[k, h]); the scratch
 // and both row sums stay fp32, and d_x is written as bf16, as the
-// primitive casts it to x's dtype.  The G gather, what bounds the kernel,
-// halves.
+// primitive casts it to x's dtype.
+//
+// Its first pass has a body of its own, gat_bwd_bf16_rows.  Half the bytes
+// of a G row do not make it gather-bound: on the H100 the same body as f32,
+// with G widened to fp32 on arrival and the term's roundings in fp32, spent
+// 0.30 of its warps' cycles on the term, 0.20 on the butterflies and 0.22
+// waiting for G rows, and ran slower than the f32 kernel at 90 registers
+// (scripts/torch_gat_bwd_phases.py; PERF.md section 6).  So:
+// * G and the term stay bf16 pairs, two to a 32-bit word: the term is one
+//   mul.rn.bf16x2 a pair and head and one add.rn.bf16x2 a pair for each
+//   head after the first, each rounded once, which gives the fp32-then-
+//   round_bf16 bits (mul_bf16x2); G is widened only inside the dot (the
+//   same fmaf chain on the same fp32 values) and the term only where it is
+//   added to d_x in fp32.
+// * An edge's H x G lane partials of its dots are summed by one
+//   reduce-scatter, warp_sums, with the butterflies' bits: 15 shuffles at
+//   C = 300, H = 2 where a butterfly a value took 30.
+// * One edge's G rows at a time, as the f32 body: at most 72 registers up
+//   to C = 384, seven blocks an SM.  Two edges' rows in flight, or a
+//   software prefetch of later edges' rows (92 registers), ran slower: the
+//   warps in flight set the rate, and the wait for G rows is again the
+//   largest phase.
+// tests/test_torch_gat_bwd_bf16_schedule.py emulates the pass bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +103,10 @@ constexpr int MAX_HEADS = 4;
 constexpr int MAX_GROUPS = 10;   // c / vec <= 320
 constexpr int WARPS = 4;         // rows a block in pass 1
 constexpr int SUM_THREADS = 256; // rows a block in pass 2
+// gat_bwd_bf16's first pass at G <= 3: blocks an SM it is built for (at
+// most 72 registers a thread); so bounded it ran 4 % faster on an H100
+// than unbounded at the same 72 registers (PERF.md section 6)
+constexpr int BF16_MIN_BLOCKS = 7;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float edge_weight(float score) {
@@ -117,86 +142,15 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float bf16_bits(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-
-// Slice s of a row as fp32: VEC floats, or VEC bf16 (their bits shifted
-// into fp32's high half, which is exact).  stream: read once, past L2.
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T load_slice(const float* row,
-                                                           int s, bool stream) {
-  const auto* p = reinterpret_cast<const typename Vec<VEC>::T*>(row) + s;
-  return stream ? __ldcs(p) : *p;
-}
-
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T load_slice(
-    const __nv_bfloat16* row, int s, bool stream) {
-  if constexpr (VEC == 4) {
-    const uint2* p = reinterpret_cast<const uint2*>(row) + s;
-    const uint2 u = stream ? __ldcs(p) : *p;
-    return make_float4(bf16_bits(u.x & 0xffffu), __uint_as_float(u.x & 0xffff0000u),
-                       bf16_bits(u.y & 0xffffu), __uint_as_float(u.y & 0xffff0000u));
-  } else {
-    return __bfloat162float(row[s]);
-  }
-}
-
-// The bf16 arithmetic of one d_x term: t = bf16(t + bf16(e g)), or
-// bf16(e g) for the first head.
-__device__ __forceinline__ void dx_term(float& t, float e, float g, bool first) {
-  const float p = round_bf16(e * g);
-  t = first ? p : round_bf16(t + p);
-}
-__device__ __forceinline__ void dx_term(float4& t, float e, float4 g,
-                                        bool first) {
-  dx_term(t.x, e, g.x, first);
-  dx_term(t.y, e, g.y, first);
-  dx_term(t.z, e, g.z, first);
-  dx_term(t.w, e, g.w, first);
-}
-
-__device__ __forceinline__ void add(float& a, float b) { a += b; }
-__device__ __forceinline__ void add(float4& a, float4 b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
-}
-
-// Slice s of d_x's row: VEC floats, or VEC rounded to bf16.
-template <int VEC>
-__device__ __forceinline__ void store_slice(float* row, int s,
-                                            typename Vec<VEC>::T v) {
-  __stcs(reinterpret_cast<typename Vec<VEC>::T*>(row) + s, v);
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_slice(__nv_bfloat16* row, int s,
-                                            typename Vec<VEC>::T v) {
-  if constexpr (VEC == 4) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&lo);
-    u.y = *reinterpret_cast<const uint32_t*>(&hi);
-    __stcs(reinterpret_cast<uint2*>(row) + s, u);
-  } else {
-    row[s] = __float2bfloat16_rn(v);
-  }
-}
-
-// Pass 1, the body of both kernels; X is the type of x, G and d_x.
-template <typename X, int H, int VEC, int G>
+// Pass 1 of gat_bwd (f32).
+template <int H, int VEC, int G>
 __device__ __forceinline__ void gat_bwd_rows(
-    const X* __restrict__ x, const float* __restrict__ s_src,
-    const float* __restrict__ s_dst, const X* __restrict__ g_agg,
+    const float* __restrict__ x, const float* __restrict__ s_src,
+    const float* __restrict__ s_dst, const float* __restrict__ g_agg,
     const float* __restrict__ g_rs, const int* __restrict__ row_ptr,
     const int* __restrict__ col, const long long* __restrict__ rev,
-    X* __restrict__ d_x, float* __restrict__ d_s_dst,
+    float* __restrict__ d_x, float* __restrict__ d_s_dst,
     float* __restrict__ scratch, int n, int c) {
-  constexpr bool BF16 = !std::is_same<X, float>::value;
   using V = typename Vec<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -208,14 +162,14 @@ __device__ __forceinline__ void gat_bwd_rows(
   for (int g = 0; g < G; ++g) {
     const int s = lane + 32 * g;
     // read once: streamed past L2, which keeps the G rows
-    xj[g] = s < nv ? load_slice<VEC>(x + (size_t)j * c, s, true) : V{};
+    xj[g] = s < nv ? __ldcs(reinterpret_cast<const V*>(x + (size_t)j * c) + s)
+                   : V{};
     acc[g] = V{};
   }
   float dst_j[H], sum_dst[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) {
     dst_j[h] = s_dst[(size_t)j * H + h];
-    if constexpr (BF16) dst_j[h] = round_bf16(dst_j[h]);
     sum_dst[h] = 0.f;
   }
   const int beg = row_ptr[j];
@@ -236,10 +190,6 @@ __device__ __forceinline__ void gat_bwd_rows(
       for (int h = 0; h < H; ++h) {
         score_l[h] = s_src[(size_t)k_l * H + h];
         r_l[h] = g_rs[(size_t)k_l * H + h];
-        if constexpr (BF16) {
-          score_l[h] = round_bf16(score_l[h]);
-          r_l[h] = round_bf16(r_l[h]);
-        }
       }
     }
 
@@ -248,11 +198,11 @@ __device__ __forceinline__ void gat_bwd_rows(
       V gk[H][G];
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        const X* row = g_agg + ((size_t)k * H + h) * c;
+        const V* row = reinterpret_cast<const V*>(g_agg + ((size_t)k * H + h) * c);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const int s = lane + 32 * g;
-          gk[h][g] = s < nv ? load_slice<VEC>(row, s, false) : V{};
+          gk[h][g] = s < nv ? row[s] : V{};
         }
       }
       if (q == 0) {  // with the first G rows in flight: the edge weights
@@ -262,17 +212,13 @@ __device__ __forceinline__ void gat_bwd_rows(
           e_l[h] = edge_weight(score_l[h]);
         }
       }
-      V term[G];   // bf16: this edge's d_x term, summed over heads in bf16
 #pragma unroll
       for (int h = 0; h < H; ++h) {
         const float e = __shfl_sync(FULL, e_l[h], q);
         float part[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          if constexpr (BF16)
-            dx_term(term[g], round_bf16(e), gk[h][g], h == 0);
-          else
-            Vec<VEC>::fma(acc[g], e, gk[h][g]);
+          Vec<VEC>::fma(acc[g], e, gk[h][g]);
           part[g] = lane + 32 * g < nv ? Vec<VEC>::dot(xj[g], gk[h][g]) : 0.f;
         }
 #pragma unroll
@@ -291,18 +237,297 @@ __device__ __forceinline__ void gat_bwd_rows(
         if (VEC == 1) dot = __shfl_sync(FULL, dot, 0);
         if (lane == q) dot_l[h] = dot;
       }
-      if constexpr (BF16) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) add(acc[g], term[g]);
-      }
     }
 
     // the chunk's d_scores, one edge a lane: to scratch, and into d_s_dst[j]
     // in edge order
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      float d_score = -(dot_l[h] + r_l[h]) * e_l[h] * leaky_grad(score_l[h]);
-      if constexpr (BF16) d_score = round_bf16(d_score);
+      const float d_score =
+          -(dot_l[h] + r_l[h]) * e_l[h] * leaky_grad(score_l[h]);
+      if (lane < m) scratch[at_l * H + h] = d_score;
+      for (int q = 0; q < m; ++q) sum_dst[h] += __shfl_sync(FULL, d_score, q);
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int s = lane + 32 * g;
+    if (s < nv) __stcs(reinterpret_cast<V*>(d_x + (size_t)j * c) + s, acc[g]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) d_s_dst[(size_t)j * H + h] = sum_dst[h];
+  }
+}
+
+// ---- gat_bwd_bf16's first pass: x, G and the d_x term kept as bf16 pairs
+
+// A slice of a bf16 row, packed: VEC = 4, two 32-bit words of two bf16
+// each (the lower address in the low half); VEC = 1, one bf16 in the low
+// half of a word.
+template <int VEC> struct Packed;
+template <> struct Packed<4> { using T = uint2; };
+template <> struct Packed<1> { using T = uint32_t; };
+
+template <int VEC>
+__device__ __forceinline__ typename Packed<VEC>::T load_packed(
+    const __nv_bfloat16* row, int s, bool stream) {
+  if constexpr (VEC == 4) {
+    const uint2* p = reinterpret_cast<const uint2*>(row) + s;
+    return stream ? __ldcs(p) : *p;
+  } else {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(row) + s;
+    return stream ? __ldcs(p) : *p;
+  }
+}
+
+// The bf16 of a word's low or high half as fp32 (exact).
+__device__ __forceinline__ float lo_f32(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f32(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(lo_f32(v.x), hi_f32(v.x), lo_f32(v.y), hi_f32(v.y));
+}
+__device__ __forceinline__ float widen(uint32_t v) { return lo_f32(v); }
+
+// Vec<VEC>::dot(x, widen(g)): the same fmaf chain on the same fp32 values.
+__device__ __forceinline__ float dot_packed(float4 x, uint2 g) {
+  return fmaf(x.w, hi_f32(g.y),
+              fmaf(x.z, lo_f32(g.y), fmaf(x.y, hi_f32(g.x), x.x * lo_f32(g.x))));
+}
+__device__ __forceinline__ float dot_packed(float x, uint32_t g) {
+  return x * lo_f32(g);
+}
+
+// Both bf16 of a word times (or plus) the other word's, each result rounded
+// once to nearest even: sm_90's bf16 arithmetic.  round_bf16(a * b) of two
+// bf16 is the same value (their product is exact in fp32, and where it is
+// too small for fp32's normal range its one fp32 rounding cannot land on a
+// bf16 midpoint), and so is round_bf16(a + b) (the fp32 sum is exact unless
+// the exponents differ by 16 or more, and then both round to the larger):
+// the parent's bits, two elements an instruction.  tests/
+// test_torch_gat_bwd_bf16_schedule.py holds both claims against f64.
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint2 mul_bf16x2(uint32_t a, uint2 b) {
+  return make_uint2(mul_bf16x2(a, b.x), mul_bf16x2(a, b.y));
+}
+__device__ __forceinline__ uint2 add_bf16x2(uint2 a, uint2 b) {
+  return make_uint2(add_bf16x2(a.x, b.x), add_bf16x2(a.y, b.y));
+}
+
+// e rounded to bf16, in both halves of a word.
+__device__ __forceinline__ uint32_t bf16_pair(float e) {
+  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(e));
+  return b | (b << 16);
+}
+
+__device__ __forceinline__ void add(float& a, float b) { a += b; }
+__device__ __forceinline__ void add(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+__host__ __device__ constexpr int log2_of(int p) {
+  return p <= 1 ? 0 : 1 + log2_of(p / 2);
+}
+
+// One step of warp_sums: the lane keeps half of its P values (the upper
+// half where its bit OFF is set) and adds its partner's copy of each.
+template <int M, int P, int OFF>
+__device__ __forceinline__ void halve(float (&w)[M], int lane) {
+  if constexpr (OFF > 0) {
+    if constexpr (P > 1) {
+      constexpr int HALF = P / 2;
+      const bool up = lane & OFF;
+#pragma unroll
+      for (int i = 0; i < HALF; ++i) {
+        const float send = up ? w[i] : w[i + HALF];
+        const float keep = up ? w[i + HALF] : w[i];
+        w[i] = keep + __shfl_xor_sync(FULL, send, OFF);
+      }
+      halve<M, HALF, OFF / 2>(w, lane);
+    } else {
+      w[0] += __shfl_xor_sync(FULL, w[0], OFF);
+      halve<M, 1, OFF / 2>(w, lane);
+    }
+  }
+}
+
+// v[i] <- the xor butterfly of v[i] over the warp (offsets 16, 8, ..., 1),
+// on every lane, for N values at once, with the butterfly's bits: a
+// reduce-scatter.  At offset OFF the butterfly adds, in each lane, its own
+// value and its partner's; here a lane does that add only for the half of
+// its values that it keeps, and sends its partner the other half, so each
+// kept value is the butterfly's value at that lane (fp32 addition is
+// commutative).  After the steps each lane holds R = P / 32 values (P, N
+// rounded up to a power of two; R = 1 for P <= 32): value i on the lanes
+// whose bits 16, 8, ... spell i's upper bits.  One shuffle a value brings
+// each sum back to every lane.  N = 6: 15 shuffles where the butterflies
+// take 30.
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&v)[N], int lane) {
+  constexpr int P = pow2_at_least(N);
+  constexpr int LP = log2_of(P);
+  constexpr int STEPS = LP < 5 ? LP : 5;   // halvings
+  constexpr int R = P >> STEPS;            // values a lane keeps
+  float w[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) w[i] = i < N ? v[i] : 0.f;
+  halve<P, P, 16>(w, lane);
+  if constexpr (P == 1) {
+    v[0] = w[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      int holder = 0;
+#pragma unroll
+      for (int k = 0; k < STEPS; ++k)
+        holder += ((i >> (LP - 1 - k)) & 1) * (16 >> k);
+      v[i] = __shfl_sync(FULL, w[i & (R - 1)], holder);
+    }
+  }
+}
+
+// Slice s of a bf16 row of d_x from fp32: VEC values rounded to bf16.
+template <int VEC>
+__device__ __forceinline__ void store_slice(__nv_bfloat16* row, int s,
+                                            typename Vec<VEC>::T v) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    __stcs(reinterpret_cast<uint2*>(row) + s, u);
+  } else {
+    row[s] = __float2bfloat16_rn(v);
+  }
+}
+
+// Pass 1 of gat_bwd_bf16, with the Pallas kernel's rounding points (file
+// comment): the f32 body's walk, with lane l's slices l, l + 32, ... of G
+// and the d_x term kept packed.
+template <int H, int VEC, int G>
+__device__ __forceinline__ void gat_bwd_bf16_rows(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ s_src,
+    const float* __restrict__ s_dst, const __nv_bfloat16* __restrict__ g_agg,
+    const float* __restrict__ g_rs, const int* __restrict__ row_ptr,
+    const int* __restrict__ col, const long long* __restrict__ rev,
+    __nv_bfloat16* __restrict__ d_x, float* __restrict__ d_s_dst,
+    float* __restrict__ scratch, int n, int c) {
+  using V = typename Vec<VEC>::T;
+  using P = typename Packed<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (j >= n) return;  // a tail warp; nothing below waits on a barrier
+  const int nv = c / VEC;
+
+  V xj[G], acc[G];     // x[j] widened once; d_x[j] summed in fp32
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int s = lane + 32 * g;
+    // read once: streamed past L2, which keeps the G rows
+    xj[g] = s < nv ? widen(load_packed<VEC>(x + (size_t)j * c, s, true)) : V{};
+    acc[g] = V{};
+  }
+  float dst_j[H], sum_dst[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    dst_j[h] = round_bf16(s_dst[(size_t)j * H + h]);
+    sum_dst[h] = 0.f;
+  }
+  const int beg = row_ptr[j];
+  const int end = row_ptr[j + 1];
+
+  for (int base = beg; base < end; base += 32) {
+    const int m = min(32, end - base);
+    // edge base + lane: column k, the position of its reverse, its scalars
+    int k_l = 0;
+    long long at_l = 0;
+    float score_l[H], e_l[H], r_l[H], dot_l[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) score_l[h] = r_l[h] = dot_l[h] = 0.f;
+    if (lane < m) {
+      k_l = col[base + lane];
+      at_l = rev[base + lane];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        score_l[h] = round_bf16(s_src[(size_t)k_l * H + h]);
+        r_l[h] = round_bf16(g_rs[(size_t)k_l * H + h]);
+      }
+    }
+
+    for (int q = 0; q < m; ++q) {  // the same q for every lane
+      const int k = __shfl_sync(FULL, k_l, q);
+      P gk[H][G];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const __nv_bfloat16* row = g_agg + ((size_t)k * H + h) * c;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int s = lane + 32 * g;
+          gk[h][g] = s < nv ? load_packed<VEC>(row, s, false) : P{};
+        }
+      }
+      if (q == 0) {  // with the first G rows in flight: the edge weights
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          score_l[h] += dst_j[h];
+          e_l[h] = edge_weight(score_l[h]);
+        }
+      }
+      // the edge's d_x term, bf16(bf16(e_h) G[k, h]) summed over heads in
+      // bf16, and its lanes' dot partials, head h's group g at h G + g
+      P term[G];
+      float part[H * G];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const uint32_t e2 = bf16_pair(__shfl_sync(FULL, e_l[h], q));
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const P p = mul_bf16x2(e2, gk[h][g]);
+          term[g] = h == 0 ? p : add_bf16x2(term[g], p);
+          part[h * G + g] =
+              lane + 32 * g < nv ? dot_packed(xj[g], gk[h][g]) : 0.f;
+        }
+      }
+      warp_sums<H * G>(part, lane);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        float dot = 0.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          if (32 * g < nv) dot += part[h * G + g];
+        if (lane == q) dot_l[h] = dot;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) add(acc[g], widen(term[g]));
+    }
+
+    // the chunk's d_scores, one edge a lane, rounded to bf16: to scratch,
+    // and into d_s_dst[j] in edge order
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float d_score =
+          round_bf16(-(dot_l[h] + r_l[h]) * e_l[h] * leaky_grad(score_l[h]));
       if (lane < m) scratch[at_l * H + h] = d_score;
       for (int q = 0; q < m; ++q) sum_dst[h] += __shfl_sync(FULL, d_score, q);
     }
@@ -332,13 +557,14 @@ gat_bwd_rows_kernel(const float* __restrict__ x,
                     float* __restrict__ d_x,
                     float* __restrict__ d_s_dst,
                     float* __restrict__ scratch, int n, int c) {
-  gat_bwd_rows<float, H, VEC, G>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col,
-                                 rev, d_x, d_s_dst, scratch, n, c);
+  gat_bwd_rows<H, VEC, G>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev,
+                          d_x, d_s_dst, scratch, n, c);
 }
 
-// named apart so that a profile tells the two apart
+// named apart so that a profile tells the two apart; up to C = 384 (the
+// GAT's 300) at most 72 registers, seven blocks an SM
 template <int H, int VEC, int G>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * WARPS, G <= 3 ? BF16_MIN_BLOCKS : 1)
 gat_bwd_bf16_rows_kernel(const __nv_bfloat16* __restrict__ x,
                          const float* __restrict__ s_src,
                          const float* __restrict__ s_dst,
@@ -350,8 +576,8 @@ gat_bwd_bf16_rows_kernel(const __nv_bfloat16* __restrict__ x,
                          __nv_bfloat16* __restrict__ d_x,
                          float* __restrict__ d_s_dst,
                          float* __restrict__ scratch, int n, int c) {
-  gat_bwd_rows<__nv_bfloat16, H, VEC, G>(x, s_src, s_dst, g_agg, g_rs, row_ptr,
-                                         col, rev, d_x, d_s_dst, scratch, n, c);
+  gat_bwd_bf16_rows<H, VEC, G>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col,
+                               rev, d_x, d_s_dst, scratch, n, c);
 }
 
 // d_s_src[i] = the d_scores of row i's edges, added in CSR order from 0.

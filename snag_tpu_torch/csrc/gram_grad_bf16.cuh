@@ -8,7 +8,8 @@
 // NT-Xent dz_m = bf16(W_m) z_m; the mixture dz_m = bf16(W_m(bf16 K_m) +
 // W_a alpha_rm alpha_cm + W_f beta_m) z_m, dalpha and dbeta, where at a
 // row's positive partner bf16 K_m is kpos, the exact dot rounded once to
-// bf16 (mixture_kpos_bf16_kernel, below).
+// bf16, and the bf16 W_tot that multiplies z_m is wpos, W_tot in f64 from
+// the exact dots rounded once (mixture_kpos_bf16_kernel, below).
 //
 // Both products run as one bf16 mma.sync.m16n8k16 with fp32 accumulation
 // (tile_mma.cuh).  The rounding points are the Pallas kernels': K from the
@@ -17,7 +18,7 @@
 // mixtures from that fp32 K, in increasing m; the channel's own K rounded
 // to bf16 where W_m, dalpha and dbeta read it (at the positive partner
 // kpos instead, a value the twin computes alike); W rounded to bf16
-// before W z.  W z takes a column tile's four k16 slices in one
+// before W z (at the positive partner wpos, also computed alike).  W z takes a column tile's four k16 slices in one
 // accumulator from zero and adds the tile's sum in fp32; column splits add
 // their partials in a fixed order in a second kernel.  No float atomics:
 // two runs give the same bits.
@@ -338,8 +339,8 @@ struct Rows {
 // The kernel's body.  NT-Xent (!MIX): z (nm, n2, d), lse and coef (nm,
 // n2).  MIX: alpha (n2, nm), beta (nm,), lse and coef (nm + 2, n2), and
 // the launch's clusters are the nm blocks of a row block, chunk and split
-// (rank = own), and kpos (nm, n2) is the own channel's K at each row's
-// positive partner.  blockIdx.y = chunk x nm + own; split 0 writes dz (and,
+// (rank = own), kpos (nm, n2) is the own channel's K at each row's
+// positive partner and wpos (nm, n2) the bf16 W_tot there.  blockIdx.y = chunk x nm + own; split 0 writes dz (and,
 // chunk 0 of MIX, dalpha and a per-block dbeta partial), split s > 0 its
 // partials in part (the layout of gram_grad.cuh's kernels).  z's rows lie
 // at a stride of ld (a multiple of 8, z 16-byte aligned).
@@ -348,9 +349,10 @@ __device__ __forceinline__ void gram_grad_bf16(
     const __nv_bfloat16* __restrict__ z, const float* __restrict__ alpha,
     const float* __restrict__ beta, const float* __restrict__ lse,
     const float* __restrict__ coef, const float* __restrict__ v,
-    const float* __restrict__ kpos, float* __restrict__ dz,
-    float* __restrict__ dalpha, float* __restrict__ part, int nm, int chunks,
-    int n2, int d, float inv_tau, int depth, int ld) {
+    const float* __restrict__ kpos, const float* __restrict__ wpos,
+    float* __restrict__ dz, float* __restrict__ dalpha,
+    float* __restrict__ part, int nm, int chunks, int n2, int d,
+    float inv_tau, int depth, int ld) {
   extern __shared__ __align__(16) unsigned char smem16[];
   const bool res = resident(chunks);
   // rc > 1: the cluster of the rc chunk blocks splits K's rows (NT-Xent)
@@ -619,6 +621,8 @@ __device__ __forceinline__ void gram_grad_bf16(
                              oh, inv_tau)
                  : 0.f;
           if (ok) wv += w_a * (ar * ac) + w_f * beta[own];
+          // the positive pair's W_tot, rounded once from its f64 value
+          if (oh && R.ok[h]) wv = wpos[(size_t)own * n2 + R.gr[h]];
           da[h] = fmaf(w_a * kv, ac, da[h]);
           db = fmaf(w_f, kv, db);
         }
@@ -714,11 +718,12 @@ mixture_grad_bf16_kernel(const __nv_bfloat16* __restrict__ z,
                          const float* __restrict__ coef,
                          const float* __restrict__ v,
                          const float* __restrict__ kpos,
+                         const float* __restrict__ wpos,
                          float* __restrict__ dz, float* __restrict__ dalpha,
                          float* __restrict__ part, int nm, int chunks, int n2,
                          int d, float inv_tau, int depth, int ld) {
-  gram_grad_bf16<true>(z, alpha, beta, lse, coef, v, kpos, dz, dalpha, part,
-                       nm, chunks, n2, d, inv_tau, depth, ld);
+  gram_grad_bf16<true>(z, alpha, beta, lse, coef, v, kpos, wpos, dz, dalpha,
+                       part, nm, chunks, n2, d, inv_tau, depth, ld);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -728,8 +733,9 @@ ntxent_grad_bf16_mma_kernel(const __nv_bfloat16* __restrict__ z,
                             const float* __restrict__ v, float* __restrict__ dz,
                             float* __restrict__ part, int nm, int chunks,
                             int n2, int d, float inv_tau, int depth, int ld) {
-  gram_grad_bf16<false>(z, nullptr, nullptr, lse, coef, v, nullptr, dz,
-                        nullptr, part, nm, chunks, n2, d, inv_tau, depth, ld);
+  gram_grad_bf16<false>(z, nullptr, nullptr, lse, coef, v, nullptr, nullptr,
+                        dz, nullptr, part, nm, chunks, n2, d, inv_tau, depth,
+                        ld);
 }
 
 // zp (rows, ld) = z (rows, d) with zeros past d: rows of 16-byte multiples.
@@ -763,27 +769,76 @@ __device__ __forceinline__ float round_bf16_once(double x) {
   return __bfloat162float(__float2bfloat16_rn(__uint_as_float(b)));
 }
 
-// kpos[m, r] = <z_m[r], z_m[pos(r)]> rounded once to bf16: the products of
-// two bf16 are exact in fp32 and their sum exact in f64 at the loss's
-// widths, so both this kernel and the twin (snag_loss.positive_k) round
-// the same value.  A warp a row, lanes over features, fixed order.
+// W of one channel at (r, pos(r)) in f64: gram_grad.cuh's w_channel with
+// neq true and onehot true; k the channel's value, unscaled.
+__device__ __forceinline__ double w_positive(double k, float lse_r,
+                                             float lse_c, float coef_r,
+                                             float coef_c, float v_r,
+                                             float v_c, double inv_tau) {
+  const double s = k * inv_tau;
+  const double p_row = exp(fmin(s - (double)lse_r, 0.0));
+  const double p_col = exp(fmin(s - (double)lse_c, 0.0));
+  return ((double)coef_r * p_row * (double)v_c +
+          p_col * (double)coef_c * (double)v_r -
+          ((double)coef_r + (double)coef_c)) * inv_tau;
+}
+
+// For each row r and its positive partner c = pos(r), with k_m the exact
+// dot <z_m[r], z_m[c]> (the products of two bf16 are exact in fp32 and
+// their sum exact in f64 at the loss's widths):
+//   kpos[m, r] = k_m rounded once to bf16;
+//   wpos[m, r] = W_tot[m, r, c] in f64, rounded once to bf16, where W_m
+//     reads kpos, W_a the exact mix_a = sum_m a_rm a_cm k_m and W_f the
+//     exact mix_f = sum_m beta_m k_m (increasing m), from the f32 lse,
+//     coef, v, alpha and beta.
+// Both sides (the twin: snag_loss.positive_k, positive_w) round the same
+// values.  A warp a row: lanes over features for each modality's dot, in
+// a fixed order; then lane m < nm forms modality m's two values.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 mixture_kpos_bf16_kernel(const __nv_bfloat16* __restrict__ z,
-                         float* __restrict__ kpos, int nm, int n2, int d) {
+                         const float* __restrict__ alpha,
+                         const float* __restrict__ beta,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ coef,
+                         const float* __restrict__ v,
+                         float* __restrict__ kpos, float* __restrict__ wpos,
+                         int nm, int n2, int d, float inv_tau) {
   const int lane = threadIdx.x % 32;
-  const size_t rows = (size_t)nm * n2;
   for (size_t i = ((size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x) / 32;
-       i < rows; i += (size_t)gridDim.x * REDUCE_THREADS / 32) {
-    const int m = (int)(i / n2), r = (int)(i % n2);
-    const int p = r < n2 / 2 ? r + n2 / 2 : r - n2 / 2;
-    const __nv_bfloat16* a = z + ((size_t)m * n2 + r) * d;
-    const __nv_bfloat16* b = z + ((size_t)m * n2 + p) * d;
-    double s = 0.0;
-    for (int f = lane; f < d; f += 32)
-      s += (double)(__bfloat162float(a[f]) * __bfloat162float(b[f]));
+       i < (size_t)n2; i += (size_t)gridDim.x * REDUCE_THREADS / 32) {
+    const int r = (int)i;
+    const int c = r < n2 / 2 ? r + n2 / 2 : r - n2 / 2;
+    double k[MAX_MOD];   // nm <= MAX_MOD (check_shape)
+    double mix_a = 0.0, mix_f = 0.0;
+    for (int m = 0; m < nm; ++m) {
+      const __nv_bfloat16* a = z + ((size_t)m * n2 + r) * d;
+      const __nv_bfloat16* b = z + ((size_t)m * n2 + c) * d;
+      double s = 0.0;
+      for (int f = lane; f < d; f += 32)
+        s += (double)(__bfloat162float(a[f]) * __bfloat162float(b[f]));
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) kpos[i] = round_bf16_once(s);
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      k[m] = s;
+      mix_a += (double)alpha[(size_t)r * nm + m] *
+               (double)alpha[(size_t)c * nm + m] * s;
+      mix_f += (double)beta[m] * s;
+    }
+    const double it = (double)inv_tau;
+    const size_t ra = (size_t)nm * n2 + r, ca = (size_t)nm * n2 + c;
+    const float v_r = v[r], v_c = v[c];
+    for (int m = lane; m < nm; m += 32) {
+      const float kb = round_bf16_once(k[m]);
+      const size_t ro = (size_t)m * n2 + r, co = (size_t)m * n2 + c;
+      const double w_tot =
+          w_positive(kb, lse[ro], lse[co], coef[ro], coef[co], v_r, v_c, it) +
+          w_positive(mix_a, lse[ra], lse[ca], coef[ra], coef[ca], v_r, v_c,
+                     it) * ((double)alpha[(size_t)r * nm + m] *
+                            (double)alpha[(size_t)c * nm + m]) +
+          w_positive(mix_f, lse[ra + n2], lse[ca + n2], coef[ra + n2],
+                     coef[ca + n2], v_r, v_c, it) * (double)beta[m];
+      kpos[ro] = kb;
+      wpos[ro] = round_bf16_once(w_tot);
+    }
   }
 }
 
@@ -821,12 +876,12 @@ size_t pad_floats(int m, int n2, int d) {
 //            the last wave fills the SMs (gram_grad.cuh's rule);
 //   scratch  the floats of partials (and, for the mixture, of per-block
 //            dbeta), in gram_grad.cuh's layout, for the mixture kpos (from
-//            kpos_at), then, where d % 8 != 0, z's padded copy (from
+//            kpos_at) and wpos (after it), then, where d % 8 != 0, z's padded copy (from
 //            pad_offset).
 // kernel must already take all the shared memory a block may opt in to.
 struct Plan {
   int chunks, depth, splits, per_sm, rows, resident, cluster;
-  size_t bytes, scratch, kpos_at, pad_at;
+  size_t bytes, scratch, kpos_at, pad_at;   // wpos at kpos_at + m n2
 };
 
 template <bool MIX>
@@ -874,7 +929,7 @@ int plan(const void* kernel, int m, int n2, int d, Plan& p) {
   if (MIX)
     p.scratch += (size_t)p.splits * nb * m + (size_t)(p.splits - 1) * n2 * m;
   p.kpos_at = p.scratch;
-  if (MIX) p.scratch += (size_t)m * n2;
+  if (MIX) p.scratch += 2 * (size_t)m * n2;
   p.pad_at = pad_offset(p.scratch);
   if (d % 8) p.scratch = p.pad_at + pad_floats(m, n2, d);
   return 0;

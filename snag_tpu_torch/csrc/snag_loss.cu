@@ -75,14 +75,17 @@
 // fp32 and all after it in fp32; the gradient builds mix_a and mix_f from
 // that fp32 K, while each modality's own weight W_m, its dalpha term and
 // its dbeta term read K rounded to bf16 (the kernel's K scratch is in z's
-// dtype), and W_tot is rounded to bf16 before W_tot z.  One rounding
-// point differs from the Pallas kernel's: at a row's positive partner the
-// own channel's bf16 K is kpos, the exact dot of the two bf16 rows rounded
-// once to bf16 (mixture_kpos_bf16_kernel, M x n2 f64 dots), where Pallas
-// rounds its own f32 sum: at most one bf16 ulp apart.  The kernel's mma
-// order and the twin's slice sums round a positive pair's K (~0.9) apart
-// where its f32 last bits sit on a bf16 boundary, which at tau = 0.1 moves
-// that row's W_m by ~4 %; the exact value rounds one way on both sides.
+// dtype), and W_tot is rounded to bf16 before W_tot z.  Two rounding
+// points differ from the Pallas kernel's, both at a row's positive
+// partner: the own channel's bf16 K is kpos, the exact dot of the two bf16
+// rows rounded once to bf16, and the bf16 W_tot that multiplies z is wpos,
+// W_tot in f64 from the exact dots rounded once (mixture_kpos_bf16_kernel,
+// a warp a row, M f64 dots each), where Pallas rounds its own f32 sums: at
+// most one bf16 ulp apart.  The kernel's mma order and exps and the twin's
+// slice sums and torch.exp round such a value apart where its f32 last
+// bits sit on a bf16 boundary: one ulp of a positive pair's K moves that
+// row's W_m by ~4 % at tau = 0.1, and the positive pair's W_tot is the
+// largest entry of W; the exact values round one way on both sides.
 // The bound is the flops over the bf16 dense rate, 989 TFLOP/s.
 // mixture_lse_bf16 is gram_lse_bf16.cuh's kernel with MIX = true:
 // persistent blocks of 16 warps that walk pairs of 128-row tiles, every
@@ -421,12 +424,15 @@ int grad_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   if (err) return err;
   const int nb = (n2 + grad16::ROWS - 1) / grad16::ROWS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the own channel's K at each row's positive partner, rounded once
+  // at each row's positive partner: the own channel's K and W_tot, each
+  // rounded once from its exact value
   float* kpos = part + plan.kpos_at;
-  grad16::mixture_kpos_bf16_kernel<<<(int)(((size_t)m * n2 * 32 +
+  float* wpos = kpos + (size_t)m * n2;
+  grad16::mixture_kpos_bf16_kernel<<<(int)(((size_t)n2 * 32 +
                                             REDUCE_THREADS - 1) /
                                            REDUCE_THREADS),
-                                     REDUCE_THREADS, 0, s>>>(z, kpos, m, n2, d);
+                                     REDUCE_THREADS, 0, s>>>(
+      z, alpha, beta, lse, coef, v, kpos, wpos, m, n2, d, inv_tau);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   // rows of 16-byte multiples: z itself, or its padded copy
@@ -454,8 +460,8 @@ int grad_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   cfg.numAttrs = 1;
   err = static_cast<int>(cudaLaunchKernelEx(
       &cfg, Kernels<__nv_bfloat16>::grad_kernel, z, alpha, beta, lse, coef, v,
-      static_cast<const float*>(kpos), dz, dalpha, part, m, plan.chunks, n2,
-      d, inv_tau, plan.depth, ld));
+      static_cast<const float*>(kpos), static_cast<const float*>(wpos), dz,
+      dalpha, part, m, plan.chunks, n2, d, inv_tau, plan.depth, ld));
   if (err) return err;
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;

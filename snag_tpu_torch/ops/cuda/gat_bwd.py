@@ -30,6 +30,12 @@ of the Pallas backward on the JAX package's bf16 path
 rounded to bf16, e in f32, each edge's d_score rounded to bf16, and its
 d_x term the bf16 sum over heads of bf16(bf16(e_h) G_h); the edge sums run
 in f32, d_x is returned in bf16 (x's dtype), d_s_src and d_s_dst in f32.
+Its first launch has a body of its own: G and each d_x term stay bf16
+pairs (the term by sm_90's ``mul.rn.bf16x2`` and ``add.rn.bf16x2``, each
+rounded once, which gives round_bf16 of the f32 product and sum bit for
+bit), and an edge's H x G dot partials are summed across the lanes by
+one reduce-scatter with the butterflies' bits
+(``tests/test_torch_gat_bwd_bf16_schedule.py``).
 """
 
 from __future__ import annotations

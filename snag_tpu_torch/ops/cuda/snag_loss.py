@@ -59,18 +59,29 @@ every output are f32.  The twin takes K the kernels' way (``ntxent.gram``:
 16-wide feature slices added in order), as W_tot's rounding makes dz
 sensitive to the last bits of mix_a and mix_f.
 
-One rounding point differs from the Pallas kernel's: where W_m, dalpha and
-dbeta read the own-channel K at a row's positive partner, both the kernel
-and the twin take ``positive_k``, the exact dot <z_m[r], z_m[pos(r)]>
-(products of bf16 values are exact in f32, their sum in f64) rounded once
-to bf16.  The Pallas kernel rounds its own f32 sum there, so the two lie
-at most one bf16 ulp apart.  A positive pair's K (~0.9) whose f32 last
-bits sit on a bf16 boundary rounded apart in the kernel (its mma order)
-and the twin (its slice sums); at tau = 0.1 that one ulp moves the row's
-W_m by ~4 %, beyond the card check's limit.  The exact value has one
-rounding, so both sides agree.  Every other K entry keeps the Pallas
-rounding point.  The kernel takes it from a small kernel of its own,
-``mixture_kpos_bf16``, launched by ``mixture_grad_bf16``.
+Two rounding points differ from the Pallas kernel's, both at a row's
+positive partner pos(r), where each side would otherwise round an f32
+value that it forms in its own order:
+
+* where W_m, dalpha and dbeta read the own-channel K, both the kernel and
+  the twin take ``positive_k``, the exact dot <z_m[r], z_m[pos(r)]>
+  (products of bf16 values are exact in f32, their sum in f64) rounded
+  once to bf16.  A positive pair's K (~0.9) whose f32 last bits sit on a
+  bf16 boundary rounded apart in the kernel (its mma order) and the twin
+  (its slice sums); at tau = 0.1 that one ulp moves the row's W_m by ~4 %.
+* where W_tot is rounded to bf16 for dz, both take ``positive_w``:
+  W_tot[m, r, pos(r)] in f64 from the exact dots of every modality, kpos,
+  and the f32 lse, coef, v, alpha and beta both sides are fed, rounded
+  once.  Its f32 input was formed apart (the mixtures' K sums, the
+  kernel's ex2.approx against torch.exp), and the positive pair's W_tot,
+  which carries -(coef_r + coef_c) / tau, is the largest entry of W, so
+  one ulp of it moved a dz row beyond the card check's limit.
+
+The Pallas kernel rounds its own f32 sums there, so the port lies at most
+one bf16 ulp from it at those entries.  Every other entry keeps the Pallas
+rounding point.  The kernel takes both from a small kernel of its own,
+``mixture_kpos_bf16``, launched by ``mixture_grad_bf16``; dalpha and dbeta
+have no bf16 rounding point of W and read no ``positive_w``.
 """
 
 from __future__ import annotations
@@ -136,6 +147,44 @@ def positive_k(z: torch.Tensor) -> torch.Tensor:
     return round_bf16_once((z64 * z64[:, pos]).sum(dim=2))
 
 
+def positive_w(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+               lse: torch.Tensor, coef: torch.Tensor, v: torch.Tensor,
+               tau: float, kpos: torch.Tensor) -> torch.Tensor:
+    """wpos (M, 2B) f32: W_tot[m, r, pos(r)] of a bf16 z in f64, rounded
+    once to bf16 (module docstring).  The Pallas formula (``_w_channel``,
+    ``_mix_grad_kernel``) on the exact dots of the bf16 rows at (r, pos(r))
+    for every modality: W_m reads ``kpos``, W_a the exact mix_a, W_f the
+    exact mix_f; 1/tau as the kernel takes it, in f32."""
+    f8 = torch.float64
+    inv_tau = float(torch.tensor(1.0 / tau, dtype=torch.float32))
+    z64 = z.to(f8)
+    m = z.shape[0]
+    pos = positive_rows(z.shape[1], z.device)
+    k = (z64 * z64[:, pos]).sum(dim=2)                          # (M, 2B)
+    a = alpha.to(f8)
+    aa = a * a[pos]                                             # (2B, M)
+    b = beta.to(f8)
+    mix_a = torch.zeros_like(k[0])
+    mix_f = torch.zeros_like(k[0])
+    for i in range(m):
+        mix_a = mix_a + aa[:, i] * k[i]
+        mix_f = mix_f + b[i] * k[i]
+    lse, coef, v = lse.to(f8), coef.to(f8), v.to(f8)
+
+    def w(ch, kk):
+        s = kk * inv_tau
+        p_row = torch.exp(torch.clamp(s - lse[ch], max=0.0))
+        p_col = torch.exp(torch.clamp(s - lse[ch][pos], max=0.0))
+        c_r, c_c = coef[ch], coef[ch][pos]
+        return (c_r * p_row * v[pos] + p_col * c_c * v
+                - (c_r + c_c)) * inv_tau
+
+    w_a, w_f = w(m, mix_a), w(m + 1, mix_f)
+    w_tot = torch.stack([w(i, kpos[i].to(f8)) + w_a * aa[:, i] + w_f * b[i]
+                         for i in range(m)])
+    return round_bf16_once(w_tot)
+
+
 def _off_diagonal(n2: int, device) -> torch.Tensor:
     return (~torch.eye(n2, dtype=torch.bool, device=device)).to(torch.float32)
 
@@ -164,8 +213,10 @@ def mixture_grad_twin(z: torch.Tensor, alpha: torch.Tensor,
     rows = torch.arange(n2, device=z.device)
     pos = positive_rows(n2, z.device)
     if bf16:
+        kpos = positive_k(z)
+        wpos = positive_w(z, alpha, beta, lse, coef, v, tau, kpos)
         k_b = ch[:m].to(torch.bfloat16).to(torch.float32)
-        k_b[:, rows, pos] = positive_k(z)
+        k_b[:, rows, pos] = kpos
         ch = torch.cat([k_b, ch[m:]])
         z = z.to(torch.float32)
     k = ch[:m]
@@ -183,6 +234,7 @@ def mixture_grad_twin(z: torch.Tensor, alpha: torch.Tensor,
     w_tot = w[:m] + w_a[None] * aa + w_f[None] * beta[:, None, None]
     if bf16:
         w_tot = w_tot.to(torch.bfloat16).to(torch.float32)
+        w_tot[:, rows, pos] = wpos
     dz = torch.bmm(w_tot, z)
     dalpha = torch.einsum("rc,cm,mrc->rm", w_a, alpha, k)
     dbeta = 0.5 * torch.einsum("rc,mrc->m", w_f, k)

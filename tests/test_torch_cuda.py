@@ -697,6 +697,74 @@ def test_gat_bf16_kernels_match_twins(dev, c, h):
         assert torch.equal(a, b)
 
 
+# the bf16 backward's first pass keeps G and the d_x term packed and sums
+# each edge's H x G lane partials by one reduce-scatter: C = 30 and
+# 301 take one bf16 a slice (1 and 10 groups), 300 four (3 groups)
+@pytest.mark.parametrize("c", [30, 300, 301])
+@pytest.mark.parametrize("h", [1, 2, 3, 4])
+def test_gat_bwd_bf16_matches_twin_across_widths_and_heads(dev, c, h):
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, c, h,
+                                                        c + h)
+    xb, gb16 = x.to(torch.bfloat16), g_agg.to(torch.bfloat16)
+    got = gb.gat_backward_cuda(xb, s_src, s_dst, gb16, g_rs, g)
+    again = gb.gat_backward_cuda(xb, s_src, s_dst, gb16, g_rs, g)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, on_cpu(gb.gat_backward_twin, xb, s_src, s_dst,
+                                  gb16, g_rs, g))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_gat_bwd_bf16_hub_row_zero_weights_and_a_lone_self_loop(dev):
+    """A hub row of 10^4 edges (313 chunks of 32 on one warp), edges whose
+    weight underflows to 0 (as a masked edge's does), and a node whose row
+    is its self-loop alone; two runs give the same bits."""
+    n, hub, lone = 10_100, 0, 10_099
+    rng = np.random.default_rng(7)
+    tri = [(hub, 0, t) for t in range(1, 10_001)]
+    tri += [(int(rng.integers(1, lone)), 0, int(rng.integers(1, lone)))
+            for _ in range(20_000)]
+    g = build_graph(n, tri).to_torch(dev)
+    deg = (g.row_ptr[1:] - g.row_ptr[:-1]).cpu()
+    assert deg[hub] == 10_001 and deg[lone] == 1
+    c, h = 300, 2
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+    x, s_src, s_dst, g_agg, g_rs = (t(n, c), t(n, h), t(n, h), t(n, h, c),
+                                    t(n, h))
+    s_src[::7] = 1e4              # every edge out of these rows: e = 0
+    xb, gb16 = x.to(torch.bfloat16), g_agg.to(torch.bfloat16)
+    got = gb.gat_backward_cuda(xb, s_src, s_dst, gb16, g_rs, g)
+    again = gb.gat_backward_cuda(xb, s_src, s_dst, gb16, g_rs, g)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, on_cpu(gb.gat_backward_twin, xb, s_src, s_dst,
+                                  gb16, g_rs, g))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+# sha256 of (d_x, d_s_src, d_s_dst) of the f32 backward on
+# _gat_grads_inputs(dev, 300, c, h, c), recorded from the kernel before
+# the bf16 first pass became a body of its own: the f32 body's bits
+F32_BWD_DIGESTS = {
+    (300, 2): "8c6e4aab7cad71128139eb5f906e047e38911638250fb784621e7ea4bdb1ef63",
+    (30, 1): "1804742868754664d90f954c575dd45b0fd9124ae880e275dcb169ab2f59275e"}
+
+
+@pytest.mark.parametrize("c,h", sorted(F32_BWD_DIGESTS))
+def test_gat_bwd_f32_bits_unchanged(dev, c, h):
+    import hashlib
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, c, h, c)
+    got = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    for t in got:
+        digest.update(t.cpu().numpy().tobytes())
+    assert digest.hexdigest() == F32_BWD_DIGESTS[(c, h)]
+
+
 def test_gat_bf16_autograd_and_refusals(dev):
     g, x, s_src, s_dst = _gat_inputs(dev, n=301, c=300)
     xs = [x.to(torch.bfloat16).requires_grad_(),
@@ -873,8 +941,10 @@ def test_lse_bf16_plans(dev):
 # fault C6's seeds (scripts/torch_c6_seeds.py): a positive pair's K whose
 # f32 sum sat on a bf16 boundary rounded apart in the kernel (3439), in the
 # twin (3449), or in both (3566), before both read the exact dot rounded
-# once (snag_loss.positive_k); chip_smoke's M4 inputs at the seed
-@pytest.mark.parametrize("seed", [3439, 3449, 3566])
+# once (snag_loss.positive_k); and a positive pair's W_tot whose f32 value
+# sat 8e-6 ulp from a bf16 boundary (3593), before both read it rounded
+# once from f64 (snag_loss.positive_w); chip_smoke's M4 inputs at the seed
+@pytest.mark.parametrize("seed", [3439, 3449, 3566, 3593])
 def test_mixture_bf16_grad_at_c6_seeds(dev, seed):
     import sys
     from pathlib import Path

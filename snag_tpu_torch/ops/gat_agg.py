@@ -21,7 +21,8 @@ needs d_e: an ``e`` that requires a gradient is refused.
 bf16 x and e (the GCN under ``--dtype bfloat16``) follow ``_gat_bwd``'s
 rounding points (:89-112): g_agg is rounded to bf16 (:94), each edge's
 term e[rev] g of the reverse-edge launch is rounded to bf16 (:104) and
-added in f32 (``round_term``), and d_x is returned in bf16 (:112).  JAX
+added in f32 (``round_term``), and that launch writes d_x in bf16 (:112,
+``out_bf16``: the f32 sum rounded once).  JAX
 rounds the sum over heads in bf16 as well; only the GCN, with one head,
 reaches this path there, so a bf16 e of more than one head is refused.
 """
@@ -49,10 +50,10 @@ class _GatAggregate(torch.autograd.Function):
         graph = ctx.graph
         e_rev = reverse_weights(e, graph)
         if e.dtype == torch.bfloat16:
-            part, _ = weighted_segment_sum(
+            d_x, _ = weighted_segment_sum(
                 g_agg[:, 0].to(torch.bfloat16).contiguous(), e_rev, graph,
-                round_term=True)
-            return part[:, 0].to(torch.bfloat16), None, None
+                round_term=True, out_bf16=True)
+            return d_x[:, 0], None, None
         d_x = None
         for h in range(e.shape[1]):
             part, _ = weighted_segment_sum(g_agg[:, h].contiguous(),

@@ -509,6 +509,101 @@ def test_weighted_segment_sum_bf16_matches_twin(dev, c, h):
                                                            before[1])
 
 
+def test_weighted_segment_sum_bf16_plan_is_the_kernels(dev):
+    """The built library launches the bf16 plan ``launch_plan(...,
+    bf16=True)`` computes: a row on 16 lanes where it fits, ROWS rows a
+    lane group, DEPTH edges in flight."""
+    for c in (1, 7, 30, 33, 64, 75, 81, 300, 319, 320, 321, 1023, 1200,
+              4096):
+        for h in (1, 2, 4, 5, 8):
+            for vec in ((4, 1) if c % 4 == 0 else (1,)):
+                assert ts.kernel_plan(c, h, vec, bf16=True) == \
+                    ts.launch_plan(c, h, vec, bf16=True)
+
+
+def _bf16_dx_checks(g, g_agg, e_rev):
+    """The backward's launch with a bf16 d_x against the twin on CPU
+    copies (the f32 sums of identically rounded terms in CSR order, rtol =
+    atol = 1e-5), against the f32-output launch cast to bf16 (bit for
+    bit), and against itself (bitwise repeats); returns d_x."""
+    got, rs = ts.weighted_segment_sum_cuda(g_agg, e_rev, g, round_term=True,
+                                           out_bf16=True)
+    again, _ = ts.weighted_segment_sum_cuda(g_agg, e_rev, g, round_term=True,
+                                            out_bf16=True)
+    agg, _ = ts.weighted_segment_sum_cuda(g_agg, e_rev, g, round_term=True)
+    torch.cuda.synchronize()
+    want = on_cpu(lambda *a: ts.weighted_segment_sum_twin(
+        *a, round_term=True, out_bf16=True)[:1], g_agg, e_rev, g)[0]
+    assert rs is None
+    assert got.dtype == torch.bfloat16 and got.shape == agg.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got, agg.to(torch.bfloat16))
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("c,h", SEGMENT_BF16_WIDTHS)
+def test_weighted_segment_sum_bf16_dx_matches_twin(dev, c, h):
+    g, _, _, e_rev, g_agg = _segment_bf16_inputs(dev, c, h, seed=c + h + 7)
+    before = ts.STATS_BF16.launches
+    _bf16_dx_checks(g, g_agg, e_rev)
+    assert ts.STATS_BF16.launches == before + 3
+
+
+@pytest.mark.parametrize("n", [301, 302, 303, 305])
+def test_weighted_segment_sum_bf16_partial_last_block(dev, n):
+    """Row counts that leave the last block part empty and the last lane
+    group's walk of rows part full: the forward and both backward
+    launches."""
+    g, x, e, e_rev, g_agg = _segment_bf16_inputs(dev, 300, 1, seed=n)
+    for args, kw in (((x, e, g), {}),
+                     ((g_agg, e_rev, g), {"round_term": True})):
+        got = ts.weighted_segment_sum_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = on_cpu(lambda *a: ts.weighted_segment_sum_twin(*a, **kw),
+                      *args)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    _bf16_dx_checks(g, g_agg, e_rev)
+
+
+@pytest.mark.parametrize("c,h", [(300, 1), (319, 2), (64, 5)])
+def test_weighted_segment_sum_bf16_empty_and_hub_rows(dev, c, h):
+    """Rows with no edge give zeros, runs of them too; rows of 33-70 edges
+    cross the 16- or 32-edge chunks of a lane group's walk; a short walk
+    shares its warp with a long one; the forward and both backward
+    launches against the twin, bitwise repeats."""
+    lengths = np.array([0, 3, 0, 70, 1, 0, 33, 64, 65, 2, 0, 17, 16, 0,
+                        0, 0, 5, 0, 0, 0, 0, 9])
+    n = len(lengths)
+    rng = np.random.default_rng(c + h)
+    row = np.repeat(np.arange(n), lengths)
+    col = rng.integers(n, size=len(row)).astype(np.int32)
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    g = DeviceGraph(n, len(row), torch.as_tensor(row_ptr, device=dev),
+                    torch.as_tensor(row, device=dev),
+                    torch.as_tensor(col, device=dev),
+                    torch.ones(len(row), device=dev), None)
+    bf = torch.bfloat16
+    x = torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32),
+                        device=dev).to(bf)
+    e = torch.as_tensor(rng.uniform(0.1, 2.0, size=(len(row), h)).astype(
+        np.float32), device=dev).to(bf)
+    empty = torch.as_tensor(lengths == 0, device=dev)
+    for kw in ({}, {"round_term": True}):
+        got = ts.weighted_segment_sum_cuda(x, e, g, **kw)
+        again = ts.weighted_segment_sum_cuda(x, e, g, **kw)
+        torch.cuda.synchronize()
+        want = on_cpu(lambda *a: ts.weighted_segment_sum_twin(*a, **kw),
+                      x, e, g)
+        for a, w, b in zip(got, want, again):
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+            assert (a[empty] == 0).all() and torch.equal(a, b)
+    d_x = _bf16_dx_checks(g, x, e)
+    assert (d_x[empty] == 0).all()
+
+
 def test_weighted_segment_sum_bf16_rounds_each_term(dev):
     """``round_term`` changes the sum by the terms' roundings: without it
     the launch gives the twin's unrounded sum, and the two differ."""

@@ -359,11 +359,16 @@ def test_segment_sum_bf16_round_term_rounds_each_term():
 
 
 @pytest.mark.parametrize("flat,adjacency", [(True, True), (False, True),
-                                            (True, False)])
+                                            (True, False), ("xla", True),
+                                            ("xla", False)])
 def test_gat_aggregate_bf16_forward_and_dx_match_jax_vjp(flat, adjacency):
     """One head (the GCN's): the forward sums, and d_x in bf16 from the
-    reverse-edge launch with each edge's term rounded to bf16; on the
-    graph's adjacency the backward takes ``w_rev_bf16``."""
+    reverse-edge launch with each edge's term rounded to bf16 and the f32
+    sum rounded once to bf16 (the twin's ``out_bf16``, also called on its
+    own); on the graph's adjacency the backward takes ``w_rev_bf16``.
+    ``flat``: the JAX package's Pallas kernels in interpret mode on either
+    grid, or ("xla") its plain segment sums, bf16 reductions run as f32
+    sums (``f32_reductions``)."""
     n, c = 150, 24
     tri = _triples(n, 450, seed=21, hubs=True)
     jg, tg = jax_build_graph(n, tri), build_graph(n, tri)
@@ -385,7 +390,7 @@ def test_gat_aggregate_bf16_forward_and_dx_match_jax_vjp(flat, adjacency):
     def jrun(xx, ee, ga, gr):
         out, vjp = jax.vjp(lambda a: jax_gat_aggregate(a, ee, jg), xx)
         return out, vjp((ga, gr))[0]
-    with jax_gcn_pallas(flat):
+    with (f32_reductions() if flat == "xla" else jax_gcn_pallas(flat)):
         (want_agg, want_rs), want_dx = jrun(
             jnp.asarray(x, jnp.bfloat16),
             jnp.asarray(_padded(jg, e_np), jnp.bfloat16), jnp.asarray(g_agg),
@@ -401,6 +406,13 @@ def test_gat_aggregate_bf16_forward_and_dx_match_jax_vjp(flat, adjacency):
     np.testing.assert_allclose(rs.detach().numpy(), np.asarray(want_rs), **TOL)
     assert xt.grad.dtype == BF16 and want_dx.dtype == jnp.bfloat16
     assert_close_bf16(xt.grad, want_dx, "d_x", KERNEL_TOL)
+    # the backward's launch alone: the twin's bf16 d_x and no rowsum
+    d_x, none = tts.weighted_segment_sum_twin(
+        torch.from_numpy(g_agg[:, 0]).to(BF16), reverse_weights(e, dg), dg,
+        round_term=True, out_bf16=True)
+    assert none is None and d_x.dtype == BF16
+    assert torch.equal(d_x[:, 0], xt.grad)
+    assert_close_bf16(d_x[:, 0], want_dx, "d_x", KERNEL_TOL)
 
 
 def test_gcn_bf16_module_and_param_grads_match_jax():

@@ -102,11 +102,23 @@ the exit code is non-zero:
    with the same final metrics and a saved model equal tensor for tensor,
    and ``--only_test 1`` from the saved ``.pkl`` must give the same
    metrics; each run's kernels must have launched and no twin may have
-   run.
+   run;
+10. MSNEA (``phase_msnea``): serving from a seeded init saved as the
+   port's ``.pkl``, then 40 epochs at a fixed LR of 2e-3 (the JAX
+   package's smoke horizon) through ``main``; each run launches exactly
+   the two rank sweeps, and the final test MRR must beat the init's;
+11. SNAG with ``--accumulation_steps 2 --attn_dropout 0.1``
+   (``snag_accum_dropout``, 6 epochs, IL from epoch 2): training runs the
+   dropped GAT on the weighted segment sum and never the GAT backward
+   kernel, evaluation and mining the fused GAT forward, with both loss
+   kernels' pairs and both rank sweeps; the optimizer's updates are half
+   the micro-steps, and two copies of the trained model that take the same
+   two micro-steps end with the same bits.
+Phases 10 and 11 run after phase 8, before phase 9.
 
 Before the per-kernel record it prints the script's wall time.  The line
 before last is the per-kernel JSON record (launches summed over the runs
-of phases 5-9; ``bound_share`` is ``bound_ms / device_ms``); the
+of phases 5-11; ``bound_share`` is ``bound_ms / device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
 """
@@ -214,6 +226,16 @@ FAMILY_BF16_KERNELS = {"gat_attention_fwd_bf16", "gat_bwd_bf16",
                        "ntxent_lse_bf16", "ntxent_grad_bf16",
                        "rank_topk_mean", "rank_counts"}
 WARM_STEP_MS = {}               # phase -> median warm step ms of its run
+SERVED = {}                     # serving phase -> its first request's result
+# MSNEA's training: the JAX package's learning horizon
+# (tests/test_models_smoke.py:30-44, a fixed LR of 2e-3), cut to 40 epochs
+MSNEA_TRAIN_ARGS = [
+    "--epoch", "40", "--eval_epoch", "10", "--batch_size", "3500",
+    "--lr", "2e-3", "--scheduler", "fixed", "--add_noise", "0",
+]
+# SNAG with gradient accumulation and GAT attention dropout: TRAIN_ARGS at
+# 6 epochs (IL from epoch 2, so mining runs; no promotion)
+ACCUM_DROPOUT_ARGS = ["--accumulation_steps", "2", "--attn_dropout", "0.1"]
 # (name, M, B, d, valid rows) of the NT-Xent calls at the bench geometry:
 # the default fused loss runs IIR only (4 modalities' hidden rows); with
 # --fused_snag_loss 0 ECIA (shown with the padded last batch, 1,000 of 3,500
@@ -1634,6 +1656,7 @@ def _serve(phase, args, pkl, expected):
         f"{res.mrr_r2l:.6f} | launches/twin calls {stats}")
     if (runner.data.ent_num, runner.graph.n_edges, n_test) != (30000, 329862, 10500):
         raise AssertionError(f"{phase} geometry differs from the bench geometry")
+    SERVED[phase] = res
     if not all(math.isfinite(m) and 0.0 <= m <= 1.0 for m in metrics):
         raise AssertionError(f"metrics out of range: {metrics}")
     if len(lines) != n_test + 1:
@@ -1805,6 +1828,95 @@ def phase_families(data):
     return runs
 
 
+def phase_msnea(data):
+    """MSNEA at the bench geometry through ``main``: serving from a seeded
+    init saved as the port's ``.pkl``, then 40 epochs at a fixed LR of
+    2e-3; each run launches exactly the two rank sweeps (MSNEA has no graph
+    encoder and no kernel of its own), the trained model's final test
+    MRR must beat the seeded init's, and two identical steps (triple
+    gathers with repeated rows in their backward) give the same bits."""
+    args = set_flag(BENCH_ARGS, "--model_name", "MSNEA")
+    pkl = _seeded_checkpoint(args, data, "seeded_init_msnea.pkl")
+    served = _serve("msnea_serve", args, pkl, RANK_KERNELS)
+    init_mrr = SERVED["msnea_serve"].mrr_l2r
+
+    def learned(runner):
+        mrr = runner.last_result.mrr_l2r
+        say("msnea_train", f"final test MRR l2r {mrr:.6f} against the seeded "
+            f"init's {init_mrr:.6f} | triple bank {runner.bank.n1} + "
+            f"{runner.bank.n2} triples")
+        if not mrr > init_mrr:
+            raise AssertionError("MSNEA did not learn past its seeded init")
+        _steps_repeat("msnea_train", runner, 1)
+    trained = _train("msnea_train", args + MSNEA_TRAIN_ARGS, RANK_KERNELS,
+                     promotion=False, check=learned)
+    return {k: served[k] + trained[k] for k in served}
+
+
+def _steps_repeat(phase, runner, micro_steps):
+    """Two copies of the trained model take the same ``micro_steps`` at
+    the run's step count (one update; dropout and MSNEA's triples drawn
+    from the same streams) and must end with the same bits, and the
+    update must move them."""
+    import copy
+    import torch
+    from snag_tpu_torch.train.step import TrainStep, msnea_step
+    step = runner.train_step
+    b = runner.cfg.batch_size
+    n = min(b, len(runner.train_ill))
+    links = torch.zeros(b, 2, dtype=torch.int64, device=runner.device)
+    links[:n] = torch.as_tensor(runner.train_ill[:n].astype("int64"))
+    valid = torch.arange(b, device=runner.device) < n
+    states = []
+    for _ in range(2):
+        model = copy.deepcopy(runner.model)
+        twin = TrainStep(runner.cfg, model, runner._lr, step.total_steps,
+                         step.warmup_steps)
+        # the run's last cycle start: past the warmup, a whole cycle ahead
+        twin.count = step.count - step.count % twin.every
+        for _ in range(micro_steps):
+            if runner.bank is not None:
+                msnea_step(twin, runner.bank, links, valid, runner.feats,
+                           runner.graph, runner.epoch)
+            else:
+                twin(links, valid, runner.feats, runner.graph, runner.epoch)
+        states.append(model.state_dict())
+    differ = [k for k in states[0] if not torch.equal(states[0][k],
+                                                      states[1][k])]
+    moved = [k for k in states[0] if not torch.equal(
+        states[0][k], runner.model.state_dict()[k])]
+    say(phase, f"two identical steps: {len(differ)} of {len(states[0])} "
+        f"tensors differ, {len(moved)} moved by the update")
+    if differ or not moved:
+        raise AssertionError(f"two identical steps differ: {differ[:8]}")
+
+
+def _accum_dropout_repeat(runner):
+    """Gradient accumulation counts: the optimizer's updates are half the
+    micro-steps (rounded down), AdamW's own step count too; then two
+    identical steps of two micro-steps each (``_steps_repeat``)."""
+    step = runner.train_step
+    adam_steps = {int(st["step"]) for st in step.opt.state_dict()["state"]
+                  .values()}
+    say("snag_accum_dropout", f"micro-steps {step.count} (this stage), "
+        f"optimizer updates {step.updates}, AdamW step counts {adam_steps}")
+    if step.updates != step.count // 2 or adam_steps != {step.updates}:
+        raise AssertionError("the updates are not half the micro-steps")
+    _steps_repeat("snag_accum_dropout", runner, 2)
+
+
+def phase_accum_dropout():
+    """SNAG with ``--accumulation_steps 2 --attn_dropout 0.1`` through
+    ``main``: training sums on the weighted segment sum (the dropped GAT)
+    and never runs the GAT backward kernel; evaluation and mining run the
+    fused GAT forward; both loss kernels' pairs and both rank sweeps."""
+    expected = f32_kernels() - {"gat_bwd"}
+    return _train("snag_accum_dropout",
+                  BENCH_ARGS + set_flag(TRAIN_ARGS, "--epoch", "6")
+                  + ACCUM_DROPOUT_ARGS, expected, promotion=False,
+                  check=_accum_dropout_repeat)
+
+
 def _files_argv(root: Path, exp_id: str, *extra: str):
     """The gates' flags (``torch_gates.PARITY_FLAGS``) at 8 epochs with IL
     from epoch 2, on the files under ``root``."""
@@ -1935,6 +2047,7 @@ def main() -> int:
     runs = [phase_slice(data), phase_train(), phase_train_bf16(),
             phase_slice_bf16(data), phase_gcn(data), phase_gcn_bf16(data)]
     runs += phase_families(data)
+    runs += [phase_msnea(data), phase_accum_dropout()]
     del data
     runs.append(phase_files())
 

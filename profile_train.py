@@ -2,7 +2,7 @@
 """Where a training step of the PyTorch port spends its device time.
 
     python3 profile_train.py [--dtype bfloat16] [--model_name NAME]
-                             [--replay 1]
+                             [--replay 1] [--accum_dropout 1]
 
 Builds the ``chip_smoke.py`` training configuration (the bench geometry:
 30,000 entities, batch 3500, GAT 300 x 2 x 2, the default fused loss,
@@ -26,11 +26,15 @@ structure encoder (``chip_smoke.gcn_args``).  For each it prints:
 
 With ``--dtype bfloat16`` it profiles both configurations, the GAT and
 then the GCN, in bf16; the bf16 entries are kinds of their own.
-With ``--model_name EVA``, ``MCLEA`` or ``MEAformer`` it profiles that
-family alone at the same geometry (``chip_smoke.family_args``: EVA on its
-GCN, MCLEA and MEAformer on the GAT with their presets' temperatures),
-in bf16 too with ``--dtype bfloat16`` and with MEAformer's replay under
-``--replay 1``.
+With ``--model_name EVA``, ``MCLEA``, ``MEAformer`` or ``MSNEA`` it
+profiles that family alone at the same geometry
+(``chip_smoke.family_args``: EVA on its GCN, MCLEA and MEAformer on the
+GAT with their presets' temperatures, MSNEA with no graph encoder), in
+bf16 too with ``--dtype bfloat16`` and with MEAformer's replay under
+``--replay 1``.  ``--accum_dropout 1`` adds ``chip_smoke``'s
+``--accumulation_steps 2 --attn_dropout 0.1`` (a step is then a
+micro-step) and profiles the GAT configuration alone, whose training
+sums the dropped attention on the weighted segment sum.
 
 Needs one NVIDIA GPU; exits non-zero without it.  Scratch data goes to the
 git-ignored ``build/profile_train``.
@@ -44,8 +48,9 @@ import sys
 import time
 from pathlib import Path
 
-from chip_smoke import (BENCH_ARGS, DEVICE_KERNELS, TRAIN_ARGS, cfg_from,
-                        family_args, gcn_args, host_names, is_kernel)
+from chip_smoke import (ACCUM_DROPOUT_ARGS, BENCH_ARGS, DEVICE_KERNELS,
+                        TRAIN_ARGS, cfg_from, family_args, gcn_args,
+                        host_names, is_kernel)
 
 ROOT = Path(__file__).resolve().parent
 WARM_EPOCHS = 3
@@ -141,18 +146,25 @@ def main() -> int:
     parser.add_argument("--dtype", default="float32",
                         choices=("float32", "bfloat16"))
     parser.add_argument("--model_name", default="SNAG",
-                        choices=("SNAG", "EVA", "MCLEA", "MEAformer"))
+                        choices=("SNAG", "EVA", "MCLEA", "MEAformer",
+                                 "MSNEA"))
     parser.add_argument("--replay", default="0", choices=("0", "1"))
+    parser.add_argument("--accum_dropout", default="0", choices=("0", "1"))
     args = parser.parse_args()
     bf16 = ["--dtype", "bfloat16"] if args.dtype == "bfloat16" else []
     suffix = "_bf16" if bf16 else ""
+    extra = ACCUM_DROPOUT_ARGS if args.accum_dropout == "1" else []
+    if extra:
+        suffix += "_accum_dropout"
     if args.model_name != "SNAG":
         replay = ["--replay", "1"] if args.replay == "1" else []
         label = args.model_name.lower() + ("_replay" if replay else "")
         profile_config(label + suffix,
-                       family_args(args.model_name, *replay, *bf16))
+                       family_args(args.model_name, *replay, *bf16, *extra))
         return 0
-    profile_config("gat" + suffix, BENCH_ARGS + bf16)
+    profile_config("gat" + suffix, BENCH_ARGS + bf16 + extra)
+    if extra:
+        return 0
     torch.cuda.empty_cache()
     profile_config("gcn" + suffix, gcn_args(BENCH_ARGS) + bf16)
     return 0

@@ -11,7 +11,7 @@ from __future__ import annotations
 import logging
 import os.path as osp
 from dataclasses import dataclass, field
-from typing import List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -70,11 +70,42 @@ def _split_ills(ills, data_rate: float, rng: np.random.Generator):
     return train_ill, test_ill, test_ill_
 
 
+def _generate_sup_triples(train_ill, kg1_triples, kg2_triples):
+    """Cross-KG triple copying for MSNEA (``snag_tpu/data/dataset.py:75``,
+    reference src/data_msnea.py:405-427): for each training link (e1, e2),
+    graft e1's KG1 neighbourhood onto e2 and vice versa.  The lists are
+    built by the same set operations in the same order as the JAX
+    package's, so they hold the same triples in the same order: MSNEA's
+    positive triples are sequential slices of them."""
+    rt1: Dict[int, Set] = {}
+    hr1: Dict[int, Set] = {}
+    for h, r, t in kg1_triples:
+        rt1.setdefault(h, set()).add((r, t))
+        hr1.setdefault(t, set()).add((h, r))
+    rt2: Dict[int, Set] = {}
+    hr2: Dict[int, Set] = {}
+    for h, r, t in kg2_triples:
+        rt2.setdefault(h, set()).add((r, t))
+        hr2.setdefault(t, set()).add((h, r))
+
+    new1, new2 = set(), set()
+    for e1, e2 in train_ill:
+        e1, e2 = int(e1), int(e2)
+        for r, t in rt1.get(e1, ()):  # e1's edges, head replaced by e2
+            new1.add((e2, r, t))
+        for h, r in hr1.get(e1, ()):
+            new1.add((h, r, e2))
+        for r, t in rt2.get(e2, ()):
+            new2.add((e1, r, t))
+        for h, r in hr2.get(e2, ()):
+            new2.add((h, r, e1))
+    out1 = list(set(kg1_triples) | new1)
+    out2 = list(set(kg2_triples) | new2)
+    return out1, out2
+
+
 def load_data(cfg: Config, logger: Optional[logging.Logger] = None) -> KGData:
     logger = logger or logging.getLogger("snag_tpu_torch")
-    if cfg.model_name == "MSNEA":
-        raise NotImplementedError("MSNEA's data path is not ported yet: "
-                                  "ROADMAP A: MSNEA")
     if cfg.data_choice == "SYNTH":
         return _load_synthetic(cfg, logger)
     return _load_files(cfg, logger)
@@ -101,7 +132,7 @@ def _load_synthetic(cfg: Config, logger) -> KGData:
             rng.normal(size=(n_ent, 100)).astype(np.float32))
 
     train_ill, test_ill, test_ill_ = _split_ills(ills, cfg.data_rate, rng)
-    return _assemble(logger, n_ent, cfg.synth_rels, triples, img,
+    return _assemble(cfg, logger, n_ent, cfg.synth_rels, triples, img,
                      ent_wo_img, ent_w_img, rel, att, name_feat, char_feat,
                      train_ill, test_ill, test_ill_, left_ents, right_ents,
                      kg1_triples, kg2_triples)
@@ -161,17 +192,22 @@ def _load_files(cfg: Config, logger) -> KGData:
     att = F.build_attr_features(n_ent, ent_attrs, 1000)
     kg1 = io.read_tuples([osp.join(file_dir, "triples_1")])
     kg2 = io.read_tuples([osp.join(file_dir, "triples_2")])
-    return _assemble(logger, n_ent, n_rel, triples, img, ent_wo_img,
+    return _assemble(cfg, logger, n_ent, n_rel, triples, img, ent_wo_img,
                      ent_w_img, rel, att, name_feat, char_feat, train_ill,
                      test_ill, test_ill_, left_ents, right_ents, kg1, kg2)
 
 
-def _assemble(logger, n_ent, n_rel, triples, img, ent_wo_img, ent_w_img,
-              rel, att, name_feat, char_feat, train_ill, test_ill, test_ill_,
-              left_ents, right_ents, kg1_triples, kg2_triples) -> KGData:
+def _assemble(cfg, logger, n_ent, n_rel, triples, img, ent_wo_img,
+              ent_w_img, rel, att, name_feat, char_feat, train_ill, test_ill,
+              test_ill_, left_ents, right_ents, kg1_triples, kg2_triples
+              ) -> KGData:
     graph = build_graph(n_ent, triples)
     left_non_train = list(set(left_ents) - set(train_ill[:, 0].tolist()))
     right_non_train = list(set(right_ents) - set(train_ill[:, 1].tolist()))
+
+    if cfg.model_name == "MSNEA":
+        kg1_triples, kg2_triples = _generate_sup_triples(
+            train_ill, kg1_triples, kg2_triples)
 
     logger.info("----- dataset summary -----")
     logger.info(f"triples: {len(triples)}  entities: {n_ent}  relations: {n_rel}")

@@ -10,7 +10,10 @@ EVA_tools.py:52-63).  Parameter names are the reference's:
 
 Dropout is drawn from an explicit ``torch.Generator``: a forward given
 ``dropout_gen=None`` is deterministic (the JAX package's
-``deterministic=True``).
+``deterministic=True``).  A GAT layer in training with ``--attn_dropout``
+above 0 takes JAX's general path (gnn.py:153-174): the dropped attention
+of ``ops/gat_agg.gat_dropout_aggregate`` on the weighted segment sum;
+otherwise, and in evaluation, the fused GAT kernels.
 
 ``dtype`` (GCN): under ``--dtype bfloat16`` a GCN layer's ``support`` is
 the bf16 product of bf16 x and W (f32 accumulation, ``ops/fusion.Linear``'s
@@ -34,9 +37,9 @@ from torch import nn
 
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops import inits
-from snag_tpu_torch.ops.gat_agg import gat_aggregate
+from snag_tpu_torch.ops.gat_agg import gat_aggregate, gat_dropout_aggregate
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
-from snag_tpu_torch.ops.noise import dropout
+from snag_tpu_torch.ops.noise import dropout, keep_mask
 
 
 class GraphConvolution(nn.Module):
@@ -105,16 +108,12 @@ class MultiHeadGraphAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: DeviceGraph,
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        if dropout_gen is not None and self.attn_dropout > 0:
-            raise NotImplementedError(
-                "GAT attention dropout (--attn_dropout > 0) takes the "
-                "segment_sum path of snag_tpu/ops/gnn.py:160-174, plain "
-                "module work with no Pallas kernel, not ported yet "
-                "(ROADMAP A: GAT attention dropout)")
         f = self.f_out
         wh = self.w[:, 0, :]                                  # (H, F)
         a_src = self.a_src_dst[:, :f, 0]
         a_dst = self.a_src_dst[:, f:, 0]
+        if dropout_gen is not None and self.attn_dropout > 0:
+            return self._dropout_forward(x, graph, dropout_gen, a_src, a_dst)
         # score of edge (i <- j) is h_i.a_src + h_j.a_dst; with the diag
         # projection both halves reduce to x @ (w_h * a_h)
         s_src = x @ (wh * a_src).T                            # (N, H)
@@ -125,6 +124,20 @@ class MultiHeadGraphAttention(nn.Module):
         # the diag projection commutes out of the neighbour sum
         agg = agg * wh[None, :, :]                            # (N, H, F)
         return agg / rowsum[:, :, None]
+
+    def _dropout_forward(self, x, graph, dropout_gen, a_src, a_dst):
+        """Training under attention dropout (JAX gnn.py:153-174): the
+        projected rows h = x w_h in the compute dtype, then f32, their
+        scores, and the dropped aggregation of ``gat_dropout_aggregate``."""
+        dt = self.edge_dtype
+        h = (x[:, None, :].to(dt) * self.w[:, 0, :][None].to(dt)
+             ).to(torch.float32)                              # (N, H, F)
+        s_src = torch.einsum("nhf,hf->nh", h, a_src)
+        s_dst = torch.einsum("nhf,hf->nh", h, a_dst)
+        keep = keep_mask((graph.n_edges, self.n_head), self.attn_dropout,
+                         dropout_gen, x.device)
+        return gat_dropout_aggregate(h, s_src, s_dst, keep, self.attn_dropout,
+                                     graph)
 
 
 class GAT(nn.Module):

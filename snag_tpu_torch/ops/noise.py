@@ -51,6 +51,12 @@ def table_stats(x: torch.Tensor,
     return TableStats(mean=mean, std=torch.sqrt(var))
 
 
+def keep_mask(shape, rate: float, gen: torch.Generator,
+              device) -> torch.Tensor:
+    """A dropout keep mask, True w.p. 1 - rate, drawn from ``gen``."""
+    return torch.rand(tuple(shape), generator=gen, device=device) >= rate
+
+
 def dropout(x: torch.Tensor, rate: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``gen`` (flax
@@ -58,7 +64,7 @@ def dropout(x: torch.Tensor, rate: float,
     the identity when ``gen`` is None or the rate is 0."""
     if gen is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    keep = keep_mask(x.shape, rate, gen, x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -15,7 +15,10 @@ SNAG_MMEA/src/utils.py:25-80):
   main.py:77-92) or a fixed LR, evaluated at the step count before the
   update (optax's convention, so step 0 has LR 0 under warmup);
 * global grad-norm clipping (main.py:272) before the update
-  (``clip_and_step``).
+  (``clip_and_step``);
+* ``--accumulation_steps k`` (optax ``MultiSteps``, optim.py:93-94): the
+  schedule over optimizer updates; the accumulation itself is
+  ``train/step.py::TrainStep``'s.
 """
 
 from __future__ import annotations
@@ -33,13 +36,12 @@ GROUP_LR_SCALE = {"decay": 1.0, "no_decay": 1.0, "large": 5.0}
 
 def make_lr_schedule(cfg: Config, lr: float, total_steps: int,
                      warmup_steps: int) -> Callable[[int], float]:
-    """step -> LR (optim.py:26-50)."""
-    if cfg.accumulation_steps > 1:
-        raise NotImplementedError(
-            "--accumulation_steps > 1 (optax.MultiSteps) is not ported yet: "
-            "ROADMAP A: gradient accumulation")
-    total = max(int(total_steps), 1)
-    warmup = int(warmup_steps)
+    """gradient step -> LR (optim.py:26-50).  With ``--accumulation_steps
+    k`` the horizon counts optimizer updates: ``total_steps / k`` and
+    ``warmup_steps / k`` micro-steps' worth (:28-30)."""
+    acc = max(cfg.accumulation_steps, 1)
+    total = max(int(total_steps / acc), 1)
+    warmup = int(warmup_steps / acc)
 
     if cfg.scheduler == "fixed":
         return lambda step: lr

@@ -15,6 +15,8 @@ validity mask.  ``train_epoch`` reads the device only after its last
 step.
 
 The family's step: ``TrainStep`` for SNAG, EVA, MCLEA and MEAformer;
+MSNEA runs ``msnea_step`` over its ``TripleBank`` (each KG's triples, the
+cross-KG copies of the train links' included) with no noise;
 MEAformer with ``--replay 1`` runs ``replay_step`` over the replay buffer
 ``replay_neg`` (the last mined hardest negative of each entity, -1 = none
 yet), whose negatives are used once the count of unset entries stops
@@ -46,9 +48,11 @@ from snag_tpu_torch.data.dataset import KGData, load_data
 from snag_tpu_torch.eval.ranking import RankResult, full_rank_eval
 from snag_tpu_torch.models import build_model
 from snag_tpu_torch.models.encoder import prepare_features, prepare_stats
+from snag_tpu_torch.models.msnea import TripleBank
 from snag_tpu_torch.ops.fusion import l2norm
 from snag_tpu_torch.train import il as il_mod
-from snag_tpu_torch.train.step import TrainStep, make_noise_fn, replay_step
+from snag_tpu_torch.train.step import (TrainStep, make_noise_fn, msnea_step,
+                                       replay_step)
 from snag_tpu_torch.utils.checkpoint import (CHECKPOINT_NAME,
                                              load_checkpoint, save_checkpoint)
 from snag_tpu_torch.utils.import_reference import (load_reference_checkpoint,
@@ -102,8 +106,12 @@ class Runner:
                              f"--epoch {cfg.epoch}")
         self._lr = cfg.lr
         self._build_optimizer(cfg.il_start if cfg.il else cfg.epoch)
-        self.noise_fn = (make_noise_fn(cfg, self.stats) if cfg.add_noise
+        # MSNEA trains on the clean tables (JAX runner.py:204)
+        self.noise_fn = (make_noise_fn(cfg, self.stats)
+                         if cfg.add_noise and cfg.model_name != "MSNEA"
                          else None)
+        self.bank = (TripleBank.from_data(self.data, self.device)
+                     if cfg.model_name == "MSNEA" else None)
 
         # run state
         self.epoch = 0
@@ -187,7 +195,10 @@ class Runner:
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record()
-            if self.replay_neg is None:
+            if self.bank is not None:
+                loss, aux = msnea_step(self.train_step, self.bank, links,
+                                       valid, feats, self.graph, self.epoch)
+            elif self.replay_neg is None:
                 loss, aux = self.train_step(links, valid, feats, self.graph,
                                             self.epoch)
             else:

@@ -1,22 +1,35 @@
-"""The per-epoch noise function, one training step and MEAformer's replay.
+"""The per-epoch noise function, one training step, MEAformer's replay
+and MSNEA's triple step.
 
 Port of ``snag_tpu/train/step.py`` (``make_noise_fn`` :53,
-``make_train_step`` :70, ``replay_negative_mask`` :107 and
-``make_meaformer_replay_step`` :121): epoch-seeded feature noise, then per
+``make_train_step`` :70, ``replay_negative_mask`` :107,
+``make_meaformer_replay_step`` :121 and ``make_msnea_train_step`` :199): epoch-seeded feature noise, then per
 step entity noise -> encode -> loss -> backward -> clip -> optimizer
 update.  Batches arrive capacity-padded with a validity mask (see the
 runner).
 
 Randomness: feature and entity noise come from generators seeded from
 (seed, epoch), so every step of an epoch sees the same noise draws (the
-reference's update_noise cadence); dropout from (seed, step).  A step with
-``deterministic=True`` runs without dropout, as the JAX package's
-``deterministic`` flag does; noise follows ``--add_noise`` alone.
+reference's update_noise cadence); dropout and MSNEA's negative triples
+from (seed, step).  A step with ``deterministic=True`` runs without
+dropout, as the JAX package's ``deterministic`` flag does; noise follows
+``--add_noise`` alone (MSNEA draws none, as in JAX step.py:77).
+
+Gradient accumulation (``--accumulation_steps k``, JAX's
+``optax.MultiSteps(..., every_k_schedule=k)``, optax 0.2.6): each step is
+a micro-step whose gradient joins the running mean of its cycle
+(acc + (g - acc) / (i + 1) at the cycle's i-th micro-step); the k-th
+clips that mean and steps AdamW once (weight decay included) at the LR
+of the update count, and the others leave the parameters as they are.
+``count`` counts micro-steps, as JAX's ``TrainState.step`` does, and so
+do the RNG streams and MSNEA's positive slices.  The cycle's position is
+``count % k``; the mean (``accum``) is train state, saved by the
+checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,12 +37,13 @@ from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.models.encoder import (FeaturePack, FeatureStats,
                                            apply_feature_noise)
+from snag_tpu_torch.models.msnea import TripleBank, sample_triple_batch
 from snag_tpu_torch.ops.noise import derive_seed, generator
 from snag_tpu_torch.train.optim import (build_optimizer, clip_and_step,
                                         make_lr_schedule)
 
 # stream tags of derive_seed(seed, counter, tag)
-FEATURE_NOISE, ENTITY_NOISE, DROPOUT = 0, 1, 2
+FEATURE_NOISE, ENTITY_NOISE, DROPOUT, TRIPLES = 0, 1, 2, 3
 
 
 def make_noise_fn(cfg: Config, stats: FeatureStats
@@ -45,9 +59,11 @@ def make_noise_fn(cfg: Config, stats: FeatureStats
 
 
 class TrainStep:
-    """One optimizer step of ``model``'s training loss; ``count`` is the
-    optimizer step counter (the JAX ``TrainState.step``), and
-    ``total_steps`` / ``warmup_steps`` the schedule's horizon."""
+    """One (micro-)step of ``model``'s training loss; ``count`` is the step
+    counter (the JAX ``TrainState.step``), ``total_steps`` /
+    ``warmup_steps`` the schedule's horizon in micro-steps, ``every`` the
+    micro-steps an optimizer update and ``accum`` the running mean of the
+    current cycle's gradients (None at a cycle's start)."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, lr: float,
                  total_steps: int, warmup_steps: int):
@@ -58,11 +74,37 @@ class TrainStep:
         self.total_steps = total_steps
         self.warmup_steps = warmup_steps
         self.sched = make_lr_schedule(cfg, lr, total_steps, warmup_steps)
+        self.every = max(cfg.accumulation_steps, 1)
+        self.accum: Optional[List[torch.Tensor]] = None
         self.count = 0
 
+    @property
+    def updates(self) -> int:
+        """Optimizer updates so far (optax's ``gradient_step``)."""
+        return self.count // self.every
+
     def lr(self) -> float:
-        """LR of the base group at the next step."""
-        return self.sched(self.count)
+        """LR of the base group at the next optimizer update."""
+        return self.sched(self.updates)
+
+    def _update(self) -> None:
+        """Fold this micro-step's gradients into the cycle's running mean
+        (the first one is the mean) and, at the cycle's end, clip the mean
+        and step AdamW on it."""
+        i = self.count % self.every
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
+        if self.accum is None:
+            self.accum = grads
+        else:
+            for a, g in zip(self.accum, grads):
+                a.add_((g - a) / (i + 1))
+        if i == self.every - 1:
+            for p, a in zip(self.params, self.accum):
+                p.grad = a
+            clip_and_step(self.opt, self.params, self.sched(self.updates),
+                          self.cfg.clip)
+            self.accum = None
 
     def __call__(self, links: torch.Tensor, valid: torch.Tensor,
                  feats: FeaturePack, graph: DeviceGraph, epoch: int,
@@ -71,7 +113,7 @@ class TrainStep:
         cfg = self.cfg
         dev = links.device
         entity_gen: Optional[torch.Generator] = None
-        if cfg.add_noise:
+        if cfg.add_noise and cfg.model_name != "MSNEA":
             entity_gen = generator(
                 derive_seed(cfg.random_seed, epoch, ENTITY_NOISE), dev)
         dropout_gen = None if deterministic else generator(
@@ -81,10 +123,25 @@ class TrainStep:
         loss, aux = self.model(links, valid, feats, graph, entity_gen,
                                dropout_gen, **model_kwargs)
         loss.backward()
-        clip_and_step(self.opt, self.params, self.sched(self.count),
-                      cfg.clip)
+        self._update()
         self.count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def msnea_step(step: TrainStep, bank: TripleBank, links: torch.Tensor,
+               valid: torch.Tensor, feats: FeaturePack, graph: DeviceGraph,
+               epoch: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One MSNEA step (JAX ``make_msnea_train_step``, step.py:199-222): a
+    triple batch of the links' size, positives at the step count,
+    negatives drawn from the step's ``TRIPLES`` generator, then the loss
+    and the update of ``step``."""
+    cfg = step.cfg
+    gen = generator(derive_seed(cfg.random_seed, step.count, TRIPLES),
+                    links.device)
+    pos, neg = sample_triple_batch(gen, bank, links.shape[0], step.count,
+                                   cfg.neg_triple_num)
+    return step(links, valid, feats, graph, epoch, pos_triples=pos,
+                neg_triples=neg)
 
 
 def replay_negative_mask(neg: torch.Tensor, batch_ents: torch.Tensor,

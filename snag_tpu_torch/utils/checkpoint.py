@@ -5,8 +5,10 @@ Port of the MMEA half of ``snag_tpu/utils/checkpoint.py``
 ``<dump>/checkpoint.pt``, written by ``torch.save`` with every array stored
 as a tensor, so ``torch.load(path, weights_only=True)`` reads it.  It holds
 the model and the best model's state dicts, the AdamW state, the schedule
-(its step count and the horizon it was built with), ``epoch``, ``stage``,
-the LR, ``best_mrr``, ``early_stop_count``, the epoch losses, the grown
+(its step count and the horizon it was built with), the running mean of
+the gradients of an unfinished ``--accumulation_steps`` cycle (its
+position is the step count mod k), ``epoch``, ``stage``, the LR,
+``best_mrr``, ``early_stop_count``, the epoch losses, the grown
 ``train_ill``, the five ``ILState`` tensors, and the global ``numpy`` and
 ``random`` states, and MEAformer's replay buffer with its ready flag, the
 last count of unset entries and the count of replay negatives fed.
@@ -15,7 +17,8 @@ Contract: a run resumed from a checkpoint repeats the uninterrupted run
 exactly, parameter for parameter and metric for metric.  The batches come
 from ``np.random.permutation`` and a promotion re-seeds that RNG, so its
 state is saved; the noise and dropout streams are derived from
-(seed, epoch) and (seed, step) and need nothing saved.  The schedule's
+(seed, epoch) and (seed, step), MSNEA's triples from (seed, step) and
+the step count, and need nothing saved.  The schedule's
 horizon is saved rather than recomputed: the stage-1 horizon is fixed
 when the stage begins, before promotions grow ``train_ill``, so a
 recomputed one would change every LR after a resume past a promotion (the
@@ -75,7 +78,8 @@ def save_checkpoint(runner, path: str) -> str:
         "best_state": runner.best_state,
         "optimizer": step.opt.state_dict(),
         "schedule": {"count": step.count, "total_steps": step.total_steps,
-                     "warmup_steps": step.warmup_steps},
+                     "warmup_steps": step.warmup_steps,
+                     "accum": step.accum},
         "epoch": runner.epoch,
         "stage": runner.stage,
         "lr": runner._lr,
@@ -114,6 +118,7 @@ def load_checkpoint(runner, path: str) -> None:
     runner._make_train_step(sched["total_steps"], sched["warmup_steps"])
     runner.train_step.opt.load_state_dict(payload["optimizer"])
     runner.train_step.count = int(sched["count"])
+    runner.train_step.accum = sched.get("accum")
     if payload["il"] is not None:
         runner.il_state = ILState(**payload["il"])
     replay = payload.get("replay")

@@ -12,7 +12,12 @@ flat), so:
   (in, out) as they are; ``rel_fc`` keeps the JAX table width.  Beyond
   those rules it maps the projection heads (``--use_project_head``,
   ``{img,att,rel,gph}_pro.l{1,2}``, the reference's ProjectionHead
-  names), which the JAX package's importer leaves unmapped;
+  names), which the JAX package's importer leaves unmapped; and MSNEA's
+  tree (``ent_embed``, ``rel_embed``, ``fc1``, ``fc3``,
+  ``attr_encoder/fc1``, ``name_fc``, ``char_fc``), which the JAX
+  package's importer does not map either (its :17-18): a ``.pkl`` the port
+  writes for MSNEA carries the port's own names, and only the port reads
+  it back;
 * ``load_reference_checkpoint`` reads a reference ``.pkl``
   (``torch.save(model.state_dict())``, SNAG_MMEA/main.py:481-500) and
   truncates ``rel_fc.weight`` to our relation-table width: both sides use
@@ -65,11 +70,14 @@ def _ref_key_for(keys: Tuple[str, ...]):
     else:
         rest, prefix = keys, ""
 
-    if rest in (("entity_emb",), ("ent_embed",)):
+    if rest in (("entity_emb",), ("ent_embed",), ("rel_embed",)):
         return f"{prefix}{rest[0]}.weight", _ID
     if rest == ("weight_raw",):
         return f"{prefix}weight_raw", _ID
-    if len(rest) == 2 and rest[0].endswith("_fc"):
+    if rest[0] == "attr_encoder":       # MSNEA's AttrEncoder.fc1
+        rest, prefix = rest[1:], f"{prefix}attr_encoder."
+    if len(rest) == 2 and (rest[0].endswith("_fc")
+                           or rest[0] in ("fc1", "fc3")):
         if rest[1] == "kernel":
             return f"{prefix}{rest[0]}.weight", _T
         return f"{prefix}{rest[0]}.bias", _ID

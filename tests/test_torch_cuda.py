@@ -24,7 +24,9 @@ sum adds a row's edges in CSR order, the twin with ``index_add_``: rtol =
 atol = 1e-5, and two runs give the same bits; so does its bf16 entry,
 whose terms are exact in f32 (or, with ``round_term``, rounded to bf16
 alike on both sides) and whose outputs are f32, well inside 4e-3 x max
-|twin|.  The rank
+|twin|.  The GAT under attention dropout sums on the same kernel: its
+output rtol = atol = 1e-5, its gradients (a dot per edge beside the
+sums) rtol = atol = 1e-4, and two runs give the same bits.  The rank
 kernels sum the dot products in another order than cuBLAS, so a near-tie
 may flip: ranks must agree on >= 99 % of queries; tie rules are checked on
 the kernel's own exact ties; two runs, and runs with any number of column
@@ -42,7 +44,8 @@ from snag_tpu_torch.ops.cuda import ntxent as nx
 from snag_tpu_torch.ops.cuda import rank_eval as rk
 from snag_tpu_torch.ops.cuda import snag_loss as sl
 from snag_tpu_torch.ops.cuda import tile_segment as ts
-from snag_tpu_torch.ops.gat_agg import gat_aggregate, reverse_weights
+from snag_tpu_torch.ops.gat_agg import (gat_aggregate, gat_dropout_aggregate,
+                                        reverse_weights)
 from snag_tpu_torch.ops.gat_attn_primitive import gat_attention
 
 pytestmark = pytest.mark.cuda
@@ -651,6 +654,41 @@ def test_gat_aggregate_backward_launches_the_kernel(dev):
         0, g.col.long().cpu(),
         (e[:, :, None] * g_agg[g.row]).sum(dim=1).cpu()).to(dev)
     torch.testing.assert_close(xg.grad, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,h", [(48, 2), (300, 2)])
+def test_dropout_gat_on_the_card(dev, c, h):
+    """``gat_dropout_aggregate`` (a GAT layer under attention dropout in
+    training): output and the gradients of h, s_src and s_dst from the
+    weighted segment sum kernel, against the same function on CPU copies
+    (the twins); two runs give the same bits; 2 (H + 1) launches a run
+    and no twin on the card."""
+    g, _, s_src, s_dst = _gat_inputs(dev, c=c, h=h, seed=21)
+    rng = torch.Generator(device=dev).manual_seed(5)
+    hh = torch.randn(g.n_nodes, h, c, generator=rng, device=dev)
+    go = torch.randn(g.n_nodes, h, c, generator=rng, device=dev)
+    keep = torch.rand(g.n_edges, h, generator=rng, device=dev) >= 0.3
+
+    def run(graph, device):
+        leaves = [t.to(device).clone().requires_grad_()
+                  for t in (hh, s_src, s_dst)]
+        out = gat_dropout_aggregate(*leaves, keep.to(device), 0.3, graph)
+        (out * go.to(device)).sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    launches, twins = ts.STATS.launches, ts.STATS.twin_calls
+    first, second = run(g, dev), run(g, dev)
+    torch.cuda.synchronize()
+    assert ts.STATS.launches == launches + 2 * 2 * (h + 1)
+    assert ts.STATS.twin_calls == twins
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = run(DeviceGraph(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                             for t in g)), "cpu")
+    torch.testing.assert_close(first[0], want[0].to(dev), rtol=1e-5,
+                               atol=1e-5)
+    for got, w in zip(first[1:], want[1:]):
+        torch.testing.assert_close(got, w.to(dev), rtol=1e-4, atol=1e-4)
 
 
 def _embs(dev, n, d, seed, noise=0.5):

@@ -384,11 +384,17 @@ def test_cli_trains_and_serves_family_on_cpu(tmp_path, family, replay):
 
 
 def test_msnea_refuses_naming_its_roadmap_item(tmp_path):
-    """MSNEA (its own data path and loss) is the family still to port."""
+    """MSNEA refused with its ROADMAP item until it was ported: now its
+    data path and the runner build it, with its triple bank and no noise
+    function (``test_torch_msnea.py`` holds it against JAX)."""
+    from snag_tpu_torch.models.msnea import MSNEA
     cfg = finalize_config(Config(device="cpu", **{**SMALL,
-                                                  "model_name": "MSNEA"}),
+                                                  "model_name": "MSNEA",
+                                                  "add_noise": 1}),
                           data_root=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A: MSNEA"):
-        Runner(cfg, create_logger(name="msnea"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A: MSNEA"):
-        build_model(cfg, None, torch.Generator())
+    runner = Runner(cfg, create_logger(name="msnea"))
+    assert isinstance(runner.model, MSNEA)
+    assert runner.noise_fn is None and runner.bank is not None
+    assert runner.bank.n1 == len(runner.data.kg1_triples)
+    model = build_model(cfg, runner.data, torch.Generator())
+    assert isinstance(model, MSNEA)

@@ -65,9 +65,12 @@ def test_param_group_labels_match_jax(pair):
     assert sorted(set(got.values())) == ["decay", "large", "no_decay"]
 
 
+@pytest.mark.parametrize("accumulation_steps", [1, 3])
 @pytest.mark.parametrize("scheduler", ["cos", "linear", "fixed"])
-def test_lr_schedule_matches_jax(scheduler):
-    cfg = Config(scheduler=scheduler)
+def test_lr_schedule_matches_jax(scheduler, accumulation_steps):
+    """With ``--accumulation_steps k`` both schedules count optimizer
+    updates over total / k and warmup / k (40 / 3 and 6 / 3 here)."""
+    cfg = Config(scheduler=scheduler, accumulation_steps=accumulation_steps)
     ours = make_lr_schedule(cfg, 5e-4, 40, 6)
     theirs = jax_lr_schedule(cfg, 5e-4, 40, 6)
     got = [ours(s) for s in range(50)]
@@ -75,10 +78,10 @@ def test_lr_schedule_matches_jax(scheduler):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-10)
     if scheduler != "fixed":
         assert got[0] == 0.0          # the pre-increment step under warmup
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP A: gradient accumulation"):
-        make_lr_schedule(dataclasses.replace(cfg, accumulation_steps=2),
-                         5e-4, 40, 6)
+    if scheduler == "linear":
+        # the horizon ends at update int(40 / k)
+        assert (got[40 // accumulation_steps] == 0.0
+                and got[40 // accumulation_steps - 1] > 0.0)
 
 
 def test_three_optimizer_steps_match_jax(pair):

@@ -214,3 +214,37 @@ def f32_reductions():
         yield
     finally:
         mlir._lowerings[lax_internal.reduce_sum_p] = orig
+
+
+@contextlib.contextmanager
+def bf16_products():
+    """JAX's bf16 ``mul`` rounded to bf16, as its dtype says: XLA's CPU
+    backend computes a bf16 product in f32 and, where the product is
+    converted straight to f32, drops the rounding (excess precision).
+    Here the operands and the f32 product are rounded to bf16 precision
+    explicitly (``reduce_precision``, which XLA keeps); other dtypes
+    unchanged."""
+    import jax.numpy as jnp
+    from jax import lax
+    from jax._src.interpreters import mlir
+    from jax._src.lax import lax as lax_internal
+    orig = mlir._lowerings[lax_internal.mul_p]
+
+    def bf16_exact(v):
+        return lax.reduce_precision(v.astype(jnp.float32), exponent_bits=8,
+                                    mantissa_bits=7)
+
+    def lower(ctx, x, y, **kw):
+        if ctx.avals_out[0].dtype != jnp.bfloat16:
+            return orig.rule(ctx, x, y, **kw)
+
+        def rounded(a, b):
+            return bf16_exact(bf16_exact(a) * bf16_exact(b)).astype(
+                jnp.bfloat16)
+        return mlir.lower_fun(rounded, multiple_results=False)(ctx, x, y)
+    mlir._lowerings[lax_internal.mul_p] = type(orig)(rule=lower,
+                                                     inline=orig.inline)
+    try:
+        yield
+    finally:
+        mlir._lowerings[lax_internal.mul_p] = orig

@@ -113,12 +113,32 @@ the exit code is non-zero:
    kernel, evaluation and mining the fused GAT forward, with both loss
    kernels' pairs and both rank sweeps; the optimizer's updates are half
    the micro-steps, and two copies of the trained model that take the same
-   two micro-steps end with the same bits.
-Phases 10 and 11 run after phase 8, before phase 9.
+   two micro-steps end with the same bits;
+12. MKGC (``phase_mkgc``) through ``snag_tpu_torch.cli.train_mkgc.main`` at
+   bench.py's geometry (bench.py:313-319: SYNTH with 12,800 entities, 256
+   relations, 90,000 triples, features of 4,096 and 768 pooled to 256,
+   ``emb_dim`` 128, ``num_proj`` 2, ``Mformer_hd_graph``, 1 x 2 fusion,
+   32 negatives, noise 0.2 / 0.7): (a) ``--num_batch 64 --margin 1``
+   (batches of 1,124, the all-entity fusion branch), 3 epochs and a valid
+   eval with ``--save_model 1``, then a warm epoch's triples/s and ms a
+   step, one step's kernel ms (``device_ms``) and the idle share, and the
+   filtered valid eval (2,000 triples, both directions), median of 5; (b)
+   ``run_base.sh``'s ``--num_batch 1024 --margin 12`` (batches of 70, the
+   role-mixed branch), 1 epoch, then the same timings; (c) ``--only_test
+   1`` from (a)'s snapshot gives (a)'s test metrics; (d) in both branches
+   two copies of the model and its Adam state that take the same two
+   steps end on the same bits, and two evaluations on the same ranks; (e)
+   three deterministic steps on injected samples at the JAX test's size,
+   GPU against CPU (losses rel 1e-4, parameters atol 1e-5); (f) the JAX
+   test's 80-entity learning run reaches test MRR > 0.15.  MKGC reaches no
+   TPU kernel: each run must launch no kernel of ours and no twin, every
+   loss be finite and every metric lie in [0, 1].
+Phases 10 and 11 run after phase 8, before phase 9; phase 12 runs last.
 
 Before the per-kernel record it prints the script's wall time.  The line
 before last is the per-kernel JSON record (launches summed over the runs
-of phases 5-11; ``bound_share`` is ``bound_ms / device_ms``); the
+of phases 5-11, as phase 12 launches none; ``bound_share`` is
+``bound_ms / device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
 """
@@ -2018,6 +2038,219 @@ def phase_files():
     return launches
 
 
+# MKGC at bench.py's geometry (bench.py:313-319): DB15K-sized SYNTH
+MKGC_ARGS = [
+    "--data_choice", "SYNTH", "--emb_dim", "128", "--neg_num", "32",
+    "--joint_way", "Mformer_hd_graph", "--num_proj", "2", "--add_noise", "1",
+    "--noise_ratio", "0.2", "--mask_ratio", "0.7", "--use_pool", "1",
+    "--pool_dim", "256", "--num_hidden_layers", "1",
+    "--num_attention_heads", "2", "--synth_ents", "12800",
+    "--synth_rels", "256", "--synth_triples", "90000",
+    "--synth_vis_dim", "4096", "--synth_txt_dim", "768", "--random_seed", "7",
+    "--log_every", "1000000000",
+]
+# (a): 64 batches of 1,125 triples, margin 1 (bench.py's throughput run,
+# the all-entity fusion branch); (b): run_base.sh's NUM_BATCH 1024 and
+# MARGIN 12, batches of 70 (the role-mixed branch)
+MKGC_A = ["--num_batch", "64", "--margin", "1.0", "--epoch", "3",
+          "--eval_epoch", "3", "--save_model", "1", "--exp_id", "mkgc_a"]
+MKGC_B = ["--num_batch", "1024", "--margin", "12", "--epoch", "1",
+          "--eval_epoch", "1000", "--exp_id", "mkgc_b"]
+# the JAX package's learning run (tests/test_mkgc.py:15-50): 80 entities,
+# 60 epochs, test MRR above 0.15
+MKGC_LEARN = [
+    "--data_choice", "SYNTH", "--emb_dim", "32", "--num_batch", "8",
+    "--neg_num", "8", "--margin", "1.0", "--lr", "5e-3", "--lrg", "5e-3",
+    "--epoch", "60", "--eval_epoch", "100", "--add_noise", "0",
+    "--use_pool", "1", "--pool_dim", "32", "--num_hidden_layers", "1",
+    "--num_attention_heads", "2", "--synth_ents", "80", "--synth_rels", "8",
+    "--synth_triples", "600", "--random_seed", "7", "--log_every", "1000",
+    "--joint_way", "Mformer_hd_mean", "--exp_id", "mkgc_learn",
+]
+
+
+def _mkgc_main(label, argv):
+    """``cli.train_mkgc.main`` on the card with the launch counts set to
+    0 just before it: MKGC reaches no TPU kernel, so no kernel of ours and
+    no twin may run; every loss finite, every metric in [0, 1]."""
+    import torch
+    from snag_tpu_torch.cli.train_mkgc import main
+    from snag_tpu_torch.ops import cuda as kernels
+    kernels.reset_stats()
+    t0 = time.perf_counter()
+    runner = main(argv + ["--device", "cuda", "--data_path",
+                          str(WORK / "mkgc")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = kernel_stats()
+    m = runner.last_metrics
+    say("mkgc", f"{label}: {runner.data.ent_num} entities, "
+        f"{len(runner.data.train)} train triples, batch {runner.batch_size},"
+        f" {runner.step.count} steps, main() {wall:.1f} s | epoch losses "
+        f"{[round(x, 5) for x in runner.losses]} | test {m}")
+    check_launches(f"mkgc {label}", stats, set())
+    if not all(math.isfinite(x) for x in runner.losses):
+        raise AssertionError(f"non-finite losses {runner.losses}")
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0
+               for k, v in m.items() if k != "mr"):
+        raise AssertionError(f"metrics out of range: {m}")
+    return runner
+
+
+def _mkgc_speed(label, runner):
+    """Warm training on the card: triples/s and wall ms a step over a
+    whole epoch (host clock, synchronised), the kernel ms of one step
+    (``device_ms`` over all its kernels) and the idle share 1 - kernel /
+    wall."""
+    import torch
+    from snag_tpu_torch.mkgc.train import epoch_batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = runner.train_epoch(runner.epoch + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = len(runner.data.train) // runner.batch_size
+    step_ms = 1e3 * dt / steps
+    batches = iter(epoch_batches(runner.cfg, runner.train_triples,
+                                 runner.epoch + 2, runner.batch_size))
+    kernel_ms = device_ms(lambda: runner.step(next(batches), runner.feats),
+                          ("",))
+    say("mkgc", f"{label}: warm epoch {steps * runner.batch_size / dt:.1f} "
+        f"triples/s, {step_ms:.3f} ms a step ({steps} steps, loss "
+        f"{loss:.5f}) | kernels {kernel_ms:.3f} ms a step (device_ms), "
+        f"idle share {1.0 - kernel_ms / step_ms:.4f}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+
+
+def _mkgc_repeat(label, runner):
+    """Two copies of the model and its Adam state take the same two steps
+    (noise, corruptions and dropout from the same streams) and end on the
+    same bits; two evaluations give the same ranks."""
+    import copy
+    import numpy as np
+    import torch
+    from snag_tpu_torch.mkgc.train import (MKGCStep, epoch_batches,
+                                           filtered_ranks)
+    batches = epoch_batches(runner.cfg, runner.train_triples, 0,
+                            runner.batch_size)[:2]
+    states = []
+    for _ in range(2):
+        model = copy.deepcopy(runner.model)
+        step = MKGCStep(runner.cfg, model, runner.stats)
+        step.opt.load_state_dict(copy.deepcopy(runner.step.opt.state_dict()))
+        step.count = runner.step.count
+        for pos in batches:
+            step(pos, runner.feats)
+        states.append(model.state_dict())
+    differ = [k for k in states[0]
+              if not torch.equal(states[0][k], states[1][k])]
+    moved = [k for k in states[0]
+             if not torch.equal(states[0][k], runner.model.state_dict()[k])]
+    ranks = [filtered_ranks(runner.model, runner.feats, runner.data,
+                            runner.data.valid[:runner.cfg.valid_max])
+             for _ in range(2)]
+    same = bool(np.array_equal(ranks[0], ranks[1]))
+    say("mkgc", f"{label}: two identical steps: {len(differ)} of "
+        f"{len(states[0])} tensors differ, {len(moved)} moved | two "
+        f"evaluations of {len(ranks[0])} ranks equal: {same}")
+    if differ or not moved or not same:
+        raise AssertionError(f"MKGC is not repeatable: {differ[:8]}")
+
+
+def _mkgc_gpu_cpu():
+    """Three Adam steps from one init on injected samples, deterministic,
+    on the card and on the CPU, at the JAX test's size, in both negative
+    formulations (batch 40: all-entity fusion; 4: role-mixed), at
+    run_base.sh's LR = LRG = 1e-4: losses within rel 1e-4, parameters
+    within atol 1e-5."""
+    import numpy as np
+    import torch
+    from snag_tpu_torch.mkgc.config import (build_mkgc_argparser,
+                                            mkgc_config_from_args)
+    from snag_tpu_torch.mkgc.data import load_mkgc_data
+    from snag_tpu_torch.mkgc.model import MKGCModel
+    from snag_tpu_torch.mkgc.train import MKGCStep, prepare_mkgc_features
+    argv = set_flag(set_flag(MKGC_LEARN, "--lr", "1e-4"), "--lrg", "1e-4")
+    cfg = mkgc_config_from_args(build_mkgc_argparser().parse_args(
+        set_flag(argv, "--joint_way", "Mformer_hd_graph") + ["--num_proj",
+                                                              "2"]))
+    data = load_mkgc_data(cfg)
+    rng = np.random.default_rng(SEED)
+    for b in (40, 4):
+        batches = [(data.train[s * b:(s + 1) * b].astype(np.int64),
+                    rng.integers(0, data.ent_num, (b, cfg.neg_num)),
+                    rng.random((b, cfg.neg_num)) < 0.5) for s in range(3)]
+        out = {}
+        for device in ("cuda", "cpu"):
+            feats = prepare_mkgc_features(cfg, data, device)
+            model = MKGCModel(cfg, data.ent_num, data.rel_num,
+                              int(feats.visual.shape[1]),
+                              int(feats.textual.shape[1]),
+                              torch.Generator().manual_seed(SEED)).to(device)
+            step = MKGCStep(cfg, model)
+            losses = [step(torch.as_tensor(pos, device=device), feats,
+                           samples=(torch.as_tensor(r, device=device),
+                                    torch.as_tensor(c, device=device)),
+                           deterministic=True)[0].item()
+                      for pos, r, c in batches]
+            out[device] = (losses, {k: v.cpu() for k, v in
+                                    model.state_dict().items()})
+        (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+        rel = max(abs(a - c) / abs(c) for a, c in zip(lg, lc))
+        perr = max((pg[k] - pc[k]).abs().max().item() for k in pc)
+        say("mkgc", f"(e) GPU against CPU, 3 steps of {b}: losses gpu {lg} "
+            f"cpu {lc} (max rel diff {rel:.2e}, limit 1e-4) | max|param "
+            f"gpu-cpu| {perr:.2e} (limit 1e-5)")
+        if rel > 1e-4 or perr > 1e-5:
+            raise AssertionError("MKGC's GPU and CPU steps disagree")
+
+
+def phase_mkgc():
+    """MKGC through ``cli.train_mkgc.main`` on the card: (a) bench.py's
+    throughput run with ``--save_model 1`` (3 epochs and a valid eval,
+    then its warm triples/s and the filtered valid eval, median of 5);
+    (b) run_base.sh's batching, 1 epoch, then its warm triples/s; (c)
+    ``--only_test 1`` from (a)'s snapshot gives (a)'s test metrics; (d)
+    two identical steps and two evaluations repeat bit for bit, in both
+    branches; (e) GPU against CPU; (f) the JAX test's learning run."""
+    from snag_tpu_torch.mkgc import model as mkgc_model
+    if mkgc_model.ALL_ENT_FUSION != "auto":
+        raise AssertionError("ALL_ENT_FUSION is forced")
+    a = _mkgc_main("(a) bench, num_batch 64", MKGC_ARGS + MKGC_A)
+    b_fuse = a.batch_size * (a.cfg.neg_num + 2) > 2 * a.data.ent_num
+    times = []
+    for _ in range(REPS + 1):
+        t0 = time.perf_counter()
+        m = a.evaluate("valid")
+        times.append(1e3 * (time.perf_counter() - t0))
+    say("mkgc", f"(a) all-entity fusion branch: {b_fuse} | filtered valid "
+        f"eval of {min(len(a.data.valid), a.cfg.valid_max)} triples, both "
+        f"directions: median {statistics.median(times[1:]):.3f} ms of "
+        f"{REPS} after one ({times[0]:.3f} ms) | {m}")
+    if not b_fuse:
+        raise AssertionError("(a) does not take the all-entity branch")
+    _mkgc_speed("(a)", a)
+    _mkgc_repeat("(d) all-entity branch", a)
+    served = _mkgc_main("(c) --only_test 1 from (a)'s snapshot",
+                        MKGC_ARGS + MKGC_A[:-4] + ["--only_test", "1",
+                                                   "--exp_id", "mkgc_a"])
+    if served.last_metrics != a.last_metrics:
+        raise AssertionError(f"--only_test gives {served.last_metrics}, "
+                             f"training gave {a.last_metrics}")
+    del a, served
+    b = _mkgc_main("(b) run_base.sh, num_batch 1024", MKGC_ARGS + MKGC_B)
+    if b.batch_size * (b.cfg.neg_num + 2) > 2 * b.data.ent_num:
+        raise AssertionError("(b) does not take the role-mixed branch")
+    _mkgc_speed("(b)", b)
+    _mkgc_repeat("(d) role-mixed branch", b)
+    del b
+    _mkgc_gpu_cpu()
+    learn = _mkgc_main("(f) the JAX test's learning run", MKGC_LEARN)
+    if not learn.last_metrics["mrr"] > 0.15:
+        raise AssertionError(f"MKGC did not learn: {learn.last_metrics}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2050,6 +2283,7 @@ def main() -> int:
     runs += [phase_msnea(data), phase_accum_dropout()]
     del data
     runs.append(phase_files())
+    phase_mkgc()
 
     meta = {
         "gat_attention_fwd": ("snag_tpu_torch/csrc/gat_attention.cu",

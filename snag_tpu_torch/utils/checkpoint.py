@@ -1,7 +1,8 @@
-"""Full mid-training checkpoint and resume of an MMEA run.
+"""Full mid-training checkpoint and resume of an MMEA or MKGC run.
 
-Port of the MMEA half of ``snag_tpu/utils/checkpoint.py``
-(``save_checkpoint`` / ``load_checkpoint``).  The file is
+Port of ``snag_tpu/utils/checkpoint.py``: MMEA's ``save_checkpoint`` /
+``load_checkpoint`` and, at the end, MKGC's ``save_mkgc_checkpoint`` /
+``load_mkgc_checkpoint``.  An MMEA run's file is
 ``<dump>/checkpoint.pt``, written by ``torch.save`` with every array stored
 as a tensor, so ``torch.load(path, weights_only=True)`` reads it.  It holds
 the model and the best model's state dicts, the AdamW state, the schedule
@@ -129,3 +130,46 @@ def load_checkpoint(runner, path: str) -> None:
         runner.replay_negatives = int(replay["fed"])
     _set_np_random_state(payload["np_random"])
     _set_py_random_state(payload["py_random"])
+
+
+# ---------------------------------------------------------------------------
+# MKGC checkpoints (JAX ``save_mkgc_checkpoint`` / ``load_mkgc_checkpoint``,
+# snag_tpu/utils/checkpoint.py:105-146): the early-stop bookkeeping
+# survives a resume, so a preempted run stops at the eval it would have.
+# Every generator of the run derives from (seed, epoch) or (seed, step
+# count), so the step count is all the RNG state there is.
+# ---------------------------------------------------------------------------
+
+def save_mkgc_checkpoint(runner, path: str) -> str:
+    """Write an ``MKGCRunner``'s train state to ``path`` atomically."""
+    os.makedirs(osp.dirname(path) or ".", exist_ok=True)
+    payload = {
+        "model": runner.model.state_dict(),
+        "optimizer": runner.step.opt.state_dict(),
+        "step": runner.step.count,
+        "epoch": runner.epoch,
+        "best_mrr": runner.best_mrr,
+        "bad_evals": runner.bad_evals,
+        "best_params": runner.best_params,
+        "losses": list(runner.losses),
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_mkgc_checkpoint(runner, path: str) -> None:
+    """Restore an ``MKGCRunner`` from ``path``: the tensors are read onto
+    the CPU and copied into the runner's, on its device."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    runner.model.load_state_dict(payload["model"])
+    runner.step.opt.load_state_dict(payload["optimizer"])
+    runner.step.count = int(payload["step"])
+    runner.epoch = int(payload["epoch"])
+    runner.best_mrr = float(payload["best_mrr"])
+    runner.bad_evals = int(payload["bad_evals"])
+    runner.losses = list(payload["losses"])
+    best = payload["best_params"]
+    runner.best_params = (None if best is None else
+                          {k: v.to(runner.device) for k, v in best.items()})

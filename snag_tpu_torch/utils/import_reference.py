@@ -17,7 +17,9 @@ flat), so:
   ``attr_encoder/fc1``, ``name_fc``, ``char_fc``), which the JAX
   package's importer does not map either (its :17-18): a ``.pkl`` the port
   writes for MSNEA carries the port's own names, and only the port reads
-  it back;
+  it back; and MKGC's tree (``ent_emb``, ``rel_emb``, ``vis_proj[2]``,
+  ``txt_proj[2]``, ``gate``, ``modal_weight``, ``fusion_{i}``), whose port
+  names are the JAX ones, each fusion layer's inside named as MMEA's;
 * ``load_reference_checkpoint`` reads a reference ``.pkl``
   (``torch.save(model.state_dict())``, SNAG_MMEA/main.py:481-500) and
   truncates ``rel_fc.weight`` to our relation-table width: both sides use
@@ -63,8 +65,32 @@ _FUSION_LAYER = {
 REL_IN_DIM = 1000     # the reference's fixed relation-bag width
 
 
+# MKGC's Dense layers (snag_tpu/mkgc/model.py:74-93), named alike in the port
+_MKGC_DENSE = ("vis_proj", "txt_proj", "vis_proj2", "txt_proj2", "gate")
+
+
+def _mkgc_key_for(keys: Tuple[str, ...]):
+    """Port key + transform of one MKGC param path: the tables and
+    ``modal_weight`` by name, the Dense layers transposed, ``fusion_{i}``
+    through the MMEA fusion layer's names."""
+    if keys in (("ent_emb",), ("rel_emb",), ("modal_weight",)):
+        return keys[0], _ID
+    if len(keys) == 2 and keys[0] in _MKGC_DENSE:
+        if keys[1] == "kernel":
+            return f"{keys[0]}.weight", _T
+        return f"{keys[0]}.bias", _ID
+    if keys[0].startswith("fusion_") and keys[0][7:].isdigit():
+        tail = _FUSION_LAYER.get(tuple(keys[1:]))
+        if tail is not None:
+            return f"{keys[0]}.{tail[0]}", tail[1]
+    return None, None
+
+
 def _ref_key_for(keys: Tuple[str, ...]):
     """Reference state-dict key + transform for one JAX param path."""
+    key, tf = _mkgc_key_for(keys)
+    if key is not None:
+        return key, tf
     if keys[0] == "multimodal_encoder":
         rest, prefix = keys[1:], "multimodal_encoder."
     else:

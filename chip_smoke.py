@@ -132,8 +132,26 @@ the exit code is non-zero:
    GPU against CPU (losses rel 1e-4, parameters atol 1e-5); (f) the JAX
    test's 80-entity learning run reaches test MRR > 0.15.  MKGC reaches no
    TPU kernel: each run must launch no kernel of ours and no twin, every
-   loss be finite and every metric lie in [0, 1].
-Phases 10 and 11 run after phase 8, before phase 9; phase 12 runs last.
+   loss be finite and every metric lie in [0, 1];
+13. parity (``phase_parity``), the paths that finish single-GPU MMEA
+   parity: (a) the new kernel instantiations against their twins on CPU
+   copies (over every 50th row of the bench graph), with bitwise repeats,
+   ``device_ms``, bounds and ptxas registers and spills: both GAT kernels'
+   wide path, f32 and bf16, at H = 8, C = 1,536 and H = 2, C = 330, and
+   sweep A's shared-memory lists at n = 10,500, d = 1,200, k = 20 (the
+   list of 32), 64 and 128 (the list of 128);
+   (b) SNAG through ``main`` at the bench geometry with ``--distance 1
+   --csls_k 20 --instance_normalization --heads 8,8 --profile_dir``, 4
+   epochs: its GAT and loss kernels launch and the rank sweeps do not (L1
+   runs in torch ops, as in JAX), the profiler's Chrome trace holds CUDA
+   kernel events, and the trained model's L1 evaluation on the card agrees
+   with the CPU path on 1,024 test pairs (ranks on >= 99.9 % of queries);
+   then the model served with CSLS k = 20 under L2 (sweep A's list of 32),
+   its ranks on all 10,500 test pairs held against the CPU's dense twin
+   (>= 99.9 %); (c) 10,500 against 12,000 rows of width 1,200 ranked on
+   the card and on the CPU.  Its launches are not added to the kernels
+   line.
+Phases 10, 11 and 13 run after phase 8, before phase 9; phase 12 runs last.
 
 Before the per-kernel record it prints the script's wall time.  The line
 before last is the per-kernel JSON record (launches summed over the runs
@@ -401,6 +419,18 @@ class LostSession(RuntimeError):
     session now and then loses them all."""
 
 
+class PartialSession(RuntimeError):
+    """A profiler session that recorded the spans of some counted calls on
+    the card but not of all: seen on an H100 with torch 2.11 in a long
+    process (every device event after the first one or two counted calls
+    lost), while 75 sessions in a fresh process lost none."""
+
+
+# the profiler's losses, which ``device_ms`` traces again: neither says
+# anything of the kernel, whose calls ran to their end in every case
+PROFILER_LOSSES = (LostSession, PartialSession)
+
+
 def call_kernel_ms(events, names, calls) -> list:
     """Device ms of each of ``calls`` traced calls (each inside a
     ``record_function`` span named ``CALL`` + its index): the sum of the
@@ -424,7 +454,8 @@ def call_kernel_ms(events, names, calls) -> list:
     if len(span) != calls or min(hits) == 0 or len(set(hits)) != 1:
         seen = sorted((round(ev.time_range.start, 1), ev.name[:40])
                       for ev in events if ev.device_type == DeviceType.CUDA)
-        raise (LostSession if not span else RuntimeError)(
+        raise (LostSession if not span else PartialSession
+               if len(span) != calls else RuntimeError)(
             f"the profiler recorded no kernel named like {names} in a call, "
             f"or fewer than in another, of {calls}: kernels a call {hits}; "
             f"spans on the card "
@@ -457,18 +488,24 @@ def traced_calls(fn, calls):
     return prof.events()
 
 
-def device_ms(fn, names, trace=traced_calls, sessions=3) -> float:
+def device_ms(fn, names, trace=traced_calls, sessions=4,
+              retry=PROFILER_LOSSES) -> float:
     """Median over REPS calls of fn, traced together, of each call's device
     time of its kernels named like ``names`` (a call's launches summed):
-    the card's time alone, without the host's.  A session that lost every
-    counted span (``LostSession``) is traced again, ``sessions`` in all."""
+    the card's time alone, without the host's.  A session that raised one
+    of ``retry`` (by default ``PROFILER_LOSSES``: it lost every counted
+    span, or some) is traced again, ``sessions`` in all, and each retry is
+    printed; any other shortfall (every span kept, a call's kernels not)
+    raises at once."""
     for left in range(sessions - 1, -1, -1):
         try:
             return statistics.median(call_kernel_ms(trace(fn, REPS), names,
                                                     REPS))
-        except LostSession:
+        except retry as err:
             if not left:
                 raise
+            say("profiler", f"{type(err).__name__} timing {names[0]}: "
+                f"traced again ({left} session(s) left)")
 
 
 # ------------------------------------------------------------------ phases
@@ -1643,9 +1680,9 @@ def _seeded_checkpoint(args, data, name):
     return save_reference_checkpoint(model, str(WORK / name))
 
 
-def _serve(phase, args, pkl, expected):
-    """``main`` with ``--only_test 1`` from ``pkl``; then a second request.
-    Returns the launches of the first."""
+def _serve(phase, args, pkl, expected, check=None):
+    """``main`` with ``--only_test 1`` from ``pkl``; then a second request;
+    then ``check(runner)`` if given.  Returns the launches of the first."""
     import torch
     from snag_tpu_torch.cli.train_mmea import main
     from snag_tpu_torch.ops import cuda as kernels
@@ -1682,6 +1719,8 @@ def _serve(phase, args, pkl, expected):
     if len(lines) != n_test + 1:
         raise AssertionError(f"top-3 CSV has {len(lines)} lines")
     check_launches(phase, stats, expected)
+    if check is not None:
+        check(runner)
     return {name: launches for name, (launches, _) in stats.items()}
 
 
@@ -1935,6 +1974,285 @@ def phase_accum_dropout():
                   BENCH_ARGS + set_flag(TRAIN_ARGS, "--epoch", "6")
                   + ACCUM_DROPOUT_ARGS, expected, promotion=False,
                   check=_accum_dropout_repeat)
+
+
+# ---------------------------------------------------------------- parity
+# (H, C) of the GAT kernels' wide instantiations held in phase parity: 8
+# heads at 1,536 (float4 slices past 1,280), 2 heads at 330 (single floats
+# past 320)
+PARITY_GAT = ((8, 1536), (2, 330))
+# sweep A's lists in shared memory: 20 takes the list of 32 (the served
+# evaluation's k below), 64 and 128 the list of 128
+PARITY_K = (20, 64, 128)
+# one row in PARITY_ROW_STRIDE is held against the twin on CPU copies (the
+# twins at H = 8, C = 1,536 gather (E, H, C) = 16 GB over the whole graph)
+PARITY_ROW_STRIDE = 50
+# the training of phase parity's SNAG run (with the flags it ports, set in
+# phase_parity), cut to 4 epochs (the profiler traces epochs 2-3) and the
+# final test alone (an L1 evaluation at 10,500 pairs takes ~7 s)
+PARITY_ARGS = ["--epoch", "4", "--eval_epoch", "5", "--batch_size", "3500",
+               "--lr", "5e-4", "--scheduler", "cos", "--add_noise", "1",
+               "--noise_ratio", "0.2", "--mask_ratio", "0.7",
+               "--save_model", "1"]
+# test pairs of the trained model's evaluation held against the CPU path,
+# cut from 10,500: L1 at 1,536 pairs took 42 s on the CPU in the chunked
+# evaluator (4 distance matrices) and takes ~5 s at 1,024 in the dense one
+# (1); the card runs both on them
+PARITY_CPU_PAIRS = 1024
+# left and right rows, width: the bench joint's
+PARITY_UNEQUAL = (10500, 12000, 1200)
+
+
+def _sub_graph(g, rows, both):
+    """The edges of ``g`` (on the CPU) whose row is one of ``rows`` (and,
+    with ``both``, whose column is): every edge the twins need for those
+    rows' outputs.  The twins read row and col alone."""
+    import torch
+    keep = torch.zeros(g.n_nodes, dtype=torch.bool)
+    keep[rows] = True
+    row, col = g.row.cpu(), g.col.cpu()
+    sel = keep[row] | (keep[col.long()] if both else False)
+    return g._replace(n_edges=int(sel.sum()), row=row[sel], col=col[sel])
+
+
+def _parity_gat(inputs, bf16):
+    """One wide instantiation of both GAT kernels on the bench graph
+    (``inputs``: ``gat_bwd_inputs``, f32, rounded to bf16 with ``bf16``)
+    against the twins on CPU copies, over every PARITY_ROW_STRIDE-th row:
+    rtol = atol = 1e-5 (forward) and 1e-4 (backward), bf16 within
+    BF16_TOL x max |twin|; a bitwise repeat, device_ms and its bound, and
+    the ptxas registers and spills of the instantiation."""
+    import torch
+    from snag_tpu_torch.ops.cuda import gat_attention as ga
+    from snag_tpu_torch.ops.cuda import gat_bwd as gb
+    g, x, s_src, s_dst, g_agg, g_rs = inputs
+    (n, c), h = x.shape, s_src.shape[1]
+    if bf16:
+        x, g_agg = x.to(torch.bfloat16), g_agg.to(torch.bfloat16)
+    vec = ga.slice_width(c, x, g_agg)
+    if not ga.wide(c, h, vec):
+        raise AssertionError(f"H={h} C={c} is not a wide instantiation")
+    e, xb = g.n_edges, x.element_size()
+    rows = torch.arange(0, n, PARITY_ROW_STRIDE)
+    sfx = "_bf16" if bf16 else ""
+    for kind in ("fwd", "bwd"):
+        if kind == "fwd":
+            name = f"gat_attention_fwd{sfx}"
+            fn = lambda: ga.gat_attention_cuda(x, s_src, s_dst, g)
+            want = on_cpu(ga.gat_attention_twin, x, s_src, s_dst,
+                          _sub_graph(g, rows, False))
+            kernels = (f"gat_attention_fwd{sfx}_wide_kernelILi"
+                       f"{min(h, 4)}ELi{vec}E",)
+            nbytes = xb * n * c + 4 * (2 * n * h + n + 1 + e + n * h * c + n * h)
+            flops = 2 * e * h * (c + 1)
+        else:
+            name = f"gat_bwd{sfx}"
+            fn = lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
+            want = on_cpu(gb.gat_backward_twin, x, s_src, s_dst, g_agg, g_rs,
+                          _sub_graph(g, rows, True))
+            kernels = (f"gat_bwd{sfx}_wide_rows_kernelILi{vec}E",
+                       f"gat_bwd{sfx}_wide_sums_kernel")
+            nbytes = xb * (2 * n * c + n * h * c) + 4 * (5 * n * h + n + 1 + e)
+            flops = 4 * e * h * c
+        got = repeat_bitwise(fn, f"parity {name} H={h} C={c}")
+        got = [t[rows.to(t.device)] for t in got]
+        want = [t[rows.to(t.device)] for t in want]
+        if bf16:
+            errs = bf16_errors(f"parity {name}", got, want)
+            limit = f"<= {BF16_TOL} x max"
+        else:
+            tol = 1e-5 if kind == "fwd" else 1e-4
+            errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+            limit = f"rtol=atol={tol:g}"
+        dev = device_ms(fn, DEVICE_KERNELS[name])
+        bound_ms, bound_by = bound(nbytes, flops)
+        lib = (ga if kind == "fwd" else gb)._library()
+        regs = "; ".join(f"{k} {r} registers, spills {st}/{ld} B"
+                         for k, r, st, ld in kernel_ptxas(lib, kernels))
+        say("parity", f"{name} wide H={h} C={c} vec={vec}: {len(rows)} rows "
+            f"of {n} against the twin, max|err| {max(errs):.3e} ({limit}), "
+            f"bitwise repeat | device {dev:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), share {bound_ms / dev:.3f} | {regs}")
+
+
+def _parity_rank(k, n=10500, d=1200):
+    """Sweep A at k in a shared-memory list, both directions, against its
+    plain version (rtol = atol = 1e-5), bitwise repeat, device_ms and its
+    bound (2 n^2 d fp32 flops: one product serves both directions; the
+    kernel runs it once a direction), registers and spills."""
+    import torch
+    from snag_tpu_torch.ops.cuda import rank_eval as rk
+    x, y = _eval_inputs(n, d)
+    xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
+    fn = lambda: rk.topk_mean_both_cuda(x, y, xn, yn, k)
+    got = repeat_bitwise(fn, f"parity sweep A k={k}")
+    want = rk.topk_mean_both_twin(x, y, xn, yn, k)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    dev = device_ms(fn, DEVICE_KERNELS[rk.STATS_TOPK.name])
+    bound_ms, bound_by = bound(4 * (2 * n * d + 5 * n), 2 * n * n * d)
+    size = rk.list_len(k)
+    plan = rk.device_plan(x.device, n, d, 0, k)
+    regs = "; ".join(
+        f"{e} {r} registers, spills {st}/{ld} B"
+        for e, r, st, ld in kernel_ptxas(
+            rk._library(), (f"long_topk_mean_kernelILi{size}E",
+                            f"long_topk_merge_kernelILi{size}E")))
+    say("parity", f"rank_topk_mean k={k} (list {size} in shared memory, "
+        f"{plan['smem_bytes']} B a block, {plan['splits']} splits, one "
+        f"launch a direction) N={n} d={d}: max|err| {err:.3e} "
+        f"(rtol=atol=1e-5), bitwise repeat | device {dev:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / dev:.3f} | {regs}")
+
+
+def _chunked_both(el, er, **kw):
+    """(ranks l2r, ranks r2l, top-3 l2r) of the chunked evaluator, the path
+    ``full_rank_eval`` takes for L1 above L1_FULL_MAX and for sides of
+    unequal size, on the tensors' device."""
+    from snag_tpu_torch.eval.ranking import chunked_ranks_one_direction
+    l2r, top3 = chunked_ranks_one_direction(el, er, with_top3=True, **kw)
+    r2l, _ = chunked_ranks_one_direction(er, el, **kw)
+    return l2r.cpu(), r2l.cpu(), top3.cpu()
+
+
+def _agree(label, got, want, paired, floor=0.999):
+    """Ranks of both directions (and the l2r top-3) equal on >= ``floor``
+    of the queries whose gold lies on the other side (the first
+    ``paired`` of each side): the devices' products and sums round in
+    other orders, which can flip a near-tie.  A query past the other
+    side's end ranks against its last row, as JAX's clamped gather does;
+    that gold sits amid the distances, where near-ties are dense, so those
+    queries are held to ranks within 10 of the other device's.  Returns
+    the agreement on the paired queries."""
+    agree = min((got[i][:paired] == want[i][:paired]).float().mean().item()
+                for i in (0, 1))
+    t3 = (got[2][:paired] == want[2][:paired]).all(dim=1).float().mean().item()
+    far = max([(got[i][paired:] - want[i][paired:]).abs().max().item()
+               for i in (0, 1) if len(got[i]) > paired] or [0])
+    say("parity", f"{label}: ranks equal on {agree:.6f} of the paired "
+        f"queries (the worse direction), top-3 on {t3:.6f}; queries past "
+        f"the other side: max|rank diff| {far}")
+    if agree < floor or t3 < floor or far > 10:
+        raise AssertionError(f"{label}: card and CPU disagree ({agree}, "
+                             f"{t3}, {far})")
+    return agree
+
+
+def phase_parity(data):
+    """Phase parity: the paths that finish single-GPU MMEA parity with the
+    JAX package.  (a) The new kernel instantiations against their twins
+    (``_parity_gat``: both GAT kernels' wide paths, f32 and bf16, at
+    ``PARITY_GAT``; ``_parity_rank``: sweep A's shared-memory lists at
+    ``PARITY_K``).  (b) SNAG through ``main`` at the bench geometry with
+    ``--distance 1 --csls --csls_k 20 --instance_normalization --heads 8,8
+    --profile_dir``, 4 epochs: the losses finite and falling, the GAT (wide)
+    and loss kernels launched and the rank sweeps not (L1 is torch ops, as
+    in JAX), the profiler's Chrome trace written with CUDA kernel events,
+    the trained model's L1 evaluation of ``PARITY_CPU_PAIRS`` test pairs by
+    the card's dense and chunked paths against the CPU's dense path; then
+    that model served with ``--csls_k 20`` under L2 (``--only_test 1``),
+    which runs sweep A's list of 32, its ranks held against the CPU's
+    dense twin.
+    (c) One evaluation with sides of unequal size (``PARITY_UNEQUAL``) on
+    the card against the CPU path.  Returns the launches of (b)'s runs."""
+    import numpy as np
+    import torch
+    from snag_tpu_torch.eval.ranking import full_rank_eval, l1_distances
+    from snag_tpu_torch.ops.cuda import rank_eval as rk
+    from snag_tpu_torch.ops.cuda.rank_eval import eval_core
+    from snag_tpu_torch.ops.fusion import l2norm
+    t0 = time.perf_counter()
+    for h, c in PARITY_GAT:
+        inputs = gat_bwd_inputs(data.graph, c=c, h=h)
+        for bf16 in (False, True):
+            _parity_gat(inputs, bf16)
+        del inputs
+    for k in PARITY_K:
+        _parity_rank(k)
+    t_kernels = time.perf_counter() - t0
+
+    held = {}
+
+    def check(runner):
+        with open(runner.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        n_kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+        say("parity", f"profiler trace {runner.trace_path}: {len(events)} "
+            f"events, {n_kernels} CUDA kernel events")
+        if not n_kernels:
+            raise AssertionError("the --profile_dir trace holds no kernel")
+        with torch.no_grad():
+            emb = l2norm(runner._joint_emb()[0])
+        m = PARITY_CPU_PAIRS
+        el, er = emb[runner.test_left[:m]], emb[runner.test_right[:m]]
+        kw = dict(csls_k=20, use_csls=True, distance_kind=1)
+        t1 = time.perf_counter()
+        want = eval_core(el.cpu(), er.cpu(), 20, True, True,
+                         distances=l1_distances)
+        cpu_s = time.perf_counter() - t1
+        dense = eval_core(el, er, 20, True, True, distances=l1_distances)
+        chunked = _chunked_both(el, er, **kw)
+        torch.cuda.synchronize()
+        say("parity", f"the trained model's L1 CSLS k=20 evaluation on "
+            f"{m} test pairs, the CPU's dense path {cpu_s:.1f} s:")
+        _agree("  the card's dense path", [t.cpu() for t in dense], want, m)
+        _agree("  the card's chunked path", chunked, want, m)
+        say("parity", f"the trained model's L1 evaluation at "
+            f"{len(runner.test_left)} test pairs on the card: eval "
+            f"{runner.timings['eval_s']:.3f} s (host clock, synchronised)")
+        cfg = runner.cfg
+        held["pkl"] = str(Path(cfg.data_path) / cfg.model_name / "save"
+                          / f"{cfg.exp_id}.pkl")
+
+    args = set_flag(set_flag(BENCH_ARGS, "--heads", "8,8"), "--csls_k", "20")
+    flags = ["--distance", "1", "--instance_normalization", "--profile_dir",
+             str(WORK / "parity_trace")]
+    expected = f32_kernels() - {SEGMENT_KERNEL} - RANK_KERNELS
+    runs = [_train("parity", args + flags + PARITY_ARGS, expected,
+                   promotion=False, check=check)]
+    if rk.list_len(20) <= rk.MAX_K:
+        raise AssertionError("k = 20 should take sweep A's long list")
+    def served(runner):
+        with torch.no_grad():
+            emb = l2norm(runner._joint_emb()[0])
+        el, er = emb[runner.test_left], emb[runner.test_right]
+        t1 = time.perf_counter()
+        want = rk.streaming_rank_eval(el.cpu(), er.cpu(), 20, True, True)
+        cpu_s = time.perf_counter() - t1
+        got = rk.streaming_rank_eval(el, er, 20, True, True)
+        _agree(f"the served L2 CSLS k=20 evaluation, {len(el)} test pairs "
+               f"of width {el.shape[1]}: the card's sweeps against the "
+               f"CPU's dense twin ({cpu_s:.1f} s)", [t.cpu() for t in got],
+               want, len(el))
+
+    runs.append(_serve("parity_serve", args + ["--instance_normalization"],
+                       held["pkl"], SERVING_KERNELS, check=served))
+    t_runs = time.perf_counter() - t0 - t_kernels
+
+    nl, nr, d = PARITY_UNEQUAL
+    rng = np.random.default_rng(SEED + 2)
+    l = rng.normal(size=(nl, d)).astype(np.float32)
+    r = rng.normal(size=(nr, d)).astype(np.float32)
+    r[:nl] = l + 0.5 * r[:nl]
+    l /= np.linalg.norm(l, axis=1, keepdims=True)
+    r /= np.linalg.norm(r, axis=1, keepdims=True)
+    el, er = torch.as_tensor(l, device="cuda"), torch.as_tensor(r, device="cuda")
+    t1 = time.perf_counter()
+    want = _chunked_both(el.cpu(), er.cpu(), csls_k=3, use_csls=True)
+    cpu_s = time.perf_counter() - t1
+    _agree(f"unequal sides {nl} x {nr} of {d}, L2 CSLS k=3, the card "
+           f"against the CPU ({cpu_s:.1f} s)",
+           _chunked_both(el, er, csls_k=3, use_csls=True), want, nl)
+    ms = median_ms(lambda: full_rank_eval(el, er, csls_k=3, use_csls=True,
+                                          with_top3=True))
+    say("parity", f"unequal sides {nl} x {nr}: full_rank_eval on the card "
+        f"{ms:.1f} ms (median of {REPS}, CUDA events) | phase wall "
+        f"{time.perf_counter() - t0:.1f} s: kernels {t_kernels:.1f}, "
+        f"training and serving {t_runs:.1f}")
+    return runs
 
 
 def _files_argv(root: Path, exp_id: str, *extra: str):
@@ -2281,6 +2599,7 @@ def main() -> int:
             phase_slice_bf16(data), phase_gcn(data), phase_gcn_bf16(data)]
     runs += phase_families(data)
     runs += [phase_msnea(data), phase_accum_dropout()]
+    phase_parity(data)          # its launches are not in the kernels line
     del data
     runs.append(phase_files())
     phase_mkgc()

@@ -155,7 +155,7 @@ class Config:
     dtype: str = "float32"           # compute dtype for the encoder
     mesh_shape: str = ""             # e.g. "data:8"; empty = single device
     jit_backend: Optional[str] = None
-    profile_dir: str = ""            # jax.profiler trace output, "" = off
+    profile_dir: str = ""            # torch.profiler trace output, "" = off
     log_every: int = 50
     remat: int = 0                   # rematerialize GNN activations (memory)
     # encode only the batch's entity rows in the train step (the graph

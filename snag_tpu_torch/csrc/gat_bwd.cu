@@ -90,6 +90,25 @@
 //   warps in flight set the rate, and the wait for G rows is again the
 //   largest phase.
 // tests/test_torch_gat_bwd_bf16_schedule.py emulates the pass bit for bit.
+//
+// Any head count and width (gat_bwd_wide, f32 and bf16): the bodies above
+// hold MAX_HEADS heads' G rows and MAX_GROUPS slices a lane in registers,
+// which covers H <= 4 and C <= 1,280 (C % 4 == 0) or 320, the main path's
+// shapes.  d_x[j] sums over every head of every edge, so here one warp
+// still owns row j and walks all its heads, as a runtime loop inside each
+// edge (the G row of one head at a time), and its width in column chunks
+// of 32 WIDE_GROUPS slices, one after the other, each a walk over the
+// row's edges.  d_x is the same fmaf chain (edges in order, heads in order,
+// from 0), in bf16 the same term rounded at the same points.  An edge's
+// d_e = <x[j], G[k, h]> + r is a dot over all of C: each chunk adds its
+// groups' butterfly sums in order to the partial dot that the chunk
+// before left in the edge's scratch slot, so the dot is the sum over
+// groups in order from 0 of the bodies above, and the last chunk turns it
+// into the d_score.  Lane 0 reads and writes each slot, and no other warp
+// touches row j's slots (rev is a permutation), so the carry needs no
+// barrier.  The second launch then adds both d_s_src (row i's slots) and
+// d_s_dst (the slots rev[p] of row j's edges, in edge order from 0: the
+// bodies' running sum), a thread a (row, head): no atomics anywhere.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +120,7 @@ namespace {
 
 constexpr int MAX_HEADS = 4;
 constexpr int MAX_GROUPS = 10;   // c / vec <= 320
+constexpr int WIDE_GROUPS = 5;   // slices a lane in a column chunk, wide
 constexpr int WARPS = 4;         // rows a block in pass 1
 constexpr int SUM_THREADS = 256; // rows a block in pass 2
 // gat_bwd_bf16's first pass at G <= 3: blocks an SM it is built for (at
@@ -544,6 +564,204 @@ __device__ __forceinline__ void gat_bwd_bf16_rows(
   }
 }
 
+// Pass 1 at any head count h and width c (file comment): row j's warp
+// walks its column chunks in turn, and within an edge its heads in turn.
+// The edge's d_score goes to scratch[rev[p] * h + head]; d_s_dst is left
+// to the second launch.
+template <typename X, int VEC>
+__device__ __forceinline__ void gat_bwd_wide_rows(
+    const X* __restrict__ x, const float* __restrict__ s_src,
+    const float* __restrict__ s_dst, const X* __restrict__ g_agg,
+    const float* __restrict__ g_rs, const int* __restrict__ row_ptr,
+    const int* __restrict__ col, const long long* __restrict__ rev,
+    X* __restrict__ d_x, float* __restrict__ scratch, int n, int c, int h) {
+  constexpr bool BF16 = !std::is_same<X, float>::value;
+  constexpr int G = WIDE_GROUPS;
+  using V = typename Vec<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (j >= n) return;  // a tail warp; nothing below waits on a barrier
+  const int beg = row_ptr[j];
+  const int end = row_ptr[j + 1];
+  const int chunks = (c / VEC + 32 * G - 1) / (32 * G);
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int s0 = ch * 32 * G;
+    const int nv = c / VEC - s0;  // the row's slices from s0 on
+    const bool last = ch == chunks - 1;
+    V xj[G], acc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int s = lane + 32 * g;
+      if constexpr (BF16)
+        xj[g] = s < nv ? widen(load_packed<VEC>(x + (size_t)j * c, s0 + s, true))
+                       : V{};
+      else
+        xj[g] = s < nv
+                    ? __ldcs(reinterpret_cast<const V*>(x + (size_t)j * c) + s0 + s)
+                    : V{};
+      acc[g] = V{};
+    }
+
+    for (int base = beg; base < end; base += 32) {
+      const int m = min(32, end - base);
+      int k_l = 0;
+      long long at_l = 0;
+      if (lane < m) {
+        k_l = col[base + lane];
+        at_l = rev[base + lane];
+      }
+      for (int q = 0; q < m; ++q) {  // the same q for every lane
+        const int k = __shfl_sync(FULL, k_l, q);
+        const long long at = __shfl_sync(FULL, at_l, q);
+        typename Packed<VEC>::T term[G];
+        for (int hh = 0; hh < h; ++hh) {
+          // the edge's weight, the same bits on every lane
+          float src = s_src[(size_t)k * h + hh];
+          float dst = s_dst[(size_t)j * h + hh];
+          if constexpr (BF16) {
+            src = round_bf16(src);
+            dst = round_bf16(dst);
+          }
+          const float score = src + dst;
+          const float e = edge_weight(score);
+          float part[G];
+          if constexpr (BF16) {
+            const __nv_bfloat16* row = g_agg + ((size_t)k * h + hh) * c;
+            const uint32_t e2 = bf16_pair(e);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const int s = lane + 32 * g;
+              const auto gk = s < nv ? load_packed<VEC>(row, s0 + s, false)
+                                     : typename Packed<VEC>::T{};
+              const auto p = mul_bf16x2(e2, gk);
+              term[g] = hh == 0 ? p : add_bf16x2(term[g], p);
+              part[g] = s < nv ? dot_packed(xj[g], gk) : 0.f;
+            }
+          } else {
+            const V* row = reinterpret_cast<const V*>(g_agg + ((size_t)k * h + hh) * c) + s0;
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const int s = lane + 32 * g;
+              const V gk = s < nv ? row[s] : V{};
+              Vec<VEC>::fma(acc[g], e, gk);
+              part[g] = s < nv ? Vec<VEC>::dot(xj[g], gk) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              part[g] += __shfl_xor_sync(FULL, part[g], off);
+          }
+          if (lane == 0) {
+            float dot = ch == 0 ? 0.f : scratch[at * h + hh];
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              if (32 * g < nv) dot += part[g];
+            if (last) {
+              float r = g_rs[(size_t)k * h + hh];
+              if constexpr (BF16) r = round_bf16(r);
+              float d_score = -(dot + r) * e * leaky_grad(score);
+              if constexpr (BF16) d_score = round_bf16(d_score);
+              dot = d_score;
+            }
+            scratch[at * h + hh] = dot;
+          }
+        }
+        if constexpr (BF16) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) add(acc[g], widen(term[g]));
+        }
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int s = lane + 32 * g;
+      if (s >= nv) continue;
+      if constexpr (BF16)
+        store_slice<VEC>(d_x + (size_t)j * c, s0 + s, acc[g]);
+      else
+        __stcs(reinterpret_cast<V*>(d_x + (size_t)j * c) + s0 + s, acc[g]);
+    }
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_bwd_wide_rows_kernel(const float* __restrict__ x,
+                         const float* __restrict__ s_src,
+                         const float* __restrict__ s_dst,
+                         const float* __restrict__ g_agg,
+                         const float* __restrict__ g_rs,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ col,
+                         const long long* __restrict__ rev,
+                         float* __restrict__ d_x, float* __restrict__ scratch,
+                         int n, int c, int h) {
+  gat_bwd_wide_rows<float, VEC>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col,
+                                rev, d_x, scratch, n, c, h);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(32 * WARPS)
+gat_bwd_bf16_wide_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                              const float* __restrict__ s_src,
+                              const float* __restrict__ s_dst,
+                              const __nv_bfloat16* __restrict__ g_agg,
+                              const float* __restrict__ g_rs,
+                              const int* __restrict__ row_ptr,
+                              const int* __restrict__ col,
+                              const long long* __restrict__ rev,
+                              __nv_bfloat16* __restrict__ d_x,
+                              float* __restrict__ scratch, int n, int c,
+                              int h) {
+  gat_bwd_wide_rows<__nv_bfloat16, VEC>(x, s_src, s_dst, g_agg, g_rs, row_ptr,
+                                        col, rev, d_x, scratch, n, c, h);
+}
+
+// The wide second launch, a thread a (row i, head): d_s_src[i] = row i's
+// slots, d_s_dst[i] = the slots rev[p] of row i's edges, each added in CSR
+// order from 0.
+__device__ __forceinline__ void gat_bwd_wide_sums(
+    const float* __restrict__ scratch, const int* __restrict__ row_ptr,
+    const long long* __restrict__ rev, float* __restrict__ d_s_src,
+    float* __restrict__ d_s_dst, int n, int h) {
+  const long long t = (long long)blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (t >= (long long)n * h) return;
+  const int i = static_cast<int>(t / h);
+  const int hh = static_cast<int>(t % h);
+  float src = 0.f, dst = 0.f;
+  const int end = row_ptr[i + 1];
+  for (int p = row_ptr[i]; p < end; ++p) {
+    src += scratch[(size_t)p * h + hh];
+    dst += scratch[rev[p] * h + hh];
+  }
+  d_s_src[t] = src;
+  d_s_dst[t] = dst;
+}
+
+// Two kernels around the same body: only their names differ, so that a
+// profiler's kernel names tell the f32 backward's launches from the bf16's.
+__global__ void __launch_bounds__(SUM_THREADS)
+gat_bwd_wide_sums_kernel(const float* __restrict__ scratch,
+                         const int* __restrict__ row_ptr,
+                         const long long* __restrict__ rev,
+                         float* __restrict__ d_s_src,
+                         float* __restrict__ d_s_dst, int n, int h) {
+  gat_bwd_wide_sums(scratch, row_ptr, rev, d_s_src, d_s_dst, n, h);
+}
+
+__global__ void __launch_bounds__(SUM_THREADS)
+gat_bwd_bf16_wide_sums_kernel(const float* __restrict__ scratch,
+                              const int* __restrict__ row_ptr,
+                              const long long* __restrict__ rev,
+                              float* __restrict__ d_s_src,
+                              float* __restrict__ d_s_dst, int n, int h) {
+  gat_bwd_wide_sums(scratch, row_ptr, rev, d_s_src, d_s_dst, n, h);
+}
+
 template <int H, int VEC, int G>
 __global__ void __launch_bounds__(32 * WARPS)
 gat_bwd_rows_kernel(const float* __restrict__ x,
@@ -666,19 +884,44 @@ int launch(const Args<X>& a, int vec, int groups, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename X, int VEC>
+int launch_wide(const Args<X>& a, int h, cudaStream_t stream) {
+  const int blocks = (a.n + WARPS - 1) / WARPS;
+  if constexpr (std::is_same<X, float>::value)
+    gat_bwd_wide_rows_kernel<VEC><<<blocks, 32 * WARPS, 0, stream>>>(
+        a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev,
+        a.d_x, a.scratch, a.n, a.c, h);
+  else
+    gat_bwd_bf16_wide_rows_kernel<VEC><<<blocks, 32 * WARPS, 0, stream>>>(
+        a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev,
+        a.d_x, a.scratch, a.n, a.c, h);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads = (long long)a.n * h;
+  const int sums = static_cast<int>((threads + SUM_THREADS - 1) / SUM_THREADS);
+  if constexpr (std::is_same<X, float>::value)
+    gat_bwd_wide_sums_kernel<<<sums, SUM_THREADS, 0, stream>>>(
+        a.scratch, a.row_ptr, a.rev, a.d_s_src, a.d_s_dst, a.n, h);
+  else
+    gat_bwd_bf16_wide_sums_kernel<<<sums, SUM_THREADS, 0, stream>>>(
+        a.scratch, a.row_ptr, a.rev, a.d_s_src, a.d_s_dst, a.n, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename X>
 int backward(const X* x, const float* s_src, const float* s_dst,
              const X* g_agg, const float* g_rs, const int* row_ptr,
              const int* col, const long long* rev, X* d_x, float* d_s_src,
              float* d_s_dst, float* scratch, int n, int c, int h, int vec,
              void* stream) {
-  if (n <= 0 || c <= 0 || h < 1 || h > MAX_HEADS || (vec != 1 && vec != 4) ||
-      c % vec || c / vec > 32 * MAX_GROUPS)
+  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = (c / vec + 31) / 32;
   const Args<X> a{x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev,
                   d_x, d_s_src, d_s_dst, scratch, n, c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h > MAX_HEADS || c / vec > 32 * MAX_GROUPS)
+    return vec == 4 ? launch_wide<X, 4>(a, h, s) : launch_wide<X, 1>(a, h, s);
+  const int groups = (c / vec + 31) / 32;
   switch (h) {
     case 1: return launch<X, 1>(a, vec, groups, s);
     case 2: return launch<X, 2>(a, vec, groups, s);
@@ -699,7 +942,8 @@ const char* snag_error_string(int err) {
 // col and rev (row_ptr[n], rev int64) on the device, the CSR multiset
 // symmetric; d_x (n, c), d_s_src and d_s_dst (n, h) are written in full,
 // scratch (row_ptr[n], h) is the caller's.  vec is 4 when c % 4 == 0 and x,
-// g_agg, d_x are 16-byte aligned, else 1; c / vec <= 320.
+// g_agg, d_x are 16-byte aligned, else 1.  h <= 4 with c / vec <= 320 runs
+// the bodies above, anything else gat_bwd_wide_rows.
 int gat_bwd(const float* x, const float* s_src, const float* s_dst,
             const float* g_agg, const float* g_rs, const int* row_ptr,
             const int* col, const long long* rev, float* d_x, float* d_s_src,

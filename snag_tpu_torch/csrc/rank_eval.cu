@@ -4,7 +4,7 @@
 // Replaces snag_tpu/ops/pallas/rank_eval.py::_run_topk_mean (sweep A,
 // kernel _topk_mean_kernel) and ::_run_ranks (sweep B, kernel _rank_kernel).
 //
-//   sweep A, per query row i: a running top-k (k <= MAX_K) of
+//   sweep A, per query row i: a running top-k (k <= MAX_LONG_K) of
 //     s = 1 - max(|x_i|^2 + |y_j|^2 - 2 x_i.y_j, 0) over j < n, its mean
 //     (the CSLS neighbourhood term), and the raw diagonal distance d_ii;
 //   sweep B, per query row i: recompute every distance, optionally apply
@@ -25,6 +25,23 @@
 // atomics.  A second kernel merges the splits' partials in split order.
 // The diagonal is written by the one block whose split holds it.  Sweep
 // A's list is sized to k (K = 1, 3 or MAX_K).
+//
+// Sweep A for MAX_K < k <= MAX_LONG_K (CSLS k above 10; the JAX kernel
+// keeps its running list in a (rows, 128) scratch, so it takes k up to
+// 128): a list of K = 32 or 128 per row would spill from registers, so
+// long_topk_mean_kernel keeps each of its 96 rows' lists in shared memory
+// (sorted, descending; 48 KB at K = 128), owned by the half-warp that
+// holds the row's accumulators.  A tile's similarities that beat the
+// list's last entry are inserted one at a time by the 16 lanes together
+// (K / 16 entries a lane: a ballot finds the place, the entries after it
+// shift by one), so after the first tiles a row's tile costs its 16
+// compares and a vote.  It does one direction a launch: the column
+// direction's per-(row tile, column) lists would take row tiles x n x K
+// floats of scratch (0.59 GB at n = 10,500, K = 128), so the wrapper's
+// one call launches the row direction on (x, y) and then on (y, x), whose
+// distances are the same bits.  The splits' lists are merged the same way
+// (long_topk_merge_kernel), and the mean adds the top k in descending
+// order from 0, as for k <= MAX_K.
 //
 // Both directions in one launch: the distance of y_j to x_i is the
 // distance of x_i to y_j to the bit (fmaf and the norms' sum commute), so
@@ -62,7 +79,8 @@ using rank::THREADS;
 using rank::SMEM_BYTES;
 using rank::tile_col;
 
-constexpr int MAX_K = 10;
+constexpr int MAX_K = 10;        // the longest list kept in registers
+constexpr int MAX_LONG_K = 128;  // the longest list of long_topk_mean_kernel
 constexpr int PART_B = 8;  // ints of one sweep-B partial: 2 counts, 3 + 3 top-3
 
 // max(|x|^2 + |y|^2 - 2 x.y, 0) in the op order of
@@ -243,6 +261,158 @@ __global__ void topk_merge_kernel(const float* __restrict__ part,
   mean[gr] = __fdiv_rn(sum, (float)k);
 }
 
+// Offer the N values v[] (this lane's; -inf or NaN for none) to the
+// sorted top-K list (descending, in shared memory) of the half-warp's row.
+// The 16 lanes of a half-warp own the list together, lane h its entries h
+// + 16 j; both halves of the warp call this at once, each on its own row,
+// and vote together.  The values that beat the list's last entry are
+// inserted one at a time, lowest lane and lowest index first: a ballot of
+// the entries >= x gives its place, and the entries after it move down
+// one, the last dropping out.
+template <int K, int N>
+__device__ __forceinline__ void half_topk(float* list, const float (&v)[N],
+                                          int h) {
+  static_assert(K % 16 == 0 && N <= 32, "K / 16 entries a lane, N <= 32");
+  constexpr int J = K / 16;
+  const int shift = threadIdx.x & 16;  // this half's bits of a ballot
+  float last = list[K - 1];
+  unsigned pend = 0;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    if (v[c] > last) pend |= 1u << c;
+  while (__any_sync(0xffffffffu, pend != 0)) {
+    const unsigned lanes =
+        (__ballot_sync(0xffffffffu, pend != 0) >> shift) & 0xffffu;
+    const bool active = lanes != 0;
+    const int src = active ? __ffs(lanes) - 1 : 0;
+    const int c0 = __ffs(pend) - 1;
+    float mine = 0.f;
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (c == c0) mine = v[c];
+    const float x = __shfl_sync(0xffffffffu, mine, src, 16);
+    if (h == src) pend &= pend - 1;
+    float prev[J];
+    int pos = 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int q = h + 16 * j;
+      prev[j] = q > 0 ? list[q - 1] : 0.f;
+      pos += __popc((__ballot_sync(0xffffffffu, list[q] >= x) >> shift) &
+                    0xffffu);
+    }
+    __syncwarp();
+    if (active && pos < K) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int q = h + 16 * j;
+        if (q == pos) list[q] = x;
+        else if (q > pos) list[q] = prev[j];
+      }
+    }
+    __syncwarp();
+    last = list[K - 1];
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (!(v[c] > last)) pend &= ~(1u << c);
+  }
+}
+
+// Sweep A over one split for MAX_K < K, the row direction alone:
+// part[(split * n + row) * K + q], the split's top-K similarities of each
+// row, descending; diag[row] where the split holds column row.  Each row's
+// list lives in shared memory after the product's (half_topk).
+template <int K>
+__global__ void __launch_bounds__(THREADS, 1)
+long_topk_mean_kernel(const float* __restrict__ xt,
+                      const float* __restrict__ yt,
+                      const float* __restrict__ xn,
+                      const float* __restrict__ yn, float* __restrict__ part,
+                      float* __restrict__ diag, int n, int d, int ld,
+                      int splits) {
+  extern __shared__ __align__(16) float smem[];
+  float* lists = smem + SMEM_BYTES / 4;  // BM x K
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  const Place p = place(n, splits);
+
+  float xr[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const int gr = p.row0 + ty * TM + r;
+    xr[r] = gr < n ? xn[gr] : 0.f;
+#pragma unroll
+    for (int j = 0; j < K / 16; ++j)
+      lists[(ty * TM + r) * K + tx + 16 * j] = -INFINITY;
+  }
+  __syncwarp();
+
+  rank::sweep_tiles<1>(
+      xt, yt, n, d, ld, p.row0, p.t0, p.t1, smem,
+      [&](int gc, float (&v)[1]) { v[0] = yn[gc]; },
+      [&](const float (&acc)[TM][TN], int col0, const float* cv) {
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int gr = p.row0 + ty * TM + r;
+      float sim[TN];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int tc = tile_col(tx, c);
+        const int gc = col0 + tc;
+        sim[c] = -INFINITY;
+        if (gc < n) {
+          const float dist = sq_dist(xr[r], cv[tc], acc[r][c]);
+          sim[c] = __fsub_rn(1.0f, dist);
+          if (gr == gc) diag[gr] = dist;
+        }
+      }
+      half_topk<K>(lists + (ty * TM + r) * K, sim, tx);
+    }
+  });
+
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const int gr = p.row0 + ty * TM + r;
+    if (gr >= n) continue;
+    float* out = part + ((size_t)p.split * n + gr) * K;
+#pragma unroll
+    for (int j = 0; j < K / 16; ++j)
+      out[tx + 16 * j] = lists[(ty * TM + r) * K + tx + 16 * j];
+  }
+}
+
+constexpr int LONG_MERGE_THREADS = 256;  // 16 rows a block, a half-warp each
+
+// Merge long_topk_mean_kernel's partials: mean[row] = the mean of the
+// row's top k over the `parts` lists part[(s * n + row) * K + q], summed in
+// descending order from 0.
+template <int K>
+__global__ void __launch_bounds__(LONG_MERGE_THREADS)
+long_topk_merge_kernel(const float* __restrict__ part,
+                       float* __restrict__ mean, int n, int k, int parts) {
+  __shared__ float lists[LONG_MERGE_THREADS / 16][K];
+  const int h = threadIdx.x % 16;
+  const int slot = threadIdx.x / 16;
+  const int gr = blockIdx.x * (LONG_MERGE_THREADS / 16) + slot;
+  float* list = lists[slot];
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j) list[h + 16 * j] = -INFINITY;
+  __syncwarp();
+  // a row past n votes with no values: every half-warp takes part
+  for (int s = 0; s < parts; ++s) {
+    float v[K / 16];
+#pragma unroll
+    for (int j = 0; j < K / 16; ++j)
+      v[j] = gr < n ? part[((size_t)s * n + gr) * K + h + 16 * j] : -INFINITY;
+    half_topk<K>(list, v, h);
+  }
+  if (h == 0 && gr < n) {
+    float sum = 0.f;
+    for (int q = 0; q < k; ++q) sum = __fadd_rn(sum, list[q]);
+    mean[gr] = __fdiv_rn(sum, (float)k);
+  }
+}
+
 // Sweep B over one split: part[(split * n + row) * PART_B + ...] = the
 // split's two counts, then (with TOP3) its top-3 values (as bits) and ids.
 // Also the other direction's counts from the same products:
@@ -416,6 +586,8 @@ int row_tiles(int n) { return (n + BM - 1) / BM; }
 // the other direction's room.
 constexpr int SMEM_A = SMEM_BYTES + BM * BN * 4;
 constexpr int SMEM_B = SMEM_BYTES + 2 * BN * 4;
+// ... and of long_topk_mean_kernel<K>: the product's, then the rows' lists
+constexpr int smem_long(int k) { return SMEM_BYTES + BM * k * 4; }
 
 // The wrapper's contract: xt, yt (d, ld) with 4 | ld, ld >= n, zeros in
 // columns n .. ld-1, 16-byte aligned; 1 <= splits <= the column tiles.
@@ -446,8 +618,12 @@ int occupancy(Kernel kernel, int bytes) {
   return err != cudaSuccess ? -static_cast<int>(err) : blocks;
 }
 
-// Sweep A's list length for k: 1, 3 or MAX_K.
-int list_len(int k) { return k == 1 ? 1 : (k <= 3 ? 3 : MAX_K); }
+// Sweep A's list length for k: 1, 3 or MAX_K in registers, 32 or
+// MAX_LONG_K in shared memory.
+int list_len(int k) {
+  return k == 1 ? 1 : k <= 3 ? 3 : k <= MAX_K ? MAX_K : k <= 32 ? 32
+                                                               : MAX_LONG_K;
+}
 
 template <int K>
 int launch_topk(const float* xt, const float* yt, const float* xn,
@@ -465,6 +641,31 @@ int launch_topk(const float* xt, const float* yt, const float* xn,
   topk_merge_kernel<K><<<merge_blocks(n), MERGE_THREADS, 0, s>>>(
       col_part, mean_cols, n, k, row_tiles(n));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both directions of sweep A at K > MAX_K: the row direction on (x, y),
+// then on (y, x) for the column means (the diagonal written again, with
+// the same bits), each merged before the next sweep reuses part.
+template <int K>
+int launch_topk_long(const float* xt, const float* yt, const float* xn,
+                     const float* yn, float* part, float* mean, float* diag,
+                     float* mean_cols, int n, int d, int ld, int k,
+                     int splits, cudaStream_t s) {
+  cudaError_t err = allow_smem(long_topk_mean_kernel<K>, smem_long(K));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + LONG_MERGE_THREADS / 16 - 1) / (LONG_MERGE_THREADS / 16);
+  for (int dir = 0; dir < 2; ++dir) {
+    long_topk_mean_kernel<K><<<row_tiles(n) * splits, THREADS, smem_long(K), s>>>(
+        dir ? yt : xt, dir ? xt : yt, dir ? yn : xn, dir ? xn : yn, part,
+        diag, n, d, ld, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long_topk_merge_kernel<K><<<blocks, LONG_MERGE_THREADS, 0, s>>>(
+        part, dir ? mean_cols : mean, n, k, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 template <bool CSLS, bool TOP3>
@@ -503,7 +704,11 @@ int rank_blocks_per_sm(int sweep, int key) {
     switch (list_len(key)) {
       case 1: return occupancy(topk_mean_kernel<1>, SMEM_A);
       case 3: return occupancy(topk_mean_kernel<3>, SMEM_A);
-      default: return occupancy(topk_mean_kernel<MAX_K>, SMEM_A);
+      case MAX_K: return occupancy(topk_mean_kernel<MAX_K>, SMEM_A);
+      case 32: return occupancy(long_topk_mean_kernel<32>, smem_long(32));
+      default:
+        return occupancy(long_topk_mean_kernel<MAX_LONG_K>,
+                         smem_long(MAX_LONG_K));
     }
   }
   switch (key & 3) {
@@ -514,26 +719,33 @@ int rank_blocks_per_sm(int sweep, int key) {
   }
 }
 
-// Dynamic shared memory of a block of sweep A (0) or B (1).
-int rank_smem_bytes(int sweep) { return sweep == 0 ? SMEM_A : SMEM_B; }
+// Dynamic shared memory of a block of sweep A (0) at k = key, or of B (1).
+int rank_smem_bytes(int sweep, int key) {
+  if (sweep != 0) return SMEM_B;
+  const int len = list_len(key);
+  return len > MAX_K ? smem_long(len) : SMEM_A;
+}
 
-// Sweep A in both directions.  xt, yt (d, ld): x and y transposed (the
-// wrapper's contract, bad_shape); xn, yn (n,) squared row norms; part
-// (splits, n, list_len(k)) and col_part (row tiles, n, list_len(k))
-// scratch; writes mean (n,) and diag (n,), and mean_cols (n,), the means
-// of sweep A on (y, x).
+// Sweep A in both directions, 1 <= k <= MAX_LONG_K.  xt, yt (d, ld): x
+// and y transposed (the wrapper's contract, bad_shape); xn, yn (n,)
+// squared row norms; part (splits, n, list_len(k)) scratch, and, for
+// list_len(k) <= MAX_K, col_part (row tiles, n, list_len(k)) scratch
+// (unread above, may be null); writes mean (n,) and diag (n,), and
+// mean_cols (n,), the means of sweep A on (y, x).
 int rank_topk_mean(const float* xt, const float* yt, const float* xn,
                    const float* yn, float* part, float* mean, float* diag,
                    float* col_part, float* mean_cols, int n, int d, int ld,
                    int k, int splits, void* stream) {
-  if (bad_shape(xt, yt, n, d, ld, splits) || k < 1 || k > MAX_K || k > n ||
-      !col_part || !mean_cols)
+  if (bad_shape(xt, yt, n, d, ld, splits) || k < 1 || k > MAX_LONG_K ||
+      k > n || (list_len(k) <= MAX_K && !col_part) || !mean_cols)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (list_len(k)) {
     case 1: return launch_topk<1>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
     case 3: return launch_topk<3>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
-    default: return launch_topk<MAX_K>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
+    case MAX_K: return launch_topk<MAX_K>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
+    case 32: return launch_topk_long<32>(xt, yt, xn, yn, part, mean, diag, mean_cols, n, d, ld, k, splits, s);
+    default: return launch_topk_long<MAX_LONG_K>(xt, yt, xn, yn, part, mean, diag, mean_cols, n, d, ld, k, splits, s);
   }
 }
 

@@ -9,9 +9,12 @@ head h and edge i <- j of the row-sorted CSR graph:
     rowsum[i, h] = sum_j e_ij
 
 One warp owns a row; lane l owns the 4-float (or 1-float) slices l,
-l + 32, ... of the row's C features, at most ``MAX_GROUPS`` of them, so the
-kernel takes C <= 1,280 when C % 4 == 0 and C <= 320 otherwise
-(``slice_width``; the backward shares the limit).
+l + 32, ... of the row's C features, at most ``MAX_GROUPS`` of them, and
+holds up to ``MAX_HEADS`` heads: H <= 4 with C <= 1,280 when C % 4 == 0
+(else C <= 320), the main path's shapes.  Any other H and C run the wide
+kernels (``wide``; the backward shares the split), which walk column
+chunks (``csrc/gat_attention.cu``, ``WIDE_GROUPS``) and head groups of
+``MAX_HEADS`` to the same sums.
 
 Twin: ``gat_attention_twin``, the ``index_add_`` form of
 ``xla_gat_attention`` (gat_attention.py:207-221).
@@ -40,23 +43,23 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
 
 STATS = KernelStats("gat_attention_fwd")
 STATS_BF16 = KernelStats("gat_attention_fwd_bf16")
-MAX_HEADS = 4
+MAX_HEADS = 4       # heads a warp holds
 MAX_GROUPS = 10     # slices a lane
 
 
 def slice_width(c: int, *tensors: torch.Tensor) -> int:
     """The GAT kernels' slice width: 4 elements when C % 4 == 0 and every
     tensor is aligned to 4 of its elements (16 bytes of f32, 8 of bf16),
-    else 1.  Raises when a lane would own more than ``MAX_GROUPS`` slices
-    of a row."""
-    vec = 4 if c % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                                  for t in tensors) else 1
-    if c // vec > 32 * MAX_GROUPS:
-        raise ValueError(
-            f"C = {c} is too wide for a warp per row: the GAT kernels take "
-            f"C <= {4 * 32 * MAX_GROUPS} with C % 4 == 0 (and tensors "
-            f"aligned to 4 elements), else C <= {32 * MAX_GROUPS}")
-    return vec
+    else 1."""
+    return 4 if c % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                                   for t in tensors) else 1
+
+
+def wide(c: int, h: int, vec: int) -> bool:
+    """Whether both GAT kernels take their wide path at C, H and slice
+    width vec (``csrc/gat_attention.cu``, ``csrc/gat_bwd.cu``): more than
+    ``MAX_HEADS`` heads, or more than ``MAX_GROUPS`` slices a lane."""
+    return h > MAX_HEADS or c // vec > 32 * MAX_GROUPS
 
 
 def to_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -108,8 +111,8 @@ def gat_attention_cuda(x: torch.Tensor, s_src: torch.Tensor,
         raise ValueError(f"gat_attention_cuda needs CUDA tensors, got {dev}")
     n, c = x.shape
     h = s_src.shape[1]
-    if not 1 <= h <= MAX_HEADS:
-        raise ValueError(f"{h} heads; the kernel takes 1..{MAX_HEADS}")
+    if h < 1:
+        raise ValueError("the GAT kernels need at least one head")
     if n != graph.n_nodes:
         raise ValueError(f"x has {n} rows, the graph {graph.n_nodes} nodes")
     dtype_suffix(x.dtype, "GAT kernels")

@@ -2,9 +2,9 @@
 
 Kernels: ``csrc/rank_eval.cu`` over the tile product ``csrc/rank_tile.cuh``,
 replacing ``snag_tpu/ops/pallas/rank_eval.py::_run_topk_mean`` (sweep A:
-per-row CSLS neighbourhood mean and diagonal) and ``::_run_ranks`` (sweep
-B: gold rank counts and top-3 retrieval).  Neither sweep writes the (N, N)
-matrix.  A sweep runs as blocks of (row tile, column split); each split
+per-row CSLS neighbourhood mean, k <= ``MAX_LONG_K``, and diagonal) and
+``::_run_ranks`` (sweep B: gold rank counts and top-3 retrieval).
+Neither sweep writes the (N, N) matrix.  A sweep runs as blocks of (row tile, column split); each split
 leaves a partial per row and a second kernel merges them in split order
 (``rank_plan`` chooses the splits).  Every launch does both directions
 over one pass of x y^T (``topk_mean_both_cuda``, ``rank_counts_both_cuda``);
@@ -33,7 +33,10 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
 
 STATS_TOPK = KernelStats("rank_topk_mean")
 STATS_RANKS = KernelStats("rank_counts")
-MAX_K = 10
+MAX_K = 10          # sweep A's longest list kept in registers
+# sweep A's longest list (csrc/rank_eval.cu, long_topk_mean_kernel): the
+# JAX kernel's running top-k is a (rows, 128) scratch, so k <= 128 there too
+MAX_LONG_K = 128
 # the sweeps' block tile (csrc/rank_tile.cuh: BM, BN, BK) and the ints of
 # one sweep-B partial (csrc/rank_eval.cu: PART_B)
 TILE_ROWS, TILE_COLS, TILE_DEPTH = 96, 256, 16
@@ -41,9 +44,6 @@ PART_B = 8
 # a block's cost beyond its column tiles, in tiles: filling the ring,
 # merging its lanes, writing its partial
 SPLIT_OVERHEAD = 0.1
-# above this many test pairs the dense twin's (N, N) matrices are too big;
-# the JAX package switches to its chunked evaluator there
-FULL_MATRIX_MAX = 25000
 
 
 # ---------------------------------------------------------------- twin
@@ -93,9 +93,13 @@ def _ranks(distance: torch.Tensor) -> torch.Tensor:
 
 
 def eval_core(emb_l: torch.Tensor, emb_r: torch.Tensor, csls_k: int,
-              use_csls: bool, with_top3: bool):
-    """Dense twin: (ranks_l2r, ranks_r2l, top3 or None)."""
-    distance = pairwise_distances(emb_l, emb_r)
+              use_csls: bool, with_top3: bool, *,
+              distances=pairwise_distances):
+    """Dense twin: (ranks_l2r, ranks_r2l, top3 or None).  ``distances``:
+    the distance matrix of the two sides (``eval.ranking.l1_distances``
+    for ``--distance 1``, which the JAX package's ``_eval_core`` ranks
+    alike)."""
+    distance = distances(emb_l, emb_r)
     if use_csls:
         distance = 1 - csls_sim(1 - distance, csls_k)
     ranks_l2r = _ranks(distance)
@@ -292,8 +296,16 @@ def rank_plan(n: int, d: int, sms: int, blocks_per_sm: int,
 
 
 def list_len(k: int) -> int:
-    """Length of sweep A's per-row list for k (``rank_eval.cu::list_len``)."""
-    return 1 if k == 1 else (3 if k <= 3 else MAX_K)
+    """Length of sweep A's per-row list for k (``rank_eval.cu::list_len``):
+    1, 3 or ``MAX_K`` in registers, 32 or ``MAX_LONG_K`` in shared memory
+    (one direction a launch, ``long_topk_mean_kernel``)."""
+    if not 1 <= k <= MAX_LONG_K:
+        raise ValueError(f"CSLS k = {k}: sweep A takes 1..{MAX_LONG_K}, as "
+                         "the JAX package's streaming kernel does")
+    for size in (1, 3, MAX_K, 32):
+        if k <= size:
+            return size
+    return MAX_LONG_K
 
 
 # ---------------------------------------------------------------- kernels
@@ -312,7 +324,7 @@ def _library():
         lib.rank_counts.restype = ci
         lib.rank_blocks_per_sm.argtypes = [ci, ci]
         lib.rank_blocks_per_sm.restype = ci
-        lib.rank_smem_bytes.argtypes = [ci]
+        lib.rank_smem_bytes.argtypes = [ci, ci]
         lib.rank_smem_bytes.restype = ci
     return built
 
@@ -336,7 +348,7 @@ def device_plan(device: torch.device, n: int, d: int, sweep: int, key: int,
         _BLOCKS_PER_SM[cache] = blocks
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return {**rank_plan(n, d, sms, _BLOCKS_PER_SM[cache], splits),
-            "smem_bytes": built.lib.rank_smem_bytes(sweep)}
+            "smem_bytes": built.lib.rank_smem_bytes(sweep, key)}
 
 
 def _check_pair(x, y, xn, yn):
@@ -385,18 +397,21 @@ def _operands(x, y, operands: Optional[Operands]) -> Operands:
 
 def _sweep_a(x, y, xn, yn, k, splits, operands):
     n, d, dev = _check_pair(x, y, xn, yn)
-    if not 1 <= k <= min(MAX_K, n):
-        raise ValueError(f"k = {k}; sweep A takes 1..{min(MAX_K, n)}")
+    size = list_len(k)
+    if k > n:
+        raise ValueError(f"k = {k} > {n} candidates")
     built = _library()
     plan = device_plan(dev, n, d, 0, k, splits)
     xt, yt, ld = _operands(x, y, operands)
     mean = torch.empty(n, dtype=torch.float32, device=dev)
     diag = torch.empty(n, dtype=torch.float32, device=dev)
     mean_cols = torch.empty(n, dtype=torch.float32, device=dev)
-    part = torch.empty(plan["splits"] * n * list_len(k), dtype=torch.float32,
+    part = torch.empty(plan["splits"] * n * size, dtype=torch.float32,
                        device=dev)
-    col_part = torch.empty(plan["row_tiles"] * n * list_len(k),
-                           dtype=torch.float32, device=dev)
+    # a long list sweeps each direction on its own and needs no column
+    # partials (row tiles x n x size floats)
+    col_part = (torch.empty(plan["row_tiles"] * n * size, dtype=torch.float32,
+                            device=dev) if size <= MAX_K else None)
     with torch.cuda.device(dev):
         err = built.lib.rank_topk_mean(
             ptr(xt), ptr(yt), ptr(xn), ptr(yn), ptr(part), ptr(mean),
@@ -537,7 +552,9 @@ def streaming_rank_eval(emb_l: torch.Tensor, emb_r: torch.Tensor,
     counting with the gold column excluded from the strict comparison.
 
     CUDA tensors run both sweeps, each over both directions
-    (``both_sweeps``); CPU tensors run the dense twin.  Takes f32 alone,
+    (``both_sweeps``); CPU tensors run the dense twin
+    (``eval.ranking.full_rank_eval`` sends it at most ``FULL_MATRIX_MAX``
+    pairs and takes the chunked evaluator above).  Takes f32 alone,
     as the Pallas path casts the embeddings to f32 (rank_eval.py:247-248):
     a bf16 embedding raises."""
     if emb_l.dtype == torch.bfloat16 or emb_r.dtype == torch.bfloat16:
@@ -550,10 +567,6 @@ def streaming_rank_eval(emb_l: torch.Tensor, emb_r: torch.Tensor,
         return both_sweeps(emb_l, emb_r, csls_k, use_csls, with_top3)
     if emb_l.device.type != "cpu":
         raise ValueError(f"no rank-eval path for device {emb_l.device}")
-    if emb_l.shape[0] > FULL_MATRIX_MAX:
-        raise NotImplementedError(
-            f"{emb_l.shape[0]} test pairs on the CPU: the chunked evaluator "
-            "is not ported yet")
     STATS_TOPK.twin_calls += 1
     STATS_RANKS.twin_calls += 1
     return eval_core(emb_l, emb_r, csls_k, use_csls, with_top3)

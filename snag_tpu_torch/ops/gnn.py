@@ -8,6 +8,10 @@ EVA_tools.py:52-63).  Parameter names are the reference's:
 ``gc{1,2}.weight`` (in, out) and ``gc{1,2}.bias``;
 ``layer_stack.{i}.w`` (H, 1, F) and ``layer_stack.{i}.a_src_dst`` (H, 2F, 1).
 
+With ``--instance_normalization`` the GAT first applies ``InstanceNorm``
+(``norm.weight``, ``norm.bias``; the JAX package's ``in_scale`` and
+``in_bias``).
+
 Dropout is drawn from an explicit ``torch.Generator``: a forward given
 ``dropout_gen=None`` is deterministic (the JAX package's
 ``deterministic=True``).  A GAT layer in training with ``--attn_dropout``
@@ -140,9 +144,29 @@ class MultiHeadGraphAttention(nn.Module):
                                      graph)
 
 
+class InstanceNorm(nn.Module):
+    """``--instance_normalization``: the JAX package's affine over
+    feature-channel statistics before the GAT stack (gnn.py:191-197),
+    standing in for the reference's ``InstanceNorm1d(momentum=0,
+    affine=True)``: (x - mean) / sqrt(var + 1e-5) * weight + bias, with the
+    mean and population variance of each column over the rows; weight
+    (JAX ``in_scale``) starts at ones, bias (``in_bias``) at zeros."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=0, keepdim=True)
+        var = x.var(dim=0, unbiased=False, keepdim=True)
+        return (x - mean) / torch.sqrt(var + 1e-5) * self.weight + self.bias
+
+
 class GAT(nn.Module):
     """Stacked diag GAT with head-mean and ELU between layers
-    (Tool_model.py:61-110)."""
+    (Tool_model.py:61-110), after ``InstanceNorm`` (``norm``) with
+    ``instance_normalization``."""
 
     def __init__(self, n_units: List[int], n_heads: List[int],
                  generator: torch.Generator, dropout: float = 0.0,
@@ -150,8 +174,8 @@ class GAT(nn.Module):
                  instance_normalization: bool = False, diag: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if instance_normalization:
-            raise NotImplementedError("GAT instance normalization is not ported")
+        self.norm = InstanceNorm(n_units[0]) if instance_normalization \
+            else None
         self.dropout = dropout
         num_layer = len(n_units) - 1
         self.layer_stack = nn.ModuleList(
@@ -162,6 +186,8 @@ class GAT(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: DeviceGraph,
                 dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.norm is not None:
+            x = self.norm(x)
         last = len(self.layer_stack) - 1
         for i, layer in enumerate(self.layer_stack):
             # input dropout of every layer but the last (gnn.py:202-203)

@@ -12,7 +12,7 @@ the device, candidate state one (Lc,) tensor (right-entity id or -1).
 Distances are taken in blocks of left candidates at every size (the JAX
 package builds the whole matrix below 25,000 of them); argmin ties go to
 the first index, as ``jnp.argmin``'s and ``torch.argmin``'s do.  Only the promotion touches the host.  The JAX
-package's mesh-sharded mining is not ported (ROADMAP A: multi-GPU).
+package's mesh-sharded mining is not ported (ROADMAP A11).
 """
 
 from __future__ import annotations

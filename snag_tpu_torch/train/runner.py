@@ -62,6 +62,11 @@ from snag_tpu_torch.utils.loss_log import LossLog
 from snag_tpu_torch.utils.seed import set_seed
 
 
+# --profile_dir traces from the start of the first of these epochs to the
+# start of the second
+PROFILE_EPOCHS = (2, 4)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -78,10 +83,7 @@ class Runner:
                                "plain PyTorch twins)")
         if cfg.mesh_shape:
             raise NotImplementedError("--mesh_shape: multi-GPU is not "
-                                      "ported (ROADMAP A: multi-GPU)")
-        if cfg.profile_dir:
-            raise NotImplementedError("--profile_dir: the port has no "
-                                      "profiler hook yet")
+                                      "ported (ROADMAP A11)")
         set_seed(cfg.random_seed)
 
         self.data = data if data is not None else load_data(cfg, logger)
@@ -136,6 +138,8 @@ class Runner:
         self.replay_ready = False
         self._last_neg_count: Optional[int] = None
         self.replay_negatives = 0
+        self._profiler = None           # the --profile_dir session
+        self.trace_path: Optional[str] = None
         if cfg.model_name == "MEAformer" and cfg.replay:
             self.replay_neg = torch.full((self.data.ent_num,), -1,
                                          dtype=torch.int64,
@@ -357,6 +361,7 @@ class Runner:
         try:
             return self._run(writer)
         finally:
+            self._profile(None)
             if writer is not None:
                 writer.close()
 
@@ -365,6 +370,7 @@ class Runner:
         t0 = time.time()
         for i in range(self.start_epoch, cfg.epoch):
             self.epoch = i
+            self._profile(i)
             if cfg.il and ((i == cfg.il_start and self.stage == 0)
                            or (self.early_stop_count <= 0
                                and i <= cfg.il_start)):
@@ -411,6 +417,7 @@ class Runner:
             if self.stage == 1 and self.early_stop_count <= 0:
                 self.logger.info(f"Early stop in epoch {i}")
                 break
+        self._profile(None)
 
         if self.best_state is not None:
             self.logger.info("load from the best model before final testing ... ")
@@ -425,6 +432,31 @@ class Runner:
         if cfg.save_model:
             self.save_model()
         return res
+
+    def _profile(self, epoch: Optional[int]) -> None:
+        """``--profile_dir``: a ``torch.profiler`` session (CPU, and CUDA on
+        a card) from the start of epoch ``PROFILE_EPOCHS[0]`` to the start
+        of ``PROFILE_EPOCHS[1]``, the epochs the JAX runner traces
+        (snag_tpu/train/runner.py:432-438), or to the end of training
+        (``epoch`` None) if that comes first; its Chrome trace is written
+        under ``--profile_dir`` when it ends."""
+        if epoch == PROFILE_EPOCHS[0] and self.cfg.profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+        elif self._profiler is not None and epoch in (PROFILE_EPOCHS[1],
+                                                      None):
+            _sync(self.device)
+            self._profiler.stop()
+            os.makedirs(self.cfg.profile_dir, exist_ok=True)
+            self.trace_path = osp.join(self.cfg.profile_dir,
+                                       f"{self.cfg.exp_id}_trace.json")
+            self._profiler.export_chrome_trace(self.trace_path)
+            self._profiler = None
+            self.logger.info(f"profiler trace written to {self.trace_path}")
 
     # ------------------------------------------------------------------
     def save_model(self) -> str:

@@ -9,7 +9,10 @@ flat), so:
   dict with the rules of ``snag_tpu/utils/import_reference.py::_ref_key_for``
   (:57-100): Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in),
   LayerNorm ``scale`` -> ``weight``, the GCN's ``gc1``/``gc2`` weights
-  (in, out) as they are; ``rel_fc`` keeps the JAX table width.  Beyond
+  (in, out) as they are; ``rel_fc`` keeps the JAX table width; the GAT's
+  instance normalisation (``--instance_normalization``) ``in_scale`` and
+  ``in_bias`` -> ``cross_graph_model.norm.weight`` and ``.bias``, which the
+  JAX package's importer leaves unmapped.  Beyond
   those rules it maps the projection heads (``--use_project_head``,
   ``{img,att,rel,gph}_pro.l{1,2}``, the reference's ProjectionHead
   names), which the JAX package's importer leaves unmapped; and MSNEA's
@@ -64,6 +67,10 @@ _FUSION_LAYER = {
 
 REL_IN_DIM = 1000     # the reference's fixed relation-bag width
 
+# --instance_normalization: the GAT's affine (snag_tpu/ops/gnn.py:196-197)
+# as torch's InstanceNorm1d(affine=True) names it, under the GAT's ``norm``
+_INSTANCE_NORM = {"in_scale": "norm.weight", "in_bias": "norm.bias"}
+
 
 # MKGC's Dense layers (snag_tpu/mkgc/model.py:74-93), named alike in the port
 _MKGC_DENSE = ("vis_proj", "txt_proj", "vis_proj2", "txt_proj2", "gate")
@@ -107,6 +114,9 @@ def _ref_key_for(keys: Tuple[str, ...]):
         if rest[1] == "kernel":
             return f"{prefix}{rest[0]}.weight", _T
         return f"{prefix}{rest[0]}.bias", _ID
+    if rest[0] == "cross_graph_model" and len(rest) == 2 and \
+            rest[1] in _INSTANCE_NORM:
+        return f"{prefix}cross_graph_model.{_INSTANCE_NORM[rest[1]]}", _ID
     if rest[0] == "cross_graph_model" and len(rest) == 3:
         name, leaf = rest[1], rest[2]
         if name.startswith("gat_"):     # gat_{i} -> layer_stack.{i}

@@ -117,14 +117,16 @@ def test_gat_wrappers_refuse_what_the_kernel_does_not_take(dev):
         ga.gat_attention_cuda(x.t().contiguous().t(), s_src, s_dst, g)
     with pytest.raises(ValueError):
         ga.gat_attention_cuda(x, s_src.cpu(), s_dst, g)
-    for c in (1284, 321):       # 321 floats, or 321 float4 slices
-        wide = torch.zeros(x.shape[0], c, device=dev)
-        with pytest.raises(ValueError, match="too wide"):
-            ga.gat_attention_cuda(wide, s_src, s_dst, g)
-        with pytest.raises(ValueError, match="too wide"):
-            gb.gat_backward_cuda(wide, s_src, s_dst,
-                                 torch.zeros(x.shape[0], 2, c, device=dev),
-                                 s_src, g)
+    for c in (1284, 321):       # 321 floats, or 321 float4 slices: wide
+        wide = torch.ones(x.shape[0], c, device=dev)
+        agg, rs = ga.gat_attention_cuda(wide, s_src, s_dst, g)
+        torch.testing.assert_close(agg, rs[:, :, None].expand(-1, -1, c))
+        d_x, _, _ = gb.gat_backward_cuda(
+            wide, s_src, s_dst, torch.zeros(x.shape[0], 2, c, device=dev),
+            s_src, g)
+        assert not d_x.any()
+    with pytest.raises(ValueError, match="at least one head"):
+        ga.gat_attention_cuda(x, s_src[:, :0], s_dst[:, :0], g)
     before = ga.STATS.launches
     with torch.no_grad():
         gat_attention(x, s_src, s_dst, g)
@@ -1117,3 +1119,111 @@ def test_mixture_bf16_grad_has_no_cap(dev):
                                   coef, v, 0.1))
     with pytest.raises(ValueError, match="exceeds"):
         sl.mixture_grad_cuda(z.float(), alpha, beta, lse, coef, v, 0.1)
+
+
+# ------------------------------------------- any head count, width and k
+
+# past the warp's 4 heads and MAX_GROUPS slices a lane: the wide kernels
+# (gat_attention.wide): H = 6 at C = 1,300 (float4 slices, past 1,280) and
+# 330 (single floats, past 320), H = 8 at a narrow C, H = 5 at C = 30, H =
+# 2 at C = 1,284 and C = 2,600 (three and five column chunks)
+GAT_WIDE = [(6, 1300), (6, 330), (8, 64), (5, 30), (2, 1284), (2, 2600)]
+
+
+@pytest.mark.parametrize("h,c", GAT_WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gat_wide_kernels_match_twins(dev, h, c, dtype):
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, c, h, c + h)
+    x, g_agg = x.to(dtype), g_agg.to(dtype)
+    assert ga.wide(c, h, ga.slice_width(c, x, g_agg))
+    fwd = ga.gat_attention_cuda(x, s_src, s_dst, g)
+    bwd = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
+    again = (ga.gat_attention_cuda(x, s_src, s_dst, g),
+             gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g))
+    torch.cuda.synchronize()
+    want_fwd = on_cpu(ga.gat_attention_twin, x, s_src, s_dst, g)
+    want_bwd = on_cpu(gb.gat_backward_twin, x, s_src, s_dst, g_agg, g_rs, g)
+    if dtype == torch.bfloat16:
+        assert_bf16_close(fwd, want_fwd)
+        assert_bf16_close(bwd, want_bwd)
+    else:
+        for a, b in zip(fwd, want_fwd):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        for a, b in zip(bwd, want_bwd):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for a, b in zip((*fwd, *bwd), (*again[0], *again[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gat_wide_kernels_give_the_narrow_kernels_bits(dev, dtype):
+    """Each output element of the wide path is the arithmetic of the main
+    path's kernels: the forward at H = 8, C = 1,300 equals the narrow
+    forward on heads 0-3 and 4-7 and on columns :1,280 and 1,280:; the
+    backward's d_s_src and d_s_dst at H = 8 equal the narrow backward's on
+    each half of the heads, and its d_x at H = 2, C = 1,300 the narrow
+    one's on columns :1,280."""
+    g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, 1300, 8, 5)
+    x, g_agg = x.to(dtype), g_agg.to(dtype)
+    agg, rs = ga.gat_attention_cuda(x, s_src, s_dst, g)
+    for heads in (slice(0, 4), slice(4, 8)):
+        for cols in (slice(0, 1280), slice(1280, 1300)):
+            n_agg, n_rs = ga.gat_attention_cuda(
+                x[:, cols].contiguous(), s_src[:, heads].contiguous(),
+                s_dst[:, heads].contiguous(), g)
+            assert torch.equal(agg[:, heads, cols], n_agg)
+            assert torch.equal(rs[:, heads], n_rs)
+    xs, gs = x[:, :300].contiguous(), g_agg[:, :, :300].contiguous()
+    _, d_src, d_dst = gb.gat_backward_cuda(xs, s_src, s_dst, gs, g_rs, g)
+    for heads in (slice(0, 4), slice(4, 8)):
+        _, n_src, n_dst = gb.gat_backward_cuda(
+            xs, s_src[:, heads].contiguous(), s_dst[:, heads].contiguous(),
+            gs[:, heads].contiguous(), g_rs[:, heads].contiguous(), g)
+        assert torch.equal(d_src[:, heads], n_src)
+        assert torch.equal(d_dst[:, heads], n_dst)
+    two = slice(0, 2)
+    args = (s_src[:, two].contiguous(), s_dst[:, two].contiguous())
+    d_x = gb.gat_backward_cuda(x, *args, g_agg[:, two].contiguous(),
+                               g_rs[:, two].contiguous(), g)[0]
+    n_dx = gb.gat_backward_cuda(x[:, :1280].contiguous(), *args,
+                                g_agg[:, two, :1280].contiguous(),
+                                g_rs[:, two].contiguous(), g)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(d_x[:, :1280], n_dx)
+
+
+@pytest.mark.parametrize("n,d", [(300, 19), (1000, 36)])
+@pytest.mark.parametrize("k", [11, 20, 32, 33, 64, 128])
+def test_rank_sweep_a_long_lists(dev, n, d, k):
+    """Sweep A at k above 10 (lists of 32 and 128 in shared memory, one
+    direction a launch) against its plain version (rtol = atol = 1e-5),
+    the same bits for every split and repeat, its column means the bits of
+    the row means on (y, x); then the whole evaluation against the dense
+    twin (ranks on >= 99 % of queries)."""
+    x, y = _embs(dev, n, d, seed=n + k)
+    xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
+    got = rk.topk_mean_both_cuda(x, y, xn, yn, k)
+    torch.cuda.synchronize()
+    for a, b in zip(got, rk.topk_mean_both_twin(x, y, xn, yn, k)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    col_tiles = rk.device_plan(dev, n, d, 0, k)["col_tiles"]
+    for splits in (None, 1, col_tiles):
+        again = rk.topk_mean_both_cuda(x, y, xn, yn, k, splits=splits)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    rr, diag_rl = rk.topk_mean_cuda(y, x, yn, xn, k)
+    assert torch.equal(got[2], rr) and torch.equal(got[1], diag_rl)
+    ranks = rk.streaming_rank_eval(x, y, k, True, True)
+    torch.cuda.synchronize()
+    want = rk.eval_core(x, y, k, True, True)
+    for a, b in zip(ranks, want):
+        assert (a.long() == b).float().mean().item() >= 0.99
+
+
+def test_rank_sweep_a_refuses_k_above_128(dev):
+    x, y = _embs(dev, 300, 16, seed=1)
+    xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
+    with pytest.raises(ValueError, match="1..128"):
+        rk.topk_mean_both_cuda(x, y, xn, yn, 129)
+    for k in (32, 128):
+        p = rk.device_plan(dev, 10500, 1200, 0, k)
+        assert p["blocks_per_sm"] >= 1 and p["smem_bytes"] > 93184, p

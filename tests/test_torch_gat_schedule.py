@@ -319,6 +319,11 @@ def test_slice_width(c, aligned, vec):
 @pytest.mark.parametrize("c,aligned", [(1284, True), (321, True),
                                        (324, False)])
 def test_slice_width_refuses_wider_rows(c, aligned):
+    """Rows wider than a warp's ``MAX_GROUPS`` slices a lane are no longer
+    refused: they take the wide kernels (``gat_attention.wide``), as do
+    more than ``MAX_HEADS`` heads; the main path's shapes do not."""
     t = torch.zeros(c + 1)
-    with pytest.raises(ValueError, match="too wide"):
-        tga.slice_width(c, t if aligned else t[1:])
+    vec = tga.slice_width(c, t if aligned else t[1:])
+    assert vec == (4 if aligned and c % 4 == 0 else 1)
+    assert tga.wide(c, 2, vec) and tga.wide(300, 5, 4)
+    assert not tga.wide(300, 2, 4) and not tga.wide(1280, 4, 4)

@@ -460,6 +460,51 @@ def test_device_ms_traces_a_lost_session_again():
     assert not isinstance(err.value, cs.LostSession) and len(traced) == 1
 
 
+def test_device_ms_retries_a_partial_session_only_when_asked():
+    """A session that kept the spans of some counted calls but not all
+    raises ``PartialSession`` (not a ``LostSession``): traced again when
+    ``retry`` names it, as the default ``PROFILER_LOSSES`` does, and raised
+    at once when it does not; a session whose calls all kept their spans
+    but not their kernels is no partial session, and raises at once."""
+    full = _trace([[0.05]] * cs.REPS)
+    partial = [ev for ev in full if not (
+        ev.name == f"{cs.CALL}0" and ev.device_type == DeviceType.CUDA)]
+    traced = []
+
+    def trace(fn, calls):
+        traced.append(calls)
+        return full if len(traced) == 2 else partial
+    assert cs.PROFILER_LOSSES == (cs.LostSession, cs.PartialSession)
+    with pytest.raises(cs.PartialSession) as err:
+        cs.device_ms(lambda: None, NAMES, trace=trace,
+                     retry=(cs.LostSession,))
+    assert not isinstance(err.value, cs.LostSession) and traced == [cs.REPS]
+    traced.clear()
+    assert cs.device_ms(lambda: None, NAMES, trace=trace) == \
+        pytest.approx(0.05)
+    assert traced == [cs.REPS] * 2
+    traced.clear()
+    assert cs.device_ms(lambda: None, NAMES, trace=trace,
+                        retry=(cs.LostSession, cs.PartialSession)) == \
+        pytest.approx(0.05)
+    assert traced == [cs.REPS] * 2
+    traced.clear()
+    with pytest.raises(cs.PartialSession):
+        cs.device_ms(lambda: None, NAMES, trace=lambda fn, calls:
+                     traced.append(calls) or partial)
+    assert traced == [cs.REPS] * 4
+    with pytest.raises(cs.PartialSession):
+        cs.device_ms(lambda: None, NAMES, trace=lambda fn, calls: partial,
+                     retry=(cs.PartialSession,), sessions=2)
+    no_kernel = _trace([[0.05]] * (cs.REPS - 1) + [[]])
+    traced.clear()
+    with pytest.raises(RuntimeError, match="no kernel") as err:
+        cs.device_ms(lambda: None, NAMES, trace=lambda fn, calls:
+                     traced.append(calls) or no_kernel)
+    assert not isinstance(err.value, (cs.LostSession, cs.PartialSession))
+    assert traced == [cs.REPS]
+
+
 def test_device_ms_is_the_median_of_the_per_call_sums():
     per_call = [[0.04, 0.01], [0.03, 0.0], [0.08, 0.02], [0.06, 0.0],
                 [0.05, 0.0]]

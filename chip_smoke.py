@@ -151,11 +151,30 @@ the exit code is non-zero:
    (>= 99.9 %); (c) 10,500 against 12,000 rows of width 1,200 ranked on
    the card and on the CPU.  Its launches are not added to the kernels
    line.
-Phases 10, 11 and 13 run after phase 8, before phase 9; phase 12 runs last.
+14. mesh (``phase_mesh``), ``--mesh_shape data:N`` through the CLIs:
+   SNAG at the bench geometry with IL, 3 epochs at batch 3,500: (a)
+   ``data:1`` (a group of one over NCCL on the card) against the plain
+   run: step losses, the trained weights' sha256 and the final ranks bit
+   for bit, the six kernels of rows 1-6 (the GAT pair, the mixture pair,
+   NT-Xent's) launched; (b) two ranks sharing the card over gloo
+   (collectives through host memory), spawned, against (a) within the CPU
+   tests' bounds (epoch losses rel 5e-3, weights rtol 2e-3 and atol 2e-5
+   but for the attention's key bias, whose gradient is rounding noise;
+   ranks of the sharded evaluation on >= 99.5 % of queries, MRR within
+   1e-3), each rank launching exactly rows 1-6; (c) with two cards or
+   more, two ranks over NCCL, one a card, held alike, else a line saying
+   it was skipped; (d) MKGC at phase 12's geometry, 2 epochs of 64
+   batches: ``data:1`` against the plain CLI run bit for bit, and two
+   ranks over gloo against one rank at their batch size, with the
+   sharded filtered ranks against the one-rank evaluator.  It prints the
+   warm step ms of (a) plain and mesh and of (b) beside the card's name
+   and power limit (no speed claim).
+Phases 10, 11 and 13 run after phase 8, before phase 9; phase 12 runs
+after them, and phase 14 last.
 
 Before the per-kernel record it prints the script's wall time.  The line
 before last is the per-kernel JSON record (launches summed over the runs
-of phases 5-11, as phase 12 launches none; ``bound_share`` is
+of phases 5-11 and 14, as phase 12 launches none; ``bound_share`` is
 ``bound_ms / device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
@@ -2569,6 +2588,257 @@ def phase_mkgc():
         raise AssertionError(f"MKGC did not learn: {learn.last_metrics}")
 
 
+# phase 14: SNAG with IL at the bench geometry, 3 epochs
+MESH_ARGS = BENCH_ARGS + [
+    "--epoch", "3", "--il", "--il_start", "1", "--semi_learn_step", "1",
+    "--eval_epoch", "1", "--batch_size", "3500", "--lr", "5e-4",
+    "--scheduler", "cos", "--add_noise", "1", "--noise_ratio", "0.2",
+    "--mask_ratio", "0.7", "--no_tensorboard"]
+# rows 1-6 of PERF.md's kernel table, the kernels of a mesh rank's step
+MESH_KERNELS = {"gat_attention_fwd", "gat_bwd", "mixture_lse", "mixture_grad",
+                "ntxent_lse", "ntxent_grad"}
+# MKGC at phase 12's geometry, (a)'s batching (1,124 triples), 2 epochs
+MKGC_MESH = MKGC_ARGS + ["--num_batch", "64", "--margin", "1.0",
+                         "--epoch", "2", "--eval_epoch", "2"]
+# the one parameter whose gradient is zero in exact arithmetic (a bias on
+# every key moves a query's scores alike): Adam turns its rounding noise
+# into steps of either sign, so its values are not compared across runs
+NOISE_GRAD = "attention.self.key.bias"
+
+
+def _state_digest(model) -> str:
+    return sha256_of(*[v for _, v in sorted(model.state_dict().items())])
+
+
+def _numpy_state(model):
+    return {k: v.detach().cpu().numpy() for k, v in
+            model.state_dict().items()}
+
+
+def _mmea_record(runner):
+    """What phase mesh compares of an MMEA run."""
+    res = runner.last_result
+    per_epoch0 = -(-len(runner.data.train_ill) // runner.cfg.batch_size)
+    return {"losses": list(runner.loss_log.loss[1:]),
+            "step_losses": list(runner.step_losses),
+            "ranks": res.ranks_l2r, "mrr": (res.mrr_l2r, res.mrr_r2l),
+            "digest": _state_digest(runner.model),
+            "params": _numpy_state(runner.model),
+            "step_ms": statistics.median(runner.step_ms[per_epoch0:]),
+            "stats": kernel_stats()}
+
+
+def _mkgc_epochs(argv, batch_size=None):
+    """MKGC's runner built from ``argv``, 2 epochs at ``batch_size`` (the
+    runner's own where None), then the valid split's filtered ranks
+    through its evaluator and through the one-rank evaluator."""
+    from snag_tpu_torch.mkgc.config import (build_mkgc_argparser,
+                                            mkgc_config_from_args)
+    from snag_tpu_torch.mkgc.train import (MKGCRunner, filtered_ranks,
+                                           make_score_fn)
+    from snag_tpu_torch.utils.logging import create_logger
+    cfg = mkgc_config_from_args(build_mkgc_argparser().parse_args(argv))
+    runner = MKGCRunner(cfg, create_logger(name="chip_smoke.mesh_mkgc"))
+    if batch_size is not None:
+        runner.batch_size = batch_size
+    losses = [runner.train_epoch(e) for e in range(2)]
+    valid = runner.data.valid[:cfg.valid_max]
+    return {"losses": losses, "batch_size": runner.batch_size,
+            "params": _numpy_state(runner.model),
+            "ranks": filtered_ranks(runner.model, runner.feats, runner.data,
+                                    valid, score_fn=runner._score_fn),
+            "ranks_one": filtered_ranks(runner.model, runner.feats,
+                                        runner.data, valid,
+                                        score_fn=make_score_fn(runner.model)),
+            "stats": kernel_stats()}
+
+
+def _mesh_rank(kind, argv, out):
+    """A spawned rank of phase mesh: the MMEA CLI (``kind`` "mmea") or
+    MKGC's runner ("mkgc") on ``argv``, its record pickled to
+    ``<out>.rank<r>.pkl``."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from snag_tpu_torch.ops import cuda as kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_stats()
+    if kind == "mmea":
+        from snag_tpu_torch.cli.train_mmea import main
+        runner = main(argv)
+        torch.cuda.synchronize()
+        rec = _mmea_record(runner)
+    else:
+        rec = _mkgc_epochs(argv)
+        torch.cuda.synchronize()
+    with open(f"{out}.rank{dist.get_rank()}.pkl", "wb") as f:
+        pickle.dump(rec, f)
+
+
+def _spawn_ranks(label, kind, argv, backend, device):
+    """Two ranks of ``_mesh_rank``; their records, rank 0 first."""
+    import pickle
+    from snag_tpu_torch.parallel import mesh as mesh_mod
+    out = WORK / "mesh" / label
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    mesh_mod.spawn(2, _mesh_rank, (kind, argv, str(out)), backend=backend,
+                   device=device)
+    recs = []
+    for r in range(2):
+        with open(f"{out}.rank{r}.pkl", "rb") as f:
+            recs.append(pickle.load(f))
+    say("mesh", f"{label}: two ranks over {backend}, spawned, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def _max_param_err(got, want):
+    """max |got - want| / (atol + rtol |want|) over the parameters but
+    ``NOISE_GRAD``'s: at most 1 within rtol 2e-3, atol 2e-5."""
+    import numpy as np
+    return max(float((np.abs(got[k] - v) / (2e-5 + 2e-3 * np.abs(v))).max())
+               for k, v in want.items() if not k.endswith(NOISE_GRAD))
+
+
+def _check_ranks(label, recs, want, launches):
+    """Two MMEA ranks against the one-rank record ``want``."""
+    import numpy as np
+    a, b = recs
+    if a["step_losses"] != b["step_losses"] or a["digest"] != b["digest"] \
+            or not np.array_equal(a["ranks"], b["ranks"]):
+        raise AssertionError(f"{label}: the two ranks differ")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                  want["losses"]))
+    perr = _max_param_err(a["params"], want["params"])
+    agree = float((a["ranks"] == want["ranks"]).mean())
+    dmrr = max(abs(x - y) for x, y in zip(a["mrr"], want["mrr"]))
+    say("mesh", f"{label}: epoch losses {a['losses']} against {want['losses']}"
+        f" (max rel {rel:.2e}, limit 5e-3) | weights: max err / (2e-5 + "
+        f"2e-3 |w|) {perr:.3f} (limit 1) | final ranks equal on "
+        f"{agree:.4f} of queries, MRR diff {dmrr:.2e} | step ms rank 0 "
+        f"{a['step_ms']:.3f}, rank 1 {b['step_ms']:.3f}")
+    if rel > 5e-3 or perr > 1.0 or agree < 0.995 or dmrr > 1e-3:
+        raise AssertionError(f"{label}: two ranks are not one")
+    for r, rec in enumerate(recs):
+        check_launches(f"mesh {label} rank {r}", rec["stats"], launches)
+    return {name: n for name, (n, _) in a["stats"].items()}, a["step_ms"]
+
+
+def _mesh_mmea(argv):
+    """``cli.train_mmea.main`` on ``argv`` with the launch counts set to 0
+    just before it: (the runner, its record)."""
+    import torch
+    from snag_tpu_torch.cli.train_mmea import main
+    from snag_tpu_torch.ops import cuda as kernels
+    kernels.reset_stats()
+    runner = main(argv)
+    torch.cuda.synchronize()
+    return runner, _mmea_record(runner)
+
+
+def _mesh_mkgc(smi):
+    """(d): MKGC ``data:1`` against the plain CLI run bit for bit, two
+    ranks over gloo against one rank at their batch size."""
+    import numpy as np
+    from snag_tpu_torch.cli.train_mkgc import main
+    path = ["--device", "cuda", "--data_path", str(WORK / "mesh_mkgc")]
+    runs = [main(MKGC_MESH + path + ["--exp_id", exp] + extra)
+            for exp, extra in (("plain", []),
+                               ("one", ["--mesh_shape", "data:1"]))]
+    same = (runs[0].losses == runs[1].losses
+            and runs[0].last_metrics == runs[1].last_metrics
+            and _state_digest(runs[0].model) == _state_digest(runs[1].model))
+    say("mesh", f"(d) MKGC data:1 against plain: losses {runs[1].losses}, "
+        f"test {runs[1].last_metrics} | bit for bit: {same}")
+    if not same:
+        raise AssertionError("MKGC data:1 is not the plain run")
+    del runs
+    recs = _spawn_ranks("(d) MKGC data:2", "mkgc", MKGC_MESH + [
+        "--device", "cuda:0", "--data_path", str(WORK / "mesh_mkgc"),
+        "--mesh_shape", "data:2"], "gloo", "cuda")
+    want = _mkgc_epochs(MKGC_MESH + path, recs[0]["batch_size"])
+    a = recs[0]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                  want["losses"]))
+    perr = _max_param_err(a["params"], want["params"])
+    agree = min(float((r["ranks"] == r["ranks_one"]).mean()) for r in recs)
+    say("mesh", f"(d) MKGC two ranks over gloo, batch {a['batch_size']}: "
+        f"epoch losses {a['losses']} against {want['losses']} (max rel "
+        f"{rel:.2e}, limit 5e-3) | weights: max err / (2e-5 + 2e-3 |w|) "
+        f"{perr:.3f} (limit 1) | sharded filtered ranks equal to the "
+        f"one-rank evaluator's on {agree:.4f} (limit > 0.99) | {smi}")
+    if (recs[0]["losses"] != recs[1]["losses"] or rel > 5e-3 or perr > 1.0
+            or agree <= 0.99):
+        raise AssertionError("MKGC's two ranks are not one")
+    for r, rec in enumerate(recs):
+        check_launches(f"mesh (d) rank {r}", rec["stats"], set())
+
+
+def phase_mesh():
+    """``--mesh_shape data:N`` on the card (the module docstring's phase
+    14).  Returns the launches of (a)'s and (b)'s runs (rank 0's)."""
+    import numpy as np
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+
+    def argv(label, *extra):
+        return MESH_ARGS + ["--data_path", str(WORK / f"mesh_{label}"),
+                            "--exp_name", f"chip_smoke_mesh_{label}",
+                            *extra]
+
+    plain, want = _mesh_mmea(argv("plain", "--device", "cuda"))
+    one, got = _mesh_mmea(argv("one", "--device", "cuda", "--mesh_shape",
+                               "data:1"))
+    if one.mesh is None or one.mesh.world != 1:
+        raise AssertionError(f"(a) ran without its mesh: {one.mesh}")
+    same = (got["step_losses"] == want["step_losses"]
+            and got["digest"] == want["digest"]
+            and np.array_equal(got["ranks"], want["ranks"]))
+    say("mesh", f"(a) data:1 over NCCL against the plain run: "
+        f"{len(got['step_losses'])} step losses, weights sha256 "
+        f"{got['digest'][:16]}, {len(got['ranks'])} final ranks | bit for "
+        f"bit: {same} | promoted {one.promoted}, MRR l2r {got['mrr'][0]:.6f}")
+    if not same:
+        raise AssertionError("data:1 is not the plain run")
+    expected = f32_kernels() - {SEGMENT_KERNEL}
+    check_launches("mesh (a) plain", want["stats"], expected)
+    check_launches("mesh (a) data:1", got["stats"], expected)
+    if not MESH_KERNELS <= expected:
+        raise AssertionError("rows 1-6 are not all on the path")
+    launches = [{k: n for k, (n, _) in rec["stats"].items()}
+                for rec in (want, got)]
+    del plain, one
+
+    b_launches, b_ms = _check_ranks("(b) data:2 gloo, one card",
+                                    _spawn_ranks(
+        "(b) data:2 gloo", "mmea", argv("gloo", "--device", "cuda:0",
+                                        "--mesh_shape", "data:2"),
+        "gloo", "cuda"), want, MESH_KERNELS)
+    launches.append(b_launches)
+    if torch.cuda.device_count() >= 2:
+        launches.append(_check_ranks("(c) data:2 NCCL, two cards",
+                                     _spawn_ranks(
+            "(c) data:2 nccl", "mmea", argv("nccl", "--device", "cuda",
+                                            "--mesh_shape", "data:2"),
+            "nccl", "cuda"), want, MESH_KERNELS)[0])
+    else:
+        say("mesh", f"(c) NCCL with one rank a card: skipped, "
+            f"{torch.cuda.device_count()} card visible")
+    say("mesh", f"warm step ms (median, CUDA events): (a) plain "
+        f"{want['step_ms']:.3f}, (a) data:1 {got['step_ms']:.3f}, (b) two "
+        f"ranks sharing the card, rank 0 {b_ms:.3f} | {smi} | not a speed "
+        "claim")
+    _mesh_mkgc(smi)
+    say("mesh", f"phase mesh {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2603,6 +2873,7 @@ def main() -> int:
     del data
     runs.append(phase_files())
     phase_mkgc()
+    runs += phase_mesh()
 
     meta = {
         "gat_attention_fwd": ("snag_tpu_torch/csrc/gat_attention.cu",

@@ -153,7 +153,7 @@ class Config:
     # ---- framework additions (no reference equivalent) ----
     device: str = "cuda"             # torch device the runner places work on
     dtype: str = "float32"           # compute dtype for the encoder
-    mesh_shape: str = ""             # e.g. "data:8"; empty = single device
+    mesh_shape: str = ""             # "data:N": N ranks, one a GPU; "" = one
     jit_backend: Optional[str] = None
     profile_dir: str = ""            # torch.profiler trace output, "" = off
     log_every: int = 50
@@ -309,7 +309,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=d.device,
                    help="torch device, e.g. cuda, cuda:1 or cpu")
     p.add_argument("--dtype", type=str, default=d.dtype, choices=["float32", "bfloat16"])
-    p.add_argument("--mesh_shape", type=str, default=d.mesh_shape)
+    p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
+                   help="data:N trains on N ranks, one process a GPU "
+                        "(NCCL; gloo with --device cpu)")
     p.add_argument("--profile_dir", type=str, default=d.profile_dir)
     p.add_argument("--log_every", type=int, default=d.log_every)
     p.add_argument("--remat", type=int, default=d.remat)

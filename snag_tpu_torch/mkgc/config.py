@@ -8,7 +8,8 @@ LR=LRG=1e-4, NEG_NUM=32, EPOCH=8000 (early stop), NOISE=1, POOL=1.
 
 The port adds ``--device`` (a ``torch.device`` string, default ``cuda``;
 asked for a card that torch cannot see, the runner raises).
-``--mesh_shape`` is parsed and raises when set (multi-GPU, ROADMAP A11);
+``--mesh_shape data:N`` trains and evaluates on N ranks, one process a
+GPU (``parallel/mesh.py``, ``cli/train_mkgc.py``);
 ``--compile_cache_dir`` is the JAX package's XLA cache, accepted and
 unused.
 """
@@ -51,7 +52,7 @@ class MKGCConfig:
     use_pool: int = 1
     pool_dim: int = 256                # pooled feature width when use_pool
     triple_order: str = "hrt"          # column order in triple files: hrt | htr (OpenKE)
-    mesh_shape: str = ""               # multi-GPU: raises (ROADMAP A11)
+    mesh_shape: str = ""               # "data:N": N ranks; empty = one
 
     intermediate_size: int = 512
     eval_epoch: int = 50
@@ -84,7 +85,8 @@ def build_mkgc_argparser() -> argparse.ArgumentParser:
     helps = {"device": "torch device (default: cuda), e.g. cuda:1 or cpu",
              "compile_cache_dir": "JAX package only: persistent XLA compile "
                                   "cache; unused by the port",
-             "mesh_shape": "multi-GPU; not ported (ROADMAP A11)"}
+             "mesh_shape": "data:N trains on N ranks, one process a GPU "
+                           "(NCCL; gloo with --device cpu)"}
     for f in dataclasses.fields(MKGCConfig):
         kind = {"int": int, "float": float}.get(f.type, str)
         p.add_argument(f"--{f.name}", type=kind, default=getattr(d, f.name),

@@ -29,7 +29,7 @@ indexing backward: no atomic adds, so repeated rows sum in a fixed order.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,7 @@ from torch import nn
 from snag_tpu_torch.mkgc.config import JOINT_WAYS, MKGCConfig
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops.fusion import BertLayer, l2norm, tlinear
+from snag_tpu_torch.ops.noise import row_slice
 
 
 # negative-joint formulation: "auto" picks all-entity fusion + gather when
@@ -161,16 +162,21 @@ class MKGCModel(nn.Module):
 
     def forward(self, pos: torch.Tensor, rand_ent: torch.Tensor,
                 corrupt_head: torch.Tensor, feats: MKGCFeatures,
-                dropout_gen: Optional[torch.Generator] = None):
+                dropout_gen: Optional[torch.Generator] = None,
+                split: Optional[Tuple[int, int, int]] = None):
         """Margin ranking loss and its (d_pos, d_neg) means.
 
         pos: (B, 3) triples; rand_ent: (B, K) corruption entities;
         corrupt_head: (B, K) bool, True where rand_ent replaces the head.
         Joints are computed for the positives and the K corruptions only;
-        the uncorrupted side reuses the positive joint."""
+        the uncorrupted side reuses the positive joint.  ``split`` = (lo,
+        hi, n): these B rows are rows lo:hi of an n-row batch (a mesh
+        rank's share); the branch is the n-row batch's and the dropout
+        masks are drawn at its shapes."""
         b, k = rand_ent.shape
+        lo, hi, n = (0, b, b) if split is None else split
         r = self.rel_emb[pos[:, 1]]
-        use_all = (b * (k + 2) > 2 * self.ent_num
+        use_all = (n * (k + 2) > 2 * self.ent_num
                    if ALL_ENT_FUSION == "auto" else ALL_ENT_FUSION == "on")
         if use_all:
             # the batch touches more joint slots than the entity table:
@@ -182,11 +188,15 @@ class MKGCModel(nn.Module):
             cor = torch.where(corrupt_head[:, :, None], all_h[rand_ent],
                               all_t[rand_ent])
         else:
-            h = self.joint(pos[:, 0], feats, 0, dropout_gen)
-            t = self.joint(pos[:, 2], feats, 1, dropout_gen)
+            gen = (dropout_gen if split is None
+                   else row_slice(dropout_gen, lo, hi, n))
+            h = self.joint(pos[:, 0], feats, 0, gen)
+            t = self.joint(pos[:, 2], feats, 1, gen)
+            if split is not None:
+                gen = row_slice(dropout_gen, lo * k, hi * k, n * k)
             cor = self.joint_mixed(rand_ent.reshape(-1),
                                    corrupt_head.reshape(-1), feats,
-                                   dropout_gen).reshape(b, k, -1)
+                                   gen).reshape(b, k, -1)
 
         def dist(x, rel, y):
             return torch.linalg.vector_norm(x + rel - y, dim=-1)

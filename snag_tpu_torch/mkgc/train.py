@@ -16,6 +16,15 @@ corruptions, dropout and step-cadence noise.  So a resumed run needs only
 the counters to repeat an uninterrupted one, and ``jax.random``'s
 streams are matched in distribution, not in values.  Each step's loss
 stays on the device; ``train_epoch`` reads their mean once.
+
+``--mesh_shape data:N`` (``parallel/mesh.py``, JAX train.py:343-414):
+every rank holds the model and the tables whole and draws the same
+batches; the batch size is rounded down to a multiple of N, each step's
+corruptions and dropout masks are drawn at the whole batch's shapes and
+each rank takes its rows, and one all-reduce averages the gradients and
+the loss, so N ranks step as one.  The filtered evaluation splits its
+chunks over the ranks and gathers their ranks.  Rank 0 alone writes the
+checkpoint and the ``--save_model`` snapshot.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from snag_tpu_torch.mkgc.model import (MKGCFeatures, MKGCModel,
                                        avg_pool_features)
 from snag_tpu_torch.ops import noise as noise_ops
 from snag_tpu_torch.ops.noise import derive_seed, generator
+from snag_tpu_torch.parallel import mesh as mesh_mod
 from snag_tpu_torch.utils.checkpoint import (load_mkgc_checkpoint,
                                              save_mkgc_checkpoint)
 
@@ -131,11 +141,13 @@ class MKGCStep:
     """One margin-ranking step of ``model`` and its two-group Adam;
     ``count`` is the step counter (the JAX ``MKGCState.step``).  With
     ``stats`` and ``--noise_update step`` the step noise-masks the tables
-    it is given."""
+    it is given.  Under ``mesh`` the step is this rank's share of it."""
 
-    def __init__(self, cfg: MKGCConfig, model: MKGCModel, stats=None):
+    def __init__(self, cfg: MKGCConfig, model: MKGCModel, stats=None,
+                 mesh=None):
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
         self.opt = build_mkgc_optimizer(cfg, model)
         self.step_noise = (bool(cfg.add_noise) and cfg.noise_update == "step"
                            and stats is not None)
@@ -171,10 +183,24 @@ class MKGCStep:
                                   else self.sample(pos.shape[0], dev))
         dropout_gen = None if deterministic else generator(
             derive_seed(cfg.random_seed, self.count, DROPOUT), dev)
+        split = None
+        if self.mesh is not None:
+            split = (*self.mesh.rows(pos.shape[0]), pos.shape[0])
+            rows = slice(split[0], split[1])
+            pos, rand_ent, corrupt_head = (pos[rows], rand_ent[rows],
+                                           corrupt_head[rows])
         self.opt.zero_grad(set_to_none=True)
         loss, aux = self.model(pos, rand_ent, corrupt_head, feats,
-                               dropout_gen)
+                               dropout_gen, split)
         loss.backward()
+        if self.mesh is not None:
+            # the rows' means averaged: the whole batch's (equal shares)
+            params = [p for p in self.model.parameters()
+                      if p.grad is not None]
+            *grads, loss = self.mesh.all_reduce_mean(
+                [p.grad for p in params] + [loss.detach()])
+            for p, g in zip(params, grads):
+                p.grad = g
         self.opt.step()
         self.count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
@@ -197,31 +223,42 @@ def _ranks(q, cand, gold, filt, filt_mask):
 
 
 def _scan_dir(rel_emb, jh, jt, trip_c, filt_c, mask_c, head: bool):
-    out = []
+    """(S, chunk) ranks of S chunks of triples."""
+    out = [torch.zeros((0, trip_c.shape[1]), dtype=torch.int64,
+                       device=jh.device)]
     for trip, filt, msk in zip(trip_c, filt_c, mask_c):
         r = rel_emb[trip[:, 1]]
         if head:
-            out.append(_ranks(jt[trip[:, 2]] - r, jh, trip[:, 0], filt, msk))
+            rk = _ranks(jt[trip[:, 2]] - r, jh, trip[:, 0], filt, msk)
         else:
-            out.append(_ranks(jh[trip[:, 0]] + r, jt, trip[:, 2], filt, msk))
+            rk = _ranks(jh[trip[:, 0]] + r, jt, trip[:, 2], filt, msk)
+        out.append(rk[None])
     return torch.cat(out)
 
 
 def make_score_fn(model: MKGCModel, mesh=None):
     """The filtered-rank evaluator of ``model``: every entity's joint in
     both roles, then both directions over the chunked triples and filters
-    (``filtered_ranks`` builds them), on the model's device."""
-    if mesh is not None:
-        raise NotImplementedError("sharded MKGC evaluation: multi-GPU is "
-                                  "not ported (ROADMAP A11)")
+    (``filtered_ranks`` builds them), on the model's device.  With
+    ``mesh`` each rank ranks its share of the chunks (``Mesh.rows``) and
+    one all-gather a direction gives every rank every rank (JAX
+    ``make_score_fn``'s shard_map, train.py:175-258)."""
+
+    def scan(rel, jh, jt, trip, filt, mask, head):
+        if mesh is None:
+            return _scan_dir(rel, jh, jt, trip, filt, mask, head).reshape(-1)
+        lo, hi = mesh.rows(trip.shape[0])
+        rk = _scan_dir(rel, jh, jt, trip[lo:hi], filt[lo:hi], mask[lo:hi],
+                       head)
+        return mesh.gather_shards(rk, trip.shape[0]).reshape(-1)
 
     @torch.no_grad()
     def eval_ranks(feats, t_trip, t_filt, t_mask, h_trip, h_filt, h_mask):
         jh = model.all_joint(feats, role=0)
         jt = model.all_joint(feats, role=1)
         rel = model.rel_emb
-        return (_scan_dir(rel, jh, jt, t_trip, t_filt, t_mask, head=False),
-                _scan_dir(rel, jh, jt, h_trip, h_filt, h_mask, head=True))
+        return (scan(rel, jh, jt, t_trip, t_filt, t_mask, head=False),
+                scan(rel, jh, jt, h_trip, h_filt, h_mask, head=True))
 
     return eval_ranks
 
@@ -320,9 +357,12 @@ class MKGCRunner:
             raise RuntimeError(f"--device {cfg.device}: torch.cuda is not "
                                "available (pass --device cpu to run on the "
                                "CPU)")
-        if cfg.mesh_shape:
-            raise NotImplementedError("--mesh_shape: multi-GPU is not "
-                                      "ported (ROADMAP A11)")
+        self.mesh = None
+        n_ranks = mesh_mod.parse_mesh_shape(cfg.mesh_shape)
+        if n_ranks:
+            self.mesh = mesh_mod.make_mesh(n_ranks, cfg.device, logger)
+            self.device = self.mesh.device
+        self.main_process = self.mesh is None or self.mesh.rank == 0
         self.data = data if data is not None else load_mkgc_data(cfg, logger)
         self.feats = prepare_mkgc_features(cfg, self.data, self.device)
         self.model = MKGCModel(
@@ -333,9 +373,14 @@ class MKGCRunner:
         logger.info(f"MKGC params: {n_params}  device: {self.device}")
         self.stats = (feature_stats(self.feats, self.data)
                       if cfg.add_noise else None)
-        self.step = MKGCStep(cfg, self.model, self.stats)
+        self.step = MKGCStep(cfg, self.model, self.stats, self.mesh)
         self.batch_size = max(1, len(self.data.train) // cfg.num_batch)
-        self._score_fn = make_score_fn(self.model)
+        if self.mesh is not None:
+            # each rank takes an equal share of every batch
+            w = self.mesh.world
+            self.batch_size = max(w, self.batch_size // w * w)
+            logger.info(f"mesh batch_size: {self.batch_size}")
+        self._score_fn = make_score_fn(self.model, self.mesh)
         self.train_triples = torch.as_tensor(
             self.data.train.astype(np.int64), device=self.device)
         self._filter_caches: Dict[str, dict] = {}
@@ -444,8 +489,12 @@ class MKGCRunner:
                             stop = True
                 if cfg.checkpoint_every and \
                         (epoch + 1) % cfg.checkpoint_every == 0:
-                    path = save_mkgc_checkpoint(self, self.checkpoint_path())
-                    self.logger.info(f"checkpoint saved to {path}")
+                    if self.main_process:
+                        path = save_mkgc_checkpoint(self,
+                                                    self.checkpoint_path())
+                        self.logger.info(f"checkpoint saved to {path}")
+                    if self.mesh is not None:
+                        self.mesh.barrier()
                 if stop:
                     break
         if self.best_params is not None:
@@ -453,6 +502,6 @@ class MKGCRunner:
         m = self.evaluate("test")
         self.logger.info(f"MKGC test: {m}")
         self.last_metrics = m
-        if cfg.save_model and not cfg.only_test:
+        if cfg.save_model and not cfg.only_test and self.main_process:
             self.save_model()
         return m

@@ -18,6 +18,14 @@ noise at half rates, :151-153), ``dropout_gen`` (None = deterministic) and
 :155-167).  Feature-table noise is applied by the caller, once per epoch
 (``apply_feature_noise``).
 
+Under a mesh of N > 1 ranks (``mesh``, set by ``parallel.mesh.attach``)
+the structure encoder runs whole on every rank, the per-entity work after
+it (the five projections, the heads, the fusion) on this rank's share of
+the rows (``Mesh.rows``), its dropout masks drawn at the full row count
+(``ops.noise.RowSlice``), and one differentiable gather
+(``parallel.mesh.gather_rows``) puts every per-row output back in order
+on every rank; ``weight_fz`` is no per-row output and is not gathered.
+
 ``--dtype bfloat16`` (the JAX package's ``dtype`` property, :78-80): the
 five projections and the fusion stack compute in bf16 with f32
 parameters, the GAT gathers bf16 rows and returns f32, ``entity_emb``,
@@ -42,6 +50,7 @@ from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops import noise as noise_ops
 from snag_tpu_torch.ops.fusion import MeanFusion, MformerFusion, tlinear
 from snag_tpu_torch.ops.gnn import GAT, GCN
+from snag_tpu_torch.parallel.mesh import gather_rows
 
 
 class FeaturePack(NamedTuple):
@@ -96,6 +105,7 @@ class MultiModalEncoder(nn.Module):
                              f"{FUSION_KINDS}")
         self.cfg = cfg
         self.fusion_kind = fusion_kind
+        self.mesh = None
         dt = compute_dtype(cfg)
         input_dim = cfg.n_units()[0]
         self.entity_emb = nn.Embedding(ent_num, input_dim)
@@ -155,20 +165,15 @@ class MultiModalEncoder(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None,
                 rows: Optional[torch.Tensor] = None) -> EncoderOutput:
         cfg = self.cfg
+        n = self.entity_emb.num_embeddings if rows is None else rows.shape[0]
+        sel, row_gen, mesh = split_rows(self.mesh, rows, n, dropout_gen)
         gph = None
         if cfg.w_gcn:
             ent = self.entity_emb.weight
             if entity_noise_gen is not None:
                 ent = noise_ops.entity_noise(entity_noise_gen, ent,
                                              cfg.noise_ratio, cfg.mask_ratio)
-            gph = self.cross_graph_model(ent, graph, dropout_gen)
-            if rows is not None:
-                gph = gph[rows]
-
-        # the projections and fusion are per entity: with ``rows`` they run
-        # on the batch's entities only, with the same gradients
-        def sel(t):
-            return t if rows is None else t[rows]
+            gph = sel(self.cross_graph_model(ent, graph, dropout_gen))
 
         img = self.img_fc(sel(feats.img)) if cfg.w_img else None
         rel = self.rel_fc(sel(feats.rel)) if cfg.w_rel else None
@@ -178,7 +183,7 @@ class MultiModalEncoder(nn.Module):
 
         if cfg.use_project_head:
             def head(mod, e):
-                return None if e is None else mod(e, dropout_gen)
+                return None if e is None else mod(e, row_gen)
             gph = head(self.gph_pro, gph)
             img = head(self.img_pro, img)
             rel = head(self.rel_pro, rel)
@@ -188,13 +193,34 @@ class MultiModalEncoder(nn.Module):
         joint = joint_fz = hidden = weight_norm = weight_fz = None
         if self.fusion_kind in ("mformer", "mformer_single"):
             joint, joint_fz, hidden, weight_norm, weight_fz = self.fusion(
-                fusion_inputs, dropout_gen)
+                fusion_inputs, row_gen)
         elif self.fusion_kind == "mean":
             joint = self.fusion(fusion_inputs)
+        if mesh is not None:
+            (gph, img, rel, att, name, char, joint, joint_fz, hidden,
+             weight_norm) = gather_rows(mesh, [
+                 gph, img, rel, att, name, char, joint, joint_fz, hidden,
+                 weight_norm], n)
         return EncoderOutput(gph=gph, img=img, rel=rel, att=att, name=name,
                              char=char, joint=joint, joint_fz=joint_fz,
                              hidden=hidden, weight_norm=weight_norm,
                              weight_fz=weight_fz)
+
+
+def split_rows(mesh, rows: Optional[torch.Tensor], n: int,
+               dropout_gen: Optional[torch.Generator]):
+    """(sel, row_gen, mesh) of a forward over ``n`` entity rows (``rows``,
+    or every entity where None): ``sel`` takes a whole-table tensor to the
+    rows this rank computes, ``row_gen`` is the dropout generator of those
+    rows, and ``mesh`` is None where one rank computes every row (no mesh,
+    or a mesh of one: its forward is the plain one, bit for bit)."""
+    if mesh is None or mesh.world == 1:
+        return ((lambda t: t) if rows is None else (lambda t: t[rows]),
+                dropout_gen, None)
+    lo, hi = mesh.rows(n)
+    local = slice(lo, hi) if rows is None else rows[lo:hi]
+    return ((lambda t: t[local]),
+            noise_ops.row_slice(dropout_gen, lo, hi, n), mesh)
 
 
 def prepare_features(cfg: Config, data, device) -> FeaturePack:

@@ -16,7 +16,9 @@ softmax(``weight_raw``) weights (EVA.py:146-165), so only the weights
 learn through the joint loss.
 
 EVA passes no dtype to any layer (JAX eva.py:51-66): it runs in f32
-whatever ``--dtype`` says, its GCN included.
+whatever ``--dtype`` says, its GCN included.  Under a mesh its
+projections split their rows over the ranks as the shared encoder's do
+(``models/encoder.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +31,13 @@ from torch import nn
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.losses.contrastive import nca_loss
-from snag_tpu_torch.models.encoder import FeaturePack, batch_rows
+from snag_tpu_torch.models.encoder import (FeaturePack, batch_rows,
+                                           split_rows)
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops import noise as noise_ops
 from snag_tpu_torch.ops.fusion import l2norm
 from snag_tpu_torch.ops.gnn import GCN
+from snag_tpu_torch.parallel.mesh import gather_rows
 
 
 def _xlinear(in_features: int, out_features: int, ref_fan_in: int,
@@ -55,6 +59,7 @@ class EVA(nn.Module):
                  char_feature_dim: int, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None
         u = cfg.n_units()
         self.ent_embed = nn.Embedding(ent_num, u[0])
         with torch.no_grad():
@@ -92,9 +97,10 @@ class EVA(nn.Module):
                                          cfg.noise_ratio, cfg.mask_ratio)
         gph = self.cross_graph_model(ent, graph, dropout_gen)
 
-        def sel(t):     # batch-subset encoding after the graph encoder
-            return t if rows is None else t[rows]
-
+        # batch-subset encoding after the graph encoder, on this rank's
+        # share of the rows under a mesh (encoder.py)
+        n = ent.shape[0] if rows is None else rows.shape[0]
+        sel, _, mesh = split_rows(self.mesh, rows, n, None)
         gph = sel(gph)
         img = self.img_fc(sel(feats.img))
         rel = self.rel_fc(sel(feats.rel))
@@ -103,7 +109,8 @@ class EVA(nn.Module):
         if self.surface and feats.name is not None:
             name = self.name_fc(sel(feats.name))
             char = self.char_fc(sel(feats.char))
-        return gph, img, rel, att, name, char
+        out = [gph, img, rel, att, name, char]
+        return tuple(out if mesh is None else gather_rows(mesh, out, n))
 
     def _joint(self, gph, img, rel, att, name, char) -> torch.Tensor:
         """The detached weighted concat, img / att / rel / gph [/ name /

@@ -6,7 +6,10 @@ blended with a sample of N(col_mean, col_std):
 x' = (1 - mask_ratio) x + mask_ratio (mu + sigma eps).  Entity embeddings
 get half rates inside the encoder forward (SNAG_tools.py:127-128).
 
-``dropout`` (the GAT's and the fusion stack's) lives here too.
+``dropout`` (the GAT's and the fusion stack's) lives here too.  Under a
+mesh a rank computes only its rows of a per-entity tensor; its
+``RowSlice`` draws each dropout mask at the full row count and keeps its
+own rows, so N ranks draw what one rank draws.
 Randomness comes from explicit ``torch.Generator``s on the tensor's device,
 seeded from (seed, epoch) by ``derive_seed``.  ``jax.random`` streams cannot
 be reproduced, so the port matches the JAX package in distribution, not in
@@ -51,9 +54,29 @@ def table_stats(x: torch.Tensor,
     return TableStats(mean=mean, std=torch.sqrt(var))
 
 
-def keep_mask(shape, rate: float, gen: torch.Generator,
-              device) -> torch.Tensor:
-    """A dropout keep mask, True w.p. 1 - rate, drawn from ``gen``."""
+class RowSlice(NamedTuple):
+    """A dropout generator for rows ``lo:hi`` of an ``n``-row tensor."""
+    gen: torch.Generator
+    lo: int
+    hi: int
+    n: int
+
+
+def row_slice(gen: Optional[torch.Generator], lo: int, hi: int,
+              n: int) -> Optional[RowSlice]:
+    return None if gen is None else RowSlice(gen, lo, hi, n)
+
+
+def keep_mask(shape, rate: float, gen, device) -> torch.Tensor:
+    """A dropout keep mask, True w.p. 1 - rate, drawn from ``gen`` (a
+    ``RowSlice``: drawn at its ``n`` rows, its own rows kept)."""
+    if isinstance(gen, RowSlice):
+        if shape[0] != gen.hi - gen.lo:
+            raise ValueError(f"a mask of {shape[0]} rows for rows "
+                             f"{gen.lo}:{gen.hi}")
+        full = (gen.n,) + tuple(shape[1:])
+        return (torch.rand(full, generator=gen.gen, device=device)
+                >= rate)[gen.lo:gen.hi]
     return torch.rand(tuple(shape), generator=gen, device=device) >= rate
 
 

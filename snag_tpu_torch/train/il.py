@@ -11,8 +11,16 @@ The non-train pools are fixed-capacity id tensors with validity masks on
 the device, candidate state one (Lc,) tensor (right-entity id or -1).
 Distances are taken in blocks of left candidates at every size (the JAX
 package builds the whole matrix below 25,000 of them); argmin ties go to
-the first index, as ``jnp.argmin``'s and ``torch.argmin``'s do.  Only the promotion touches the host.  The JAX
-package's mesh-sharded mining is not ported (ROADMAP A11).
+the first index, as ``jnp.argmin``'s and ``torch.argmin``'s do.  Only the
+promotion touches the host.
+
+Under a mesh (``mine_new_links(..., mesh=)``, JAX
+``_mutual_argmins_sharded``) each rank scans its contiguous share of the
+left candidates with the same core (``_chunk_scan``), and one all-gather
+of every rank's column minima and argmins, and one of the left argmins,
+give every rank the unsharded result bit for bit: ranks hold ascending
+slices and ``torch.argmin`` over the rank axis takes the lowest rank on a
+tie, so the first occurrence still wins.
 """
 
 from __future__ import annotations
@@ -52,16 +60,16 @@ class ILState:
                        cand_right=torch.full_like(lc, -1))
 
 
-def _mutual_argmins(emb, left_cand, left_valid, right_cand, right_valid,
-                    chunk: int = MINE_CHUNK):
-    """Both argmins without the (Lc, Rc) matrix: left chunks in index
-    order, carrying the running column minima (a strictly smaller value
-    wins, so the first occurrence is kept across chunks)."""
-    right_emb = emb[right_cand]
+def _chunk_scan(emb, left_cand, left_valid, right_emb, right_valid,
+                offset: int, chunk: int = MINE_CHUNK):
+    """(preds_l, colmin, colarg) of a slice of the left candidates: left
+    chunks in index order, carrying the running column minima (a strictly
+    smaller value wins, so the first occurrence is kept across chunks);
+    the argmins are offset by ``offset``, the slice's first index."""
     rc = right_emb.shape[0]
     colmin = torch.full((rc,), INF, device=emb.device)
     colarg = torch.zeros(rc, dtype=torch.int64, device=emb.device)
-    preds_l = []
+    preds_l = [torch.zeros(0, dtype=torch.int64, device=emb.device)]
     for s in range(0, left_cand.shape[0], chunk):
         d = pairwise_distances(emb[left_cand[s:s + chunk]], right_emb)
         preds_l.append(torch.argmin(
@@ -70,17 +78,46 @@ def _mutual_argmins(emb, left_cand, left_valid, right_cand, right_valid,
         cmin, carg = d_r.amin(dim=0), torch.argmin(d_r, dim=0)
         better = cmin < colmin
         colmin = torch.where(better, cmin, colmin)
-        colarg = torch.where(better, carg + s, colarg)
-    return torch.cat(preds_l), colarg
+        colarg = torch.where(better, carg + s + offset, colarg)
+    return torch.cat(preds_l), colmin, colarg
+
+
+def _mutual_argmins(emb, left_cand, left_valid, right_cand, right_valid,
+                    chunk: int = MINE_CHUNK):
+    """Both argmins without the (Lc, Rc) matrix."""
+    preds_l, _, preds_r = _chunk_scan(emb, left_cand, left_valid,
+                                      emb[right_cand], right_valid, 0, chunk)
+    return preds_l, preds_r
+
+
+def _mutual_argmins_sharded(mesh, emb, left_cand, left_valid, right_cand,
+                            right_valid, chunk: int = MINE_CHUNK):
+    """Both argmins with the left candidates split over ``mesh``'s ranks;
+    every rank gets the whole of both."""
+    lc = left_cand.shape[0]
+    lo, hi = mesh.rows(lc)
+    pl, cmin, carg = _chunk_scan(emb, left_cand[lo:hi], left_valid[lo:hi],
+                                 emb[right_cand], right_valid, lo, chunk)
+    allmin = mesh.all_gather(cmin[None])                    # (W, Rc)
+    allarg = mesh.all_gather(carg[None])
+    best = torch.argmin(allmin, dim=0)
+    preds_r = torch.gather(allarg, 0, best[None])[0]
+    return mesh.gather_shards(pl, lc), preds_r
 
 
 def mine_new_links(emb: torch.Tensor, left_cand, left_valid, right_cand,
-                   right_valid, cand_right, fresh: bool) -> torch.Tensor:
+                   right_valid, cand_right, fresh: bool,
+                   mesh=None) -> torch.Tensor:
     """One mining round (Iter_new_links, SNAG.py:192-208) on L2-normalised
-    ``emb``; ``fresh`` drops the persistence filter.  Returns the new
-    cand_right."""
-    preds_l, preds_r = _mutual_argmins(emb, left_cand, left_valid, right_cand,
-                                       right_valid, MINE_CHUNK)
+    ``emb``; ``fresh`` drops the persistence filter; ``mesh`` splits the
+    left candidates over its ranks where each gets at least one.  Returns
+    the new cand_right."""
+    if mesh is not None and left_cand.shape[0] >= mesh.world:
+        preds_l, preds_r = _mutual_argmins_sharded(
+            mesh, emb, left_cand, left_valid, right_cand, right_valid)
+    else:
+        preds_l, preds_r = _mutual_argmins(emb, left_cand, left_valid,
+                                           right_cand, right_valid)
     lc = left_cand.shape[0]
     mutual = preds_r[preds_l] == torch.arange(lc, device=emb.device)
     pair_right = right_cand[preds_l]

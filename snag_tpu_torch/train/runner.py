@@ -23,6 +23,20 @@ yet), whose negatives are used once the count of unset entries stops
 changing between epochs (``replay_ready``, MEAformer.py:55-61, 138-148);
 ``replay_negatives`` counts the valid ones fed.
 
+``--mesh_shape data:N`` runs this process as one of N ranks
+(``parallel/mesh.py``; the CLI spawns them, or they come from torchrun or
+SLURM): every rank holds the KG and the model whole and draws the same
+batches, the encoders split their per-entity work over the ranks, the
+parameter gradients are averaged before each update, the ``--distance 2``
+evaluation splits its query rows over N > 1 ranks (``eval/sharded.py``;
+one rank evaluates as the plain path does) and the IL mining its left
+candidates; every rank ends each evaluation and mining round
+with the same values, so every rank takes the same decisions.  The batch
+capacity is rounded up to a multiple of N (loss-exact: batches are
+capacity-padded).  Only rank 0 writes files (the top-3 CSV, the
+checkpoint, ``--save_model``, the metrics and the profiler trace); a
+checkpoint is followed by a barrier, and every rank reads one on resume.
+
 ``--checkpoint_every N`` saves the full train state to
 ``<dump>/checkpoint.pt`` every N epochs and ``--resume_from`` continues
 from one (``utils/checkpoint.py``); ``--save_model 1`` writes the final
@@ -34,6 +48,7 @@ SNAG_MMEA/main.py:481-500), which ``load_model`` and the JAX package's
 from __future__ import annotations
 
 import csv
+import dataclasses
 import os
 import os.path as osp
 import statistics
@@ -45,11 +60,14 @@ import torch
 
 from snag_tpu_torch.config import Config
 from snag_tpu_torch.data.dataset import KGData, load_data
-from snag_tpu_torch.eval.ranking import RankResult, full_rank_eval
+from snag_tpu_torch.eval.ranking import (RankResult, full_rank_eval,
+                                         result_from_ranks)
+from snag_tpu_torch.eval.sharded import sharded_full_rank_eval
 from snag_tpu_torch.models import build_model
 from snag_tpu_torch.models.encoder import prepare_features, prepare_stats
 from snag_tpu_torch.models.msnea import TripleBank
 from snag_tpu_torch.ops.fusion import l2norm
+from snag_tpu_torch.parallel import mesh as mesh_mod
 from snag_tpu_torch.train import il as il_mod
 from snag_tpu_torch.train.step import (TrainStep, make_noise_fn, msnea_step,
                                        replay_step)
@@ -81,9 +99,18 @@ class Runner:
             raise RuntimeError(f"--device {cfg.device}: torch.cuda is not "
                                "available (pass --device cpu to run the "
                                "plain PyTorch twins)")
-        if cfg.mesh_shape:
-            raise NotImplementedError("--mesh_shape: multi-GPU is not "
-                                      "ported (ROADMAP A11)")
+        self.mesh = None
+        n_ranks = mesh_mod.parse_mesh_shape(cfg.mesh_shape)
+        if n_ranks:
+            self.mesh = mesh_mod.make_mesh(n_ranks, cfg.device, logger)
+            self.device = self.mesh.device
+            cfg = dataclasses.replace(cfg, device=str(self.device))
+            if cfg.batch_size % n_ranks:
+                cfg = dataclasses.replace(
+                    cfg, batch_size=-(-cfg.batch_size // n_ranks) * n_ranks)
+                logger.info(f"mesh batch capacity: {cfg.batch_size}")
+            self.cfg = cfg
+        self.main_process = self.mesh is None or self.mesh.rank == 0
         set_seed(cfg.random_seed)
 
         self.data = data if data is not None else load_data(cfg, logger)
@@ -99,6 +126,7 @@ class Runner:
 
         generator = torch.Generator().manual_seed(cfg.random_seed)
         self.model = build_model(cfg, self.data, generator).to(self.device)
+        mesh_mod.attach(self.model, self.mesh)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info(f"total params num: {n_params}  device: {self.device}")
 
@@ -129,6 +157,7 @@ class Runner:
                          if cfg.il else None)
         self.promoted: List[int] = []       # pairs added per promotion
         self.step_ms: List[float] = []      # device ms per train step (CUDA)
+        self.step_losses: List[float] = []  # every train step's loss
         self.history = []
         self._last_aux: Dict[str, float] = {}
         self.timings = {}
@@ -167,7 +196,7 @@ class Runner:
                          f"  lr: {self._lr}  weight_decay: "
                          f"{self.cfg.weight_decay}")
         self.train_step = TrainStep(self.cfg, self.model, self._lr,
-                                    total_steps, warmup)
+                                    total_steps, warmup, self.mesh)
 
     def _batches(self):
         """Shuffled, capacity-padded batches (DataLoader equivalent)."""
@@ -217,7 +246,9 @@ class Runner:
                 events.append((start, end))
 
         # the device reads of the epoch, after its last step
-        mean_loss = float(torch.stack(losses).mean())
+        losses = torch.stack(losses)
+        mean_loss = float(losses.mean())
+        self.step_losses += losses.tolist()
         self.step_ms += [s.elapsed_time(e) for s, e in events]
         if self.replay_neg is not None:
             self.replay_negatives += int(torch.stack(fed).sum())
@@ -265,10 +296,17 @@ class Runner:
         _sync(self.device)
         t1 = time.perf_counter()
         self._log_weight(weight)
-        res = full_rank_eval(emb[self.test_left], emb[self.test_right],
-                             top_k=(1, 10, 50), csls_k=cfg.csls_k,
-                             use_csls=cfg.csls, distance_kind=cfg.distance,
-                             with_top3=last_epoch)
+        if self.mesh is not None and self.mesh.world > 1 \
+                and cfg.distance == 2:
+            res = result_from_ranks(*sharded_full_rank_eval(
+                self.mesh, emb[self.test_left], emb[self.test_right],
+                csls_k=cfg.csls_k, use_csls=cfg.csls, with_top3=last_epoch))
+        else:
+            res = full_rank_eval(emb[self.test_left], emb[self.test_right],
+                                 top_k=(1, 10, 50), csls_k=cfg.csls_k,
+                                 use_csls=cfg.csls,
+                                 distance_kind=cfg.distance,
+                                 with_top3=last_epoch)
         t2 = time.perf_counter()
         self.timings = {"embed_s": t1 - t0, "eval_s": t2 - t1}
         self.logger.info(f"embed {t1 - t0:.3f} s | eval {t2 - t1:.3f} s "
@@ -303,9 +341,10 @@ class Runner:
         return res
 
     def _dump_predictions(self, res: RankResult, save_name: str):
-        """Top-3 retrieval CSV (main.py:395-420); returns its path."""
+        """Top-3 retrieval CSV (main.py:395-420), by rank 0; returns its
+        path."""
         cfg = self.cfg
-        if res.top3_l2r is None:
+        if res.top3_l2r is None or not self.main_process:
             return None
         save_name = save_name or cfg.model_name
         path = osp.join(cfg.data_path, cfg.model_name, f"{save_name}_pred")
@@ -333,7 +372,7 @@ class Runner:
         with torch.no_grad():
             new_cand = il_mod.mine_new_links(
                 emb, il.left_cand, il.left_valid, il.right_cand,
-                il.right_valid, il.cand_right, fresh)
+                il.right_valid, il.cand_right, fresh, mesh=self.mesh)
         il.cand_right = new_cand
         if (self.epoch + 1) % (sls * 5) == 0:
             n = int(((new_cand >= 0) & il.left_valid).sum())
@@ -355,7 +394,7 @@ class Runner:
     def run(self) -> RankResult:
         cfg = self.cfg
         writer = None
-        if not cfg.no_tensorboard:
+        if not cfg.no_tensorboard and self.main_process:
             from snag_tpu_torch.utils.metrics_writer import MetricsWriter
             writer = MetricsWriter(get_dump_path(cfg))
         try:
@@ -411,9 +450,12 @@ class Runner:
             if (i + 1) % cfg.eval_epoch == 0:
                 self.evaluate()
             if cfg.checkpoint_every and (i + 1) % cfg.checkpoint_every == 0:
-                path = save_checkpoint(
-                    self, osp.join(get_dump_path(cfg), CHECKPOINT_NAME))
-                self.logger.info(f"checkpoint saved to {path}")
+                path = osp.join(get_dump_path(cfg), CHECKPOINT_NAME)
+                if self.main_process:
+                    save_checkpoint(self, path)
+                    self.logger.info(f"checkpoint saved to {path}")
+                if self.mesh is not None:
+                    self.mesh.barrier()
             if self.stage == 1 and self.early_stop_count <= 0:
                 self.logger.info(f"Early stop in epoch {i}")
                 break
@@ -429,7 +471,7 @@ class Runner:
         if self.step_ms:
             self.logger.info(f"train step: median {statistics.median(self.step_ms):.3f}"
                              f" ms over {len(self.step_ms)} steps ({self.device})")
-        if cfg.save_model:
+        if cfg.save_model and self.main_process:
             self.save_model()
         return res
 
@@ -439,8 +481,10 @@ class Runner:
         of ``PROFILE_EPOCHS[1]``, the epochs the JAX runner traces
         (snag_tpu/train/runner.py:432-438), or to the end of training
         (``epoch`` None) if that comes first; its Chrome trace is written
-        under ``--profile_dir`` when it ends."""
-        if epoch == PROFILE_EPOCHS[0] and self.cfg.profile_dir:
+        under ``--profile_dir`` when it ends.  Under a mesh rank 0 traces
+        alone."""
+        if epoch == PROFILE_EPOCHS[0] and self.cfg.profile_dir \
+                and self.main_process:
             from torch.profiler import ProfilerActivity, profile
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":

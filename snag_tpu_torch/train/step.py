@@ -25,6 +25,12 @@ of the update count, and the others leave the parameters as they are.
 do the RNG streams and MSNEA's positive slices.  The cycle's position is
 ``count % k``; the mean (``accum``) is train state, saved by the
 checkpoint.
+
+Under a mesh (``mesh``) each micro-step's gradients are first averaged
+over the ranks, in one all-reduce (``Mesh.all_reduce_mean``); the
+encoders' row gather (``parallel.mesh.gather_rows``) makes that mean the
+one-rank gradient.  MSNEA's step runs whole on every rank, so its mean is
+of equal gradients.
 """
 
 from __future__ import annotations
@@ -66,9 +72,10 @@ class TrainStep:
     current cycle's gradients (None at a cycle's start)."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, lr: float,
-                 total_steps: int, warmup_steps: int):
+                 total_steps: int, warmup_steps: int, mesh=None):
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
         self.params = list(model.parameters())
         self.opt = build_optimizer(cfg, model, lr)
         self.total_steps = total_steps
@@ -88,12 +95,14 @@ class TrainStep:
         return self.sched(self.updates)
 
     def _update(self) -> None:
-        """Fold this micro-step's gradients into the cycle's running mean
-        (the first one is the mean) and, at the cycle's end, clip the mean
-        and step AdamW on it."""
+        """Fold this micro-step's gradients (their mean over the mesh's
+        ranks) into the cycle's running mean (the first one is the mean)
+        and, at the cycle's end, clip the mean and step AdamW on it."""
         i = self.count % self.every
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
+        if self.mesh is not None:
+            grads = self.mesh.all_reduce_mean(grads)
         if self.accum is None:
             self.accum = grads
         else:

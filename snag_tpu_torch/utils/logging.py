@@ -2,8 +2,10 @@
 
 Port of ``snag_tpu/utils/logging.py`` (reference SNAG_MMEA/torchlight/logger.py:
 elapsed-time formatter :17-42, exp initialisation + params dump :71-109,
-dump path layout ``dump/<MMDD-exp_name>/<exp_id>/`` :111-139), single
-process.
+dump path layout ``dump/<MMDD-exp_name>/<exp_id>/`` :111-139).  In a
+process group (``--mesh_shape data:N``, JAX logging.py:45-73) rank 0 logs
+as a single process does; another rank r logs to ``<file>.rank<r>`` and
+puts only warnings on stderr, and only rank 0 writes ``params.json``.
 """
 
 from __future__ import annotations
@@ -33,9 +35,18 @@ class ElapsedFormatter(logging.Formatter):
         return f"{header} - {msg}"
 
 
+def process_rank() -> int:
+    """This process's rank in its group, 0 outside one."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def create_logger(filepath: str | None = None,
                   name: str = "snag_tpu_torch") -> logging.Logger:
-    """Console + optional file logger (torchlight/logger.py:24-58)."""
+    """Console + optional file logger (torchlight/logger.py:24-58); rank
+    r > 0 of a group logs to ``<filepath>.rank<r>`` and warnings to
+    stderr."""
+    rank = process_rank()
     logger = logging.getLogger(name)
     for h in list(logger.handlers):
         logger.removeHandler(h)
@@ -43,8 +54,11 @@ def create_logger(filepath: str | None = None,
     logger.setLevel(logging.INFO)
     logger.propagate = False
     fmt = ElapsedFormatter()
-    sh = logging.StreamHandler(sys.stdout)
+    sh = logging.StreamHandler(sys.stdout if rank == 0 else sys.stderr)
     sh.setFormatter(fmt)
+    if rank:
+        sh.setLevel(logging.WARNING)
+        filepath = filepath and f"{filepath}.rank{rank}"
     logger.addHandler(sh)
     if filepath:
         fh = logging.FileHandler(filepath, "a")
@@ -76,9 +90,10 @@ def get_dump_path(cfg) -> str:
 def initialize_exp(cfg, logger_name: str = "snag_tpu_torch") -> logging.Logger:
     """Create dump dir, dump params JSON, reconstruct the launch command."""
     dump = get_dump_path(cfg)
-    with open(osp.join(dump, "params.json"), "w") as f:
-        json.dump({k: v for k, v in vars(cfg).items() if not k.startswith("_")},
-                  f, indent=2, default=str)
+    if process_rank() == 0:
+        with open(osp.join(dump, "params.json"), "w") as f:
+            json.dump({k: v for k, v in vars(cfg).items()
+                       if not k.startswith("_")}, f, indent=2, default=str)
     logger = create_logger(osp.join(dump, "train.log"), name=logger_name)
     logger.info("============ Initialized logger ============")
     logger.info("\n".join(f"{k}: {v}" for k, v in sorted(vars(cfg).items())))

@@ -29,8 +29,9 @@ entities, ``emb_dim`` 32, one fusion layer of two heads):
 * the runner: a resume equal bit for bit to an uninterrupted run,
   ``--save_model`` then ``--only_test`` with the same metrics,
   ``--only_test`` without params raising, the JAX test's learning bound
-  (test MRR > 0.15), the CLI on ``--device cpu``, ``--mesh_shape`` and a
-  missing card raising, and the port importing with ``jax`` blocked.
+  (test MRR > 0.15), the CLI on ``--device cpu``, ``--mesh_shape data:2``
+  in a process of no group and a missing card raising, and the port
+  importing with ``jax`` blocked.
 """
 
 import dataclasses
@@ -577,7 +578,9 @@ def test_cli_takes_every_flag_of_run_base_sh():
 
 
 def test_mesh_shape_raises(data):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # a process in no group is one rank: data:2 is above the group's size
+    # (the mesh itself: tests/test_torch_mesh_mkgc.py)
+    with pytest.raises(ValueError, match="needs 2 processes in a group"):
         _runner(data, mesh_shape="data:2")
 
 

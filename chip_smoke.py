@@ -134,23 +134,28 @@ the exit code is non-zero:
    TPU kernel: each run must launch no kernel of ours and no twin, every
    loss be finite and every metric lie in [0, 1];
 13. parity (``phase_parity``), the paths that finish single-GPU MMEA
-   parity: (a) the new kernel instantiations against their twins on CPU
-   copies (over every 50th row of the bench graph), with bitwise repeats,
-   ``device_ms``, bounds and ptxas registers and spills: both GAT kernels'
-   wide path, f32 and bf16, at H = 8, C = 1,536 and H = 2, C = 330, and
-   sweep A's shared-memory lists at n = 10,500, d = 1,200, k = 20 (the
-   list of 32), 64 and 128 (the list of 128);
+   parity: (a) the instantiations past the main path's shapes against
+   their twins on CPU copies (over every 50th row of the bench graph),
+   with bitwise repeats, ``ms``, ``device_ms``, bounds, gather roofs, the
+   twins' ms on the card and ptxas registers and spills: both GAT
+   kernels' wide path, f32 and bf16, at H = 8, C = 300 (``--heads 8,8``'s
+   shape), H = 8, C = 1,536 and H = 2, C = 330, and sweep A's
+   shared-memory lists at n = 10,500, d = 1,200, k = 20 (the list of 32),
+   64 and 128 (the list of 128);
    (b) SNAG through ``main`` at the bench geometry with ``--distance 1
    --csls_k 20 --instance_normalization --heads 8,8 --profile_dir``, 4
-   epochs: its GAT and loss kernels launch and the rank sweeps do not (L1
-   runs in torch ops, as in JAX), the profiler's Chrome trace holds CUDA
-   kernel events, and the trained model's L1 evaluation on the card agrees
-   with the CPU path on 1,024 test pairs (ranks on >= 99.9 % of queries);
-   then the model served with CSLS k = 20 under L2 (sweep A's list of 32),
-   its ranks on all 10,500 test pairs held against the CPU's dense twin
-   (>= 99.9 %); (c) 10,500 against 12,000 rows of width 1,200 ranked on
-   the card and on the CPU.  Its launches are not added to the kernels
-   line.
+   epochs: its GAT kernels' wide path and loss kernels launch and the rank
+   sweeps do not (L1 runs in torch ops, as in JAX), the profiler's Chrome
+   trace holds CUDA kernel events, and the trained model's L1 evaluation
+   on the card agrees with the CPU path on 1,024 test pairs (ranks on >=
+   99.9 % of queries); then the same heads in bf16, 3 epochs (the GAT
+   kernels' bf16 wide path, the bf16 loss entries, both rank sweeps);
+   then the f32 model served with CSLS k = 20 under L2 (sweep A's list of
+   32), its ranks on all 10,500 test pairs held against the CPU's dense
+   twin (>= 99.9 %); (c) 10,500 against 12,000 rows of width 1,200 ranked
+   on the card and on the CPU.  The wide and long-list launches are
+   counted apart (``WIDE_KERNELS``); the kernels line holds them with the
+   records of (a) at H = 8, C = 300 and k = 20.
 14. mesh (``phase_mesh``), ``--mesh_shape data:N`` through the CLIs:
    SNAG at the bench geometry with IL, 3 epochs at batch 3,500: (a)
    ``data:1`` (a group of one over NCCL on the card) against the plain
@@ -174,7 +179,7 @@ after them, and phase 14 last.
 
 Before the per-kernel record it prints the script's wall time.  The line
 before last is the per-kernel JSON record (launches summed over the runs
-of phases 5-11 and 14, as phase 12 launches none; ``bound_share`` is
+of phases 5-11, 13 and 14, as phase 12 launches none; ``bound_share`` is
 ``bound_ms / device_ms``); the
 last line is ``{"ok": true, "device": {...}}``.
 Needs CUDA; exits non-zero without it.
@@ -259,9 +264,21 @@ DEVICE_KERNELS = {
     "mixture_lse_bf16": ("mixture_lse_bf16",),
     "mixture_grad_bf16": ("mixture_grad_bf16", "mixture_dbeta_bf16",
                           "mixture_sum_bf16", "mixture_kpos_bf16"),
+    # the instantiations past the main path's shapes, counted apart: both
+    # GAT kernels' wide path (H > 4, or C past a warp's slices) and sweep
+    # A's lists in shared memory (CSLS k > 10)
+    "gat_attention_fwd_wide": ("gat_attention_fwd_wide",),
+    "gat_attention_fwd_bf16_wide": ("gat_attention_fwd_bf16_wide",),
+    "gat_bwd_wide": ("gat_bwd_wide",),
+    "gat_bwd_bf16_wide": ("gat_bwd_bf16_wide",),
+    "rank_topk_mean_long": ("long_topk_mean_kernel", "long_topk_merge_kernel"),
 }
 SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
 GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
+GAT_WIDE_KERNELS = {"gat_attention_fwd_wide", "gat_bwd_wide"}
+GAT_BF16_WIDE_KERNELS = {"gat_attention_fwd_bf16_wide", "gat_bwd_bf16_wide"}
+WIDE_KERNELS = GAT_WIDE_KERNELS | GAT_BF16_WIDE_KERNELS | {
+    "rank_topk_mean_long"}
 SEGMENT_KERNEL = "weighted_segment_sum"
 SEGMENT_BF16 = "weighted_segment_sum_bf16"
 # the bf16 entries of the GAT configuration's path
@@ -426,10 +443,12 @@ def host_names(events) -> frozenset:
 
 CALL = "device_ms call "     # the record_function span of each traced call
 # A profiler session loses the kernels of its first calls (on an H100
-# with torch 2.11 the first one or two, within ~3 ms of its start), so
-# each session first runs fn uncounted for at least SETTLE_S and 3 calls,
-# and ends with 2 uncounted calls after the counted ones.
-SETTLE_S = 0.01
+# with torch 2.11 most often the first one or two, within ~3 ms of its
+# start; once every kernel of its 3 settling calls and 10 ms, and the
+# first kernel of the first counted call), so each session first runs fn
+# uncounted for at least SETTLE_S and 3 calls, and ends with 2 uncounted
+# calls after the counted ones.
+SETTLE_S = 0.05
 
 
 class LostSession(RuntimeError):
@@ -442,7 +461,11 @@ class PartialSession(RuntimeError):
     """A profiler session that recorded the spans of some counted calls on
     the card but not of all: seen on an H100 with torch 2.11 in a long
     process (every device event after the first one or two counted calls
-    lost), while 75 sessions in a fresh process lost none."""
+    lost), while 75 sessions in a fresh process lost none.  Also a session
+    whose record on the card begins inside its first counted call (no
+    device event of the settling calls before it) and which holds fewer
+    kernels in that call than in every other: it lost the session's start
+    into that call."""
 
 
 # the profiler's losses, which ``device_ms`` traces again: neither says
@@ -474,13 +497,24 @@ def call_kernel_ms(events, names, calls) -> list:
         seen = sorted((round(ev.time_range.start, 1), ev.name[:40])
                       for ev in events if ev.device_type == DeviceType.CUDA)
         raise (LostSession if not span else PartialSession
-               if len(span) != calls else RuntimeError)(
+               if len(span) != calls or _lost_start(span, hits, seen)
+               else RuntimeError)(
             f"the profiler recorded no kernel named like {names} in a call, "
             f"or fewer than in another, of {calls}: kernels a call {hits}; "
             f"spans on the card "
             f"{sorted((r, t.start, t.end) for r, t in span.items())}; last "
             f"device events {seen[-24:]}")
     return out
+
+
+def _lost_start(span, hits, seen) -> bool:
+    """Whether the session's record on the card begins inside its first
+    counted call (``seen``, its device events by start, holds none before
+    that call's span, so the settling calls' kernels were all lost) and
+    that call alone has fewer kernels than the others, which agree."""
+    rest = set(hits[1:])
+    return (0 in span and seen[0][0] >= round(span[0].start, 1)
+            and len(rest) == 1 and hits[0] < rest.pop())
 
 
 def traced_calls(fn, calls):
@@ -1798,8 +1832,11 @@ def _train(phase, argv, expected, promotion, check=None):
 
 
 def f32_kernels():
+    """The f32 kernels of the main path's shapes (the wide instantiations
+    apart)."""
     from snag_tpu_torch.ops import cuda as kernels
-    return set(kernels.all_stats()) - BF16_KERNELS - {SEGMENT_BF16}
+    return (set(kernels.all_stats()) - BF16_KERNELS - {SEGMENT_BF16}
+            - WIDE_KERNELS)
 
 
 def phase_train():
@@ -1997,9 +2034,11 @@ def phase_accum_dropout():
 
 # ---------------------------------------------------------------- parity
 # (H, C) of the GAT kernels' wide instantiations held in phase parity: 8
-# heads at 1,536 (float4 slices past 1,280), 2 heads at 330 (single floats
-# past 320)
-PARITY_GAT = ((8, 1536), (2, 330))
+# heads at 300 (the shape ``--heads 8,8`` trains at: each head the full
+# width; its records go into the kernels line), 8 heads at 1,536 (float4
+# slices past 1,280), 2 heads at 330 (past 320 single floats; the
+# backward's 8-byte slices)
+PARITY_GAT = ((8, 300), (8, 1536), (2, 330))
 # sweep A's lists in shared memory: 20 takes the list of 32 (the served
 # evaluation's k below), 64 and 128 the list of 128
 PARITY_K = (20, 64, 128)
@@ -2039,8 +2078,11 @@ def _parity_gat(inputs, bf16):
     (``inputs``: ``gat_bwd_inputs``, f32, rounded to bf16 with ``bf16``)
     against the twins on CPU copies, over every PARITY_ROW_STRIDE-th row:
     rtol = atol = 1e-5 (forward) and 1e-4 (backward), bf16 within
-    BF16_TOL x max |twin|; a bitwise repeat, device_ms and its bound, and
-    the ptxas registers and spills of the instantiation."""
+    BF16_TOL x max |twin|; a bitwise repeat, ms, device_ms, its bound and
+    the gather roof (the rows an edge gathers: x[j] for the forward, G[i]
+    for the backward, once, at HBM_BYTES_PER_S), the twin's ms on the
+    card, and the ptxas registers and spills of the instantiation.
+    Returns the kernels-line records of the forward and the backward."""
     import torch
     from snag_tpu_torch.ops.cuda import gat_attention as ga
     from snag_tpu_torch.ops.cuda import gat_bwd as gb
@@ -2054,25 +2096,38 @@ def _parity_gat(inputs, bf16):
     e, xb = g.n_edges, x.element_size()
     rows = torch.arange(0, n, PARITY_ROW_STRIDE)
     sfx = "_bf16" if bf16 else ""
+    records = []
     for kind in ("fwd", "bwd"):
         if kind == "fwd":
-            name = f"gat_attention_fwd{sfx}"
+            name = f"gat_attention_fwd{sfx}_wide"
             fn = lambda: ga.gat_attention_cuda(x, s_src, s_dst, g)
+            twin = lambda: ga.gat_attention_twin(x, s_src, s_dst, g)
             want = on_cpu(ga.gat_attention_twin, x, s_src, s_dst,
                           _sub_graph(g, rows, False))
             kernels = (f"gat_attention_fwd{sfx}_wide_kernelILi"
                        f"{min(h, 4)}ELi{vec}E",)
             nbytes = xb * n * c + 4 * (2 * n * h + n + 1 + e + n * h * c + n * h)
             flops = 2 * e * h * (c + 1)
+            plan = f"vec={vec}"
+            gathered = e * c * xb
         else:
-            name = f"gat_bwd{sfx}"
+            name = f"gat_bwd{sfx}_wide"
             fn = lambda: gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
+            twin = lambda: gb.gat_backward_twin(x, s_src, s_dst, g_agg, g_rs,
+                                                g)
             want = on_cpu(gb.gat_backward_twin, x, s_src, s_dst, g_agg, g_rs,
                           _sub_graph(g, rows, True))
-            kernels = (f"gat_bwd{sfx}_wide_rows_kernelILi{vec}E",
+            bvec, _ = gb.backward_slice_width(c, h, x, g_agg)
+            wp = gb.wide_plan(c, h, bvec)
+            kernels = (f"gat_bwd{sfx}_wide_rows_kernelILi{bvec}ELi"
+                       f"{wp['heads']}ELi{wp['gw']}E",
                        f"gat_bwd{sfx}_wide_sums_kernel")
             nbytes = xb * (2 * n * c + n * h * c) + 4 * (5 * n * h + n + 1 + e)
             flops = 4 * e * h * c
+            plan = (f"vec={bvec} heads={wp['heads']} groups={wp['gw']} "
+                    f"warps={wp['warps']} batch={wp['batch']} "
+                    f"passes={wp['passes']}")
+            gathered = e * h * c * xb
         got = repeat_bitwise(fn, f"parity {name} H={h} C={c}")
         got = [t[rows.to(t.device)] for t in got]
         want = [t[rows.to(t.device)] for t in want]
@@ -2085,22 +2140,32 @@ def _parity_gat(inputs, bf16):
             for a, b in zip(got, want):
                 torch.testing.assert_close(a, b, rtol=tol, atol=tol)
             limit = f"rtol=atol={tol:g}"
+        del got, want
+        ms = median_ms(fn)
         dev = device_ms(fn, DEVICE_KERNELS[name])
-        bound_ms, bound_by = bound(nbytes, flops)
+        plain = median_ms(twin)
+        torch.cuda.empty_cache()
+        rec = row(name, max(errs), ms, dev, plain, nbytes, flops)
+        roof = gathered / HBM_BYTES_PER_S * 1e3
         lib = (ga if kind == "fwd" else gb)._library()
         regs = "; ".join(f"{k} {r} registers, spills {st}/{ld} B"
                          for k, r, st, ld in kernel_ptxas(lib, kernels))
-        say("parity", f"{name} wide H={h} C={c} vec={vec}: {len(rows)} rows "
-            f"of {n} against the twin, max|err| {max(errs):.3e} ({limit}), "
-            f"bitwise repeat | device {dev:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}), share {bound_ms / dev:.3f} | {regs}")
+        say("parity", f"{name} H={h} C={c} {plan}: {len(rows)} rows of {n} "
+            f"against the twin, max|err| {max(errs):.3e} ({limit}), bitwise "
+            f"repeat | kernel {ms:.4f} ms, device {dev:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+            f"{rec['bound_share']:.3f}, gather roof {roof:.4f} ms (share "
+            f"{roof / dev:.3f}), twin on the card {plain:.4f} ms | {regs}")
+        records.append(rec)
+    return records
 
 
 def _parity_rank(k, n=10500, d=1200):
     """Sweep A at k in a shared-memory list, both directions, against its
-    plain version (rtol = atol = 1e-5), bitwise repeat, device_ms and its
-    bound (2 n^2 d fp32 flops: one product serves both directions; the
-    kernel runs it once a direction), registers and spills."""
+    plain version (rtol = atol = 1e-5), bitwise repeat, ms, device_ms and
+    its bound (2 n^2 d fp32 flops: one product serves both directions; the
+    kernel runs it once a direction), the plain version's ms, registers
+    and spills.  Returns the kernels-line record."""
     import torch
     from snag_tpu_torch.ops.cuda import rank_eval as rk
     x, y = _eval_inputs(n, d)
@@ -2111,8 +2176,12 @@ def _parity_rank(k, n=10500, d=1200):
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    dev = device_ms(fn, DEVICE_KERNELS[rk.STATS_TOPK.name])
-    bound_ms, bound_by = bound(4 * (2 * n * d + 5 * n), 2 * n * n * d)
+    ms = median_ms(fn)
+    dev = device_ms(fn, DEVICE_KERNELS[rk.STATS_TOPK_LONG.name])
+    plain = median_ms(lambda: rk.topk_mean_both_twin(x, y, xn, yn, k))
+    rec = row(rk.STATS_TOPK_LONG.name, err, ms, dev, plain,
+              4 * (2 * n * d + 5 * n), 2 * n * n * d)
+    bound_ms, bound_by = rec["bound_ms"], rec["bound_by"]
     size = rk.list_len(k)
     plan = rk.device_plan(x.device, n, d, 0, k)
     regs = "; ".join(
@@ -2123,8 +2192,10 @@ def _parity_rank(k, n=10500, d=1200):
     say("parity", f"rank_topk_mean k={k} (list {size} in shared memory, "
         f"{plan['smem_bytes']} B a block, {plan['splits']} splits, one "
         f"launch a direction) N={n} d={d}: max|err| {err:.3e} "
-        f"(rtol=atol=1e-5), bitwise repeat | device {dev:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / dev:.3f} | {regs}")
+        f"(rtol=atol=1e-5), bitwise repeat | kernel {ms:.3f} ms, device "
+        f"{dev:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "
+        f"{bound_ms / dev:.3f}, plain version {plain:.3f} ms | {regs}")
+    return rec
 
 
 def _chunked_both(el, er, **kw):
@@ -2171,12 +2242,15 @@ def phase_parity(data):
     and loss kernels launched and the rank sweeps not (L1 is torch ops, as
     in JAX), the profiler's Chrome trace written with CUDA kernel events,
     the trained model's L1 evaluation of ``PARITY_CPU_PAIRS`` test pairs by
-    the card's dense and chunked paths against the CPU's dense path; then
-    that model served with ``--csls_k 20`` under L2 (``--only_test 1``),
-    which runs sweep A's list of 32, its ranks held against the CPU's
-    dense twin.
+    the card's dense and chunked paths against the CPU's dense path; the
+    same heads in bf16, 3 epochs, under L2 with CSLS k = 3 (the bf16 wide
+    path, the bf16 loss entries and both rank sweeps); then the f32 model
+    served with ``--csls_k 20`` under L2 (``--only_test 1``), which runs
+    sweep A's list of 32, its ranks held against the CPU's dense twin.
     (c) One evaluation with sides of unequal size (``PARITY_UNEQUAL``) on
-    the card against the CPU path.  Returns the launches of (b)'s runs."""
+    the card against the CPU path.  Returns the launches of (b)'s runs and
+    the kernels-line records of (a) at ``PARITY_GAT[0]`` and
+    ``PARITY_K[0]``."""
     import numpy as np
     import torch
     from snag_tpu_torch.eval.ranking import full_rank_eval, l1_distances
@@ -2184,13 +2258,19 @@ def phase_parity(data):
     from snag_tpu_torch.ops.cuda.rank_eval import eval_core
     from snag_tpu_torch.ops.fusion import l2norm
     t0 = time.perf_counter()
+    records = []
     for h, c in PARITY_GAT:
         inputs = gat_bwd_inputs(data.graph, c=c, h=h)
         for bf16 in (False, True):
-            _parity_gat(inputs, bf16)
+            recs = _parity_gat(inputs, bf16)
+            if (h, c) == PARITY_GAT[0]:
+                records += recs
         del inputs
+        torch.cuda.empty_cache()
     for k in PARITY_K:
-        _parity_rank(k)
+        rec = _parity_rank(k)
+        if k == PARITY_K[0]:
+            records.append(rec)
     t_kernels = time.perf_counter() - t0
 
     held = {}
@@ -2229,9 +2309,17 @@ def phase_parity(data):
     args = set_flag(set_flag(BENCH_ARGS, "--heads", "8,8"), "--csls_k", "20")
     flags = ["--distance", "1", "--instance_normalization", "--profile_dir",
              str(WORK / "parity_trace")]
-    expected = f32_kernels() - {SEGMENT_KERNEL} - RANK_KERNELS
+    expected = (f32_kernels() - {SEGMENT_KERNEL} - RANK_KERNELS
+                - GAT_KERNELS | GAT_WIDE_KERNELS)
     runs = [_train("parity", args + flags + PARITY_ARGS, expected,
                    promotion=False, check=check)]
+    # the same heads in bf16 (the GAT kernels' bf16 wide path), under L2
+    # with CSLS k = 3
+    bf16_args = set_flag(BENCH_ARGS, "--heads", "8,8")
+    runs.append(_train(
+        "parity_bf16", bf16_args + set_flag(PARITY_ARGS, "--epoch", "3")
+        + BF16, (BF16_KERNELS - {"gat_attention_fwd_bf16", "gat_bwd_bf16"})
+        | GAT_BF16_WIDE_KERNELS | RANK_KERNELS, promotion=False))
     if rk.list_len(20) <= rk.MAX_K:
         raise AssertionError("k = 20 should take sweep A's long list")
     def served(runner):
@@ -2248,7 +2336,9 @@ def phase_parity(data):
                want, len(el))
 
     runs.append(_serve("parity_serve", args + ["--instance_normalization"],
-                       held["pkl"], SERVING_KERNELS, check=served))
+                       held["pkl"], {"gat_attention_fwd_wide",
+                                     "rank_topk_mean_long", "rank_counts"},
+                       check=served))
     t_runs = time.perf_counter() - t0 - t_kernels
 
     nl, nr, d = PARITY_UNEQUAL
@@ -2271,7 +2361,7 @@ def phase_parity(data):
         f"{ms:.1f} ms (median of {REPS}, CUDA events) | phase wall "
         f"{time.perf_counter() - t0:.1f} s: kernels {t_kernels:.1f}, "
         f"training and serving {t_runs:.1f}")
-    return runs
+    return runs, records
 
 
 def _files_argv(root: Path, exp_id: str, *extra: str):
@@ -2869,7 +2959,9 @@ def main() -> int:
             phase_slice_bf16(data), phase_gcn(data), phase_gcn_bf16(data)]
     runs += phase_families(data)
     runs += [phase_msnea(data), phase_accum_dropout()]
-    phase_parity(data)          # its launches are not in the kernels line
+    parity_runs, parity_rows = phase_parity(data)
+    runs += parity_runs
+    rows += parity_rows
     del data
     runs.append(phase_files())
     phase_mkgc()
@@ -2903,6 +2995,10 @@ def main() -> int:
     meta.update({f"{name}_bf16": ("snag_tpu_torch/csrc/gram_grad_bf16.cuh",
                                   meta[name][1])
                  for name in ("ntxent_grad", "mixture_grad")})
+    # the wide instantiations: their kernel's source and TPU kernel
+    meta.update({name: meta[name[:-len("_wide")]] for name in WIDE_KERNELS
+                 if name.endswith("_wide")})
+    meta["rank_topk_mean_long"] = meta["rank_topk_mean"]
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": meta[r["name"]][0], "replaces": meta[r["name"]][1],
                 "launches": sum(run[r["name"]] for run in runs),

@@ -94,21 +94,36 @@
 // Any head count and width (gat_bwd_wide, f32 and bf16): the bodies above
 // hold MAX_HEADS heads' G rows and MAX_GROUPS slices a lane in registers,
 // which covers H <= 4 and C <= 1,280 (C % 4 == 0) or 320, the main path's
-// shapes.  d_x[j] sums over every head of every edge, so here one warp
-// still owns row j and walks all its heads, as a runtime loop inside each
-// edge (the G row of one head at a time), and its width in column chunks
-// of 32 WIDE_GROUPS slices, one after the other, each a walk over the
-// row's edges.  d_x is the same fmaf chain (edges in order, heads in order,
-// from 0), in bf16 the same term rounded at the same points.  An edge's
-// d_e = <x[j], G[k, h]> + r is a dot over all of C: each chunk adds its
-// groups' butterfly sums in order to the partial dot that the chunk
-// before left in the edge's scratch slot, so the dot is the sum over
-// groups in order from 0 of the bodies above, and the last chunk turns it
-// into the d_score.  Lane 0 reads and writes each slot, and no other warp
-// touches row j's slots (rev is a permutation), so the carry needs no
-// barrier.  The second launch then adds both d_s_src (row i's slots) and
-// d_s_dst (the slots rev[p] of row j's edges, in edge order from 0: the
-// bodies' running sum), a thread a (row, head): no atomics anywhere.
+// shapes.  Past them gat_bwd_wide_rows walks each row's edges once, at any
+// width.  A row wider than one warp's WIDE_GROUPS slices a lane takes a
+// block of up to WIDE_WARPS warps that split its columns (warp w the
+// slices from 32 WIDE_GROUPS w on), each keeping its share of x[j] and of
+// the d_x[j] sums in registers; a narrower row takes one warp, WIDE_ROWS
+// rows a block.  An edge's heads go in groups of WIDE_HEADS whose G rows
+// are in flight together, and a group's lane partials (heads x groups) are
+// summed by one reduce-scatter whose holder lanes write each (head, group)
+// sum to shared memory.  A row of at most two heads of pairs (VEC = 2) and
+// up to twice WIDE_GROUPS groups takes one warp, two heads a group: at H =
+// 2, C = 330 on an H100 that ran 0.21 ms where two warps a row ran 0.32
+// (scripts/torch_gat_bwd_phases.py; PERF.md section 6).  A batch of up to 32 edges shares one load of its
+// columns, slots, weights, leaky' and r.  After a barrier a thread an
+// (edge, head) adds the batch's group sums in order from 0 and writes the
+// d_score to scratch[rev[p] h + head], once.  (The body this replaced
+// walked a row's column chunks one after the other in one warp, each chunk
+// a walk over the row's edges, and an edge's heads one at a time: load
+// one head's G row, butterfly every group, and carry the partial dot
+// through a read-modify-write of the edge's scratch slot before the next
+// head; PERF.md section 6.)  Bits: the dot is the sum over groups in order
+// from 0 of each group's butterfly sum, as in that body and in the main
+// path's; d_x is the same fmaf chain (edges in order, heads in order, from
+// 0), in bf16 the same term rounded at the same points.  Columns past
+// WIDE_WARPS warps' take more launches, "passes", each carrying the
+// partial dot in the edge's slot to the next.  f32 rows of even C take
+// 8-byte slices (VEC = 2), bf16 rows two bf16 a lane.  The second launch
+// then adds both d_s_src (row i's slots) and d_s_dst (the slots rev[p] of
+// row j's edges, in edge order from 0: the bodies' running sum), a thread
+// a (row, head): no atomics anywhere.
+// tests/test_torch_gat_bwd_wide_schedule.py emulates the pass's sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,7 +135,11 @@ namespace {
 
 constexpr int MAX_HEADS = 4;
 constexpr int MAX_GROUPS = 10;   // c / vec <= 320
-constexpr int WIDE_GROUPS = 5;   // slices a lane in a column chunk, wide
+constexpr int WIDE_GROUPS = 3;   // groups a lane on the wide path, at most
+constexpr int WIDE_HEADS = 4;    // heads whose G rows a wide warp holds
+constexpr int WIDE_WARPS = 16;   // warps of a row on the wide path, at most
+constexpr int WIDE_ROWS = 4;     // rows a block when a row takes one warp
+constexpr int WIDE_SMEM = 48 * 1024;   // a wide block's shared memory
 constexpr int WARPS = 4;         // rows a block in pass 1
 constexpr int SUM_THREADS = 256; // rows a block in pass 2
 // gat_bwd_bf16's first pass at G <= 3: blocks an SM it is built for (at
@@ -143,6 +162,16 @@ template <> struct Vec<1> {
   using T = float;
   __device__ static void fma(float& acc, float e, float v) { acc = fmaf(e, v, acc); }
   __device__ static float dot(float a, float b) { return a * b; }
+};
+template <> struct Vec<2> {
+  using T = float2;
+  __device__ static void fma(float2& acc, float e, float2 v) {
+    acc.x = fmaf(e, v.x, acc.x);
+    acc.y = fmaf(e, v.y, acc.y);
+  }
+  __device__ static float dot(float2 a, float2 b) {
+    return fmaf(a.y, b.y, a.x * b.x);
+  }
 };
 template <> struct Vec<4> {
   using T = float4;
@@ -288,6 +317,10 @@ __device__ __forceinline__ void gat_bwd_rows(
 // half of a word.
 template <int VEC> struct Packed;
 template <> struct Packed<4> { using T = uint2; };
+// VEC = 2 (the wide path's 4-byte slices): one word of two bf16, named
+// apart from VEC = 1's word, which holds one
+struct Pair { uint32_t w; };
+template <> struct Packed<2> { using T = Pair; };
 template <> struct Packed<1> { using T = uint32_t; };
 
 template <int VEC>
@@ -296,6 +329,9 @@ __device__ __forceinline__ typename Packed<VEC>::T load_packed(
   if constexpr (VEC == 4) {
     const uint2* p = reinterpret_cast<const uint2*>(row) + s;
     return stream ? __ldcs(p) : *p;
+  } else if constexpr (VEC == 2) {
+    const unsigned int* p = reinterpret_cast<const unsigned int*>(row) + s;
+    return Pair{stream ? __ldcs(p) : *p};
   } else {
     const unsigned short* p = reinterpret_cast<const unsigned short*>(row) + s;
     return stream ? __ldcs(p) : *p;
@@ -312,12 +348,18 @@ __device__ __forceinline__ float hi_f32(uint32_t w) {
 __device__ __forceinline__ float4 widen(uint2 v) {
   return make_float4(lo_f32(v.x), hi_f32(v.x), lo_f32(v.y), hi_f32(v.y));
 }
+__device__ __forceinline__ float2 widen(Pair v) {
+  return make_float2(lo_f32(v.w), hi_f32(v.w));
+}
 __device__ __forceinline__ float widen(uint32_t v) { return lo_f32(v); }
 
 // Vec<VEC>::dot(x, widen(g)): the same fmaf chain on the same fp32 values.
 __device__ __forceinline__ float dot_packed(float4 x, uint2 g) {
   return fmaf(x.w, hi_f32(g.y),
               fmaf(x.z, lo_f32(g.y), fmaf(x.y, hi_f32(g.x), x.x * lo_f32(g.x))));
+}
+__device__ __forceinline__ float dot_packed(float2 x, Pair g) {
+  return fmaf(x.y, hi_f32(g.w), x.x * lo_f32(g.w));
 }
 __device__ __forceinline__ float dot_packed(float x, uint32_t g) {
   return x * lo_f32(g);
@@ -347,6 +389,12 @@ __device__ __forceinline__ uint2 mul_bf16x2(uint32_t a, uint2 b) {
 __device__ __forceinline__ uint2 add_bf16x2(uint2 a, uint2 b) {
   return make_uint2(add_bf16x2(a.x, b.x), add_bf16x2(a.y, b.y));
 }
+__device__ __forceinline__ Pair mul_bf16x2(uint32_t a, Pair b) {
+  return Pair{mul_bf16x2(a, b.w)};
+}
+__device__ __forceinline__ Pair add_bf16x2(Pair a, Pair b) {
+  return Pair{add_bf16x2(a.w, b.w)};
+}
 
 // e rounded to bf16, in both halves of a word.
 __device__ __forceinline__ uint32_t bf16_pair(float e) {
@@ -355,6 +403,10 @@ __device__ __forceinline__ uint32_t bf16_pair(float e) {
 }
 
 __device__ __forceinline__ void add(float& a, float b) { a += b; }
+__device__ __forceinline__ void add(float2& a, float2 b) {
+  a.x += b.x;
+  a.y += b.y;
+}
 __device__ __forceinline__ void add(float4& a, float4 b) {
   a.x += b.x;
   a.y += b.y;
@@ -437,6 +489,10 @@ __device__ __forceinline__ void store_slice(__nv_bfloat16* row, int s,
     u.x = *reinterpret_cast<const uint32_t*>(&lo);
     u.y = *reinterpret_cast<const uint32_t*>(&hi);
     __stcs(reinterpret_cast<uint2*>(row) + s, u);
+  } else if constexpr (VEC == 2) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
+    __stcs(reinterpret_cast<unsigned int*>(row) + s,
+           *reinterpret_cast<const unsigned int*>(&b));
   } else {
     row[s] = __float2bfloat16_rn(v);
   }
@@ -564,132 +620,244 @@ __device__ __forceinline__ void gat_bwd_bf16_rows(
   }
 }
 
-// Pass 1 at any head count h and width c (file comment): row j's warp
-// walks its column chunks in turn, and within an edge its heads in turn.
-// The edge's d_score goes to scratch[rev[p] * h + head]; d_s_dst is left
-// to the second launch.
-template <typename X, int VEC>
+// ---- the wide path: any head count and width
+
+// The halving steps of warp_sums alone (a reduce-scatter of N values):
+// after them value i sits in w[i % R] of the SPAN lanes l with l / SPAN ==
+// i / R, with the butterfly's bits.
+template <int N> struct Held {
+  static constexpr int P = pow2_at_least(N);
+  static constexpr int LP = log2_of(P);
+  static constexpr int STEPS = LP < 5 ? LP : 5;
+  static constexpr int R = P >> STEPS;       // values a lane holds
+  static constexpr int SPAN = 32 >> STEPS;   // lanes that hold the same ones
+};
+
+template <int N>
+__device__ __forceinline__ void warp_reduce_scatter(const float (&v)[N],
+                                                    float (&held)[Held<N>::R],
+                                                    int lane) {
+  constexpr int P = Held<N>::P;
+  float w[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) w[i] = i < N ? v[i] : 0.f;
+  halve<P, P, 16>(w, lane);
+#pragma unroll
+  for (int r = 0; r < Held<N>::R; ++r) held[r] = w[r];
+}
+
+// Shared memory of one row of the wide pass: the batch's slots (int64)
+// and columns, each edge's weight, leaky' and r per head, and the (head,
+// group) sums, `batch + 1` floats apart; 16-byte aligned.
+__host__ __device__ constexpr size_t wide_row_bytes(int batch, int h, int ng) {
+  return ((size_t)12 * batch + (size_t)12 * h * batch +
+          (size_t)4 * h * ng * (batch + 1) + 15) / 16 * 16;
+}
+
+// A row's barrier: its warp's, or its block's when the row has several.
+__device__ __forceinline__ void wide_sync(int warps) {
+  if (warps == 1) __syncwarp();
+  else __syncthreads();
+}
+
+// Slice s of a G row as the body keeps it: f32 Vec<VEC>::T, bf16 packed;
+// and its dot with x[j]'s slice (f32: Vec<VEC>::dot; bf16: dot_packed).
+template <typename X, int VEC> struct RowSlice {
+  using T = typename Vec<VEC>::T;
+  __device__ static T load(const float* row, int s) {
+    return reinterpret_cast<const T*>(row)[s];
+  }
+  __device__ static float dot(T x, T g) { return Vec<VEC>::dot(x, g); }
+};
+template <int VEC> struct RowSlice<__nv_bfloat16, VEC> {
+  using T = typename Packed<VEC>::T;
+  __device__ static T load(const __nv_bfloat16* row, int s) {
+    return load_packed<VEC>(row, s, false);
+  }
+  __device__ static float dot(typename Vec<VEC>::T x, T g) {
+    return dot_packed(x, g);
+  }
+};
+
+// Pass 1 at any head count h and width c (file comment): a row on its
+// block's `warps` warps (or a warp a row, WIDE_ROWS rows a block), warp w
+// on the row's slices from s_lo = (pass warps + w) 32 GW, its lane l on
+// slices s_lo + 32 g + l.  The row's edges are walked once, `batch` at a
+// time: the batch's scalars into shared memory, then every edge's heads
+// in groups of HG with their G rows in flight together, the
+// group's lane partials summed by one reduce-scatter and each (head,
+// group) sum written to shared memory by its holder lane; after a
+// barrier, a thread an (edge, head) adds the row's group sums in order
+// from 0 (after the partial dot that the pass before left in the edge's
+// slot) and writes the d_score, or the partial dot, to scratch[rev[p] h +
+// head].  d_s_dst is left to the second launch.
+template <typename X, int VEC, int HG, int GW>
 __device__ __forceinline__ void gat_bwd_wide_rows(
     const X* __restrict__ x, const float* __restrict__ s_src,
     const float* __restrict__ s_dst, const X* __restrict__ g_agg,
     const float* __restrict__ g_rs, const int* __restrict__ row_ptr,
     const int* __restrict__ col, const long long* __restrict__ rev,
-    X* __restrict__ d_x, float* __restrict__ scratch, int n, int c, int h) {
+    X* __restrict__ d_x, float* __restrict__ scratch, int n, int c, int h,
+    int warps, int batch, int pass) {
   constexpr bool BF16 = !std::is_same<X, float>::value;
-  constexpr int G = WIDE_GROUPS;
+  constexpr int N = HG * GW;   // values an edge's head group sums
   using V = typename Vec<VEC>::T;
+  using S = RowSlice<X, VEC>;
+  using P = typename S::T;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (j >= n) return;  // a tail warp; nothing below waits on a barrier
+  const int rows = blockDim.x / (32 * warps);   // 1 unless warps == 1
+  const int r_in = warp / warps;                // the block's row
+  const int w = warp % warps;                   // the row's warp
+  const int t_row = threadIdx.x - r_in * 32 * warps;
+  const int row_threads = 32 * warps;
+  const int j = blockIdx.x * rows + r_in;
+  if (j >= n) return;  // a tail row: one warp, whose barriers are its own
+  const int ng = GW * warps;                    // a pass's groups
+  const int nv_all = c / VEC;
+  const int s_lo = (pass * warps + w) * 32 * GW;
+  const int nv = nv_all - s_lo;                 // this warp's slices from s_lo
+  // the pass's groups that hold slices, and whether it is the last pass
+  const int live = min(ng, (nv_all - pass * ng * 32 + 31) / 32);
+  const bool last = (pass + 1) * ng * 32 >= nv_all;
+  const int stride = batch + 1;                 // odd: no bank conflicts
+  unsigned char* base_ptr =
+      wide_smem + (size_t)r_in * wide_row_bytes(batch, h, ng);
+  long long* at_s = reinterpret_cast<long long*>(base_ptr);
+  int* k_s = reinterpret_cast<int*>(at_s + batch);
+  float* e_s = reinterpret_cast<float*>(k_s + batch);   // [h][batch]
+  float* lk_s = e_s + h * batch;                          // leaky'
+  float* r_s = lk_s + h * batch;
+  float* sum_s = r_s + h * batch;                         // [h][ng][stride]
+
+  V xj[GW], acc[GW];
+#pragma unroll
+  for (int g = 0; g < GW; ++g) {
+    const int s = lane + 32 * g;
+    if constexpr (BF16)
+      xj[g] = s < nv ? widen(load_packed<VEC>(x + (size_t)j * c, s_lo + s, true))
+                     : V{};
+    else
+      xj[g] = s < nv
+                  ? __ldcs(reinterpret_cast<const V*>(x + (size_t)j * c) + s_lo + s)
+                  : V{};
+    acc[g] = V{};
+  }
   const int beg = row_ptr[j];
   const int end = row_ptr[j + 1];
-  const int chunks = (c / VEC + 32 * G - 1) / (32 * G);
 
-  for (int ch = 0; ch < chunks; ++ch) {
-    const int s0 = ch * 32 * G;
-    const int nv = c / VEC - s0;  // the row's slices from s0 on
-    const bool last = ch == chunks - 1;
-    V xj[G], acc[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int s = lane + 32 * g;
-      if constexpr (BF16)
-        xj[g] = s < nv ? widen(load_packed<VEC>(x + (size_t)j * c, s0 + s, true))
-                       : V{};
-      else
-        xj[g] = s < nv
-                    ? __ldcs(reinterpret_cast<const V*>(x + (size_t)j * c) + s0 + s)
-                    : V{};
-      acc[g] = V{};
+  for (int b0 = beg; b0 < end; b0 += batch) {
+    const int m = min(batch, end - b0);
+    // the batch: each edge's column and slot, and per head its weight,
+    // leaky' and r (a thread an (edge, head), heads adjacent)
+    for (int t = t_row; t < m; t += row_threads) {
+      k_s[t] = col[b0 + t];
+      at_s[t] = rev[b0 + t];
     }
-
-    for (int base = beg; base < end; base += 32) {
-      const int m = min(32, end - base);
-      int k_l = 0;
-      long long at_l = 0;
-      if (lane < m) {
-        k_l = col[base + lane];
-        at_l = rev[base + lane];
+    for (int t = t_row; t < m * h; t += row_threads) {
+      const int q = t / h, hh = t - q * h;
+      const int k = col[b0 + q];
+      float src = s_src[(size_t)k * h + hh];
+      float dst = s_dst[(size_t)j * h + hh];
+      float r = g_rs[(size_t)k * h + hh];
+      if constexpr (BF16) {
+        src = round_bf16(src);
+        dst = round_bf16(dst);
+        r = round_bf16(r);
       }
-      for (int q = 0; q < m; ++q) {  // the same q for every lane
-        const int k = __shfl_sync(FULL, k_l, q);
-        const long long at = __shfl_sync(FULL, at_l, q);
-        typename Packed<VEC>::T term[G];
-        for (int hh = 0; hh < h; ++hh) {
-          // the edge's weight, the same bits on every lane
-          float src = s_src[(size_t)k * h + hh];
-          float dst = s_dst[(size_t)j * h + hh];
-          if constexpr (BF16) {
-            src = round_bf16(src);
-            dst = round_bf16(dst);
-          }
-          const float score = src + dst;
-          const float e = edge_weight(score);
-          float part[G];
-          if constexpr (BF16) {
-            const __nv_bfloat16* row = g_agg + ((size_t)k * h + hh) * c;
-            const uint32_t e2 = bf16_pair(e);
+      const float score = src + dst;
+      e_s[hh * batch + q] = edge_weight(score);
+      lk_s[hh * batch + q] = leaky_grad(score);
+      r_s[hh * batch + q] = r;
+    }
+    wide_sync(warps);
+
+    for (int q = 0; q < m; ++q) {
+      const int k = k_s[q];
+      P term[GW];
+      for (int hb = 0; hb < h; hb += HG) {
+        // the head group's G rows, in flight together
+        P gk[HG][GW];
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              const int s = lane + 32 * g;
-              const auto gk = s < nv ? load_packed<VEC>(row, s0 + s, false)
-                                     : typename Packed<VEC>::T{};
-              const auto p = mul_bf16x2(e2, gk);
-              term[g] = hh == 0 ? p : add_bf16x2(term[g], p);
-              part[g] = s < nv ? dot_packed(xj[g], gk) : 0.f;
-            }
-          } else {
-            const V* row = reinterpret_cast<const V*>(g_agg + ((size_t)k * h + hh) * c) + s0;
+        for (int i = 0; i < HG; ++i) {
+          const X* row = g_agg + ((size_t)k * h + hb + i) * c;
 #pragma unroll
-            for (int g = 0; g < G; ++g) {
-              const int s = lane + 32 * g;
-              const V gk = s < nv ? row[s] : V{};
-              Vec<VEC>::fma(acc[g], e, gk);
-              part[g] = s < nv ? Vec<VEC>::dot(xj[g], gk) : 0.f;
-            }
-          }
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              part[g] += __shfl_xor_sync(FULL, part[g], off);
-          }
-          if (lane == 0) {
-            float dot = ch == 0 ? 0.f : scratch[at * h + hh];
-#pragma unroll
-            for (int g = 0; g < G; ++g)
-              if (32 * g < nv) dot += part[g];
-            if (last) {
-              float r = g_rs[(size_t)k * h + hh];
-              if constexpr (BF16) r = round_bf16(r);
-              float d_score = -(dot + r) * e * leaky_grad(score);
-              if constexpr (BF16) d_score = round_bf16(d_score);
-              dot = d_score;
-            }
-            scratch[at * h + hh] = dot;
+          for (int g = 0; g < GW; ++g) {
+            const int s = lane + 32 * g;
+            gk[i][g] = hb + i < h && s < nv ? S::load(row, s_lo + s) : P{};
           }
         }
-        if constexpr (BF16) {
+        float part[N];
 #pragma unroll
-          for (int g = 0; g < G; ++g) add(acc[g], widen(term[g]));
+        for (int i = 0; i < HG; ++i) {
+          const float e = hb + i < h ? e_s[(hb + i) * batch + q] : 0.f;
+#pragma unroll
+          for (int g = 0; g < GW; ++g) {
+            if (hb + i < h) {
+              if constexpr (BF16) {
+                const P p = mul_bf16x2(bf16_pair(e), gk[i][g]);
+                term[g] = hb + i == 0 ? p : add_bf16x2(term[g], p);
+              } else {
+                Vec<VEC>::fma(acc[g], e, gk[i][g]);
+              }
+            }
+            part[i * GW + g] =
+                lane + 32 * g < nv ? S::dot(xj[g], gk[i][g]) : 0.f;
+          }
+        }
+        // each (head, group) sum to shared memory, by one of its holders
+        float held[Held<N>::R];
+        warp_reduce_scatter<N>(part, held, lane);
+        if ((lane & (Held<N>::SPAN - 1)) == 0) {
+#pragma unroll
+          for (int v = 0; v < Held<N>::R; ++v) {
+            const int i = (lane / Held<N>::SPAN) * Held<N>::R + v;
+            const int hh = hb + i / GW;
+            if (i < N && hh < h)
+              sum_s[(hh * ng + w * GW + i % GW) * stride + q] = held[v];
+          }
         }
       }
+      if constexpr (BF16) {
+#pragma unroll
+        for (int g = 0; g < GW; ++g) add(acc[g], widen(term[g]));
+      }
     }
+    wide_sync(warps);
+
+    // the batch's d_scores (or partial dots), a thread an (edge, head):
+    // the group sums added in order from 0, as one warp's groups are
+    for (int t = t_row; t < m * h; t += row_threads) {
+      const int hh = t / m, q = t - hh * m;
+      const long long at = at_s[q];
+      float dot = pass == 0 ? 0.f : scratch[at * h + hh];
+      const float* sums = sum_s + (size_t)hh * ng * stride + q;
+      for (int g = 0; g < live; ++g) dot += sums[g * stride];
+      if (last) {
+        const int o = hh * batch + q;
+        float d_score = -(dot + r_s[o]) * e_s[o] * lk_s[o];
+        if constexpr (BF16) d_score = round_bf16(d_score);
+        dot = d_score;
+      }
+      scratch[at * h + hh] = dot;
+    }
+    wide_sync(warps);
+  }
 
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const int s = lane + 32 * g;
-      if (s >= nv) continue;
-      if constexpr (BF16)
-        store_slice<VEC>(d_x + (size_t)j * c, s0 + s, acc[g]);
-      else
-        __stcs(reinterpret_cast<V*>(d_x + (size_t)j * c) + s0 + s, acc[g]);
-    }
+  for (int g = 0; g < GW; ++g) {
+    const int s = lane + 32 * g;
+    if (s >= nv) continue;
+    if constexpr (BF16)
+      store_slice<VEC>(d_x + (size_t)j * c, s_lo + s, acc[g]);
+    else
+      __stcs(reinterpret_cast<V*>(d_x + (size_t)j * c) + s_lo + s, acc[g]);
   }
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(32 * WARPS)
+template <int VEC, int HG, int GW>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
 gat_bwd_wide_rows_kernel(const float* __restrict__ x,
                          const float* __restrict__ s_src,
                          const float* __restrict__ s_dst,
@@ -699,13 +867,14 @@ gat_bwd_wide_rows_kernel(const float* __restrict__ x,
                          const int* __restrict__ col,
                          const long long* __restrict__ rev,
                          float* __restrict__ d_x, float* __restrict__ scratch,
-                         int n, int c, int h) {
-  gat_bwd_wide_rows<float, VEC>(x, s_src, s_dst, g_agg, g_rs, row_ptr, col,
-                                rev, d_x, scratch, n, c, h);
+                         int n, int c, int h, int warps, int batch, int pass) {
+  gat_bwd_wide_rows<float, VEC, HG, GW>(x, s_src, s_dst, g_agg, g_rs,
+                                        row_ptr, col, rev, d_x, scratch, n,
+                                        c, h, warps, batch, pass);
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(32 * WARPS)
+template <int VEC, int HG, int GW>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
 gat_bwd_bf16_wide_rows_kernel(const __nv_bfloat16* __restrict__ x,
                               const float* __restrict__ s_src,
                               const float* __restrict__ s_dst,
@@ -716,9 +885,11 @@ gat_bwd_bf16_wide_rows_kernel(const __nv_bfloat16* __restrict__ x,
                               const long long* __restrict__ rev,
                               __nv_bfloat16* __restrict__ d_x,
                               float* __restrict__ scratch, int n, int c,
-                              int h) {
-  gat_bwd_wide_rows<__nv_bfloat16, VEC>(x, s_src, s_dst, g_agg, g_rs, row_ptr,
-                                        col, rev, d_x, scratch, n, c, h);
+                              int h, int warps, int batch, int pass) {
+  gat_bwd_wide_rows<__nv_bfloat16, VEC, HG, GW>(x, s_src, s_dst, g_agg,
+                                                g_rs, row_ptr, col, rev, d_x,
+                                                scratch, n, c, h, warps, batch,
+                                                pass);
 }
 
 // The wide second launch, a thread a (row i, head): d_s_src[i] = row i's
@@ -884,19 +1055,33 @@ int launch(const Args<X>& a, int vec, int groups, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename X, int VEC>
-int launch_wide(const Args<X>& a, int h, cudaStream_t stream) {
-  const int blocks = (a.n + WARPS - 1) / WARPS;
-  if constexpr (std::is_same<X, float>::value)
-    gat_bwd_wide_rows_kernel<VEC><<<blocks, 32 * WARPS, 0, stream>>>(
-        a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev,
-        a.d_x, a.scratch, a.n, a.c, h);
-  else
-    gat_bwd_bf16_wide_rows_kernel<VEC><<<blocks, 32 * WARPS, 0, stream>>>(
-        a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev,
-        a.d_x, a.scratch, a.n, a.c, h);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The wide first pass, one launch a pass over a share of the columns, then
+// the row sums.  A row takes `warps` warps (a block), or one warp,
+// WIDE_ROWS rows a block.
+template <typename X, int VEC, int HG, int GW>
+int launch_wide(const Args<X>& a, int h, int warps, int batch,
+                cudaStream_t stream) {
+  const int ng = GW * warps;
+  const int rows = warps == 1 ? WIDE_ROWS : 1;
+  const size_t smem = rows * wide_row_bytes(batch, h, ng);
+  if (smem > WIDE_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (a.n + rows - 1) / rows;
+  const int passes = (a.c / VEC + 32 * ng - 1) / (32 * ng);
+  for (int pass = 0; pass < passes; ++pass) {
+    if constexpr (std::is_same<X, float>::value)
+      gat_bwd_wide_rows_kernel<VEC, HG, GW><<<blocks, 32 * warps * rows,
+                                              smem, stream>>>(
+          a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev,
+          a.d_x, a.scratch, a.n, a.c, h, warps, batch, pass);
+    else
+      gat_bwd_bf16_wide_rows_kernel<VEC, HG, GW><<<blocks,
+                                                   32 * warps * rows, smem,
+                                                   stream>>>(
+          a.x, a.s_src, a.s_dst, a.g_agg, a.g_rs, a.row_ptr, a.col, a.rev,
+          a.d_x, a.scratch, a.n, a.c, h, warps, batch, pass);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const long long threads = (long long)a.n * h;
   const int sums = static_cast<int>((threads + SUM_THREADS - 1) / SUM_THREADS);
   if constexpr (std::is_same<X, float>::value)
@@ -908,19 +1093,45 @@ int launch_wide(const Args<X>& a, int h, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename X, int VEC>
+int launch_wide_groups(const Args<X>& a, int h, int gw, int warps, int batch,
+                       cudaStream_t s) {
+  switch (gw) {
+    case 1: return launch_wide<X, VEC, WIDE_HEADS, 1>(a, h, warps, batch, s);
+    case 2: return launch_wide<X, VEC, WIDE_HEADS, 2>(a, h, warps, batch, s);
+    case 3: return launch_wide<X, VEC, WIDE_HEADS, 3>(a, h, warps, batch, s);
+    default:  // two heads of up to 6 groups: C <= 384 in pairs, one warp
+      if constexpr (VEC == 2)
+        return launch_wide<X, VEC, 2, 2 * WIDE_GROUPS>(a, h, warps, batch, s);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename X>
 int backward(const X* x, const float* s_src, const float* s_dst,
              const X* g_agg, const float* g_rs, const int* row_ptr,
              const int* col, const long long* rev, X* d_x, float* d_s_src,
              float* d_s_dst, float* scratch, int n, int c, int h, int vec,
-             void* stream) {
-  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 4) || c % vec)
+             int gw, int warps, int batch, void* stream) {
+  if (n <= 0 || c <= 0 || h < 1 || (vec != 1 && vec != 2 && vec != 4) ||
+      c % vec)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args<X> a{x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev,
                   d_x, d_s_src, d_s_dst, scratch, n, c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h > MAX_HEADS || c / vec > 32 * MAX_GROUPS)
-    return vec == 4 ? launch_wide<X, 4>(a, h, s) : launch_wide<X, 1>(a, h, s);
+  if (gw != 0) {
+    if (gw < 1 || (gw > WIDE_GROUPS && (gw != 2 * WIDE_GROUPS || h > 2)) ||
+        warps < 1 || warps > WIDE_WARPS || batch < 1 || batch > 32)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (vec) {
+      case 4: return launch_wide_groups<X, 4>(a, h, gw, warps, batch, s);
+      case 2: return launch_wide_groups<X, 2>(a, h, gw, warps, batch, s);
+      default: return launch_wide_groups<X, 1>(a, h, gw, warps, batch, s);
+    }
+  }
+  if (h > MAX_HEADS || c / vec > 32 * MAX_GROUPS || vec == 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (c / vec + 31) / 32;
   switch (h) {
     case 1: return launch<X, 1>(a, vec, groups, s);
@@ -941,29 +1152,33 @@ const char* snag_error_string(int err) {
 // x (n, c), s_src/s_dst (n, h), g_agg (n, h, c), g_rs (n, h), row_ptr (n+1),
 // col and rev (row_ptr[n], rev int64) on the device, the CSR multiset
 // symmetric; d_x (n, c), d_s_src and d_s_dst (n, h) are written in full,
-// scratch (row_ptr[n], h) is the caller's.  vec is 4 when c % 4 == 0 and x,
-// g_agg, d_x are 16-byte aligned, else 1.  h <= 4 with c / vec <= 320 runs
-// the bodies above, anything else gat_bwd_wide_rows.
+// scratch (row_ptr[n], h) is the caller's.  gw = 0: the bodies above, for
+// h <= 4 with c / vec <= 320, vec 4 when c % 4 == 0 and x, g_agg, d_x are
+// 16-byte aligned, else 1.  gw > 0: the wide pass at any h and c with gw
+// groups a lane, `warps` warps a row and edge batches of `batch`
+// (ops/cuda/gat_bwd.py, wide_plan), vec 4, 2 (c even, 8-byte aligned) or 1.
 int gat_bwd(const float* x, const float* s_src, const float* s_dst,
             const float* g_agg, const float* g_rs, const int* row_ptr,
             const int* col, const long long* rev, float* d_x, float* d_s_src,
             float* d_s_dst, float* scratch, int n, int c, int h, int vec,
-            void* stream) {
+            int gw, int warps, int batch, void* stream) {
   return backward(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev, d_x,
-                  d_s_src, d_s_dst, scratch, n, c, h, vec, stream);
+                  d_s_src, d_s_dst, scratch, n, c, h, vec, gw, warps, batch,
+                  stream);
 }
 
 // The same on bf16 x, g_agg and d_x (s_src, s_dst, g_rs, d_s_src, d_s_dst
 // and scratch fp32); vec is 4 when c % 4 == 0 and x, g_agg, d_x are 8-byte
-// aligned, else 1.
+// aligned, (wide) 2 when c is even and they are 4-byte aligned, else 1.
 int gat_bwd_bf16(const __nv_bfloat16* x, const float* s_src,
                  const float* s_dst, const __nv_bfloat16* g_agg,
                  const float* g_rs, const int* row_ptr, const int* col,
                  const long long* rev, __nv_bfloat16* d_x, float* d_s_src,
                  float* d_s_dst, float* scratch, int n, int c, int h, int vec,
-                 void* stream) {
+                 int gw, int warps, int batch, void* stream) {
   return backward(x, s_src, s_dst, g_agg, g_rs, row_ptr, col, rev, d_x,
-                  d_s_src, d_s_dst, scratch, n, c, h, vec, stream);
+                  d_s_src, d_s_dst, scratch, n, c, h, vec, gw, warps, batch,
+                  stream);
 }
 
 }  // extern "C"

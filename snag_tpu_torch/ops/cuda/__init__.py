@@ -17,7 +17,7 @@ def all_stats():
                                 rank_eval.STATS_TOPK, rank_eval.STATS_RANKS,
                                 snag_loss.STATS_LSE, snag_loss.STATS_GRAD,
                                 tile_segment.STATS,
-                                *bf16_stats())}
+                                *bf16_stats(), *wide_stats())}
 
 
 def bf16_stats():
@@ -29,6 +29,17 @@ def bf16_stats():
             ntxent.STATS_LSE_BF16, ntxent.STATS_GRAD_BF16,
             snag_loss.STATS_LSE_BF16, snag_loss.STATS_GRAD_BF16,
             tile_segment.STATS_BF16)
+
+
+def wide_stats():
+    """The launch counts of the instantiations past the main path's
+    shapes, counted apart from their kernel's: both GAT kernels' wide path
+    (H > 4, or C past a warp's slices) and sweep A's lists in shared
+    memory (CSLS k > 10)."""
+    from snag_tpu_torch.ops.cuda import gat_attention, gat_bwd, rank_eval
+    return (gat_attention.STATS_WIDE, gat_attention.STATS_BF16_WIDE,
+            gat_bwd.STATS_WIDE, gat_bwd.STATS_BF16_WIDE,
+            rank_eval.STATS_TOPK_LONG)
 
 
 def reset_stats() -> None:

@@ -14,7 +14,8 @@ holds up to ``MAX_HEADS`` heads: H <= 4 with C <= 1,280 when C % 4 == 0
 (else C <= 320), the main path's shapes.  Any other H and C run the wide
 kernels (``wide``; the backward shares the split), which walk column
 chunks (``csrc/gat_attention.cu``, ``WIDE_GROUPS``) and head groups of
-``MAX_HEADS`` to the same sums.
+``MAX_HEADS`` to the same sums; their launches are counted apart
+(``STATS_WIDE``, ``STATS_BF16_WIDE``).
 
 Twin: ``gat_attention_twin``, the ``index_add_`` form of
 ``xla_gat_attention`` (gat_attention.py:207-221).
@@ -43,6 +44,9 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
 
 STATS = KernelStats("gat_attention_fwd")
 STATS_BF16 = KernelStats("gat_attention_fwd_bf16")
+# the wide path's launches (``wide``), counted apart
+STATS_WIDE = KernelStats("gat_attention_fwd_wide")
+STATS_BF16_WIDE = KernelStats("gat_attention_fwd_bf16_wide")
 MAX_HEADS = 4       # heads a warp holds
 MAX_GROUPS = 10     # slices a lane
 
@@ -126,14 +130,18 @@ def gat_attention_cuda(x: torch.Tensor, s_src: torch.Tensor,
     rowsum = torch.empty(n, h, dtype=torch.float32, device=dev)
     vec = slice_width(c, x, agg)
     built = _library()
-    stats = STATS_BF16 if x.dtype == torch.bfloat16 else STATS
-    entry = getattr(built.lib, stats.name)
+    bf16 = x.dtype == torch.bfloat16
+    name = "gat_attention_fwd_bf16" if bf16 else "gat_attention_fwd"
     with torch.cuda.device(dev):
-        err = entry(ptr(x), ptr(s_src), ptr(s_dst), ptr(graph.row_ptr),
-                    ptr(graph.col), ptr(agg), ptr(rowsum), n, c, h, vec,
-                    stream_of(x))
-    check(built, err, stats.name)
-    stats.launches += 1
+        err = getattr(built.lib, name)(
+            ptr(x), ptr(s_src), ptr(s_dst), ptr(graph.row_ptr),
+            ptr(graph.col), ptr(agg), ptr(rowsum), n, c, h, vec,
+            stream_of(x))
+    check(built, err, name)
+    if wide(c, h, vec):
+        (STATS_BF16_WIDE if bf16 else STATS_WIDE).launches += 1
+    else:
+        (STATS_BF16 if bf16 else STATS).launches += 1
     return agg, rowsum
 
 

@@ -18,10 +18,12 @@ needs the symmetric edge multiset that ``build_graph`` records, and its
 d_score of each edge (k, j) once, adds it into d_s_dst[j] and writes it to
 an (E, H) scratch at that edge's position rev[p]; the second adds each
 row's scratch into d_s_src in CSR order.  Beyond the main path's H <= 4
-and C <= 1,280 (``gat_attention.wide``) its wide kernels walk every head
-and the column chunks of a row in one warp, the chunks carrying each
-edge's partial dot in its scratch slot, and the second launch adds
-d_s_dst as well.
+and C <= 1,280 (``gat_attention.wide``) its wide kernels walk each row's
+edges once at any H and C (``wide_plan``: a row on one warp, or on a
+block whose warps split its columns; an edge's heads in groups of four
+with their G rows in flight together, each batch of 32 edges' d_scores
+formed in shared memory), and the second launch adds d_s_dst as well.
+Wide launches are counted apart (``STATS_WIDE``, ``STATS_BF16_WIDE``).
 
 Twin: ``gat_backward_twin``, the same sums in ``index_add_`` form over the
 edge list (no symmetry needed).
@@ -53,10 +55,22 @@ from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
                                           load_library, ptr, require,
                                           stream_of)
-from snag_tpu_torch.ops.cuda.gat_attention import slice_width, to_bf16
+from snag_tpu_torch.ops.cuda.gat_attention import (slice_width, to_bf16,
+                                                   wide)
 
 STATS = KernelStats("gat_bwd")
 STATS_BF16 = KernelStats("gat_bwd_bf16")
+# the wide path's launches (any H and C past the main path's)
+STATS_WIDE = KernelStats("gat_bwd_wide")
+STATS_BF16_WIDE = KernelStats("gat_bwd_bf16_wide")
+# the wide pass (csrc/gat_bwd.cu): groups of 32 slices a lane at most,
+# heads whose G rows a warp holds, warps a row at most, rows a block when
+# a row takes one warp, and the shared memory of a block
+WIDE_GROUPS = 3
+WIDE_HEADS = 4
+WIDE_WARPS = 16
+WIDE_ROWS = 4
+WIDE_SMEM = 48 * 1024
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -95,11 +109,59 @@ def gat_backward_twin(x: torch.Tensor, s_src: torch.Tensor,
     return d_x, d_s_src, d_s_dst
 
 
+def wide_row_bytes(batch: int, h: int, ng: int) -> int:
+    """Shared memory of one row of the wide pass (``wide_row_bytes`` in
+    ``csrc/gat_bwd.cu``): the batch's slots, columns, weights, leaky' and
+    r, and its (head, group) sums, ``batch + 1`` floats apart."""
+    raw = 12 * batch + 12 * h * batch + 4 * h * ng * (batch + 1)
+    return -(-raw // 16) * 16
+
+
+def wide_plan(c: int, h: int, vec: int) -> dict:
+    """The wide pass's launch at width C, H heads and slice width vec:
+    ``gw`` groups of 32 slices a lane (at most ``WIDE_GROUPS``; a row of at
+    most 2 heads of pairs, up to twice as many on one warp) for ``heads``
+    heads at a time, ``warps`` warps a row (a block; one warp a row takes
+    ``WIDE_ROWS`` rows a block), ``passes`` launches over the columns (more
+    than one only past ``WIDE_WARPS`` warps' columns), edge batches of
+    ``batch`` (32, or fewer where the shared memory of 32 would pass
+    ``WIDE_SMEM``) and that shared memory, ``smem``."""
+    groups = -(-(c // vec) // 32)
+    pairs = vec == 2 and h <= 2 and WIDE_GROUPS < groups <= 2 * WIDE_GROUPS
+    gw = 2 * WIDE_GROUPS if pairs else min(groups, WIDE_GROUPS)
+    warps = min(-(-groups // gw), WIDE_WARPS)
+    rows = WIDE_ROWS if warps == 1 else 1
+    ng = gw * warps
+    batch = next((b for b in (32, 16, 8, 4, 2, 1)
+                  if rows * wide_row_bytes(b, h, ng) <= WIDE_SMEM), 0)
+    if not batch:
+        raise ValueError(f"the GAT backward takes no {h} heads at C = {c}: "
+                         f"one edge's sums pass {WIDE_SMEM} bytes of shared "
+                         "memory")
+    return dict(gw=gw, heads=2 if pairs else WIDE_HEADS, warps=warps,
+                rows=rows, batch=batch, passes=-(-groups // ng),
+                smem=rows * wide_row_bytes(batch, h, ng))
+
+
+def backward_slice_width(c: int, h: int, *tensors: torch.Tensor
+                         ) -> Tuple[int, bool]:
+    """(slice width, wide): ``slice_width`` and whether it takes the wide
+    path (``wide``), where the width 1 becomes 2 elements (8 bytes of f32,
+    4 of bf16) when C is even and every tensor is aligned to 2 of its
+    elements."""
+    vec = slice_width(c, *tensors)
+    is_wide = wide(c, h, vec)
+    if vec == 1 and is_wide and c % 2 == 0 and all(
+            t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors):
+        vec = 2
+    return vec, is_wide
+
+
 def _library():
     built = load_library("gat_bwd")
     for fn in (built.lib.gat_bwd, built.lib.gat_bwd_bf16):
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return built
@@ -137,16 +199,22 @@ def gat_backward_cuda(x: torch.Tensor, s_src: torch.Tensor,
     d_s_src = torch.empty(n, h, dtype=torch.float32, device=dev)
     d_s_dst = torch.empty(n, h, dtype=torch.float32, device=dev)
     scratch = torch.empty(graph.n_edges, h, dtype=torch.float32, device=dev)
-    vec = slice_width(c, x, g_agg, d_x)
+    vec, is_wide = backward_slice_width(c, h, x, g_agg, d_x)
+    bf16 = x.dtype == torch.bfloat16
+    plan = dict(gw=0, warps=0, batch=0)
+    stats = STATS_BF16 if bf16 else STATS
+    if is_wide:
+        plan = wide_plan(c, h, vec)
+        stats = STATS_BF16_WIDE if bf16 else STATS_WIDE
     built = _library()
-    stats = STATS_BF16 if x.dtype == torch.bfloat16 else STATS
+    entry = "gat_bwd_bf16" if bf16 else "gat_bwd"
     with torch.cuda.device(dev):
-        err = getattr(built.lib, stats.name)(
+        err = getattr(built.lib, entry)(
             ptr(x), ptr(s_src), ptr(s_dst), ptr(g_agg), ptr(g_rs),
             ptr(graph.row_ptr), ptr(graph.col), ptr(graph.rev), ptr(d_x),
             ptr(d_s_src), ptr(d_s_dst), ptr(scratch), n, c, h, vec,
-            stream_of(x))
-    check(built, err, stats.name)
+            plan["gw"], plan["warps"], plan["batch"], stream_of(x))
+    check(built, err, entry)
     stats.launches += 1
     return d_x, d_s_src, d_s_dst
 

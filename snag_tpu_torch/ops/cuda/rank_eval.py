@@ -32,6 +32,8 @@ from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, load_library,
                                           ptr, require, stream_of)
 
 STATS_TOPK = KernelStats("rank_topk_mean")
+# sweep A at k above MAX_K (the lists in shared memory), counted apart
+STATS_TOPK_LONG = KernelStats("rank_topk_mean_long")
 STATS_RANKS = KernelStats("rank_counts")
 MAX_K = 10          # sweep A's longest list kept in registers
 # sweep A's longest list (csrc/rank_eval.cu, long_topk_mean_kernel): the
@@ -418,7 +420,7 @@ def _sweep_a(x, y, xn, yn, k, splits, operands):
             ptr(diag), ptr(col_part), ptr(mean_cols), n, d, ld, k,
             plan["splits"], stream_of(x))
     check(built, err, "rank_topk_mean")
-    STATS_TOPK.launches += 1
+    (STATS_TOPK if size <= MAX_K else STATS_TOPK_LONG).launches += 1
     return mean, diag, mean_cols
 
 

@@ -344,7 +344,9 @@ def spawn(n: int, fn, args: tuple = (), backend: Optional[str] = None,
 def _spawned(rank: int, n: int, init: str, backend: str, fn, args) -> None:
     initialize_distributed(backend, init_method=init, rank=rank,
                            world_size=n)
-    try:
-        fn(*args)
-    finally:
-        dist.destroy_process_group()
+    fn(*args)
+    # only on success: a rank that raises keeps its connections until its
+    # process exits, after spawn has its error, so that the ranks waiting
+    # in a collective for it, which fail when they close, are not reported
+    # in its place
+    dist.destroy_process_group()

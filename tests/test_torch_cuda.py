@@ -1125,9 +1125,14 @@ def test_mixture_bf16_grad_has_no_cap(dev):
 
 # past the warp's 4 heads and MAX_GROUPS slices a lane: the wide kernels
 # (gat_attention.wide): H = 6 at C = 1,300 (float4 slices, past 1,280) and
-# 330 (single floats, past 320), H = 8 at a narrow C, H = 5 at C = 30, H =
-# 2 at C = 1,284 and C = 2,600 (three and five column chunks)
-GAT_WIDE = [(6, 1300), (6, 330), (8, 64), (5, 30), (2, 1284), (2, 2600)]
+# 330 (single floats, past 320; the backward's 8-byte slices), H = 8 at a
+# narrow C, H = 5 at C = 30, H = 2 at C = 1,284 and C = 2,600 (three and
+# five column chunks of the forward; four and seven warps a row of the
+# backward), H = 8 at C = 300 (``--heads 8,8``: one warp a row, two head
+# groups), H = 2 at C = 330 (8-byte slices, two warps a row) and H = 3 at
+# C = 1,601 (single floats past 16 warps' columns: two passes)
+GAT_WIDE = [(6, 1300), (6, 330), (8, 64), (5, 30), (2, 1284), (2, 2600),
+            (8, 300), (2, 330), (3, 1601)]
 
 
 @pytest.mark.parametrize("h,c", GAT_WIDE)
@@ -1136,6 +1141,8 @@ def test_gat_wide_kernels_match_twins(dev, h, c, dtype):
     g, x, s_src, s_dst, g_agg, g_rs = _gat_grads_inputs(dev, 300, c, h, c + h)
     x, g_agg = x.to(dtype), g_agg.to(dtype)
     assert ga.wide(c, h, ga.slice_width(c, x, g_agg))
+    vec, is_wide = gb.backward_slice_width(c, h, x, g_agg)
+    assert is_wide and vec == (4 if c % 4 == 0 else 2 if c % 2 == 0 else 1)
     fwd = ga.gat_attention_cuda(x, s_src, s_dst, g)
     bwd = gb.gat_backward_cuda(x, s_src, s_dst, g_agg, g_rs, g)
     again = (ga.gat_attention_cuda(x, s_src, s_dst, g),

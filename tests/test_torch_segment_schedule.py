@@ -505,6 +505,29 @@ def test_device_ms_retries_a_partial_session_only_when_asked():
     assert traced == [cs.REPS]
 
 
+def test_a_session_that_lost_its_start_into_the_first_call_is_partial():
+    """A session whose record on the card begins inside its first counted
+    call, which alone holds fewer kernels than the others, lost its start
+    (the settling calls' kernels and that call's first): ``PartialSession``,
+    traced again.  The same shortfall after a recorded settling call's
+    kernel, or in a later call, is the kernel's and raises at once."""
+    lost = _trace([[0.01]] + [[0.05, 0.01]] * (cs.REPS - 1))
+    with pytest.raises(cs.PartialSession, match="no kernel"):
+        cs.call_kernel_ms(lost, NAMES, cs.REPS)
+    traced = []
+    full = _trace([[0.05, 0.01]] * cs.REPS)
+    assert cs.device_ms(lambda: None, NAMES, trace=lambda fn, calls: (
+        traced.append(calls) or (full if len(traced) == 2 else lost))) == \
+        pytest.approx(0.06)
+    assert traced == [cs.REPS] * 2
+    settled = [_ev(f"{KERNEL}(float const*)", -500.0, 0.05)] + lost
+    later = _trace([[0.05, 0.01]] + [[0.01]] + [[0.05, 0.01]] * (cs.REPS - 2))
+    for events in (settled, later):
+        with pytest.raises(RuntimeError, match="no kernel") as err:
+            cs.call_kernel_ms(events, NAMES, cs.REPS)
+        assert not isinstance(err.value, (cs.LostSession, cs.PartialSession))
+
+
 def test_device_ms_is_the_median_of_the_per_call_sums():
     per_call = [[0.04, 0.01], [0.03, 0.0], [0.08, 0.02], [0.06, 0.0],
                 [0.05, 0.0]]

@@ -2161,21 +2161,29 @@ def _parity_gat(inputs, bf16):
 
 
 def _parity_rank(k, n=10500, d=1200):
-    """Sweep A at k in a shared-memory list, both directions, against its
-    plain version (rtol = atol = 1e-5), bitwise repeat, ms, device_ms and
-    its bound (2 n^2 d fp32 flops: one product serves both directions; the
-    kernel runs it once a direction), the plain version's ms, registers
-    and spills.  Returns the kernels-line record."""
+    """Sweep A at k in a shared-memory list, both directions from one pass
+    over x y^T, against its plain version (rtol = atol = 1e-5), bitwise
+    repeat, ms, device_ms and its bound (2 n^2 d fp32 flops: the one
+    product serves both directions), the plain version's ms, the scratch's
+    bytes, the peak device memory of one call above what was held before
+    it, and the registers and spills of the sweep and of its merges (the
+    rows' and the columns').  Returns the kernels-line record."""
     import torch
     from snag_tpu_torch.ops.cuda import rank_eval as rk
     x, y = _eval_inputs(n, d)
     xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
     fn = lambda: rk.topk_mean_both_cuda(x, y, xn, yn, k)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # a call's scratch is freed before the repeat takes its own
     got = repeat_bitwise(fn, f"parity sweep A k={k}")
+    peak = torch.cuda.max_memory_allocated() - held
     want = rk.topk_mean_both_twin(x, y, xn, yn, k)
     err = max((a - b).abs().max().item() for a, b in zip(got, want))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    del want
     ms = median_ms(fn)
     dev = device_ms(fn, DEVICE_KERNELS[rk.STATS_TOPK_LONG.name])
     plain = median_ms(lambda: rk.topk_mean_both_twin(x, y, xn, yn, k))
@@ -2184,17 +2192,20 @@ def _parity_rank(k, n=10500, d=1200):
     bound_ms, bound_by = rec["bound_ms"], rec["bound_by"]
     size = rk.list_len(k)
     plan = rk.device_plan(x.device, n, d, 0, k)
+    scratch = 4 * (plan["splits"] * n * size + rk.col_scratch_floats(n, k))
     regs = "; ".join(
         f"{e} {r} registers, spills {st}/{ld} B"
         for e, r, st, ld in kernel_ptxas(
             rk._library(), (f"long_topk_mean_kernelILi{size}E",
                             f"long_topk_merge_kernelILi{size}E")))
     say("parity", f"rank_topk_mean k={k} (list {size} in shared memory, "
-        f"{plan['smem_bytes']} B a block, {plan['splits']} splits, one "
-        f"launch a direction) N={n} d={d}: max|err| {err:.3e} "
-        f"(rtol=atol=1e-5), bitwise repeat | kernel {ms:.3f} ms, device "
-        f"{dev:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), share "
-        f"{bound_ms / dev:.3f}, plain version {plain:.3f} ms | {regs}")
+        f"{plan['smem_bytes']} B a block, {plan['blocks_per_sm']} block(s) "
+        f"an SM, {plan['splits']} splits, both directions a launch) N={n} "
+        f"d={d}: max|err| {err:.3e} (rtol=atol=1e-5), bitwise repeat | "
+        f"kernel {ms:.3f} ms, device {dev:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}), share {bound_ms / dev:.3f}, plain version "
+        f"{plain:.3f} ms | scratch {scratch} B, peak memory of a call "
+        f"{peak} B | {regs}")
     return rec
 
 

@@ -24,7 +24,10 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   in one launch): their median ms, and it fails unless their outputs have
   the digests of the one-direction records they reproduce.  In a checkout
   whose every launch does both directions, the one-direction calls return
-  the row direction of such a launch and take its time;
+  the row direction of such a launch and take its time.  Where the checkout
+  has sweep A's long lists, ``topk_mean_both_cuda`` at each k of
+  ``LONG_KS`` (CSLS k > 10): the sha256 of mean, diag and mean_cols and
+  the median ms, records ``A both k<k>``;
 * the GAT kernels on the bench graph (``chip_smoke.BENCH_ARGS``: 30,000
   nodes, 329,862 edges) with ``chip_smoke.gat_inputs`` and
   ``gat_bwd_inputs`` at C = 300, H = 2 (float4 slices), C = 30, H = 1 and
@@ -170,6 +173,8 @@ def main() -> int:
     return 0
 
 
+# CSLS k of the long-list records: the lists of 32 (11, 20) and 128
+LONG_KS = (11, 20, 33, 64, 128)
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
             "rank", "gat_fwd", "gat_bwd", "segment")
 SECTIONS += tuple(f"{k}_bf16" for k in SECTIONS if k != "rank")
@@ -386,6 +391,14 @@ def rank_records(cs, rk, n=10500, d=1200):
             for name, idx in parts:
                 if digest(*[got[i] for i in idx]) != out[name]["sha256"]:
                     raise AssertionError(f"{label} differs from {name}")
+    if hasattr(rk, "STATS_TOPK_LONG"):
+        # sweep A's lists in shared memory (CSLS k > 10): mean, diag and
+        # mean_cols of one call
+        for k in LONG_KS:
+            fn = (lambda k=k: rk.topk_mean_both_cuda(x, y, xn, yn, k))
+            out[f"A both k{k}"] = {"sha256": digest(*fn()), **timed(
+                cs, fn, rk.STATS_TOPK_LONG.name)}
+            torch.cuda.empty_cache()
     return out
 
 

@@ -28,20 +28,23 @@
 //
 // Sweep A for MAX_K < k <= MAX_LONG_K (CSLS k above 10; the JAX kernel
 // keeps its running list in a (rows, 128) scratch, so it takes k up to
-// 128): a list of K = 32 or 128 per row would spill from registers, so
-// long_topk_mean_kernel keeps each of its 96 rows' lists in shared memory
-// (sorted, descending; 48 KB at K = 128), owned by the half-warp that
-// holds the row's accumulators.  A tile's similarities that beat the
-// list's last entry are inserted one at a time by the 16 lanes together
-// (K / 16 entries a lane: a ballot finds the place, the entries after it
-// shift by one), so after the first tiles a row's tile costs its 16
-// compares and a vote.  It does one direction a launch: the column
-// direction's per-(row tile, column) lists would take row tiles x n x K
-// floats of scratch (0.59 GB at n = 10,500, K = 128), so the wrapper's
-// one call launches the row direction on (x, y) and then on (y, x), whose
-// distances are the same bits.  The splits' lists are merged the same way
-// (long_topk_merge_kernel), and the mean adds the top k in descending
-// order from 0, as for k <= MAX_K.
+// 128) runs both directions from one pass too, with lists of K = 32 or 128
+// that would spill from registers.  long_topk_mean_kernel keeps each of its
+// 96 rows' lists in shared memory (sorted, descending), with K slots of
+// candidates beside it and, in the registers of the row's half-warp, the
+// list's last entry (the threshold) and the candidates' count.  A tile's
+// similarities above the threshold are appended to the candidates (a scan
+// of the 16 lanes' counts places them; no vote a value), and a full buffer
+// is merged into the list by one bitonic network over the half-warp
+// (merge_candidates), which raises the threshold; so after the first
+// tiles a row's tile costs its 16 compares and one vote.  The column
+// direction writes each column's 96 similarities of the block's rows, as
+// they are, to col_part[(row tile * n + col) * BM + row]: row tiles x n x
+// 96 floats (0.44 GB at n = 10,500, 2.5 GB at 25,000), straight from the
+// registers, with no tile in shared memory and no barrier.  One merge
+// kernel, a warp a row or column (long_topk_merge_kernel), keeps the same
+// kind of list over the splits' lists or over a column's row tiles.  The
+// mean adds the top k in descending order from 0, as for k <= MAX_K.
 //
 // Both directions in one launch: the distance of y_j to x_i is the
 // distance of x_i to y_j to the bit (fmaf and the norms' sum commute), so
@@ -261,89 +264,148 @@ __global__ void topk_merge_kernel(const float* __restrict__ part,
   mean[gr] = __fdiv_rn(sum, (float)k);
 }
 
-// Offer the N values v[] (this lane's; -inf or NaN for none) to the
-// sorted top-K list (descending, in shared memory) of the half-warp's row.
-// The 16 lanes of a half-warp own the list together, lane h its entries h
-// + 16 j; both halves of the warp call this at once, each on its own row,
-// and vote together.  The values that beat the list's last entry are
-// inserted one at a time, lowest lane and lowest index first: a ballot of
-// the entries >= x gives its place, and the entries after it move down
-// one, the last dropping out.
-template <int K, int N>
-__device__ __forceinline__ void half_topk(float* list, const float (&v)[N],
-                                          int h) {
-  static_assert(K % 16 == 0 && N <= 32, "K / 16 entries a lane, N <= 32");
-  constexpr int J = K / 16;
-  const int shift = threadIdx.x & 16;  // this half's bits of a ballot
-  float last = list[K - 1];
-  unsigned pend = 0;
+// ---- sweep A's long lists
+
+// One compare-exchange step of a bitonic network over the N values that L
+// lanes hold, E = N / L a lane: value i = lane * E + e sits in v[e] of lane
+// i / E (shuffle width L, all 32 lanes calling).  Value i meets value
+// i ^ s; the pair ends ascending where (i & up) == 0, else descending (up =
+// 0: every pair descending).  No value is NaN, so fminf and fmaxf select.
+template <int E, int L>
+__device__ __forceinline__ void bitonic_step(float (&v)[E], int lane, int s,
+                                             int up) {
 #pragma unroll
-  for (int c = 0; c < N; ++c)
-    if (v[c] > last) pend |= 1u << c;
-  while (__any_sync(0xffffffffu, pend != 0)) {
-    const unsigned lanes =
-        (__ballot_sync(0xffffffffu, pend != 0) >> shift) & 0xffffu;
-    const bool active = lanes != 0;
-    const int src = active ? __ffs(lanes) - 1 : 0;
-    const int c0 = __ffs(pend) - 1;
-    float mine = 0.f;
-#pragma unroll
-    for (int c = 0; c < N; ++c)
-      if (c == c0) mine = v[c];
-    const float x = __shfl_sync(0xffffffffu, mine, src, 16);
-    if (h == src) pend &= pend - 1;
-    float prev[J];
-    int pos = 0;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int q = h + 16 * j;
-      prev[j] = q > 0 ? list[q - 1] : 0.f;
-      pos += __popc((__ballot_sync(0xffffffffu, list[q] >= x) >> shift) &
-                    0xffffu);
-    }
-    __syncwarp();
-    if (active && pos < K) {
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int q = h + 16 * j;
-        if (q == pos) list[q] = x;
-        else if (q > pos) list[q] = prev[j];
+  for (int e = 0; e < E; ++e) {
+    const int i = lane * E + e;
+    const bool asc = up != 0 && (i & up) == 0;
+    if (s < E) {  // the partner in this lane's registers
+      if ((e & s) == 0) {
+        const float a = v[e], b = v[e ^ s];
+        v[e] = asc ? fminf(a, b) : fmaxf(a, b);
+        v[e ^ s] = asc ? fmaxf(a, b) : fminf(a, b);
       }
+    } else {
+      const float o = __shfl_xor_sync(0xffffffffu, v[e], s / E, L);
+      const bool low = (i & s) == 0;
+      v[e] = low == asc ? fminf(v[e], o) : fmaxf(v[e], o);
     }
-    __syncwarp();
-    last = list[K - 1];
-#pragma unroll
-    for (int c = 0; c < N; ++c)
-      if (!(v[c] > last)) pend &= ~(1u << c);
   }
 }
 
-// Sweep A over one split for MAX_K < K, the row direction alone:
+// Merge the `count` candidates buf[0 .. count) into the top-K list
+// (descending) that L lanes keep in shared memory, and return its new last
+// entry.  The candidates, padded with -inf, are sorted ascending; then the
+// larger of list[i] and buf[i] are the K largest of both, a bitonic
+// sequence, which K / 2 .. 1 steps sort descending.  Not inlined: its
+// registers stay out of the sweep's allocation (inlined, the sweep at K =
+// 128 took 168 registers with 48 B of spills, and 14 % longer on an H100).
+template <int K, int L>
+__device__ __noinline__ float merge_candidates(float* list,
+                                                  const float* buf, int count,
+                                                  int lane) {
+  constexpr int E = K / L;
+  static_assert(E >= 1 && K % L == 0 && (K & (K - 1)) == 0, "K / L a lane");
+  __syncwarp();
+  float v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = lane * E + e;
+    v[e] = i < count ? buf[i] : -INFINITY;
+  }
+#pragma unroll
+  for (int up = 2; up <= K; up *= 2)
+#pragma unroll
+    for (int s = up / 2; s >= 1; s /= 2) bitonic_step<E, L>(v, lane, s, up);
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = fmaxf(list[lane * E + e], v[e]);
+#pragma unroll
+  for (int s = K / 2; s >= 1; s /= 2) bitonic_step<E, L>(v, lane, s, 0);
+  __syncwarp();  // every lane has read buf and list
+#pragma unroll
+  for (int e = 0; e < E; ++e) list[lane * E + e] = v[e];
+  __syncwarp();
+  return __shfl_sync(0xffffffffu, v[E - 1], L - 1, L);
+}
+
+// Offer each lane's N values v[] (-inf or NaN for none) to the top-K list
+// that L lanes keep (list and buf, K floats each, in shared memory; count
+// and thr, the list's last entry, the same in the L lanes).  The values
+// above thr are appended to buf in lane order, placed by a scan of the
+// lanes' counts; a full buffer is merged, and what no longer beats the new
+// thr is dropped.  With L = 16 both halves of a warp call this together,
+// each for its own list, and merge together when either is full.
+template <int K, int L, int N>
+__device__ __forceinline__ void offer(float* list, float* buf, int& count,
+                                      float& thr, const float (&v)[N],
+                                      int lane) {
+  static_assert(N <= 32, "a bit of pend a value");
+  unsigned pend = 0;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    if (v[c] > thr) pend |= 1u << c;
+  while (__any_sync(0xffffffffu, pend != 0)) {
+    const int mine = __popc(pend);
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < L; o *= 2) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o, L);
+      if (lane >= o) incl += t;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, L - 1, L);
+    int at = count + incl - mine;
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (pend & (1u << c)) {
+        if (at < K) {
+          buf[at] = v[c];
+          pend &= ~(1u << c);
+        }
+        ++at;
+      }
+    }
+    count = min(count + total, K);
+    if (__any_sync(0xffffffffu, count == K)) {
+      thr = merge_candidates<K, L>(list, buf, count, lane);
+      count = 0;
+#pragma unroll
+      for (int c = 0; c < N; ++c)
+        if (!(v[c] > thr)) pend &= ~(1u << c);
+    }
+  }
+}
+
+// Sweep A over one split for MAX_K < K, both directions:
 // part[(split * n + row) * K + q], the split's top-K similarities of each
-// row, descending; diag[row] where the split holds column row.  Each row's
-// list lives in shared memory after the product's (half_topk).
+// row, descending; diag[row] where the split holds column row; and
+// col_part[(row tile * n + col) * BM + r], the similarity of row r of the
+// block to column col (-inf past n), for long_topk_merge_kernel to take
+// each column's top K from.  Each row's list and candidates live in shared
+// memory after the product's (offer).
 template <int K>
 __global__ void __launch_bounds__(THREADS, 1)
 long_topk_mean_kernel(const float* __restrict__ xt,
                       const float* __restrict__ yt,
                       const float* __restrict__ xn,
                       const float* __restrict__ yn, float* __restrict__ part,
-                      float* __restrict__ diag, int n, int d, int ld,
-                      int splits) {
+                      float* __restrict__ diag, float* __restrict__ col_part,
+                      int n, int d, int ld, int splits) {
   extern __shared__ __align__(16) float smem[];
-  float* lists = smem + SMEM_BYTES / 4;  // BM x K
+  float* lists = smem + SMEM_BYTES / 4;  // BM x 2K: a row's list, then buf
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
   const Place p = place(n, splits);
 
-  float xr[TM];
+  float xr[TM], thr[TM];
+  int count[TM];
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int gr = p.row0 + ty * TM + r;
     xr[r] = gr < n ? xn[gr] : 0.f;
+    thr[r] = -INFINITY;
+    count[r] = 0;
 #pragma unroll
     for (int j = 0; j < K / 16; ++j)
-      lists[(ty * TM + r) * K + tx + 16 * j] = -INFINITY;
+      lists[(ty * TM + r) * 2 * K + tx + 16 * j] = -INFINITY;
   }
   __syncwarp();
 
@@ -351,65 +413,90 @@ long_topk_mean_kernel(const float* __restrict__ xt,
       xt, yt, n, d, ld, p.row0, p.t0, p.t1, smem,
       [&](int gc, float (&v)[1]) { v[0] = yn[gc]; },
       [&](const float (&acc)[TM][TN], int col0, const float* cv) {
+    float sim[TM][TN];
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int tc = tile_col(tx, c);
+      const int gc = col0 + tc;
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const int gr = p.row0 + ty * TM + r;
+        const float dist = sq_dist(xr[r], cv[tc], acc[r][c]);
+        sim[r][c] = gc < n && gr < n ? __fsub_rn(1.0f, dist) : -INFINITY;
+        if (gr == gc && gc < n) diag[gr] = dist;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int gc = col0 + tile_col(tx, c);
+      if (gc < n)
+        __stcs(reinterpret_cast<float4*>(
+                   col_part + ((size_t)p.row_tile * n + gc) * BM + ty * TM),
+               make_float4(sim[0][c], sim[1][c], sim[2][c], sim[3][c]));
+    }
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      const int gr = p.row0 + ty * TM + r;
-      float sim[TN];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int tc = tile_col(tx, c);
-        const int gc = col0 + tc;
-        sim[c] = -INFINITY;
-        if (gc < n) {
-          const float dist = sq_dist(xr[r], cv[tc], acc[r][c]);
-          sim[c] = __fsub_rn(1.0f, dist);
-          if (gr == gc) diag[gr] = dist;
-        }
-      }
-      half_topk<K>(lists + (ty * TM + r) * K, sim, tx);
+      float* list = lists + (ty * TM + r) * 2 * K;
+      offer<K, 16>(list, list + K, count[r], thr[r], sim[r], tx);
     }
   });
 
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
+    float* list = lists + (ty * TM + r) * 2 * K;
+    if (__any_sync(0xffffffffu, count[r] > 0))
+      merge_candidates<K, 16>(list, list + K, count[r], tx);
     const int gr = p.row0 + ty * TM + r;
     if (gr >= n) continue;
     float* out = part + ((size_t)p.split * n + gr) * K;
 #pragma unroll
-    for (int j = 0; j < K / 16; ++j)
-      out[tx + 16 * j] = lists[(ty * TM + r) * K + tx + 16 * j];
+    for (int j = 0; j < K / 16; ++j) out[tx + 16 * j] = list[tx + 16 * j];
   }
 }
 
-constexpr int LONG_MERGE_THREADS = 256;  // 16 rows a block, a half-warp each
+constexpr int LONG_MERGE_THREADS = 256;  // 8 warps, a row or column each
 
-// Merge long_topk_mean_kernel's partials: mean[row] = the mean of the
-// row's top k over the `parts` lists part[(s * n + row) * K + q], summed in
-// descending order from 0.
-template <int K>
+// mean[i] = the mean of the top k of the `parts` x CHUNK values
+// part[(s * n + i) * CHUNK + q] (-inf or NaN for none), summed in
+// descending order from 0: the splits' lists of a row (CHUNK = K) or a
+// column's similarities by row tile (CHUNK = BM).  A warp keeps row or
+// column i's list (offer), reading the next part while it takes one.
+template <int K, int CHUNK>
 __global__ void __launch_bounds__(LONG_MERGE_THREADS)
 long_topk_merge_kernel(const float* __restrict__ part,
                        float* __restrict__ mean, int n, int k, int parts) {
-  __shared__ float lists[LONG_MERGE_THREADS / 16][K];
-  const int h = threadIdx.x % 16;
-  const int slot = threadIdx.x / 16;
-  const int gr = blockIdx.x * (LONG_MERGE_THREADS / 16) + slot;
-  float* list = lists[slot];
+  constexpr int V = CHUNK / 32;
+  static_assert(CHUNK % 32 == 0, "CHUNK / 32 values a lane");
+  __shared__ float lists[LONG_MERGE_THREADS / 32][2 * K];
+  const int lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32;
+  const int i = blockIdx.x * (LONG_MERGE_THREADS / 32) + w;
+  if (i >= n) return;  // the whole warp
+  float* list = lists[w];
 #pragma unroll
-  for (int j = 0; j < K / 16; ++j) list[h + 16 * j] = -INFINITY;
+  for (int j = 0; j < K / 32; ++j) list[lane + 32 * j] = -INFINITY;
   __syncwarp();
-  // a row past n votes with no values: every half-warp takes part
-  for (int s = 0; s < parts; ++s) {
-    float v[K / 16];
+  const float* in = part + (size_t)i * CHUNK + lane;
+  const size_t stride = (size_t)n * CHUNK;
+  float v[V];
 #pragma unroll
-    for (int j = 0; j < K / 16; ++j)
-      v[j] = gr < n ? part[((size_t)s * n + gr) * K + h + 16 * j] : -INFINITY;
-    half_topk<K>(list, v, h);
+  for (int j = 0; j < V; ++j) v[j] = in[32 * j];
+  int count = 0;
+  float thr = -INFINITY;
+  for (int s = 0; s < parts; ++s) {
+    float next[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      next[j] = s + 1 < parts ? in[(s + 1) * stride + 32 * j] : -INFINITY;
+    offer<K, 32>(list, list + K, count, thr, v, lane);
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = next[j];
   }
-  if (h == 0 && gr < n) {
+  if (count > 0) merge_candidates<K, 32>(list, list + K, count, lane);
+  if (lane == 0) {
     float sum = 0.f;
     for (int q = 0; q < k; ++q) sum = __fadd_rn(sum, list[q]);
-    mean[gr] = __fdiv_rn(sum, (float)k);
+    mean[i] = __fdiv_rn(sum, (float)k);
   }
 }
 
@@ -586,8 +673,9 @@ int row_tiles(int n) { return (n + BM - 1) / BM; }
 // the other direction's room.
 constexpr int SMEM_A = SMEM_BYTES + BM * BN * 4;
 constexpr int SMEM_B = SMEM_BYTES + 2 * BN * 4;
-// ... and of long_topk_mean_kernel<K>: the product's, then the rows' lists
-constexpr int smem_long(int k) { return SMEM_BYTES + BM * k * 4; }
+// ... and of long_topk_mean_kernel<K>: the product's, then each row's list
+// and candidates
+constexpr int smem_long(int k) { return SMEM_BYTES + BM * 2 * k * 4; }
 
 // The wrapper's contract: xt, yt (d, ld) with 4 | ld, ld >= n, zeros in
 // columns n .. ld-1, 16-byte aligned; 1 <= splits <= the column tiles.
@@ -643,29 +731,26 @@ int launch_topk(const float* xt, const float* yt, const float* xn,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both directions of sweep A at K > MAX_K: the row direction on (x, y),
-// then on (y, x) for the column means (the diagonal written again, with
-// the same bits), each merged before the next sweep reuses part.
+// Both directions of sweep A at K > MAX_K from one pass: the sweep, then
+// the rows' merge over the splits' lists and the columns' over the row
+// tiles' similarities.
 template <int K>
 int launch_topk_long(const float* xt, const float* yt, const float* xn,
                      const float* yn, float* part, float* mean, float* diag,
-                     float* mean_cols, int n, int d, int ld, int k,
-                     int splits, cudaStream_t s) {
+                     float* col_part, float* mean_cols, int n, int d, int ld,
+                     int k, int splits, cudaStream_t s) {
   cudaError_t err = allow_smem(long_topk_mean_kernel<K>, smem_long(K));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + LONG_MERGE_THREADS / 16 - 1) / (LONG_MERGE_THREADS / 16);
-  for (int dir = 0; dir < 2; ++dir) {
-    long_topk_mean_kernel<K><<<row_tiles(n) * splits, THREADS, smem_long(K), s>>>(
-        dir ? yt : xt, dir ? xt : yt, dir ? yn : xn, dir ? xn : yn, part,
-        diag, n, d, ld, splits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    long_topk_merge_kernel<K><<<blocks, LONG_MERGE_THREADS, 0, s>>>(
-        part, dir ? mean_cols : mean, n, k, splits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  long_topk_mean_kernel<K><<<row_tiles(n) * splits, THREADS, smem_long(K), s>>>(
+      xt, yt, xn, yn, part, diag, col_part, n, d, ld, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (n + LONG_MERGE_THREADS / 32 - 1) / (LONG_MERGE_THREADS / 32);
+  long_topk_merge_kernel<K, K><<<blocks, LONG_MERGE_THREADS, 0, s>>>(
+      part, mean, n, k, splits);
+  long_topk_merge_kernel<K, BM><<<blocks, LONG_MERGE_THREADS, 0, s>>>(
+      col_part, mean_cols, n, k, row_tiles(n));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool CSLS, bool TOP3>
@@ -728,24 +813,24 @@ int rank_smem_bytes(int sweep, int key) {
 
 // Sweep A in both directions, 1 <= k <= MAX_LONG_K.  xt, yt (d, ld): x
 // and y transposed (the wrapper's contract, bad_shape); xn, yn (n,)
-// squared row norms; part (splits, n, list_len(k)) scratch, and, for
-// list_len(k) <= MAX_K, col_part (row tiles, n, list_len(k)) scratch
-// (unread above, may be null); writes mean (n,) and diag (n,), and
-// mean_cols (n,), the means of sweep A on (y, x).
+// squared row norms; part (splits, n, list_len(k)) and col_part (row
+// tiles, n, list_len(k)) scratch, or (row tiles, n, BM) for list_len(k) >
+// MAX_K; writes mean (n,) and diag (n,), and mean_cols (n,), the means of
+// sweep A on (y, x).
 int rank_topk_mean(const float* xt, const float* yt, const float* xn,
                    const float* yn, float* part, float* mean, float* diag,
                    float* col_part, float* mean_cols, int n, int d, int ld,
                    int k, int splits, void* stream) {
   if (bad_shape(xt, yt, n, d, ld, splits) || k < 1 || k > MAX_LONG_K ||
-      k > n || (list_len(k) <= MAX_K && !col_part) || !mean_cols)
+      k > n || !col_part || !mean_cols)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (list_len(k)) {
     case 1: return launch_topk<1>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
     case 3: return launch_topk<3>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
     case MAX_K: return launch_topk<MAX_K>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
-    case 32: return launch_topk_long<32>(xt, yt, xn, yn, part, mean, diag, mean_cols, n, d, ld, k, splits, s);
-    default: return launch_topk_long<MAX_LONG_K>(xt, yt, xn, yn, part, mean, diag, mean_cols, n, d, ld, k, splits, s);
+    case 32: return launch_topk_long<32>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
+    default: return launch_topk_long<MAX_LONG_K>(xt, yt, xn, yn, part, mean, diag, col_part, mean_cols, n, d, ld, k, splits, s);
   }
 }
 

@@ -36,8 +36,10 @@ STATS_TOPK = KernelStats("rank_topk_mean")
 STATS_TOPK_LONG = KernelStats("rank_topk_mean_long")
 STATS_RANKS = KernelStats("rank_counts")
 MAX_K = 10          # sweep A's longest list kept in registers
-# sweep A's longest list (csrc/rank_eval.cu, long_topk_mean_kernel): the
-# JAX kernel's running top-k is a (rows, 128) scratch, so k <= 128 there too
+# sweep A's longest list (csrc/rank_eval.cu, long_topk_mean_kernel: lists
+# in shared memory, kept by a threshold, candidates and a bitonic merge):
+# the JAX kernel's running top-k is a (rows, 128) scratch, so k <= 128
+# there too
 MAX_LONG_K = 128
 # the sweeps' block tile (csrc/rank_tile.cuh: BM, BN, BK) and the ints of
 # one sweep-B partial (csrc/rank_eval.cu: PART_B)
@@ -300,7 +302,8 @@ def rank_plan(n: int, d: int, sms: int, blocks_per_sm: int,
 def list_len(k: int) -> int:
     """Length of sweep A's per-row list for k (``rank_eval.cu::list_len``):
     1, 3 or ``MAX_K`` in registers, 32 or ``MAX_LONG_K`` in shared memory
-    (one direction a launch, ``long_topk_mean_kernel``)."""
+    (``long_topk_mean_kernel``, whose column direction goes through
+    ``col_scratch_floats``)."""
     if not 1 <= k <= MAX_LONG_K:
         raise ValueError(f"CSLS k = {k}: sweep A takes 1..{MAX_LONG_K}, as "
                          "the JAX package's streaming kernel does")
@@ -308,6 +311,16 @@ def list_len(k: int) -> int:
         if k <= size:
             return size
     return MAX_LONG_K
+
+
+def col_scratch_floats(n: int, k: int) -> int:
+    """Floats of sweep A's column scratch at (n, k): per row tile, each
+    column's top ``list_len(k)`` (lists in registers) or, for a long list,
+    each column's ``TILE_ROWS`` similarities to the tile's rows as they are
+    (0.44 GB at n = 10,500, 2.5 GB at 25,000), which the column merge
+    reduces."""
+    size = list_len(k)
+    return -(-n // TILE_ROWS) * n * (size if size <= MAX_K else TILE_ROWS)
 
 
 # ---------------------------------------------------------------- kernels
@@ -410,10 +423,8 @@ def _sweep_a(x, y, xn, yn, k, splits, operands):
     mean_cols = torch.empty(n, dtype=torch.float32, device=dev)
     part = torch.empty(plan["splits"] * n * size, dtype=torch.float32,
                        device=dev)
-    # a long list sweeps each direction on its own and needs no column
-    # partials (row tiles x n x size floats)
-    col_part = (torch.empty(plan["row_tiles"] * n * size, dtype=torch.float32,
-                            device=dev) if size <= MAX_K else None)
+    col_part = torch.empty(col_scratch_floats(n, k), dtype=torch.float32,
+                           device=dev)
     with torch.cuda.device(dev):
         err = built.lib.rank_topk_mean(
             ptr(xt), ptr(yt), ptr(xn), ptr(yn), ptr(part), ptr(mean),

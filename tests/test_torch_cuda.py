@@ -1199,14 +1199,21 @@ def test_gat_wide_kernels_give_the_narrow_kernels_bits(dev, dtype):
     assert torch.equal(d_x[:, :1280], n_dx)
 
 
-@pytest.mark.parametrize("n,d", [(300, 19), (1000, 36)])
-@pytest.mark.parametrize("k", [11, 20, 32, 33, 64, 128])
+# n = 300 and 1,000 at each list's edges, then one row tile or less (n <
+# 96), k = n (every column in each row's list) and k just past a list
+LONG_LIST_CASES = ([(n, d, k) for n, d in [(300, 19), (1000, 36)]
+                    for k in [11, 20, 32, 33, 64, 128]]
+                   + [(11, 24, 11), (40, 24, 20), (95, 24, 33), (95, 24, 95),
+                      (96, 24, 64), (128, 24, 128), (200, 24, 128)])
+
+
+@pytest.mark.parametrize("n,d,k", LONG_LIST_CASES)
 def test_rank_sweep_a_long_lists(dev, n, d, k):
-    """Sweep A at k above 10 (lists of 32 and 128 in shared memory, one
-    direction a launch) against its plain version (rtol = atol = 1e-5),
-    the same bits for every split and repeat, its column means the bits of
-    the row means on (y, x); then the whole evaluation against the dense
-    twin (ranks on >= 99 % of queries)."""
+    """Sweep A at k above 10 (lists of 32 and 128 in shared memory, both
+    directions from one pass) against its plain version (rtol = atol =
+    1e-5), the same bits for every split and repeat, its column means the
+    bits of the row means on (y, x); then the whole evaluation against the
+    dense twin (ranks on >= 99 % of queries)."""
     x, y = _embs(dev, n, d, seed=n + k)
     xn, yn = torch.sum(x * x, dim=1), torch.sum(y * y, dim=1)
     got = rk.topk_mean_both_cuda(x, y, xn, yn, k)
@@ -1214,7 +1221,7 @@ def test_rank_sweep_a_long_lists(dev, n, d, k):
     for a, b in zip(got, rk.topk_mean_both_twin(x, y, xn, yn, k)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     col_tiles = rk.device_plan(dev, n, d, 0, k)["col_tiles"]
-    for splits in (None, 1, col_tiles):
+    for splits in (None, None, 1, col_tiles):
         again = rk.topk_mean_both_cuda(x, y, xn, yn, k, splits=splits)
         assert all(torch.equal(a, b) for a, b in zip(again, got))
     rr, diag_rl = rk.topk_mean_cuda(y, x, yn, xn, k)

@@ -10,7 +10,8 @@
   JAX's, whose dense path cannot take unequal sides (pinned here: it
   raises a TypeError);
 * CSLS at k = 20 and 128 through the dense twin, the split model of the
-  rank kernel's sweep A, and a model of its shared-memory list insertion.
+  rank kernel's sweep A, and a model of its shared-memory lists' upkeep
+  (``test_torch_rank_long_schedule.Lists``).
 
 Thresholds and chunk sizes are set alike on both sides (monkeypatch), as
 ``tests/test_eval_chunked.py`` does, so that no test needs 25,000 pairs.
@@ -38,6 +39,7 @@ import snag_tpu.eval.ranking as R
 import snag_tpu_torch.eval.ranking as TR
 from snag_tpu_torch.cli.train_mmea import main as port_main
 from snag_tpu_torch.ops.cuda import rank_eval as trk
+from test_torch_rank_long_schedule import Lists
 from torch_port_common import single_thread, small_argv
 
 single_thread()
@@ -210,34 +212,22 @@ def test_list_len():
         trk.list_len(129)
 
 
-def _half_topk(lst, vals):
-    """A model of ``rank_eval.cu::half_topk``: the values that beat the
-    list's last entry inserted one at a time in offer order, each at the
-    place after the entries >= it, the last entry dropping out; values
-    that stop beating the last entry are dropped."""
-    k = len(lst)
-    pend = [v for v in vals if v > lst[-1]]
-    for x in pend:
-        if not x > lst[-1]:
-            continue
-        pos = sum(1 for e in lst if e >= x)
-        lst[pos + 1:] = lst[pos:-1]
-        lst[pos] = x
-        assert len(lst) == k
-    return lst
-
-
 @pytest.mark.parametrize("k", [32, 128])
 def test_list_insertion_keeps_the_top_k(k):
+    """A row's list as the sweep keeps it (``test_torch_rank_long_schedule
+    .Lists``: a threshold, K candidates, a network merge when they fill):
+    offered a tile's 16 x 16 values at a time, with ties, -inf and NaN, it
+    ends with the k largest values that are not NaN."""
     rng = np.random.default_rng(k)
     vals = np.round(rng.normal(size=3000), 2).astype(np.float32)  # ties
     vals[::97] = -np.inf
     vals[5::101] = np.nan
-    lst = [-np.inf] * k
+    row = Lists(1, k)
     for s in range(0, len(vals), 16 * 16):     # a tile's 16 x 16 offers
-        lst = _half_topk(lst, list(vals[s:s + 256]))
+        row.offer(vals[None, s:s + 256])
     want = np.sort(vals[~np.isnan(vals)])[::-1][:k]
-    np.testing.assert_array_equal(np.asarray(lst, np.float32), want)
+    np.testing.assert_array_equal(row.flush()[0], want)
+    assert row.merges > 0
 
 
 # ------------------------------------------------------------ the flags

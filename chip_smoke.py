@@ -30,7 +30,10 @@ the exit code is non-zero:
    kernel, ``csrc/gram_grad.cuh``) and both loss lse kernels (one kernel,
    ``csrc/gram_lse.cuh``) the executed and least TFLOP/s and a bitwise
    repeat, and the launch plans of NT-Xent's gradient and of both lse;
-   for the rank sweeps (``csrc/rank_tile.cuh``), each launch over both
+   the f32 mixture gradient past one modality's fit in its shared
+   accumulator, in feature chunks (``MIXTURE_CHUNKED``: M = 4 at d =
+   1,600, M = 1 at the cap + 8), against its twin with its plan and
+   device ms; for the rank sweeps (``csrc/rank_tile.cuh``), each launch over both
    directions as the evaluation runs it, the same, their registers and
    spills, and a column direction that must give the bits of the row
    direction of the launch on (y, x); for the two GAT kernels (a warp per
@@ -152,8 +155,11 @@ the exit code is non-zero:
    kernels' bf16 wide path, the bf16 loss entries, both rank sweeps);
    then the f32 model served with CSLS k = 20 under L2 (sweep A's list of
    32), its ranks on all 10,500 test pairs held against the CPU's dense
-   twin (>= 99.9 %); (c) 10,500 against 12,000 rows of width 1,200 ranked
-   on the card and on the CPU.  The wide and long-list launches are
+   twin (>= 99.9 %); then f32 SNAG with every active modality 1,600 wide,
+   2 epochs: the mixture gradient in feature chunks (counted apart,
+   ``mixture_grad_chunked``) and the GAT kernels' wide path launch, the
+   losses finite and falling; (c) 10,500 against 12,000 rows of width
+   1,200 ranked on the card and on the CPU.  The wide and long-list launches are
    counted apart (``WIDE_KERNELS``); the kernels line holds them with the
    records of (a) at H = 8, C = 300 and k = 20.
 14. mesh (``phase_mesh``), ``--mesh_shape data:N`` through the CLIs:
@@ -278,7 +284,7 @@ GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
 GAT_WIDE_KERNELS = {"gat_attention_fwd_wide", "gat_bwd_wide"}
 GAT_BF16_WIDE_KERNELS = {"gat_attention_fwd_bf16_wide", "gat_bwd_bf16_wide"}
 WIDE_KERNELS = GAT_WIDE_KERNELS | GAT_BF16_WIDE_KERNELS | {
-    "rank_topk_mean_long"}
+    "rank_topk_mean_long", "mixture_grad_chunked"}
 SEGMENT_KERNEL = "weighted_segment_sum"
 SEGMENT_BF16 = "weighted_segment_sum_bf16"
 # the bf16 entries of the GAT configuration's path
@@ -327,6 +333,11 @@ NTXENT_SHAPES = (("IIR", 4, 3500, 300, 3500), ("ECIA", 4, 3500, 300, 1000),
 # (--use_surface 1)
 MIXTURE_SHAPES = (("M4", 4, 3500, 300, 3500), ("M4 padded", 4, 3500, 300, 1000),
                   ("M6", 6, 3500, 300, 3500))
+# (name, M, B, d) of the f32 mixture gradient past one modality's fit in
+# its shared accumulator, in feature chunks: the bundle of a training
+# batch at width 1,600 (phase parity's SNAG_WIDE run), and one modality
+# just past the cap (d = None: the cap + 8, read on the card)
+MIXTURE_CHUNKED = (("M4 d1600", 4, 3500, 1600), ("M1 cap+8", 1, 3500, None))
 
 
 def say(phase: str, msg: str) -> None:
@@ -1057,7 +1068,7 @@ def _mixture_inputs(m, b, d, n_valid, seed):
     z = rng.normal(size=(m, 2 * b, d)).astype(np.float32)
     z[:, b:] = z[:, :b] + 0.5 * z[:, b:]
     z /= np.linalg.norm(z, axis=-1, keepdims=True)
-    z[1, 5] = 0.0                                   # an all-zero row
+    z[min(1, m - 1), 5] = 0.0                       # an all-zero row
     alpha = np.abs(rng.normal(size=(2 * b, m))).astype(np.float32)
     alpha /= np.linalg.norm(alpha, axis=1, keepdims=True)
     u = rng.uniform(0.2, 1.0, size=m).astype(np.float32)
@@ -1077,7 +1088,8 @@ def phase_mixture(tau=0.1):
     per modality; gradient: each group of modalities computes every K_m
     once, then its W z) and least (K_m once per unordered pair of rows, then
     W z for the gradient).  The JSON record has the full M = 4 batch, the
-    main path's shape."""
+    main path's shape.  Then the gradient in feature chunks
+    (``_mixture_chunked``)."""
     import torch
     from snag_tpu_torch.ops.cuda import snag_loss as sl
     cap = sl._grad_cap(sl._library(), torch.device("cuda"))
@@ -1124,8 +1136,8 @@ def phase_mixture(tau=0.1):
                   DEVICE_KERNELS[sl.STATS_GRAD.name])}
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
-        groups = -(-m // sl.modality_group(m, d, cap))
-        executed = 2 * n2 * n2 * d * (groups * m + m)
+        mg, chunks = sl.modality_group(m, d, cap)
+        executed = 2 * n2 * n2 * d * (-(-m // mg) * chunks * m + m)
         rates = (f"{executed / ms['grad_dev'] / 1e9:.1f} executed, "
                  f"{(k_flops + wz_flops) / ms['grad_dev'] / 1e9:.1f} least")
         lp = sl.lse_plan(m, n2, d, z.device)
@@ -1156,8 +1168,51 @@ def phase_mixture(tau=0.1):
             f"({rates} TFLOP/s) twin {ms['grad_twin']:.3f} ms")
         del z, alpha, beta, v, coef, lse, lse_again, want, got, again, wants
         torch.cuda.empty_cache()
+    _mixture_chunked(cap, tau)
     return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
             for (name, *rest), err in zip(first, (err_lse, err_grad))]
+
+
+def _mixture_chunked(cap, tau):
+    """The f32 mixture gradient at ``MIXTURE_CHUNKED``, past one
+    modality's fit in its shared accumulator (``cap`` columns): its plan
+    must take feature chunks, dz, dalpha and dbeta lie within 1e-4 x max
+    |twin| of the twin's (fed the twin's lse), and two runs give the same
+    bits; with its device ms, executed TFLOP/s (each chunk recomputes every
+    K_m over the whole d) and the twin's ms on the card."""
+    import torch
+    from snag_tpu_torch.ops.cuda import snag_loss as sl
+    for label, m, b, d in MIXTURE_CHUNKED:
+        d = d or cap + 8
+        z, alpha, beta, v, coef = _mixture_inputs(m, b, d, b, SEED + d)
+        plan = sl.grad_plan(m, 2 * b, d, z.device)
+        if plan["chunks"] < 2:
+            raise AssertionError(f"mixture_grad {label}: no feature chunks "
+                                 f"at d = {d} ({plan})")
+        lse = sl.mixture_lse_twin(z, alpha, beta, v, tau)
+        fn = lambda: sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, tau)
+        got = repeat_bitwise(fn, f"mixture_grad {label}")
+        wants = sl.mixture_grad_twin(z, alpha, beta, lse, coef, v, tau)
+        errs = []
+        for part, a, w in zip(("dz", "dalpha", "dbeta"), got, wants):
+            e, scale = (a - w).abs().max().item(), w.abs().max().item()
+            if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
+                raise AssertionError(f"mixture_grad {label} {part}: max|err| "
+                                     f"{e} > 1e-4 * max|twin| {scale}")
+            errs.append(f"{part} {e:.3e} of {scale:.6f}")
+        dev = device_ms(fn, DEVICE_KERNELS[sl.STATS_GRAD.name])
+        twin = median_ms(lambda: sl.mixture_grad_twin(z, alpha, beta, lse,
+                                                      coef, v, tau))
+        n2, groups = 2 * b, -(-m // plan["mg"])
+        executed = 2 * n2 * n2 * d * (groups * plan["chunks"] * m + m)
+        say("mixture", f"{label} (M={m}, B={b}, d={d}, past the cap {cap}): "
+            f"{plan['mg']} modality(ies) a block in {plan['chunks']} feature "
+            f"chunks, {plan['splits']} split(s), ring {plan['depth']} | "
+            f"max|err| {', '.join(errs)} (<= 1e-4 x max|twin|), bitwise "
+            f"repeat | grad device {dev:.3f} ms ({executed / dev / 1e9:.1f} "
+            f"executed TFLOP/s) twin {twin:.3f} ms")
+        del z, alpha, beta, v, coef, lse, got, wants
+        torch.cuda.empty_cache()
 
 
 def plan_text(plan):
@@ -2039,6 +2094,30 @@ def phase_accum_dropout():
 # slices past 1,280), 2 heads at 330 (past 320 single floats; the
 # backward's 8-byte slices)
 PARITY_GAT = ((8, 300), (8, 1536), (2, 330))
+# sha256 of agg and of rowsum of the wide forward at (H, C, bf16) of
+# PARITY_GAT on gat_bwd_inputs, as the body that walked column chunks and
+# head groups apart gave them on an H100 (scripts/torch_grad_ab.py,
+# sections gat_fwd_wide and gat_fwd_wide_bf16): every later body keeps them
+PARITY_FWD_SHA256 = {
+    (8, 300, False): (
+        "5c631d9346bf9706929bad3c1361ac2ec14579e9712e66d2e8732e9b949c66de",
+        "3f64cbc9d4457a88e5cf30539f7d0b0fab1cd9f44b1d0e627788af4e3dce7147"),
+    (8, 1536, False): (
+        "9ef251069aeef1f65f34408aa80ef56e2b7f4f9cab66dc306b01bbbd9ea99a2c",
+        "cbe043d3252ae06bf6e54f462f9d51506e2d55e5ac5fe0e305c9e8ec03646102"),
+    (2, 330, False): (
+        "d467c72b47be38240949622bf89cbe5ef4e8cabc55d0a772ae6a5f89f26c4787",
+        "48428a36f396a473bf476b4ff5b746ad7614f95d9f47a3314573046541f89a29"),
+    (8, 300, True): (
+        "e694c184e7eaf4811f312b41f3878deb396ae04bb42d17c6a400475e12eb31ec",
+        "d6cd4a68ecdb07a43cfb253f85dc0cb05cd6b8e7b1ba96a426f5bf811e52b94d"),
+    (8, 1536, True): (
+        "b0cbe949e710a9d3200b1242d34e7199b229d2b71ad6ad61affe9381bac98b48",
+        "e9ae1ddab902a96e5827818f6a27d6eb8daeab70c4d3c8955011e4886f9dad38"),
+    (2, 330, True): (
+        "feade361ab2f443eb202f57a24f4dea516348ff33f07a9401c0c610377dbb990",
+        "d68832a2bef8cce30ff1d89f05a346495ff7eea7b161d2345c936a72a84d5d48"),
+}
 # sweep A's lists in shared memory: 20 takes the list of 32 (the served
 # evaluation's k below), 64 and 128 the list of 128
 PARITY_K = (20, 64, 128)
@@ -2059,6 +2138,22 @@ PARITY_ARGS = ["--epoch", "4", "--eval_epoch", "5", "--batch_size", "3500",
 PARITY_CPU_PAIRS = 1024
 # left and right rows, width: the bench joint's
 PARITY_UNEQUAL = (10500, 12000, 1200)
+# phase parity's f32 SNAG run with every active modality 1,600 wide (the
+# fused bundle at M = 4, d = 1,600: the mixture gradient in feature
+# chunks; the GAT at C = 1,600 on its wide path), 2 epochs, the final test
+WIDE_WIDTH = 1600
+SNAG_WIDE_ARGS = ["--epoch", "2", "--eval_epoch", "3", "--batch_size",
+                  "3500", "--lr", "5e-4", "--scheduler", "cos"]
+
+
+def wide_width_args():
+    """BENCH_ARGS with every modality, the GAT and the fusion at
+    WIDE_WIDTH."""
+    args = set_flag(BENCH_ARGS, "--hidden_units", ",".join([str(WIDE_WIDTH)] * 3))
+    for flag in ("--attr_dim", "--img_dim", "--name_dim", "--char_dim",
+                 "--hidden_size"):
+        args = set_flag(args, flag, str(WIDE_WIDTH))
+    return args
 
 
 def _sub_graph(g, rows, both):
@@ -2104,11 +2199,16 @@ def _parity_gat(inputs, bf16):
             twin = lambda: ga.gat_attention_twin(x, s_src, s_dst, g)
             want = on_cpu(ga.gat_attention_twin, x, s_src, s_dst,
                           _sub_graph(g, rows, False))
-            kernels = (f"gat_attention_fwd{sfx}_wide_kernelILi"
-                       f"{min(h, 4)}ELi{vec}E",)
+            fvec, _ = ga.wide_slice_width(c, h, x)
+            wp = ga.wide_plan(c, h, fvec, bf16)
+            kernels = (f"gat_attention_fwd{sfx}_wide_kernelILi{wp['hb']}ELi"
+                       f"{fvec}ELi{wp['gw']}E",)
             nbytes = xb * n * c + 4 * (2 * n * h + n + 1 + e + n * h * c + n * h)
             flops = 2 * e * h * (c + 1)
-            plan = f"vec={vec}"
+            plan = (f"vec={fvec} heads={wp['hn']} (of {wp['hb']}) groups="
+                    f"{wp['gw']} warps={wp['warps']} row groups={wp['rows']} "
+                    f"tile={wp['tile']} passes={wp['passes']} "
+                    f"depth={wp['depth']} smem={wp['smem']}")
             gathered = e * c * xb
         else:
             name = f"gat_bwd{sfx}_wide"
@@ -2129,6 +2229,16 @@ def _parity_gat(inputs, bf16):
                     f"passes={wp['passes']}")
             gathered = e * h * c * xb
         got = repeat_bitwise(fn, f"parity {name} H={h} C={c}")
+        if kind == "fwd":
+            sha = tuple(sha256_of(t) for t in got)
+            kept = PARITY_FWD_SHA256.get((h, c, bf16))
+            if kept is not None and sha != kept:
+                raise AssertionError(f"parity {name} H={h} C={c}: agg and "
+                                     f"rowsum sha256 {sha}, not the kept "
+                                     f"{kept}")
+            say("parity", f"{name} H={h} C={c}: sha256 agg {sha[0][:16]} "
+                f"rowsum {sha[1][:16]}, "
+                f"{'the kept ones' if kept else 'none kept'}")
         got = [t[rows.to(t.device)] for t in got]
         want = [t[rows.to(t.device)] for t in want]
         if bf16:
@@ -2257,8 +2367,11 @@ def phase_parity(data):
     same heads in bf16, 3 epochs, under L2 with CSLS k = 3 (the bf16 wide
     path, the bf16 loss entries and both rank sweeps); then the f32 model
     served with ``--csls_k 20`` under L2 (``--only_test 1``), which runs
-    sweep A's list of 32, its ranks held against the CPU's dense twin.
-    (c) One evaluation with sides of unequal size (``PARITY_UNEQUAL``) on
+    sweep A's list of 32, its ranks held against the CPU's dense twin;
+    then f32 SNAG with every active modality ``WIDE_WIDTH`` wide, 2 epochs
+    (``snag_wide``): the mixture gradient in feature chunks launches
+    (``mixture_grad_chunked``), the GAT kernels on their wide path, the
+    losses finite and falling.  (c) One evaluation with sides of unequal size (``PARITY_UNEQUAL``) on
     the card against the CPU path.  Returns the launches of (b)'s runs and
     the kernels-line records of (a) at ``PARITY_GAT[0]`` and
     ``PARITY_K[0]``."""
@@ -2350,6 +2463,11 @@ def phase_parity(data):
                        held["pkl"], {"gat_attention_fwd_wide",
                                      "rank_topk_mean_long", "rank_counts"},
                        check=served))
+    # (d) f32 SNAG at width WIDE_WIDTH: the chunked mixture gradient
+    runs.append(_train(
+        "snag_wide", wide_width_args() + SNAG_WIDE_ARGS,
+        (f32_kernels() - {SEGMENT_KERNEL} - GAT_KERNELS) | GAT_WIDE_KERNELS
+        | {"mixture_grad_chunked"}, promotion=False))
     t_runs = time.perf_counter() - t0 - t_kernels
 
     nl, nr, d = PARITY_UNEQUAL

@@ -11,7 +11,10 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
 
 * ``mixture_grad_cuda`` at ``chip_smoke.MIXTURE_SHAPES``: the sha256 of
   the bytes of dz, dalpha and dbeta, and the median ms of 5 runs;
-  ``mixture_lse_cuda`` there: the sha256 of lse and the median ms;
+  ``mixture_lse_cuda`` there: the sha256 of lse and the median ms; and
+  the f32 gradient past one modality's fit in its accumulator
+  (``chip_smoke.MIXTURE_CHUNKED``, section ``mixture_grad_chunked``), or
+  the error a checkout without feature chunks raised;
 * ``ntxent_grad_cuda`` at ``chip_smoke.NTXENT_SHAPES``: the sha256 of dz
   and the median ms, or the error the wrapper raised; ``streaming_lse_cuda``
   there: the sha256 of lse and the median ms;
@@ -34,7 +37,11 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   C = 319, H = 2 (single floats): ``gat_attention_cuda`` (sha256 of agg and
   of rowsum) and ``gat_backward_cuda`` (sha256 of d_x, d_s_src and
   d_s_dst), each with its median ms, and the registers and spills of the
-  kernels (``chip_smoke.gat_ptxas``) where this process built them;
+  kernels (``chip_smoke.gat_ptxas``) where this process built them; and
+  the forward's wide path at ``chip_smoke.PARITY_GAT`` on
+  ``gat_bwd_inputs``, f32 and bf16 (sections ``gat_fwd_wide`` and
+  ``gat_fwd_wide_bf16``: sha256 of agg and of rowsum, the median times,
+  and the wide kernels' registers and spills);
 * the weighted segment sum on the bench graph with
   ``chip_smoke.segment_inputs``: ``weighted_segment_sum_cuda`` on the
   GCN's adjacency at C = 300, H = 1 and its backward launch on g_agg with
@@ -138,6 +145,10 @@ def main() -> int:
         out["segment_bf16"] = segment_bf16_records(cs, graph)
         out["ptxas"]["segment_bf16"] = ptxas_records(
             cs.segment_bf16_ptxas(ts._library()))
+    out.update(gat_wide_records(cs, graph))
+    out["ptxas"]["gat_fwd_wide"] = ptxas_records(cs.kernel_ptxas(
+        ga._library(), ("gat_attention_fwd_wide_kernel",
+                        "gat_attention_fwd_bf16_wide_kernel")))
 
     line = json.dumps(out)
     print(line)
@@ -153,6 +164,10 @@ def main() -> int:
                 continue
             for label, rec in out.get(kind, {}).items():
                 if "sha256" not in rec:
+                    continue
+                if "error" in other.get(kind, {}).get(label, {}):
+                    print(f"{kind} {label}: {other['root']} raised, not "
+                          "compared")
                     continue
                 theirs = other.get(kind, {}).get(label, {}).get("sha256")
                 ok = rec["sha256"] == theirs
@@ -176,8 +191,9 @@ def main() -> int:
 # CSLS k of the long-list records: the lists of 32 (11, 20) and 128
 LONG_KS = (11, 20, 33, 64, 128)
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
-            "rank", "gat_fwd", "gat_bwd", "segment")
+            "rank", "gat_fwd", "gat_bwd", "segment", "gat_fwd_wide")
 SECTIONS += tuple(f"{k}_bf16" for k in SECTIONS if k != "rank")
+SECTIONS += ("mixture_grad_chunked",)
 
 
 def ptxas_records(rows):
@@ -261,14 +277,37 @@ def gat_records(cs, graph):
     return out
 
 
+def gat_wide_records(cs, graph):
+    """The GAT forward's wide path at ``chip_smoke.PARITY_GAT`` on
+    ``gat_bwd_inputs``' x, s_src and s_dst, f32 and bf16: one digest per
+    output, and the median times under the shape's label."""
+    import torch
+    from snag_tpu_torch.ops.cuda import gat_attention as ga
+    out = {"gat_fwd_wide": {}, "gat_fwd_wide_bf16": {}}
+    for h, c in cs.PARITY_GAT:
+        g, x, s_src, s_dst, _, _ = cs.gat_bwd_inputs(graph, c=c, h=h)
+        label = f"H{h} C{c}"
+        for kind, xs, stats in (
+                ("gat_fwd_wide", x, ga.STATS_WIDE),
+                ("gat_fwd_wide_bf16", x.to(torch.bfloat16),
+                 ga.STATS_BF16_WIDE)):
+            fn = (lambda xs=xs: ga.gat_attention_cuda(xs, s_src, s_dst, g))
+            for name, t in zip(("agg", "rowsum"), fn()):
+                out[kind][f"{label} {name}"] = {"sha256": digest(t)}
+            out[kind][label] = timed(cs, fn, stats.name)
+        del g, x, s_src, s_dst
+        torch.cuda.empty_cache()
+    return out
+
+
 def bf16_records(cs, nx, sl, graph):
     """The bf16 entries: one digest per output, and the median times."""
     import torch
     from snag_tpu_torch.ops.cuda import gat_attention as ga
     from snag_tpu_torch.ops.cuda import gat_bwd as gb
     bf = torch.bfloat16
-    out = {k: {} for k in SECTIONS
-           if k.endswith("_bf16") and k != "segment_bf16"}
+    out = {k: {} for k in SECTIONS if k.endswith("_bf16")
+           and k not in ("segment_bf16", "gat_fwd_wide_bf16")}
     for label, c, h in (("C300 H2", 300, 2), ("C319 H2", 319, 2)):
         g, x, s_src, s_dst = cs.gat_inputs(graph, c, h)
         _, xb, sb, db, g_agg, g_rs = cs.gat_bwd_inputs(graph, c, h)
@@ -329,6 +368,25 @@ def loss_records(cs, nx, sl):
             cs, lambda: sl.mixture_lse_cuda(z, alpha, beta, v, TAU),
             sl.STATS_LSE.name)}
         del z, alpha, beta, v, coef, lse, got
+        torch.cuda.empty_cache()
+
+    out["mixture_grad_chunked"] = {}
+    cap = sl._grad_cap(sl._library(), torch.device("cuda"))
+    for label, m, b, d in cs.MIXTURE_CHUNKED:
+        d = d or cap + 8
+        z, alpha, beta, v, coef = cs._mixture_inputs(m, b, d, b, cs.SEED + d)
+        lse = sl.mixture_lse_twin(z, alpha, beta, v, TAU)
+        fn = (lambda: sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v,
+                                           TAU))
+        try:
+            got = fn()
+        except ValueError as e:
+            out["mixture_grad_chunked"][label] = {"error": str(e)}
+        else:
+            out["mixture_grad_chunked"][label] = {
+                "sha256": digest(*got), **timed(cs, fn, sl.STATS_GRAD.name)}
+            del got
+        del z, alpha, beta, v, coef, lse
         torch.cuda.empty_cache()
 
     for i, (label, m, b, d, n_valid) in enumerate(cs.NTXENT_SHAPES):

@@ -24,14 +24,17 @@
 // read-modify-write needs no barrier.  Operands stream through a ring of up
 // to four cp.async slots, one barrier a step.
 //
-// blockIdx.y: for the mixtures a group of modalities (where the accumulator
-// of every modality does not fit, each group recomputing every K tile for
-// the mixtures); for NT-Xent (batch, feature chunk), a chunk being a
-// balanced share of the n8 feature tiles that fits the accumulator, each
-// chunk recomputing K over the whole d.  blockIdx.z: up to four blocks
-// share a row tile's column tiles where that fills the last wave; the
-// blocks past the first write partials that a second kernel adds in a
-// fixed order.  No float atomics: two runs give the same bits.
+// blockIdx.y: (group, feature chunk), group * chunks + chunk.  A group is
+// the mixtures' modalities a block holds (where the accumulator of every
+// modality does not fit, each group recomputing every K tile), NT-Xent's
+// batch.  A chunk is a balanced share of the n8 feature tiles that fits
+// the accumulator, each chunk recomputing K over the whole d; past one
+// modality's fit the mixtures take chunks too.  W and K, and so dalpha and
+// dbeta, do not depend on the chunk: chunk 0 alone writes them.
+// blockIdx.z: up to four blocks share a row tile's column tiles where that
+// fills the last wave; the blocks past the first write partials that a
+// second kernel adds in a fixed order.  No float atomics: two runs give the
+// same bits.
 
 #pragma once
 
@@ -358,11 +361,12 @@ __device__ __forceinline__ void weight_tile(
 }
 
 // The kernel's body.  MIX: z, alpha, beta, lse and coef (nm + 2, n2) as in
-// snag_loss.cu, blockIdx.y the group of mg modalities from m0, chunks = 1;
-// dz, dalpha and per-block dbeta partials (split 0) or the split's
-// partials in part.  !MIX: alpha, beta and dalpha unused, lse and coef
-// (nm, n2), mg = 1, blockIdx.y = batch * chunks + chunk; dz (split 0) or
-// the split's dz partials in part.
+// snag_loss.cu, blockIdx.y = group * chunks + chunk, the group of mg
+// modalities from m0; dz over the chunk's features, and from chunk 0
+// dalpha and per-block dbeta partials (split 0), or the split's partials
+// in part.  !MIX: alpha, beta and dalpha unused, lse and coef (nm, n2),
+// mg = 1, blockIdx.y = batch * chunks + chunk; dz (split 0) or the split's
+// dz partials in part.
 template <bool MIX, bool VEC>
 __device__ __forceinline__ void gram_grad(
     const float* __restrict__ z, const float* __restrict__ alpha,
@@ -381,7 +385,7 @@ __device__ __forceinline__ void gram_grad(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int row0 = blockIdx.x * ROWS;
-  const int m0 = MIX ? blockIdx.y * mg : blockIdx.y / chunks;
+  const int m0 = MIX ? blockIdx.y / chunks * mg : blockIdx.y / chunks;
   // K tiles: every modality for the mixtures, else the block's batch
   constexpr int KM = MIX ? MAX_MOD : 1;
   const int mk0 = MIX ? 0 : m0;
@@ -392,7 +396,7 @@ __device__ __forceinline__ void gram_grad(
   const int ct1 = n_ct * (blockIdx.z + 1) / gridDim.z;
   const int nmy = MIX ? min(mg, nm - m0) : 1;
   // this block's feature tiles [t0, t1) of d's (d + 7) / 8
-  const int chunk = MIX ? 0 : blockIdx.y % chunks;
+  const int chunk = blockIdx.y % chunks;
   const int t0 = (d + 7) / 8 * chunk / chunks;
   const int t1 = (d + 7) / 8 * (chunk + 1) / chunks;
   const int ntiles = t1 - t0;
@@ -606,7 +610,7 @@ __device__ __forceinline__ void gram_grad(
           acc_m[((size_t)(f / 8) * 2 + r / 16) * 128 + ln * 4 + e];
     }
   }
-  if (!MIX) return;
+  if (!MIX || chunk > 0) return;
 
   // dalpha: a row's 4 lanes, then its 4 column warps in order; dbeta: the
   // block's threads in order
@@ -643,19 +647,19 @@ __device__ __forceinline__ void gram_grad(
 
 // The two instantiations, named apart so that a profile tells them apart.
 // The mixture's accumulator holds every modality of its group (152 KB at
-// M = 4, d = 300), one block per SM; NT-Xent's one batch (38 KB at
-// d = 300), two blocks per SM, so that one block's loads can run under the
-// other's products.
+// M = 4, d = 300), or one modality's chunk of the features, one block per
+// SM; NT-Xent's one batch (38 KB at d = 300), two blocks per SM, so that
+// one block's loads can run under the other's products.
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 mixture_grad_kernel(const float* __restrict__ z, const float* __restrict__ alpha,
                     const float* __restrict__ beta, const float* __restrict__ lse,
                     const float* __restrict__ coef, const float* __restrict__ v,
                     float* __restrict__ dz, float* __restrict__ dalpha,
-                    float* __restrict__ part, int nm, int mg, int n2, int d,
-                    float inv_tau, int depth) {
+                    float* __restrict__ part, int nm, int mg, int chunks,
+                    int n2, int d, float inv_tau, int depth) {
   gram_grad<true, VEC>(z, alpha, beta, lse, coef, v, dz, dalpha, part, nm,
-                       mg, 1, n2, d, inv_tau, depth);
+                       mg, chunks, n2, d, inv_tau, depth);
 }
 
 template <bool VEC>
@@ -673,9 +677,9 @@ ntxent_grad_mma_kernel(const float* __restrict__ z,
 }  // namespace grad
 
 // How a gradient kernel runs on this device:
-//   chunks  (NT-Xent) the fewest feature chunks whose accumulator fits
-//           beside the shallowest ring, of balanced size; the mixtures
-//           keep one and their cap (mixture_grad_init);
+//   chunks  the fewest feature chunks whose accumulator (of mg modalities)
+//           fits beside the shallowest ring, of balanced size, or the
+//           caller's (chunks > 0 on entry), which must fit;
 //   depth   the deepest cp.async ring that fits beside the accumulator;
 //   splits  the number of blocks that share a row tile's column tiles,
 //           chosen so that the last wave of blocks fills the SMs: at 7,000
@@ -692,7 +696,7 @@ struct GradPlan {
 
 template <bool MIX>
 int grad_plan(const void* kernel, int m, int mg, int n2, int d,
-              GradPlan& plan) {
+              GradPlan& plan, int chunks = 0) {
   int dev = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -701,15 +705,15 @@ int grad_plan(const void* kernel, int m, int mg, int n2, int d,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int d8 = (d + 7) / 8;
-  plan.chunks = 1;
-  if (!MIX) {
-    const long room = (long)optin - (long)grad::smem_bytes(grad::MIN_DEPTH, 0, 0);
-    const long cap = room / (long)(sizeof(float) * grad::TILE_FLOATS);
-    if (cap < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    plan.chunks = static_cast<int>((d8 + cap - 1) / cap);
-    if ((long)m * plan.chunks > 65535)
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+  // the feature tiles an accumulator of mg modalities holds
+  const long room = (long)optin - (long)grad::smem_bytes(grad::MIN_DEPTH, 0, 0);
+  const long cap = room / (long)(sizeof(float) * grad::TILE_FLOATS * mg);
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  plan.chunks = chunks > 0 ? chunks : static_cast<int>((d8 + cap - 1) / cap);
+  const int groups = MIX ? (m + mg - 1) / mg : m;
+  if (plan.chunks > d8) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long)groups * plan.chunks > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   // the widest chunk's columns
   const int cols = 8 * ((d8 + plan.chunks - 1) / plan.chunks);
   plan.depth = grad::MAX_DEPTH;
@@ -717,12 +721,13 @@ int grad_plan(const void* kernel, int m, int mg, int n2, int d,
          grad::smem_bytes(plan.depth, mg, cols) > (size_t)optin)
     --plan.depth;
   plan.bytes = grad::smem_bytes(plan.depth, mg, cols);
+  if (plan.bytes > (size_t)optin) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &plan.per_sm, kernel, grad::THREADS, plan.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
   const int n_ct = (n2 + grad::COLS - 1) / grad::COLS;
-  const long blocks = (long)nb * (MIX ? (m + mg - 1) / mg : m * plan.chunks);
+  const long blocks = (long)nb * groups * plan.chunks;
   const long slots = (long)sms * (plan.per_sm > 0 ? plan.per_sm : 1);
   // the share of the SMs' time that full waves would use; a split pays for
   // its partials, so it must gain 3 %

@@ -63,7 +63,10 @@
 // and W z into the (modalities x 32 rows x d) shared accumulator, 152 KB at
 // M = 4, d = 300, one block (8 warps) per SM.  Where the accumulator of
 // every modality does not fit (M = 6 at d = 300), a block takes a group of
-// modalities (blockIdx.y, chosen by the wrapper).  dbeta is summed per
+// modalities (blockIdx.y, chosen by the wrapper); where one modality's
+// does not (d past ~1,500 columns), a block takes one modality's feature
+// chunk and recomputes its K tiles over the whole d, as NT-Xent's chunks
+// do, and chunk 0 alone writes dalpha and dbeta.  dbeta is summed per
 // block, written as per-block partials and reduced in a fixed order: no
 // atomics, two runs give the same bits.
 //
@@ -342,17 +345,24 @@ int lse_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   return static_cast<int>(cudaGetLastError());
 }
 
-int grad_plan_of(int m, int mg, int n2, int d, GradPlan& plan) {
+int grad_plan_of(int m, int mg, int chunks, int n2, int d, GradPlan& plan) {
+  if (check_shape(m, n2, d) || mg < 1 || mg > m || chunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   return grad_plan<true>(reinterpret_cast<const void*>(Kernels<float>::grad_vec),
-                         m, mg, n2, d, plan);
+                         m, mg, n2, d, plan, chunks);
 }
 
-long grad_scratch_entry(int m, int mg, int n2, int d) {
-  if (check_shape(m, n2, d) || mg < 1 || mg > m)
-    return -static_cast<long>(cudaErrorInvalidValue);
+long grad_scratch_entry(int m, int mg, int chunks, int n2, int d, int* out) {
   GradPlan plan;
-  const int err = grad_plan_of(m, mg, n2, d, plan);
-  return err ? -static_cast<long>(err) : static_cast<long>(plan.scratch);
+  const int err = grad_plan_of(m, mg, chunks, n2, d, plan);
+  if (err) return -static_cast<long>(err);
+  if (out) {
+    out[0] = plan.chunks;
+    out[1] = plan.depth;
+    out[2] = plan.splits;
+    out[3] = plan.per_sm;
+  }
+  return static_cast<long>(plan.scratch);
 }
 
 // dalpha and dz += the column splits' partials, then dbeta from the
@@ -374,24 +384,22 @@ int sum_splits(float* dz, float* dalpha, float* dbeta, float* part, int m,
 
 int grad_entry(const float* z, const float* alpha, const float* beta,
                const float* lse, const float* coef, const float* v, float* dz,
-               float* dalpha, float* dbeta, float* part, int m, int mg, int n2,
-               int d, float inv_tau, void* stream) {
-  if (check_shape(m, n2, d) || mg < 1 || mg > m)
-    return static_cast<int>(cudaErrorInvalidValue);
+               float* dalpha, float* dbeta, float* part, int m, int mg,
+               int chunks, int n2, int d, float inv_tau, void* stream) {
   GradPlan plan;
-  int err = grad_plan_of(m, mg, n2, d, plan);
+  int err = grad_plan_of(m, mg, chunks, n2, d, plan);
   if (err) return err;
   const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
-  const dim3 grid(nb, (m + mg - 1) / mg, plan.splits);
+  const dim3 grid(nb, (m + mg - 1) / mg * chunks, plan.splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec_ok(z, d))
     Kernels<float>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
-        plan.depth);
+        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, chunks, n2, d,
+        inv_tau, plan.depth);
   else
     Kernels<float>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
-        plan.depth);
+        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, chunks, n2, d,
+        inv_tau, plan.depth);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return sum_splits<float>(dz, dalpha, dbeta, part, m, n2, d, nb, plan.splits,
@@ -496,8 +504,9 @@ int mixture_lse(const float* z, const float* alpha, const float* beta,
 
 // Once per device, before the first mixture_grad on it: lets the fp32
 // gradient kernels take all the shared memory a block may opt in to, and
-// returns the largest (modalities per block) x (d rounded up to a
-// multiple of 8) its row accumulator then holds, or a negative CUDA error.
+// returns the largest (modalities per block) x (columns of a feature
+// chunk, a multiple of 8) its row accumulator then holds, or a negative
+// CUDA error.
 int mixture_grad_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -515,24 +524,31 @@ int mixture_grad_init(void) {
   return room > 0 ? 8 * static_cast<int>(room / (sizeof(float) * grad::TILE_FLOATS)) : 0;
 }
 
-// The floats of scratch that mixture_grad needs at this shape (per-block
-// dbeta partials, and the dalpha and dz partials of the column splits past
-// the first), or a negative CUDA error.  Call after mixture_grad_init.
-long mixture_grad_scratch(int m, int mg, int n2, int d) {
-  return grad_scratch_entry(m, mg, n2, d);
+// The floats of scratch that mixture_grad needs at this shape, with mg
+// modalities a block in `chunks` feature chunks (per-block dbeta partials,
+// and the dalpha and dz partials of the column splits past the first), or
+// a negative CUDA error; if out is not null, writes {feature chunks, ring
+// depth, column splits, blocks per SM} to it.  Call after
+// mixture_grad_init.
+long mixture_grad_scratch(int m, int mg, int chunks, int n2, int d, int* out) {
+  return grad_scratch_entry(m, mg, chunks, n2, d, out);
 }
 
 // z, alpha, beta, v as for mixture_lse; lse and coef (m + 2, n2); writes
 // dz (m, n2, d), dalpha (n2, m) and dbeta (m,) in full, using part
 // (mixture_grad_scratch floats) as scratch.  Each block handles mg
-// modalities; mg x d rounded up to a multiple of 8 must not exceed what
-// mixture_grad_init returned for this device.
+// modalities over one of `chunks` balanced shares of d's 8-column tiles,
+// each chunk recomputing K over the whole d; mg x a chunk's columns must
+// not exceed what mixture_grad_init returned for this device.  The
+// outputs' bits do not depend on mg or chunks at a fixed count of column
+// splits.
 int mixture_grad(const float* z, const float* alpha, const float* beta,
                  const float* lse, const float* coef, const float* v,
                  float* dz, float* dalpha, float* dbeta, float* part,
-                 int m, int mg, int n2, int d, float inv_tau, void* stream) {
+                 int m, int mg, int chunks, int n2, int d, float inv_tau,
+                 void* stream) {
   return grad_entry(z, alpha, beta, lse, coef, v, dz, dalpha, dbeta, part, m,
-                    mg, n2, d, inv_tau, stream);
+                    mg, chunks, n2, d, inv_tau, stream);
 }
 
 // The same on bf16 z; alpha, beta, v, lse, coef, every output and the

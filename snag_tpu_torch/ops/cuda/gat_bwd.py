@@ -55,8 +55,7 @@ from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.ops.cuda._lib import (KernelStats, check, dtype_suffix,
                                           load_library, ptr, require,
                                           stream_of)
-from snag_tpu_torch.ops.cuda.gat_attention import (slice_width, to_bf16,
-                                                   wide)
+from snag_tpu_torch.ops.cuda.gat_attention import to_bf16, wide_slice_width
 
 STATS = KernelStats("gat_bwd")
 STATS_BF16 = KernelStats("gat_bwd_bf16")
@@ -143,18 +142,9 @@ def wide_plan(c: int, h: int, vec: int) -> dict:
                 smem=rows * wide_row_bytes(batch, h, ng))
 
 
-def backward_slice_width(c: int, h: int, *tensors: torch.Tensor
-                         ) -> Tuple[int, bool]:
-    """(slice width, wide): ``slice_width`` and whether it takes the wide
-    path (``wide``), where the width 1 becomes 2 elements (8 bytes of f32,
-    4 of bf16) when C is even and every tensor is aligned to 2 of its
-    elements."""
-    vec = slice_width(c, *tensors)
-    is_wide = wide(c, h, vec)
-    if vec == 1 and is_wide and c % 2 == 0 and all(
-            t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors):
-        vec = 2
-    return vec, is_wide
+# the backward's slice width: the forward's (both take 2-element slices on
+# the wide path)
+backward_slice_width = wide_slice_width
 
 
 def _library():

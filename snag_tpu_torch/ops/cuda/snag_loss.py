@@ -29,7 +29,9 @@ computed once, and its scratch (``lse_plan``) holds the row partials of
 every pair and channel, added in a fixed order.  ``mixture_grad`` computes
 each K tile once into registers, the (modalities x 32 rows x d) row
 accumulator lives in shared memory (``modality_group`` splits the
-modalities where it would not fit), and its scratch
+modalities where it would not fit, and one modality's features into
+chunks, each recomputing K over the whole d, where one modality's would
+not), and its scratch
 (``mixture_grad_scratch``) holds the partials of blocks that share a row
 tile's columns.
 
@@ -48,7 +50,7 @@ in registers, in feature chunks past d = 304, and the M blocks of a row
 block form a cluster that shares each modality's K tile for the
 mixtures), counted apart
 (``STATS_LSE_BF16``, ``STATS_GRAD_BF16``).  The bf16 gradient has no
-modality groups and no accumulator cap; ``grad_plan_bf16`` says how it
+modality groups; ``grad_plan_bf16`` says how it
 runs.
 The rounding points are the Pallas kernels' (snag_loss_kernel.py:185-226):
 K from the bf16 operands in f32; mix_a and mix_f from that f32 K; each
@@ -87,20 +89,23 @@ have no bf16 rounding point of W and read no ``positive_w``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from snag_tpu_torch.ops.cuda._lib import (KernelStats, aligned16, check,
                                           dtype_suffix, load_library, ptr,
                                           require, stream_of)
-from snag_tpu_torch.ops.cuda.ntxent import (GRAD_PLAN_BF16, LSE_PLAN,
-                                            LSE_PLAN_BF16, gram)
+from snag_tpu_torch.ops.cuda.ntxent import (GRAD_PLAN, GRAD_PLAN_BF16,
+                                            LSE_PLAN, LSE_PLAN_BF16, gram)
 
 STATS_LSE = KernelStats("mixture_lse")
 STATS_GRAD = KernelStats("mixture_grad")
 STATS_LSE_BF16 = KernelStats("mixture_lse_bf16")
 STATS_GRAD_BF16 = KernelStats("mixture_grad_bf16")
+# the f32 gradient's launches in feature chunks (``modality_group``), which
+# STATS_GRAD counts too
+STATS_GRAD_CHUNKED = KernelStats("mixture_grad_chunked")
 LSE_EPS = 1e-30
 MAX_MOD = 6
 FEATURE_TILE = 8                    # the accumulator's n8 feature tiles
@@ -253,13 +258,14 @@ def _library():
             fn = getattr(lib, f"mixture_lse{sfx}_plan")
             fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_long
-            # the bf16 gradient takes no modality group
+            # the bf16 gradient takes no modality group and no chunks
             fn = getattr(lib, f"mixture_grad{sfx}")
             fn.argtypes = [ctypes.c_void_p] * 10 \
-                + [ctypes.c_int] * (3 if sfx else 4) \
+                + [ctypes.c_int] * (3 if sfx else 5) \
                 + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 4
+        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
         lib.mixture_grad_scratch.restype = ctypes.c_long
         lib.mixture_grad_bf16_plan.argtypes = [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
@@ -319,16 +325,35 @@ def _grad_cap(built, device: torch.device) -> int:
     return _GRAD_CAP[index]
 
 
-def modality_group(m: int, d: int, cap: int) -> int:
-    """Modalities per block of the fp32 gradient kernel: as few groups as the
-    accumulator (``cap`` columns, d rounded up to its feature tiles) allows,
-    of balanced size."""
-    most = min(m, cap // (-(-d // FEATURE_TILE) * FEATURE_TILE))
+def modality_group(m: int, d: int, cap: int) -> Tuple[int, int]:
+    """(modalities a block, feature chunks) of the fp32 gradient kernel,
+    whose shared accumulator holds ``cap`` columns: as few groups of
+    modalities as it allows, of balanced size, each of d's feature tiles
+    whole; where one modality's d does not fit, one modality a block in the
+    fewest balanced chunks of its feature tiles that do."""
+    tiles, cap_tiles = -(-d // FEATURE_TILE), cap // FEATURE_TILE
+    most = min(m, cap_tiles // tiles)
     if most < 1:
-        raise ValueError(f"d = {d} exceeds the {cap} columns the mixture "
-                         "gradient kernel's shared accumulator holds")
+        return 1, -(-tiles // cap_tiles)
     groups = -(-m // most)
-    return -(-m // groups)
+    return -(-m // groups), 1
+
+
+def grad_plan(m: int, n2: int, d: int, device: torch.device,
+              chunks: Optional[int] = None) -> Dict[str, int]:
+    """How the f32 ``mixture_grad`` runs at (m, n2, d) on ``device``: its
+    modalities a block (``mg``), feature chunks (``modality_group``'s, or
+    ``chunks``), ring depth, column splits, blocks per SM and floats of
+    scratch."""
+    built = _library()
+    mg, planned = modality_group(m, d, _grad_cap(built, device))
+    out = (ctypes.c_int * len(GRAD_PLAN))()
+    with torch.cuda.device(device):
+        floats = built.lib.mixture_grad_scratch(m, mg, chunks or planned, n2,
+                                                d, out)
+    if floats < 0:
+        check(built, -floats, "mixture_grad_scratch")
+    return dict(zip(GRAD_PLAN, out), mg=mg, scratch=floats)
 
 
 def _check(z, alpha, beta, v):
@@ -373,10 +398,13 @@ def mixture_lse_cuda(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 
 def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
                       beta: torch.Tensor, lse: torch.Tensor,
-                      coef: torch.Tensor, v: torch.Tensor, tau: float
+                      coef: torch.Tensor, v: torch.Tensor, tau: float,
+                      chunks: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``mixture_grad`` (f32 z) or ``mixture_grad_bf16`` (bf16 z):
-    (dz (M, 2B, d), dalpha (2B, M), dbeta (M,)), all f32."""
+    (dz (M, 2B, d), dalpha (2B, M), dbeta (M,)), all f32.  ``chunks``: the
+    f32 kernel's feature chunks, if not ``grad_plan``'s (at the same
+    column splits the bits do not depend on them)."""
     m, n2, d = _check(z, alpha, beta, v)
     require(lse, "lse", torch.float32, (m + 2, n2), z.device)
     require(coef, "coef", torch.float32, (m + 2, n2), z.device)
@@ -389,11 +417,9 @@ def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
             floats = grad_plan_bf16(m, n2, d, z.device)["scratch"]
             shape = (m, n2, d)
         else:
-            mg = modality_group(m, d, _grad_cap(built, z.device))
-            floats = built.lib.mixture_grad_scratch(m, mg, n2, d)
-            if floats < 0:
-                check(built, -floats, "mixture_grad_scratch")
-            shape = (m, mg, n2, d)
+            plan = grad_plan(m, n2, d, z.device, chunks)
+            floats = plan["scratch"]
+            shape = (m, plan["mg"], plan["chunks"], n2, d)
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         dalpha = torch.empty(n2, m, dtype=torch.float32, device=z.device)
         dbeta = torch.empty(m, dtype=torch.float32, device=z.device)
@@ -404,6 +430,8 @@ def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
             1.0 / tau, stream_of(z))
     check(built, err, stats.name)
     stats.launches += 1
+    if not bf16 and plan["chunks"] > 1:
+        STATS_GRAD_CHUNKED.launches += 1
     return dz, dalpha, dbeta
 
 

@@ -357,21 +357,54 @@ def test_mixture_wrappers_refuse_what_the_kernels_do_not_take(dev):
                             torch.zeros(7, device=dev), v, 0.1)
     with pytest.raises(TypeError):
         sl.mixture_lse_cuda(z.double(), alpha, beta, v, 0.1)
-    with pytest.raises(ValueError, match="exceeds"):
-        big = torch.zeros(4, 40, 4000, device=dev)
-        sl.mixture_grad_cuda(big, alpha, beta, torch.zeros(6, 40, device=dev),
-                             coef, v, 0.1)
-    # one modality takes every d up to the accumulator's limit, which is at
-    # least 1,486
+
+
+def _mixture_grad_against_twin(dev, m, b, d, **kw):
+    """The f32 gradient kernel against its twin on CPU copies, max |err| <=
+    1e-4 x max |twin| for dz, dalpha and dbeta; returns its plan."""
+    z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, b, seed=d)
+    lse = sl.mixture_lse_twin(*(t.cpu() for t in (z, alpha, beta, v)),
+                              0.1).to(dev)
+    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1, **kw)
+    torch.cuda.synchronize()
+    want = on_cpu(sl.mixture_grad_twin, z, alpha, beta, lse, coef, v, 0.1)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    return sl.grad_plan(m, 2 * b, d, dev, kw.get("chunks"))
+
+
+def test_mixture_grad_takes_any_width(dev):
+    """Past one modality's fit in the f32 kernel's shared accumulator (at
+    least 1,486 columns) a block takes one modality's feature chunk: M = 4
+    at d = 4,000, and M = 1 at the cap and just past it (B = 500 at M = 1,
+    where dalpha is a difference of terms ~50x its size and a small batch
+    misses the limit with exact fp32 products: test_mixture_kernels_match_
+    twins)."""
     cap = sl._grad_cap(sl._library(), dev)
     assert cap >= 1486
-    one = [torch.zeros(40, 1, device=dev), torch.ones(1, device=dev),
-           torch.zeros(3, 40, device=dev), torch.zeros(3, 40, device=dev)]
-    sl.mixture_grad_cuda(torch.zeros(1, 40, cap, device=dev), one[0], one[1],
-                         one[2], one[3], v, 0.1)
-    with pytest.raises(ValueError, match="exceeds"):
-        sl.mixture_grad_cuda(torch.zeros(1, 40, cap + 1, device=dev), *one,
-                             v, 0.1)
+    assert _mixture_grad_against_twin(dev, 4, 40, 4000)["chunks"] == 3
+    assert _mixture_grad_against_twin(dev, 1, 500, cap)["chunks"] == 1
+    assert _mixture_grad_against_twin(dev, 1, 500, cap + 1)["chunks"] == 2
+
+
+def test_mixture_grad_chunks_keep_the_bits(dev):
+    """At d = 300 the main path's one chunk and forced chunks of 2 and 3
+    give the same bits at the same column splits: each feature tile's sums
+    do not depend on the chunk that holds it, and W, K, dalpha and dbeta on
+    none."""
+    z, alpha, beta, v, coef = _mixture_inputs(dev, 4, 130, 300, 100, seed=3)
+    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
+    one = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    plan = sl.grad_plan(4, 260, 300, dev)
+    assert (plan["mg"], plan["chunks"]) == (4, 1)
+    for chunks in (2, 3):
+        assert sl.grad_plan(4, 260, 300, dev, chunks)["splits"] == \
+            plan["splits"]
+        got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1,
+                                   chunks=chunks)
+        for a, w in zip(got, one):
+            assert torch.equal(a, w)
 
 
 def _segment_inputs(dev, c, h, seed=0, n=300):
@@ -1095,9 +1128,9 @@ def test_mixture_bf16_grad_at_c6_seeds(dev, seed):
 
 
 def test_mixture_bf16_grad_has_no_cap(dev):
-    """The fp32 gradient holds (modalities per block) x d within its shared
-    accumulator's cap (test_mixture_wrappers_refuse_what_the_kernels_do_
-    not_take); the bf16 one keeps one modality's dz in registers, in
+    """The fp32 gradient holds (modalities per block) x a chunk's columns
+    within its shared accumulator's cap (test_mixture_grad_takes_any_
+    width); the bf16 one keeps one modality's dz in registers, in
     feature chunks, so it takes every M and d: past the fp32 cap at M = 1,
     and M = 6 at d = 1,800 in one group.  Its rows stay resident in one
     chunk, as NT-Xent's do (the cluster shares each modality's K)."""
@@ -1117,8 +1150,9 @@ def test_mixture_bf16_grad_has_no_cap(dev):
     torch.cuda.synchronize()
     assert_bf16_close(got, on_cpu(sl.mixture_grad_twin, z, alpha, beta, lse,
                                   coef, v, 0.1))
-    with pytest.raises(ValueError, match="exceeds"):
-        sl.mixture_grad_cuda(z.float(), alpha, beta, lse, coef, v, 0.1)
+    # the f32 kernel at the same width, in feature chunks (B = 500, as in
+    # test_mixture_grad_takes_any_width)
+    assert _mixture_grad_against_twin(dev, 1, 500, d)["chunks"] == 2
 
 
 # ------------------------------------------- any head count, width and k

@@ -48,8 +48,9 @@ BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16 = torch.bfloat16
 NAMES = ("d_x", "d_s_src", "d_s_dst")
 # (H, C): past the warp's 4 heads, with rows past 1,280 float4 slices and
-# past 320 single floats, and the shape ``--heads 8,8`` trains at
-WIDE = [(6, 1300), (6, 330), (8, 300)]
+# past 320 single floats, the shape ``--heads 8,8`` trains at, and two
+# heads past 320 columns (the wide kernels' 8-byte slices)
+WIDE = [(6, 1300), (6, 330), (8, 300), (2, 330)]
 
 
 def _inputs(h, c, n=64, n_tri=160, seed=0):

@@ -67,7 +67,23 @@ def _bundle_inputs(m, b, d, seed):
 
 @pytest.mark.parametrize("m", [4, 6])
 def test_bundle_twins_match_jax_pallas_interpret(m):
-    diff, valid, cot = _bundle_inputs(m, 12, 8, seed=m)
+    _check_bundle_against_jax(m, 12, 8, seed=m)
+
+
+def test_bundle_twins_match_jax_past_the_f32_accumulator():
+    """d = 1,600: past the ~1,500 columns of the f32 gradient kernel's
+    shared accumulator on the card, where it takes one modality a block in
+    two feature chunks (``modality_group``), held there to the twins that
+    this test holds to the JAX package."""
+    assert tsl.modality_group(4, 1600, 1486) == (1, 2)
+    _check_bundle_against_jax(4, 12, 1600, seed=16, rows=24)
+
+
+def _check_bundle_against_jax(m, b, d, seed, rows=8):
+    """The port's bundle on the CPU (the twins) against the JAX package's
+    with its Pallas kernels in interpret mode (row tiles of ``rows``):
+    values and the gradients of every input, at the file's tolerances."""
+    diff, valid, cot = _bundle_inputs(m, b, d, seed=seed)
     tau, ab = 0.1, 0.6
 
     def jloss(*args):
@@ -76,7 +92,8 @@ def test_bundle_twins_match_jax_pallas_interpret(m):
                                      ab_weight=ab)
         return (per * jnp.asarray(cot)).sum(), per
     with mock.patch.object(sk, "FORCE_INTERPRET", True), \
-            mock.patch.object(sk, "RT_F", 8), mock.patch.object(sk, "RT_B", 8):
+            mock.patch.object(sk, "RT_F", rows), \
+            mock.patch.object(sk, "RT_B", rows):
         (_, want), want_g = jax.value_and_grad(
             jloss, argnums=tuple(range(6)), has_aux=True)(
                 *map(jnp.asarray, diff))
@@ -133,12 +150,13 @@ def test_wrappers_dispatch_and_refuse():
     with pytest.raises(ValueError, match="CUDA"):
         tsl.mixture_lse_cuda(z, torch.zeros(4, 7), torch.zeros(7),
                              torch.ones(4), 0.1)
-    with pytest.raises(ValueError, match="exceeds"):
-        tsl.modality_group(4, 2000, 1486)
+    # past one modality's fit (250 feature tiles, 185 a block): one
+    # modality a block in two chunks of 125 tiles
+    assert tsl.modality_group(4, 2000, 1486) == (1, 2)
     # M = 4 at d = 300: one group; M = 6: two groups of three
-    assert tsl.modality_group(4, 300, 1486) == 4
-    assert tsl.modality_group(6, 300, 1486) == 3
-    assert tsl.modality_group(6, 1200, 1486) == 1
+    assert tsl.modality_group(4, 300, 1486) == (4, 1)
+    assert tsl.modality_group(6, 300, 1486) == (3, 1)
+    assert tsl.modality_group(6, 1200, 1486) == (1, 1)
 
 
 @pytest.fixture(scope="module")

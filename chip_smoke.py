@@ -174,12 +174,27 @@ the exit code is non-zero:
    ranks of the sharded evaluation on >= 99.5 % of queries, MRR within
    1e-3), each rank launching exactly rows 1-6; (c) with two cards or
    more, two ranks over NCCL, one a card, held alike, else a line saying
-   it was skipped; (d) MKGC at phase 12's geometry, 2 epochs of 64
-   batches: ``data:1`` against the plain CLI run bit for bit, and two
-   ranks over gloo against one rank at their batch size, with the
-   sharded filtered ranks against the one-rank evaluator.  It prints the
-   warm step ms of (a) plain and mesh and of (b) beside the card's name
-   and power limit (no speed claim).
+   it was skipped; (d) MKGC at phase 12's geometry, 2 epochs:
+   ``data:1`` against the plain CLI run bit for bit (64 batches), and in
+   both negative branches, the all-entity fusion (64 batches of 1,124)
+   and the role-mixed one (128 batches of 562, which fetches a step's
+   rows), two ranks over gloo against one rank at their batch size, with
+   the sharded filtered ranks against the one-rank evaluator.  (a)'s runs
+   hold every feature table whole; each rank of (b), (c) and (d) asserts
+   that it holds its ``Mesh.rows`` share of each table and no whole one.
+   It prints the warm step ms of (a) plain and mesh and of (b) beside the
+   card's name and power limit (no speed claim), and for (a)'s runs, each
+   rank of (b) and (d) and (d)'s one-rank runs the bytes of the tables
+   held, the start-up peak and the steady peak (``max_memory_allocated``
+   less what was held before the run; the start-up peak up to the start
+   of epoch 0, the steady one from epoch 1 to the end, with its largest
+   in training, in evaluation and in mining apart) beside the card's name
+   and power limit; each rank of (b) also the median ms of a step's fetch
+   (``take_each`` of the rank's share of a batch of 3,500 links from
+   every table in one call, 20 times between barriers) and of as many
+   uniform ids, and each rank of (d)'s role-mixed branch that of a step's
+   heads, tails and corruptions from both tables, each with the distinct
+   ids another rank owns.
 Phases 10, 11 and 13 run after phase 8, before phase 9; phase 12 runs
 after them, and phase 14 last.
 
@@ -574,12 +589,17 @@ def device_ms(fn, names, trace=traced_calls, sessions=4,
 
 # ------------------------------------------------------------------ phases
 
+def card_smi() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(card_smi())
     say("device", f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
         f" | torch {torch.__version__} | CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1660,7 +1680,7 @@ def phase_train_small(label, extra):
     import torch
     from snag_tpu_torch.data.dataset import load_data
     from snag_tpu_torch.models import build_model
-    from snag_tpu_torch.models.encoder import prepare_features
+    from snag_tpu_torch.models.encoder import place_features
     from snag_tpu_torch.train.step import TrainStep
     cfg = cfg_from(SMALL_ARGS + ["--use_surface", "1", "--char_dim", "64",
                                  "--name_dim", "64", "--add_noise", "0",
@@ -1678,7 +1698,7 @@ def phase_train_small(label, extra):
     for device in ("cuda", "cpu"):
         model = build_model(cfg, data, torch.Generator().manual_seed(SEED))
         model = model.to(device)
-        feats = prepare_features(cfg, data, device)
+        feats = place_features(cfg, data, device)[0]
         graph = data.graph.to_torch(device)
         step = TrainStep(cfg, model, cfg.lr, 20, 3)
         losses = [step(torch.as_tensor(l, device=device),
@@ -1709,7 +1729,7 @@ def phase_train_small_bf16():
     import torch
     from snag_tpu_torch.data.dataset import load_data
     from snag_tpu_torch.models import build_model
-    from snag_tpu_torch.models.encoder import prepare_features
+    from snag_tpu_torch.models.encoder import place_features
     from snag_tpu_torch.train.optim import param_label
     from snag_tpu_torch.train.step import TrainStep
     cfg = cfg_from(SMALL_ARGS + ["--use_surface", "1", "--char_dim", "64",
@@ -1729,7 +1749,7 @@ def phase_train_small_bf16():
     for device in ("cuda", "cpu"):
         model = build_model(cfg, data, torch.Generator().manual_seed(SEED))
         model = model.to(device)
-        feats = prepare_features(cfg, data, device)
+        feats = place_features(cfg, data, device)[0]
         graph = data.graph.to_torch(device)
         links, valid = (torch.as_tensor(a, device=device) for a in batches[0])
         probe = copy.deepcopy(model)
@@ -2726,7 +2746,7 @@ def _mkgc_gpu_cpu():
                                             mkgc_config_from_args)
     from snag_tpu_torch.mkgc.data import load_mkgc_data
     from snag_tpu_torch.mkgc.model import MKGCModel
-    from snag_tpu_torch.mkgc.train import MKGCStep, prepare_mkgc_features
+    from snag_tpu_torch.mkgc.train import MKGCStep, place_mkgc_features
     argv = set_flag(set_flag(MKGC_LEARN, "--lr", "1e-4"), "--lrg", "1e-4")
     cfg = mkgc_config_from_args(build_mkgc_argparser().parse_args(
         set_flag(argv, "--joint_way", "Mformer_hd_graph") + ["--num_proj",
@@ -2739,7 +2759,7 @@ def _mkgc_gpu_cpu():
                     rng.random((b, cfg.neg_num)) < 0.5) for s in range(3)]
         out = {}
         for device in ("cuda", "cpu"):
-            feats = prepare_mkgc_features(cfg, data, device)
+            feats = place_mkgc_features(cfg, data, device)[0]
             model = MKGCModel(cfg, data.ent_num, data.rel_num,
                               int(feats.visual.shape[1]),
                               int(feats.textual.shape[1]),
@@ -2816,9 +2836,14 @@ MESH_ARGS = BENCH_ARGS + [
 # rows 1-6 of PERF.md's kernel table, the kernels of a mesh rank's step
 MESH_KERNELS = {"gat_attention_fwd", "gat_bwd", "mixture_lse", "mixture_grad",
                 "ntxent_lse", "ntxent_grad"}
-# MKGC at phase 12's geometry, (a)'s batching (1,124 triples), 2 epochs
+# MKGC at phase 12's geometry, 2 epochs: (a)'s batching (1,124 triples,
+# the all-entity fusion branch), and batches of 562, whose 562 x (32 + 2)
+# joints stay under 2 x 12,800 (the role-mixed branch, which fetches a
+# step's rows of both tables)
 MKGC_MESH = MKGC_ARGS + ["--num_batch", "64", "--margin", "1.0",
                          "--epoch", "2", "--eval_epoch", "2"]
+MKGC_MESH_MIXED = MKGC_ARGS + ["--num_batch", "128", "--margin", "1.0",
+                               "--epoch", "2", "--eval_epoch", "2"]
 # the one parameter whose gradient is zero in exact arithmetic (a bias on
 # every key moves a query's scores alike): Adam turns its rounding noise
 # into steps of either sign, so its values are not compared across runs
@@ -2834,8 +2859,147 @@ def _numpy_state(model):
             model.state_dict().items()}
 
 
-def _mmea_record(runner):
-    """What phase mesh compares of an MMEA run."""
+def _tables(feats, mesh):
+    """Each feature table's placement, (kind, lo, hi, n, bytes held), kind
+    "shard" or "whole"; raises unless every table is this rank's
+    ``Mesh.rows`` share under a mesh of N > 1 ranks, and whole
+    otherwise."""
+    from snag_tpu_torch.parallel.mesh import RowShard
+    out = {}
+    for name, t in feats._asdict().items():
+        if t is None:
+            continue
+        if isinstance(t, RowShard):
+            out[name] = ("shard", t.lo, t.hi, t.n, t.local.nbytes)
+        else:
+            out[name] = ("whole", 0, t.shape[0], t.shape[0], t.nbytes)
+        kind, lo, hi, n, _ = out[name]
+        sharded = mesh is not None and mesh.world > 1
+        if kind != ("shard" if sharded else "whole") or (
+                sharded and ((lo, hi) != mesh.rows(n) or hi - lo >= n)):
+            raise AssertionError(f"table {name}: {out[name][:4]} under "
+                                 f"{mesh}")
+    return out
+
+
+class _MemoryMarks:
+    """The device memory of one MMEA run through ``main`` in this
+    process, less what was held before it: the start-up peak (up to the
+    start of epoch 0) and the steady peak (from the start of epoch 1 to
+    the end), and the steady peak's share in training epochs, in
+    evaluations and in IL mining.  The peak is reset where each of these
+    starts and ends, so that each span has its own and the steady one is
+    the largest; the Runner's ``_profile`` (its epoch hook),
+    ``train_epoch``, ``evaluate`` and ``_il_mine`` are wrapped for it."""
+    SPANS = {"train_epoch": "train", "evaluate": "eval", "_il_mine": "mine"}
+
+    def __enter__(self):
+        import torch
+        from snag_tpu_torch.train.runner import Runner
+        self.orig = {name: getattr(Runner, name)
+                     for name in ["_profile", *self.SPANS]}
+        self.held = torch.cuda.memory_allocated()
+        self.marks = {"steady": 0}
+        torch.cuda.reset_peak_memory_stats()
+        marks, held, orig = self.marks, self.held, self.orig
+        self.steady = False
+
+        def close(label):
+            if self.steady:
+                peak = torch.cuda.max_memory_allocated() - held
+                marks[label] = max(marks.get(label, 0), peak)
+                marks["steady"] = max(marks["steady"], peak)
+            torch.cuda.reset_peak_memory_stats()
+
+        def profile(runner, epoch):
+            if epoch == 0:
+                marks["startup"] = torch.cuda.max_memory_allocated() - held
+            elif epoch == 1 and not self.steady:
+                self.steady = True
+                torch.cuda.reset_peak_memory_stats()
+            return orig["_profile"](runner, epoch)
+
+        def span(name, label):
+            def run(runner, *args, **kwargs):
+                close("other")
+                try:
+                    return orig[name](runner, *args, **kwargs)
+                finally:
+                    close(label)
+            return run
+        Runner._profile = profile
+        for name, label in self.SPANS.items():
+            setattr(Runner, name, span(name, label))
+        self.close = close
+        return self.marks
+
+    def __exit__(self, *exc):
+        from snag_tpu_torch.train.runner import Runner
+        self.close("other")
+        for name, fn in self.orig.items():
+            setattr(Runner, name, fn)
+
+
+def _time_fetch(mesh, tables, idxs, reps=20):
+    """One fetch of rows ``idxs`` (a list of id tensors) of ``tables``,
+    as a step makes it (``parallel.mesh.take_each``: every table and
+    index set in one), timed ``reps`` times between barriers with the
+    card synchronised: (median ms, bytes of the rows fetched, distinct ids
+    another rank owns)."""
+    import torch
+    from snag_tpu_torch.parallel.mesh import take_each
+    lo, hi = mesh.rows(tables[0].n)
+    distinct = torch.unique(torch.cat([i.reshape(-1) for i in idxs]))
+    remote = int(((distinct < lo) | (distinct >= hi)).sum())
+    times = []
+    for _ in range(reps):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = take_each(mesh, tables, idxs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(times),
+            sum(g.nbytes for row in got for g in row), remote)
+
+
+def _fetch_ms(runner):
+    """The fetch of one training step of an MMEA mesh rank's ``runner``:
+    the rows of a batch of ``--batch_size`` links that this rank encodes,
+    from every feature table, then as many ids drawn uniformly:
+    {label: ``_time_fetch``'s record}."""
+    import torch
+    from snag_tpu_torch.models.encoder import batch_rows
+    mesh = runner.mesh
+    links = torch.as_tensor(runner.train_ill[:runner.cfg.batch_size].astype(
+        "int64"), device=runner.device)
+    rows = batch_rows(links)[0]
+    local = rows[slice(*mesh.rows(rows.shape[0]))]
+    uniform = torch.randint(0, runner.data.ent_num, local.shape,
+                            device=runner.device,
+                            generator=torch.Generator(runner.device)
+                            .manual_seed(mesh.rank))
+    tables = [t for t in runner.feats if t is not None]
+    return {label: _time_fetch(mesh, tables, [ids])
+            for label, ids in (("step", local), ("uniform", uniform))}
+
+
+def _mkgc_fetch_ms(runner):
+    """The fetch of one role-mixed MKGC step of a mesh rank's ``runner``:
+    both tables' rows of this rank's share of a batch's heads, tails and
+    corruptions (``MKGCModel._rows``'s fetch): {"step": record}."""
+    mesh = runner.mesh
+    b = runner.batch_size
+    lo, hi = mesh.rows(b)
+    pos = runner.train_triples[:b][lo:hi]
+    rand_ent = runner.step.sample(b, runner.device)[0][lo:hi]
+    return {"step": _time_fetch(mesh, list(runner.feats), [
+        pos[:, 0], pos[:, 2], rand_ent.reshape(-1)])}
+
+
+def _mmea_record(runner, marks):
+    """What phase mesh compares of an MMEA run, with its tables and the
+    device memory ``marks`` of ``_MemoryMarks``."""
     res = runner.last_result
     per_epoch0 = -(-len(runner.data.train_ill) // runner.cfg.batch_size)
     return {"losses": list(runner.loss_log.loss[1:]),
@@ -2844,7 +3008,25 @@ def _mmea_record(runner):
             "digest": _state_digest(runner.model),
             "params": _numpy_state(runner.model),
             "step_ms": statistics.median(runner.step_ms[per_epoch0:]),
+            "tables": _tables(runner.feats, runner.mesh), **marks,
             "stats": kernel_stats()}
+
+
+def _say_memory(label, rec):
+    """One line of a run's table bytes, its peaks and its fetch."""
+    held = sum(t[4] for t in rec["tables"].values())
+    spans = ", ".join(f"{k} {t[0]} {t[1]}:{t[2]} of {t[3]}"
+                      for k, t in rec["tables"].items())
+    fetch = "".join(
+        f" | fetch, {label} ids: {nbytes} bytes, {remote} distinct ids "
+        f"of another rank, median {ms:.3f} ms"
+        for label, (ms, nbytes, remote) in rec.get("fetch", {}).items())
+    parts = ", ".join(f"{k} {rec[k]}" for k in ("train", "eval", "mine",
+                                                "other") if k in rec)
+    say("mesh", f"{label}: tables held {held} bytes ({spans}) | start-up "
+        f"peak {rec['startup']} bytes | steady peak {rec['steady']} bytes "
+        f"(max_memory_allocated from epoch 1; by span: {parts}){fetch} | "
+        f"{card_smi()}")
 
 
 def _mkgc_epochs(argv, batch_size=None):
@@ -2856,20 +3038,36 @@ def _mkgc_epochs(argv, batch_size=None):
     from snag_tpu_torch.mkgc.train import (MKGCRunner, filtered_ranks,
                                            make_score_fn)
     from snag_tpu_torch.utils.logging import create_logger
+    import torch
     cfg = mkgc_config_from_args(build_mkgc_argparser().parse_args(argv))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     runner = MKGCRunner(cfg, create_logger(name="chip_smoke.mesh_mkgc"))
+    startup = torch.cuda.max_memory_allocated() - held
     if batch_size is not None:
         runner.batch_size = batch_size
-    losses = [runner.train_epoch(e) for e in range(2)]
+    losses = [runner.train_epoch(0)]
+    torch.cuda.reset_peak_memory_stats()
+    losses.append(runner.train_epoch(1))
+    train = torch.cuda.max_memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
     valid = runner.data.valid[:cfg.valid_max]
-    return {"losses": losses, "batch_size": runner.batch_size,
-            "params": _numpy_state(runner.model),
-            "ranks": filtered_ranks(runner.model, runner.feats, runner.data,
-                                    valid, score_fn=runner._score_fn),
-            "ranks_one": filtered_ranks(runner.model, runner.feats,
-                                        runner.data, valid,
-                                        score_fn=make_score_fn(runner.model)),
-            "stats": kernel_stats()}
+    ranks = filtered_ranks(runner.model, runner.feats, runner.data, valid,
+                           score_fn=runner._score_fn)
+    ranks_one = filtered_ranks(runner.model, runner.feats, runner.data,
+                               valid, score_fn=make_score_fn(runner.model))
+    evals = torch.cuda.max_memory_allocated() - held
+    rec = {"losses": losses, "batch_size": runner.batch_size,
+           "fused_all": runner.batch_size * (cfg.neg_num + 2)
+           > 2 * runner.data.ent_num,
+           "params": _numpy_state(runner.model), "ranks": ranks,
+           "ranks_one": ranks_one,
+           "tables": _tables(runner.feats, runner.mesh),
+           "startup": startup, "steady": max(train, evals), "train": train,
+           "eval": evals, "stats": kernel_stats()}
+    if runner.mesh is not None and not rec["fused_all"]:
+        rec["fetch"] = _mkgc_fetch_ms(runner)
+    return rec
 
 
 def _mesh_rank(kind, argv, out):
@@ -2885,9 +3083,11 @@ def _mesh_rank(kind, argv, out):
     kernels.reset_stats()
     if kind == "mmea":
         from snag_tpu_torch.cli.train_mmea import main
-        runner = main(argv)
-        torch.cuda.synchronize()
-        rec = _mmea_record(runner)
+        with _MemoryMarks() as marks:
+            runner = main(argv)
+            torch.cuda.synchronize()
+        rec = _mmea_record(runner, marks)
+        rec["fetch"] = _fetch_ms(runner)
     else:
         rec = _mkgc_epochs(argv)
         torch.cuda.synchronize()
@@ -2942,6 +3142,7 @@ def _check_ranks(label, recs, want, launches):
         raise AssertionError(f"{label}: two ranks are not one")
     for r, rec in enumerate(recs):
         check_launches(f"mesh {label} rank {r}", rec["stats"], launches)
+        _say_memory(f"{label} rank {r}", rec)
     return {name: n for name, (n, _) in a["stats"].items()}, a["step_ms"]
 
 
@@ -2952,15 +3153,16 @@ def _mesh_mmea(argv):
     from snag_tpu_torch.cli.train_mmea import main
     from snag_tpu_torch.ops import cuda as kernels
     kernels.reset_stats()
-    runner = main(argv)
-    torch.cuda.synchronize()
-    return runner, _mmea_record(runner)
+    with _MemoryMarks() as marks:
+        runner = main(argv)
+        torch.cuda.synchronize()
+    return runner, _mmea_record(runner, marks)
 
 
 def _mesh_mkgc(smi):
-    """(d): MKGC ``data:1`` against the plain CLI run bit for bit, two
-    ranks over gloo against one rank at their batch size."""
-    import numpy as np
+    """(d): MKGC ``data:1`` against the plain CLI run bit for bit, then,
+    in both negative branches, two ranks over gloo against one rank at
+    their batch size."""
     from snag_tpu_torch.cli.train_mkgc import main
     path = ["--device", "cuda", "--data_path", str(WORK / "mesh_mkgc")]
     runs = [main(MKGC_MESH + path + ["--exp_id", exp] + extra)
@@ -2974,25 +3176,41 @@ def _mesh_mkgc(smi):
     if not same:
         raise AssertionError("MKGC data:1 is not the plain run")
     del runs
-    recs = _spawn_ranks("(d) MKGC data:2", "mkgc", MKGC_MESH + [
+    for branch, argv in (("all-entity", MKGC_MESH),
+                         ("role-mixed", MKGC_MESH_MIXED)):
+        _mesh_mkgc_branch(branch, argv, path, smi)
+
+
+def _mesh_mkgc_branch(branch, argv, path, smi):
+    """(d) in one negative branch: two ranks over gloo against one rank
+    at their batch size."""
+    label = f"(d) MKGC {branch}"
+    recs = _spawn_ranks(f"{label} data:2", "mkgc", argv + [
         "--device", "cuda:0", "--data_path", str(WORK / "mesh_mkgc"),
         "--mesh_shape", "data:2"], "gloo", "cuda")
-    want = _mkgc_epochs(MKGC_MESH + path, recs[0]["batch_size"])
+    want = _mkgc_epochs(argv + path, recs[0]["batch_size"])
     a = recs[0]
+    if any(r["fused_all"] != (branch == "all-entity")
+           for r in recs + [want]):
+        raise AssertionError(f"{label}: another branch ran")
     rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
                                                   want["losses"]))
     perr = _max_param_err(a["params"], want["params"])
     agree = min(float((r["ranks"] == r["ranks_one"]).mean()) for r in recs)
-    say("mesh", f"(d) MKGC two ranks over gloo, batch {a['batch_size']}: "
+    say("mesh", f"{label}, two ranks over gloo, batch {a['batch_size']}: "
         f"epoch losses {a['losses']} against {want['losses']} (max rel "
         f"{rel:.2e}, limit 5e-3) | weights: max err / (2e-5 + 2e-3 |w|) "
         f"{perr:.3f} (limit 1) | sharded filtered ranks equal to the "
         f"one-rank evaluator's on {agree:.4f} (limit > 0.99) | {smi}")
     if (recs[0]["losses"] != recs[1]["losses"] or rel > 5e-3 or perr > 1.0
             or agree <= 0.99):
-        raise AssertionError("MKGC's two ranks are not one")
+        raise AssertionError(f"{label}: two ranks are not one")
+    _say_memory(f"{label}, one rank, this process", want)
     for r, rec in enumerate(recs):
-        check_launches(f"mesh (d) rank {r}", rec["stats"], set())
+        check_launches(f"mesh {label} rank {r}", rec["stats"], set())
+        _say_memory(f"{label} rank {r}" + (
+            " (all-entity fusion: no fetch)" if branch == "all-entity"
+            else ""), rec)
 
 
 def phase_mesh():
@@ -3000,10 +3218,7 @@ def phase_mesh():
     14).  Returns the launches of (a)'s and (b)'s runs (rank 0's)."""
     import numpy as np
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_smi()
     t0 = time.perf_counter()
 
     def argv(label, *extra):
@@ -3028,6 +3243,8 @@ def phase_mesh():
     expected = f32_kernels() - {SEGMENT_KERNEL}
     check_launches("mesh (a) plain", want["stats"], expected)
     check_launches("mesh (a) data:1", got["stats"], expected)
+    _say_memory("(a) plain", want)
+    _say_memory("(a) data:1", got)
     if not MESH_KERNELS <= expected:
         raise AssertionError("rows 1-6 are not all on the path")
     launches = [{k: n for k, (n, _) in rec["stats"].items()}

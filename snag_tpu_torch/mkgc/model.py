@@ -24,6 +24,14 @@ inside, ``gate``, ``modal_weight``), so
 ``utils/import_reference.state_dict_from_flax`` carries JAX params across.
 The gathers are advanced indexing, whose backward is torch's sort-based
 indexing backward: no atomic adds, so repeated rows sum in a fixed order.
+
+Under a mesh of N > 1 ranks (``mesh``, set by ``parallel.mesh.attach``)
+each rank holds its share of both feature tables (``Mesh.rows``), and a
+step's rows of both, for its positives and corruptions, come from their
+owners in one fetch (``parallel.mesh.take_each``).  The
+all-entity fusion and ``all_joint`` fuse this rank's share of the
+entities, with the dropout masks drawn at the full count
+(``ops.noise.RowSlice``), and gather the joints.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from snag_tpu_torch.mkgc.config import JOINT_WAYS, MKGCConfig
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops.fusion import BertLayer, l2norm, tlinear
 from snag_tpu_torch.ops.noise import row_slice
+from snag_tpu_torch.parallel.mesh import Table, gather_rows, take_each
 
 
 # negative-joint formulation: "auto" picks all-entity fusion + gather when
@@ -60,8 +69,9 @@ def avg_pool_features(x: np.ndarray, out_dim: int) -> np.ndarray:
 
 
 class MKGCFeatures(NamedTuple):
-    visual: torch.Tensor    # (E, dv)
-    textual: torch.Tensor   # (E, dt)
+    """Both tables, each whole or this rank's ``RowShard``."""
+    visual: Table    # (E, dv)
+    textual: Table   # (E, dt)
 
 
 class MKGCModel(nn.Module):
@@ -76,6 +86,7 @@ class MKGCModel(nn.Module):
                              f"{JOINT_WAYS}")
         self.cfg = cfg
         self.ent_num = ent_num
+        self.mesh = None
         d = cfg.emb_dim
         self.ent_emb = nn.Parameter(inits.xavier_normal((ent_num, d),
                                                         generator))
@@ -98,20 +109,26 @@ class MKGCModel(nn.Module):
         else:
             self.modal_weight = nn.Parameter(torch.ones(3))
 
-    def _modal_tokens(self, idx, feats: MKGCFeatures, role: int):
-        """(B, 3, d) modality tokens for entities ``idx``; role selects the
-        projection stack when num_proj == 2 (0 = head, 1 = tail)."""
+    def _rows(self, feats: MKGCFeatures, idxs):
+        """The (visual, textual) rows of the entities of each of ``idxs``:
+        one fetch of both tables under a mesh."""
+        return take_each(self.mesh, [feats.visual, feats.textual], idxs)
+
+    def _modal_tokens(self, idx, rows, role: int):
+        """(B, 3, d) modality tokens for entities ``idx``, whose (visual,
+        textual) rows are ``rows``; role selects the projection stack when
+        num_proj == 2 (0 = head, 1 = tail)."""
         vis_p, txt_p = self.vis_proj, self.txt_proj
         if self.cfg.num_proj == 2 and role == 1:
             vis_p, txt_p = self.vis_proj2, self.txt_proj2
-        return torch.stack([self.ent_emb[idx], vis_p(feats.visual[idx]),
-                            txt_p(feats.textual[idx])], dim=1)
+        v, t = rows
+        return torch.stack([self.ent_emb[idx], vis_p(v), txt_p(t)], dim=1)
 
-    def _modal_tokens_mixed(self, idx, head_role, feats: MKGCFeatures):
+    def _modal_tokens_mixed(self, idx, head_role, rows):
         """(B, 3, d) tokens with the projection stack selected per element:
         head_role[b] True -> the head-role stack, else the tail-role one
         (both are evaluated, as in JAX)."""
-        v, t = feats.visual[idx], feats.textual[idx]
+        v, t = rows
         if self.cfg.num_proj == 2:
             sel = head_role[:, None]
             vis = torch.where(sel, self.vis_proj(v), self.vis_proj2(v))
@@ -121,14 +138,20 @@ class MKGCModel(nn.Module):
         return torch.stack([self.ent_emb[idx], vis, txt], dim=1)
 
     def joint(self, idx, feats: MKGCFeatures, role: int = 0,
-              dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Fused (B, d) entity representation per ``joint_way``."""
-        return self._fuse(self._modal_tokens(idx, feats, role), dropout_gen)
+              dropout_gen: Optional[torch.Generator] = None,
+              rows=None) -> torch.Tensor:
+        """Fused (B, d) entity representation per ``joint_way``; ``rows``:
+        the (visual, textual) rows of ``idx`` where fetched already."""
+        if rows is None:
+            rows, = self._rows(feats, [idx])
+        return self._fuse(self._modal_tokens(idx, rows, role), dropout_gen)
 
     def joint_mixed(self, idx, head_role, feats: MKGCFeatures,
-                    dropout_gen: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-        return self._fuse(self._modal_tokens_mixed(idx, head_role, feats),
+                    dropout_gen: Optional[torch.Generator] = None,
+                    rows=None) -> torch.Tensor:
+        if rows is None:
+            rows, = self._rows(feats, [idx])
+        return self._fuse(self._modal_tokens_mixed(idx, head_role, rows),
                           dropout_gen)
 
     def _fuse(self, tokens: torch.Tensor,
@@ -181,22 +204,21 @@ class MKGCModel(nn.Module):
         if use_all:
             # the batch touches more joint slots than the entity table:
             # fuse every entity once per role and gather
-            idx = torch.arange(self.ent_num, device=pos.device)
-            all_h = self.joint(idx, feats, 0, dropout_gen)
-            all_t = self.joint(idx, feats, 1, dropout_gen)
+            all_h, all_t = self._all_joints(feats, dropout_gen)
             h, t = all_h[pos[:, 0]], all_t[pos[:, 2]]
             cor = torch.where(corrupt_head[:, :, None], all_h[rand_ent],
                               all_t[rand_ent])
         else:
             gen = (dropout_gen if split is None
                    else row_slice(dropout_gen, lo, hi, n))
-            h = self.joint(pos[:, 0], feats, 0, gen)
-            t = self.joint(pos[:, 2], feats, 1, gen)
+            ents = [pos[:, 0], pos[:, 2], rand_ent.reshape(-1)]
+            rows = self._rows(feats, ents)
+            h = self.joint(ents[0], feats, 0, gen, rows[0])
+            t = self.joint(ents[1], feats, 1, gen, rows[1])
             if split is not None:
                 gen = row_slice(dropout_gen, lo * k, hi * k, n * k)
-            cor = self.joint_mixed(rand_ent.reshape(-1),
-                                   corrupt_head.reshape(-1), feats,
-                                   gen).reshape(b, k, -1)
+            cor = self.joint_mixed(ents[2], corrupt_head.reshape(-1), feats,
+                                   gen, rows[2]).reshape(b, k, -1)
 
         def dist(x, rel, y):
             return torch.linalg.vector_norm(x + rel - y, dim=-1)
@@ -209,6 +231,32 @@ class MKGCModel(nn.Module):
                            min=0.0).mean()
         return loss, {"d_pos": d_pos.mean(), "d_neg": d_neg.mean()}
 
+    def _all_joints(self, feats: MKGCFeatures,
+                    dropout_gen: Optional[torch.Generator]):
+        """Every entity's joint in both roles.  Under a mesh of N > 1
+        ranks each rank fuses its share of the entities and one
+        differentiable gather puts them in order on every rank; each
+        rank's loss is over its own batch rows, so the gather's backward
+        sums the ranks' gradients."""
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            idx = torch.arange(self.ent_num, device=self.ent_emb.device)
+            return (self.joint(idx, feats, 0, dropout_gen),
+                    self.joint(idx, feats, 1, dropout_gen))
+        lo, hi = mesh.rows(self.ent_num)
+        gen = row_slice(dropout_gen, lo, hi, self.ent_num)
+        return tuple(gather_rows(
+            mesh, [self.joint(slice(lo, hi), feats, role, gen)
+                   for role in (0, 1)], self.ent_num, replicated=False))
+
     def all_joint(self, feats: MKGCFeatures, role: int = 0) -> torch.Tensor:
-        idx = torch.arange(self.ent_num, device=self.ent_emb.device)
-        return self.joint(idx, feats, role)
+        """Every entity's joint in one role, without dropout (under a mesh
+        of N > 1 ranks each fuses its share and one all-gather gives every
+        rank the whole)."""
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            idx = torch.arange(self.ent_num, device=self.ent_emb.device)
+            return self.joint(idx, feats, role)
+        lo, hi = mesh.rows(self.ent_num)
+        return mesh.gather_shards(self.joint(slice(lo, hi), feats, role),
+                                  self.ent_num)

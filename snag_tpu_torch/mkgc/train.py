@@ -18,11 +18,14 @@ streams are matched in distribution, not in values.  Each step's loss
 stays on the device; ``train_epoch`` reads their mean once.
 
 ``--mesh_shape data:N`` (``parallel/mesh.py``, JAX train.py:343-414):
-every rank holds the model and the tables whole and draws the same
-batches; the batch size is rounded down to a multiple of N, each step's
-corruptions and dropout masks are drawn at the whole batch's shapes and
-each rank takes its rows, and one all-reduce averages the gradients and
-the loss, so N ranks step as one.  The filtered evaluation splits its
+every rank holds the model whole and its share of both feature tables
+(``place_mkgc_features``, after the noise statistics are taken from the
+whole tables; the noise draws are made at the whole tables' shapes), and
+draws the same batches; the batch size is rounded down to a multiple of
+N, each step's corruptions and dropout masks are drawn at the whole
+batch's shapes and each rank takes its rows (and fetches their table rows
+from their owners), and one all-reduce averages the gradients and the
+loss, so N ranks step as one.  The filtered evaluation splits its
 chunks over the ranks and gathers their ranks.  Rank 0 alone writes the
 checkpoint and the ``--save_model`` snapshot.
 """
@@ -60,15 +63,26 @@ _FUSION_SCOPES = frozenset(
 _FUSION_SCOPE_RE = re.compile(r"fusion_\d+")
 
 
-def prepare_mkgc_features(cfg: MKGCConfig, data: MKGCData,
-                          device) -> MKGCFeatures:
-    """Pooled on the host, resident on ``device``."""
-    vis, txt = data.visual, data.textual
+def place_mkgc_features(cfg: MKGCConfig, data: MKGCData, device, mesh=None):
+    """(tables, noise statistics or None) of a run: each table pooled on
+    the host and put on ``device`` alone, its column statistics
+    (``--add_noise``; the visual one over the entities that have an image
+    only) taken from the whole table, then, under a mesh of N > 1 ranks,
+    only this rank's share kept (``parallel.mesh.shard_table``)."""
+    host = (data.visual, data.textual)
     if cfg.use_pool:
-        vis = avg_pool_features(vis, cfg.pool_dim)
-        txt = avg_pool_features(txt, cfg.pool_dim)
-    return MKGCFeatures(visual=torch.as_tensor(vis, device=device),
-                        textual=torch.as_tensor(txt, device=device))
+        host = [avg_pool_features(a, cfg.pool_dim) for a in host]
+    w_vis = torch.as_tensor(np.setdiff1d(
+        np.arange(data.ent_num),
+        np.asarray(data.ent_wo_visual, dtype=np.int64)), device=device)
+    tables, stats = [], []
+    for a, rows in zip(host, (w_vis, None)):
+        t = torch.as_tensor(a, device=device)
+        if cfg.add_noise:
+            stats.append(noise_ops.table_stats(t, rows))
+        tables.append(mesh_mod.shard_table(mesh, t))
+        del t       # before the next table is put
+    return MKGCFeatures(*tables), tuple(stats) if cfg.add_noise else None
 
 
 def param_group(name: str) -> str:
@@ -92,17 +106,6 @@ def build_mkgc_optimizer(cfg: MKGCConfig,
         {"params": groups["main"], "lr": cfg.lr, "name": "main"},
         {"params": groups["fusion"], "lr": cfg.lrg, "name": "fusion"}],
         betas=(0.9, 0.999), eps=1e-8)
-
-
-def feature_stats(feats: MKGCFeatures, data: MKGCData
-                  ) -> Tuple[noise_ops.TableStats, noise_ops.TableStats]:
-    """Column statistics of both tables; the visual one over the entities
-    that have an image only."""
-    w_vis = np.setdiff1d(np.arange(data.ent_num),
-                         np.asarray(data.ent_wo_visual, dtype=np.int64))
-    rows = torch.as_tensor(w_vis, device=feats.visual.device)
-    return (noise_ops.table_stats(feats.visual, rows),
-            noise_ops.table_stats(feats.textual))
 
 
 @torch.no_grad()
@@ -201,6 +204,9 @@ class MKGCStep:
                 [p.grad for p in params] + [loss.detach()])
             for p, g in zip(params, grads):
                 p.grad = g
+            # a view of the reduced bucket: the epoch keeps every step's
+            # loss, which would keep every step's bucket
+            loss = loss.clone()
         self.opt.step()
         self.count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
@@ -364,15 +370,15 @@ class MKGCRunner:
             self.device = self.mesh.device
         self.main_process = self.mesh is None or self.mesh.rank == 0
         self.data = data if data is not None else load_mkgc_data(cfg, logger)
-        self.feats = prepare_mkgc_features(cfg, self.data, self.device)
+        self.feats, self.stats = place_mkgc_features(cfg, self.data,
+                                                     self.device, self.mesh)
         self.model = MKGCModel(
             cfg, self.data.ent_num, self.data.rel_num,
             int(self.feats.visual.shape[1]), int(self.feats.textual.shape[1]),
             torch.Generator().manual_seed(cfg.random_seed)).to(self.device)
+        mesh_mod.attach(self.model, self.mesh)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info(f"MKGC params: {n_params}  device: {self.device}")
-        self.stats = (feature_stats(self.feats, self.data)
-                      if cfg.add_noise else None)
         self.step = MKGCStep(cfg, self.model, self.stats, self.mesh)
         self.batch_size = max(1, len(self.data.train) // cfg.num_batch)
         if self.mesh is not None:

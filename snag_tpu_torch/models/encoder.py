@@ -25,6 +25,10 @@ the rows (``Mesh.rows``), its dropout masks drawn at the full row count
 (``ops.noise.RowSlice``), and one differentiable gather
 (``parallel.mesh.gather_rows``) puts every per-row output back in order
 on every rank; ``weight_fz`` is no per-row output and is not gathered.
+There each rank holds its share of every feature table
+(``place_features``): a forward over every entity reads its own rows, and
+a batch's rows of every table come from their owners in one fetch
+(``parallel.mesh.take``).
 
 ``--dtype bfloat16`` (the JAX package's ``dtype`` property, :78-80): the
 five projections and the fusion stack compute in bf16 with f32
@@ -38,7 +42,7 @@ f32 (f32 weights times modality rows).  The GCN computes its layers'
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,16 +54,18 @@ from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops import noise as noise_ops
 from snag_tpu_torch.ops.fusion import MeanFusion, MformerFusion, tlinear
 from snag_tpu_torch.ops.gnn import GAT, GCN
-from snag_tpu_torch.parallel.mesh import gather_rows
+from snag_tpu_torch.parallel.mesh import (Table, gather_rows, shard_table,
+                                          take)
 
 
 class FeaturePack(NamedTuple):
-    """Per-entity modality feature tables (None = modality absent)."""
-    img: Optional[torch.Tensor]
-    rel: Optional[torch.Tensor]
-    att: Optional[torch.Tensor]
-    name: Optional[torch.Tensor]
-    char: Optional[torch.Tensor]
+    """Per-entity modality feature tables (None = modality absent), each
+    whole or, under a mesh of N > 1 ranks, this rank's ``RowShard``."""
+    img: Optional[Table]
+    rel: Optional[Table]
+    att: Optional[Table]
+    name: Optional[Table]
+    char: Optional[Table]
 
 
 class FeatureStats(NamedTuple):
@@ -163,7 +169,11 @@ class MultiModalEncoder(nn.Module):
     def forward(self, feats: FeaturePack, graph: DeviceGraph,
                 entity_noise_gen: Optional[torch.Generator] = None,
                 dropout_gen: Optional[torch.Generator] = None,
-                rows: Optional[torch.Tensor] = None) -> EncoderOutput:
+                rows: Optional[torch.Tensor] = None,
+                keep: Optional[Sequence[str]] = None) -> EncoderOutput:
+        """``keep``: the per-row fields to return (None: all), the others
+        None; under a mesh only those are gathered (the evaluation's
+        embedding needs two of the ten)."""
         cfg = self.cfg
         n = self.entity_emb.num_embeddings if rows is None else rows.shape[0]
         sel, row_gen, mesh = split_rows(self.mesh, rows, n, dropout_gen)
@@ -173,13 +183,19 @@ class MultiModalEncoder(nn.Module):
             if entity_noise_gen is not None:
                 ent = noise_ops.entity_noise(entity_noise_gen, ent,
                                              cfg.noise_ratio, cfg.mask_ratio)
-            gph = sel(self.cross_graph_model(ent, graph, dropout_gen))
+            gph = self.cross_graph_model(ent, graph, dropout_gen)
 
-        img = self.img_fc(sel(feats.img)) if cfg.w_img else None
-        rel = self.rel_fc(sel(feats.rel)) if cfg.w_rel else None
-        att = self.att_fc(sel(feats.att)) if cfg.w_attr else None
-        name = self.name_fc(sel(feats.name)) if (cfg.w_name and feats.name is not None) else None
-        char = self.char_fc(sel(feats.char)) if (cfg.w_char and feats.char is not None) else None
+        gph, img, rel, att, name, char = sel([
+            gph, feats.img if cfg.w_img else None,
+            feats.rel if cfg.w_rel else None,
+            feats.att if cfg.w_attr else None,
+            feats.name if cfg.w_name else None,
+            feats.char if cfg.w_char else None])
+        img = None if img is None else self.img_fc(img)
+        rel = None if rel is None else self.rel_fc(rel)
+        att = None if att is None else self.att_fc(att)
+        name = None if name is None else self.name_fc(name)
+        char = None if char is None else self.char_fc(char)
 
         if cfg.use_project_head:
             def head(mod, e):
@@ -196,47 +212,70 @@ class MultiModalEncoder(nn.Module):
                 fusion_inputs, row_gen)
         elif self.fusion_kind == "mean":
             joint = self.fusion(fusion_inputs)
+        rows_out = dict(gph=gph, img=img, rel=rel, att=att, name=name,
+                        char=char, joint=joint, joint_fz=joint_fz,
+                        hidden=hidden, weight_norm=weight_norm)
+        if keep is not None:
+            rows_out = {k: v if k in keep else None
+                        for k, v in rows_out.items()}
         if mesh is not None:
-            (gph, img, rel, att, name, char, joint, joint_fz, hidden,
-             weight_norm) = gather_rows(mesh, [
-                 gph, img, rel, att, name, char, joint, joint_fz, hidden,
-                 weight_norm], n)
-        return EncoderOutput(gph=gph, img=img, rel=rel, att=att, name=name,
-                             char=char, joint=joint, joint_fz=joint_fz,
-                             hidden=hidden, weight_norm=weight_norm,
-                             weight_fz=weight_fz)
+            rows_out = dict(zip(rows_out, gather_rows(
+                mesh, list(rows_out.values()), n)))
+        return EncoderOutput(**rows_out, weight_fz=weight_fz)
 
 
 def split_rows(mesh, rows: Optional[torch.Tensor], n: int,
                dropout_gen: Optional[torch.Generator]):
     """(sel, row_gen, mesh) of a forward over ``n`` entity rows (``rows``,
-    or every entity where None): ``sel`` takes a whole-table tensor to the
-    rows this rank computes, ``row_gen`` is the dropout generator of those
-    rows, and ``mesh`` is None where one rank computes every row (no mesh,
-    or a mesh of one: its forward is the plain one, bit for bit)."""
+    or every entity where None): ``sel`` takes a list of per-entity
+    tensors (the structure encoder's output, the feature tables, whole or
+    this rank's ``RowShard``; None passes through) to the rows this rank
+    computes, fetching every table's other rows in one ``take``;
+    ``row_gen`` is the dropout generator of those rows, and ``mesh`` is
+    None where one rank computes every row (no mesh, or a mesh of one:
+    its forward is the plain one, bit for bit)."""
     if mesh is None or mesh.world == 1:
-        return ((lambda t: t) if rows is None else (lambda t: t[rows]),
+        return ((lambda ts: list(ts)) if rows is None else
+                (lambda ts: [None if t is None else t[rows] for t in ts]),
                 dropout_gen, None)
     lo, hi = mesh.rows(n)
     local = slice(lo, hi) if rows is None else rows[lo:hi]
-    return ((lambda t: t[local]),
+    return ((lambda ts: take(mesh, ts, local)),
             noise_ops.row_slice(dropout_gen, lo, hi, n), mesh)
 
 
-def prepare_features(cfg: Config, data, device) -> FeaturePack:
-    """Feature tables on ``device``; image rows normalized (SNAG.py:23)."""
+def _host_tables(cfg: Config, data):
+    """Each feature table's name and host array (None = absent); image
+    rows normalized (SNAG.py:23)."""
     img = np.asarray(data.img_features, dtype=np.float32)
     n = np.linalg.norm(img, axis=1, keepdims=True)
-    img = img / np.maximum(n, 1e-12)
+    return {"img": img / np.maximum(n, 1e-12), "rel": data.rel_features,
+            "att": data.att_features,
+            "name": data.name_features if cfg.w_name else None,
+            "char": data.char_features if cfg.w_char else None}
 
-    def put(a):
-        return None if a is None else torch.as_tensor(
+
+def place_features(cfg: Config, data, device, mesh=None):
+    """(tables, noise statistics or None) of a run.  Each table is put on
+    ``device`` alone; with ``--add_noise`` its statistics come from the
+    whole table (SNAG.py:77-84: the image's over the image-bearing rows of
+    the normalised table, rel/att over all rows); then, under a mesh of
+    N > 1 ranks, only this rank's share is kept
+    (``parallel.mesh.shard_table``).  So the device holds one whole table
+    at most, and the statistics are the plain run's bit for bit."""
+    w_img = (torch.as_tensor(np.asarray(data.ent_w_img, dtype=np.int64),
+                             device=device) if cfg.add_noise else None)
+    tables, stats = {}, {}
+    for name, a in _host_tables(cfg, data).items():
+        t = None if a is None else torch.as_tensor(
             np.ascontiguousarray(a, dtype=np.float32), device=device)
-
-    return FeaturePack(
-        img=put(img), rel=put(data.rel_features), att=put(data.att_features),
-        name=put(data.name_features) if cfg.w_name else None,
-        char=put(data.char_features) if cfg.w_char else None)
+        if t is not None and cfg.add_noise and name in FeatureStats._fields:
+            stats[name] = noise_ops.table_stats(
+                t, valid_rows=w_img if name == "img" else None)
+        tables[name] = None if t is None else shard_table(mesh, t)
+        del t       # before the next table is put
+    return (FeaturePack(**tables),
+            FeatureStats(**stats) if cfg.add_noise else None)
 
 
 def batch_rows(links: torch.Tensor):
@@ -246,16 +285,6 @@ def batch_rows(links: torch.Tensor):
     rows = torch.cat([links[:, 0], links[:, 1]])
     ar = torch.arange(b, dtype=links.dtype, device=links.device)
     return rows, torch.stack([ar, b + ar], dim=1)
-
-
-def prepare_stats(feats: FeaturePack, ent_w_img) -> FeatureStats:
-    """Noise statistics (SNAG.py:77-84): image stats over the image-bearing
-    rows of the normalised table; rel/att over all rows."""
-    w_img = torch.as_tensor(np.asarray(ent_w_img, dtype=np.int64),
-                            device=feats.img.device)
-    return FeatureStats(img=noise_ops.table_stats(feats.img, valid_rows=w_img),
-                        rel=noise_ops.table_stats(feats.rel),
-                        att=noise_ops.table_stats(feats.att))
 
 
 def apply_feature_noise(gen: torch.Generator, feats: FeaturePack,

@@ -101,14 +101,13 @@ class EVA(nn.Module):
         # share of the rows under a mesh (encoder.py)
         n = ent.shape[0] if rows is None else rows.shape[0]
         sel, _, mesh = split_rows(self.mesh, rows, n, None)
-        gph = sel(gph)
-        img = self.img_fc(sel(feats.img))
-        rel = self.rel_fc(sel(feats.rel))
-        att = self.att_fc(sel(feats.att))
-        name = char = None
-        if self.surface and feats.name is not None:
-            name = self.name_fc(sel(feats.name))
-            char = self.char_fc(sel(feats.char))
+        surface = self.surface and feats.name is not None
+        gph, img, rel, att, name, char = sel(
+            [gph, feats.img, feats.rel, feats.att]
+            + ([feats.name, feats.char] if surface else [None, None]))
+        img, rel, att = self.img_fc(img), self.rel_fc(rel), self.att_fc(att)
+        if surface:
+            name, char = self.name_fc(name), self.char_fc(char)
         out = [gph, img, rel, att, name, char]
         return tuple(out if mesh is None else gather_rows(mesh, out, n))
 

@@ -84,4 +84,5 @@ class MCLEA(nn.Module):
 
     def joint_emb(self, feats: FeaturePack, graph: DeviceGraph):
         """Eval/IL embedding: (mean-fused joint (N, d), None)."""
-        return self.multimodal_encoder(feats, graph).joint, None
+        enc = self.multimodal_encoder(feats, graph, keep=("joint",))
+        return enc.joint, None

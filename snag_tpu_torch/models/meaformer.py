@@ -143,5 +143,6 @@ class MEAformer(nn.Module):
 
     def joint_emb(self, feats: FeaturePack, graph: DeviceGraph):
         """Eval/IL embedding: (joint (N, M * d), weight_norm (N, M))."""
-        enc = self.multimodal_encoder(feats, graph)
+        enc = self.multimodal_encoder(feats, graph,
+                                      keep=("joint", "weight_norm"))
         return enc.joint, enc.weight_norm

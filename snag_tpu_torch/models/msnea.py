@@ -17,6 +17,13 @@ entity of the same KG drawn from a ``torch.Generator`` (``jax.random``
 streams cannot be reproduced, so the negatives match the JAX package's in
 distribution, not in the drawn values).
 
+Under a mesh of N > 1 ranks (``mesh``, set by ``parallel.mesh.attach``)
+the step runs whole on every rank, and its rows of the feature tables,
+which each rank holds a share of, come from their owners
+(``parallel.mesh.take_each``: the triples' image rows in one fetch, the
+links' rows of every table in another); ``joint_emb`` fuses this rank's
+share of the entities and gathers the fused rows.
+
 Every layer is f32 whatever ``--dtype`` says, as the JAX package's plain
 ``nn.Dense`` layers are.  Parameter names are the port's own
 (``ent_embed.weight``, ``rel_embed.weight``, ``fc1``, ``fc3``,
@@ -38,6 +45,7 @@ from snag_tpu_torch.data.graph import DeviceGraph
 from snag_tpu_torch.models.encoder import FeaturePack
 from snag_tpu_torch.ops import inits
 from snag_tpu_torch.ops.fusion import l2norm, tlinear
+from snag_tpu_torch.parallel.mesh import take_each
 
 Triples = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 MARGIN = 2.0    # the contrastive loss's default-arg margin (MSNEA_loss.py:9)
@@ -164,6 +172,7 @@ class MSNEA(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.ent_num = ent_num
+        self.mesh = None
         self.ent_embed = _table(ent_num, cfg.dim, generator)
         self.rel_embed = _table(rel_num, cfg.dim, generator)
         self.fc1 = _xlinear(img_feature_dim, cfg.dim, generator)
@@ -186,36 +195,39 @@ class MSNEA(nn.Module):
     def r_rep(self, e: torch.Tensor) -> torch.Tensor:
         return l2norm(self.ent_embed.weight[e])
 
-    def i_rep(self, feats: FeaturePack, e: torch.Tensor) -> torch.Tensor:
-        return l2norm(self.fc1(feats.img[e]))
-
-    def i_w(self, feats: FeaturePack, e: torch.Tensor) -> torch.Tensor:
-        return l2norm(self.fc3(feats.img[e]))
-
-    def _emb_generate(self, feats: FeaturePack, idx: torch.Tensor):
+    def _emb_generate(self, feats: FeaturePack, *idxs):
+        """The modality rows of entities ``idxs[i]`` (ids, or this rank's
+        ``slice`` of every entity), one tuple an index set, every table's
+        rows fetched together."""
         cfg = self.cfg
-        img = self.i_rep(feats, idx) if cfg.w_img else None
-        rel = self.r_rep(idx) if cfg.w_rel else None
-        att = (self.attr_encoder(feats.att[idx])
-               if (cfg.w_attr and cfg.w_img) else None)
-        name = (self.name_fc(feats.name[idx])
-                if (cfg.w_name and feats.name is not None) else None)
-        char = (self.char_fc(feats.char[idx])
-                if (cfg.w_char and feats.char is not None) else None)
-        return img, rel, att, name, char
+        tables = [feats.img if cfg.w_img else None,
+                  feats.att if (cfg.w_attr and cfg.w_img) else None,
+                  feats.name if cfg.w_name else None,
+                  feats.char if cfg.w_char else None]
+        out = []
+        for idx, (img, att, name, char) in zip(
+                idxs, take_each(self.mesh, tables, idxs)):
+            out.append((
+                None if img is None else l2norm(self.fc1(img)),
+                self.r_rep(idx) if cfg.w_rel else None,
+                None if att is None else self.attr_encoder(att),
+                None if name is None else self.name_fc(name),
+                None if char is None else self.char_fc(char)))
+        return out
 
     @staticmethod
     def _fusion(embs) -> torch.Tensor:
         return l2norm(torch.cat([l2norm(e) for e in embs if e is not None],
                                 dim=1))
 
-    def _transe(self, rep, pos: Triples, neg: Triples) -> torch.Tensor:
-        (p_h, p_r, p_t), (n_h, n_r, n_t) = pos, neg
+    def _transe(self, reps, pos: Triples, neg: Triples) -> torch.Tensor:
+        """``reps``: the rows of pos's heads and tails and neg's."""
+        p_h, p_t, n_h, n_t = reps
         rel = self.rel_embed.weight
-        pos_d = torch.sum(torch.square(rep(p_h) + l2norm(rel[p_r])
-                                       - rep(p_t)), dim=1)
-        neg_d = torch.sum(torch.square(rep(n_h) + l2norm(rel[n_r])
-                                       - rep(n_t)), dim=1)
+        pos_d = torch.sum(torch.square(p_h + l2norm(rel[pos[1]]) - p_t),
+                          dim=1)
+        neg_d = torch.sum(torch.square(n_h + l2norm(rel[neg[1]]) - n_t),
+                          dim=1)
         pos_d = pos_d.repeat_interleave(n_h.shape[0] // p_h.shape[0])
         return torch.sum(torch.relu(self.cfg.margin + pos_d - neg_d))
 
@@ -228,12 +240,17 @@ class MSNEA(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss of a batch of links and a triple batch; MSNEA
         draws no noise and has no dropout, so both generators are unused."""
-        r_loss = (self._transe(self.r_rep, pos_triples, neg_triples)
-                  + self._transe(lambda e: self.i_w(feats, e), pos_triples,
-                                 neg_triples))
+        # the triples' heads and tails; their image rows in one fetch
+        ents = [pos_triples[0], pos_triples[2], neg_triples[0],
+                neg_triples[2]]
+        r_loss = (self._transe([self.r_rep(e) for e in ents], pos_triples,
+                               neg_triples)
+                  + self._transe([l2norm(self.fc3(img)) for img, in
+                                  take_each(self.mesh, [feats.img], ents)],
+                                 pos_triples, neg_triples))
 
-        i1, r1, a1, nm1, ch1 = self._emb_generate(feats, links[:, 0])
-        i2, r2, a2, nm2, ch2 = self._emb_generate(feats, links[:, 1])
+        (i1, r1, a1, nm1, ch1), (i2, r2, a2, nm2, ch2) = self._emb_generate(
+            feats, links[:, 0], links[:, 1])
         all1 = self._fusion([r1, i1, a1, nm1, ch1])
         all2 = self._fusion([r2, i2, a2, nm2, ch2])
 
@@ -247,7 +264,17 @@ class MSNEA(nn.Module):
 
     def joint_emb(self, feats: FeaturePack, graph: DeviceGraph):
         """Eval/IL embedding: (fused rows (N, d), None), fused in the order
-        rel, img, att, name, char (MSNEA.py:joint_emb_generat)."""
-        idx = torch.arange(self.ent_num, device=feats.img.device)
-        img, rel, att, name, char = self._emb_generate(feats, idx)
-        return self._fusion([rel, img, att, name, char]), None
+        rel, img, att, name, char (MSNEA.py:joint_emb_generat); under a
+        mesh of N > 1 ranks each fuses its share of the entities
+        (``Mesh.rows``, its own rows of the tables) and one all-gather
+        gives every rank the whole."""
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            idx = torch.arange(self.ent_num, device=feats.img.device)
+        else:
+            idx = slice(*mesh.rows(self.ent_num))
+        (img, rel, att, name, char), = self._emb_generate(feats, idx)
+        fused = self._fusion([rel, img, att, name, char])
+        if isinstance(idx, slice):
+            fused = mesh.gather_shards(fused, self.ent_num)
+        return fused, None

@@ -230,5 +230,6 @@ class SNAG(nn.Module):
 
     def joint_emb(self, feats: FeaturePack, graph: DeviceGraph):
         """Eval/IL embedding: (joint_emb_fz (N, M*d), weight_norm (N, M))."""
-        enc = self.multimodal_encoder(feats, graph)
+        enc = self.multimodal_encoder(feats, graph,
+                                      keep=("joint_fz", "weight_norm"))
         return enc.joint_fz, enc.weight_norm

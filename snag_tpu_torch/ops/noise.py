@@ -9,7 +9,8 @@ get half rates inside the encoder forward (SNAG_tools.py:127-128).
 ``dropout`` (the GAT's and the fusion stack's) lives here too.  Under a
 mesh a rank computes only its rows of a per-entity tensor; its
 ``RowSlice`` draws each dropout mask at the full row count and keeps its
-own rows, so N ranks draw what one rank draws.
+own rows, so N ranks draw what one rank draws; a feature table's shard is
+noised alike (``noise_mask_table``).
 Randomness comes from explicit ``torch.Generator``s on the tensor's device,
 seeded from (seed, epoch) by ``derive_seed``.  ``jax.random`` streams cannot
 be reproduced, so the port matches the JAX package in distribution, not in
@@ -18,10 +19,13 @@ the drawn values.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from snag_tpu_torch.parallel.mesh import RowShard, Table
 
 
 class TableStats(NamedTuple):
@@ -91,12 +95,28 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def noise_mask_table(gen: torch.Generator, x: torch.Tensor,
-                     stats: TableStats, noise_ratio: float,
-                     mask_ratio: float) -> torch.Tensor:
-    """Row-masked Gaussian blend (add_noise_to_embeddings, SNAG.py:66-75)."""
-    rows = torch.rand(x.shape[0], generator=gen, device=x.device) < noise_ratio
-    eps = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+def noise_mask_table(gen: torch.Generator, x: Table, stats: TableStats,
+                     noise_ratio: float, mask_ratio: float) -> Table:
+    """Row-masked Gaussian blend (add_noise_to_embeddings, SNAG.py:66-75).
+    ``x`` may be a feature table's ``RowShard``: its draws are made at the
+    whole table's shapes and its rows kept, so the noisy shard is rows
+    ``lo:hi`` of the noisy whole table, bit for bit (the whole ``eps`` is
+    a temporary)."""
+    if isinstance(x, RowShard):
+        return dataclasses.replace(x, local=_blend(
+            gen, x.local, stats, noise_ratio, mask_ratio, (x.lo, x.hi, x.n)))
+    return _blend(gen, x, stats, noise_ratio, mask_ratio)
+
+
+def _blend(gen, x, stats, noise_ratio, mask_ratio, span=None):
+    """``noise_mask_table`` of the tensor ``x``, or, with ``span`` = (lo,
+    hi, n), of the rows lo:hi of an n-row table that ``x`` holds."""
+    n = x.shape[0] if span is None else span[2]
+    rows = torch.rand(n, generator=gen, device=x.device) < noise_ratio
+    eps = torch.randn((n,) + tuple(x.shape[1:]), generator=gen,
+                      device=x.device, dtype=x.dtype)
+    if span is not None:
+        rows, eps = rows[span[0]:span[1]], eps[span[0]:span[1]]
     noise = stats.mean + stats.std * eps
     blended = (1.0 - mask_ratio) * x + mask_ratio * noise
     return torch.where(rows[:, None], blended, x)

@@ -2,15 +2,22 @@
 
 Port of ``snag_tpu/parallel/mesh.py``: one process per GPU (a rank), NCCL
 between cards and gloo on the CPU.  Every rank loads the same KG from the
-same seed and holds it whole; what the ranks split is the per-entity work
-(``Mesh.rows`` / ``gather_rows``, used by the MMEA encoders), the
-evaluation's query rows (``eval/sharded.py``), the IL mining's left
-candidates (``train/il.py``) and MKGC's batch rows and evaluation chunks.
-Parameters are replicated and ``all_reduce_mean`` averages their gradients
-before each optimizer update, as XLA's psum sums them under the JAX mesh.
-The JAX package's entity-sharded placement of the feature tables
-(``shard_kg_arrays``) is not ported: it saves memory and changes no
-result.
+same seed; what the ranks split is the per-entity work (``Mesh.rows`` /
+``gather_rows``, used by the MMEA encoders), the evaluation's query rows
+(``eval/sharded.py``), the IL mining's left candidates (``train/il.py``)
+and MKGC's batch rows and evaluation chunks.  Parameters are replicated
+and ``all_reduce_mean`` averages their gradients before each optimizer
+update, as XLA's psum sums them under the JAX mesh.
+
+The feature tables are placed by entity, as the JAX package's
+``shard_kg_arrays`` places them: under N > 1 ranks each rank keeps only
+its ``Mesh.rows`` share of every table (``RowShard``, ``shard_table``),
+the rows that every per-entity forward over all entities reads there, and
+fetches any other row from its owner (``take_rows``: one plan for every
+table of a forward, one all-gather of the request counts, and, where a
+rank asks another for rows, one ``all_to_all_single`` of those ids and
+one of all the tables' rows).  The edge arrays stay whole on every
+rank, where the structure encoder runs whole.
 
 Every collective of the port goes through a ``Mesh`` here.  Under gloo
 they run on host copies of the tensors: gloo reduces CUDA tensors but
@@ -26,7 +33,7 @@ import os
 import tempfile
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -193,40 +200,203 @@ class Mesh:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         return self.all_gather(x)[:n]
 
+    def all_to_all(self, x: torch.Tensor, send: Sequence[int],
+                   recv: Sequence[int]) -> torch.Tensor:
+        """``x``'s rows exchanged: the next ``send[r]`` rows of ``x`` go to
+        rank r, and the result holds ``recv[r]`` rows from each rank r, in
+        rank order, on ``x``'s device."""
+        wire = self._to_wire(x.contiguous())
+        out = wire.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, wire, list(recv), list(send))
+        return out.to(x.device)
+
     def barrier(self) -> None:
         if dist.is_initialized():
             dist.barrier()
 
 
+@dataclass(frozen=True, eq=False)
+class RowShard:
+    """This rank's share of an entity-indexed feature table: rows
+    ``[lo, hi)`` of the whole ``(n, ...)`` table as ``local``, on the
+    rank's device.  The share is ``Mesh.rows(n)``, the split of every
+    forward over all entities, so such a forward reads ``local`` alone.
+    It is no tensor and cannot be indexed as if it were whole: rows of
+    the whole come from ``take_rows`` (``take`` reads either kind)."""
+    local: torch.Tensor
+    lo: int
+    hi: int
+    n: int
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The whole table's shape."""
+        return (self.n,) + tuple(self.local.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+
+Table = Union[torch.Tensor, RowShard]
+
+
+def shard_table(mesh: Optional[Mesh], whole: torch.Tensor) -> Table:
+    """What this rank keeps of a feature table: its ``RowShard`` under a
+    mesh of N > 1 ranks (a copy, so that ``whole`` can be freed), else
+    ``whole`` itself."""
+    if mesh is None or mesh.world == 1:
+        return whole
+    if whole.requires_grad:
+        raise ValueError("shard_table: feature tables take no gradient")
+    lo, hi = mesh.rows(whole.shape[0])
+    return RowShard(whole[lo:hi].clone(), lo, hi, whole.shape[0])
+
+
+def take_rows(mesh: Mesh, shards: Sequence[RowShard],
+              idxs: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """Rows of the whole tables that ``shards`` are this rank's shares of
+    (of one entity count): ``out[i][j]`` is rows ``idxs[i]`` (any shape,
+    int32 or int64 ids) of table j, bit for bit ``whole[idxs[i]]``,
+    contiguous, on the shards' device.  Every rank calls it together,
+    each with its own ids (empty or not).  One plan serves every table
+    and index set: the distinct ids, their owners, and one all-gather of
+    the counts each rank asks of each other rank (which also carries a
+    count of ids out of range, so that every rank raises).  A rank's own
+    ids are read from its shares; only where some rank asks another for
+    rows, one ``all_to_all_single`` of those ids and one of every table's
+    rows together, as bytes.  Nothing falls back to a whole table."""
+    first = shards[0]
+    lo, hi, n = first.lo, first.hi, first.n
+    if any((s.lo, s.hi, s.n) != (lo, hi, n) for s in shards):
+        raise ValueError("take_rows: shares of tables of different spans")
+    if any(s.local.requires_grad for s in shards):
+        raise ValueError("take_rows: feature tables take no gradient")
+    dev = first.device
+    flat = [i.reshape(-1).to(dev, torch.int64) for i in idxs]
+    ids, inverse = torch.unique(torch.cat(flat), sorted=True,
+                                return_inverse=True)
+    # the sorted ids of each owner, ids[bounds[r]:bounds[r + 1]]
+    per = -(-n // mesh.world)
+    bounds = torch.searchsorted(
+        ids, torch.arange(mesh.world + 1, device=dev) * per)
+    bad = ((ids < 0) | (ids >= n)).sum()
+    head = torch.cat([bounds.diff(), bad[None]])
+    counts = mesh.all_gather(head[None]).cpu()      # (world, world + 1)
+    if counts[:, -1].any():
+        raise IndexError(f"take_rows: ids outside [0, {n}) on ranks "
+                         f"{counts[:, -1].nonzero().flatten().tolist()}")
+    asks = counts[mesh.rank, :-1].tolist()          # ids to each owner
+    gets = counts[:, mesh.rank].tolist()            # ids from each rank
+    a = sum(asks[:mesh.rank])
+    b = a + asks[mesh.rank]                         # this rank's own ids
+    rows = [s.local[ids[a:b] - lo] for s in shards]
+    asks[mesh.rank] = gets[mesh.rank] = 0
+    pairs = counts[:, :-1]
+    if pairs.sum() > pairs.diagonal().sum():        # a rank asks another
+        wanted = mesh.all_to_all(torch.cat([ids[:a], ids[b:]]), asks,
+                                 gets) - lo
+        sent = [_bytes(s.local[wanted]) for s in shards]
+        got = mesh.all_to_all(torch.cat(sent, dim=1), gets, asks)
+        at = 0
+        for j, t in enumerate(sent):
+            part = got[:, at:at + t.shape[1]].clone(
+                memory_format=torch.contiguous_format)
+            part = part.view(rows[j].dtype).reshape(
+                (got.shape[0],) + tuple(rows[j].shape[1:]))
+            rows[j] = torch.cat([part[:a], rows[j], part[a:]])
+            at += t.shape[1]
+    result, at = [], 0
+    for i, f in zip(idxs, flat):
+        pick = inverse[at:at + f.shape[0]]
+        result.append([r[pick].reshape(tuple(i.shape) + tuple(r.shape[1:]))
+                       for r in rows])
+        at += f.shape[0]
+    return result
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s rows as (rows, bytes a row) of uint8."""
+    return t.reshape(t.shape[0], math.prod(t.shape[1:])).view(torch.uint8)
+
+
+def take_each(mesh: Optional[Mesh], tables: Sequence[Optional[Table]],
+              idxs: Sequence) -> List[List[Optional[torch.Tensor]]]:
+    """Rows of feature tables (None passes through) for each of
+    ``idxs``: ``out[i][j]`` is ``tables[j][idxs[i]]`` of a whole table;
+    of a ``RowShard``, its own rows for the index ``slice(lo, hi)`` of
+    its share (no collective), else the rows that one ``take_rows`` of
+    every shard and index set fetches."""
+    shards = [t for t in tables if isinstance(t, RowShard)]
+    ids = [i for i in idxs if not isinstance(i, slice)]
+    fetched = iter(take_rows(mesh, shards, ids) if shards and ids else [])
+    out = []
+    for idx in idxs:
+        got = (iter(next(fetched)) if shards and not isinstance(idx, slice)
+               else None)
+        row = []
+        for t in tables:
+            if t is None:
+                row.append(None)
+            elif not isinstance(t, RowShard):
+                row.append(t[idx])
+            elif got is not None:
+                row.append(next(got))
+            elif (idx.start, idx.stop) != (t.lo, t.hi):
+                raise ValueError(f"rows {idx.start}:{idx.stop} of a shard "
+                                 f"of rows {t.lo}:{t.hi}")
+            else:
+                row.append(t.local)
+        out.append(row)
+    return out
+
+
+def take(mesh: Optional[Mesh], tables: Sequence[Optional[Table]], idx
+         ) -> List[Optional[torch.Tensor]]:
+    """``take_each`` of one index: rows ``idx`` of each table."""
+    return take_each(mesh, tables, [idx])[0]
+
+
 class _GatherRows(torch.autograd.Function):
     """Forward: the rows of every rank, in order.  Backward: this rank's
-    rows of the incoming gradient times ``world``.  The loss after the
-    gather runs replicated, so each rank's gradient holds the terms that
-    come straight from the loss once and those through its own rows
-    ``world`` times; the mean over the ranks (``all_reduce_mean``) then
-    holds each term once."""
+    rows of the gradient of the loss the ranks share.  Where the loss
+    after the gather runs replicated (``replicated``), each rank's
+    incoming gradient is that loss's, so its rows are taken times
+    ``world``: each rank's gradient then holds the terms that come
+    straight from the loss once and those through its own rows ``world``
+    times, and the mean over the ranks (``all_reduce_mean``) holds each
+    term once.  Where each rank's loss is over rows of its own, the
+    incoming gradients are summed over the ranks first."""
 
     @staticmethod
-    def forward(ctx, x, mesh: Mesh, n: int):
-        ctx.mesh, ctx.span = mesh, mesh.rows(n)
+    def forward(ctx, x, mesh: Mesh, n: int, replicated: bool):
+        ctx.mesh, ctx.span, ctx.replicated = mesh, mesh.rows(n), replicated
         return mesh.gather_shards(x, n)
 
     @staticmethod
     def backward(ctx, grad):
         lo, hi = ctx.span
-        return grad[lo:hi] * ctx.mesh.world, None, None
+        if ctx.replicated:
+            return grad[lo:hi] * ctx.mesh.world, None, None, None
+        return ctx.mesh.all_reduce_sum_(grad.clone())[lo:hi], None, None, None
 
 
 def gather_rows(mesh: Mesh, tensors: Sequence[Optional[torch.Tensor]],
-                n: int) -> List[Optional[torch.Tensor]]:
+                n: int, replicated: bool = True
+                ) -> List[Optional[torch.Tensor]]:
     """The (n, ...) wholes of per-row tensors whose rows ``mesh.rows(n)``
     this rank computed (None passes through): every field flattened into
     one f32 buffer (bf16 to f32 and back is exact), one differentiable
-    gather."""
+    gather (``_GatherRows``; ``replicated``: the loss after it is the
+    same on every rank)."""
     present = [t for t in tensors if t is not None]
     flat = torch.cat([t.reshape(t.shape[0], -1).to(torch.float32)
                       for t in present], dim=1)
-    whole = _GatherRows.apply(flat, mesh, n)
+    whole = _GatherRows.apply(flat, mesh, n, replicated)
     out, at = [], 0
     for t in tensors:
         if t is None:

@@ -25,7 +25,9 @@ changing between epochs (``replay_ready``, MEAformer.py:55-61, 138-148);
 
 ``--mesh_shape data:N`` runs this process as one of N ranks
 (``parallel/mesh.py``; the CLI spawns them, or they come from torchrun or
-SLURM): every rank holds the KG and the model whole and draws the same
+SLURM): every rank holds the graph and the model whole, and of every
+feature table its share of the entities (``place_features``, after the
+noise statistics are taken from the whole table), and draws the same
 batches, the encoders split their per-entity work over the ranks, the
 parameter gradients are averaged before each update, the ``--distance 2``
 evaluation splits its query rows over N > 1 ranks (``eval/sharded.py``;
@@ -64,7 +66,7 @@ from snag_tpu_torch.eval.ranking import (RankResult, full_rank_eval,
                                          result_from_ranks)
 from snag_tpu_torch.eval.sharded import sharded_full_rank_eval
 from snag_tpu_torch.models import build_model
-from snag_tpu_torch.models.encoder import prepare_features, prepare_stats
+from snag_tpu_torch.models.encoder import place_features
 from snag_tpu_torch.models.msnea import TripleBank
 from snag_tpu_torch.ops.fusion import l2norm
 from snag_tpu_torch.parallel import mesh as mesh_mod
@@ -119,9 +121,8 @@ class Runner:
             self.data.test_ill[:, 0].astype(np.int64), device=self.device)
         self.test_right = torch.as_tensor(
             self.data.test_ill[:, 1].astype(np.int64), device=self.device)
-        self.feats = prepare_features(cfg, self.data, self.device)
-        self.stats = (prepare_stats(self.feats, self.data.ent_w_img)
-                      if cfg.add_noise else None)
+        self.feats, self.stats = place_features(cfg, self.data, self.device,
+                                                self.mesh)
         self.graph = self.data.graph.to_torch(self.device)
 
         generator = torch.Generator().manual_seed(cfg.random_seed)

@@ -10,6 +10,12 @@ against the JAX mesh itself on the 8 virtual CPU devices of
 ``conftest.py``: three sharded optimizer steps, the sharded evaluation
 (ranks equal on >= 0.995 of queries, MRR within 1e-3 both ways) and the
 sharded mining (exactly equal).  ``data:1`` gives the plain path's bits.
+
+The feature tables: under N > 1 ranks each rank holds its ``Mesh.rows``
+share of every table, whose noise statistics and epoch-0 noisy rows are
+the one-rank run's bit for bit; ``take_rows`` gives ``whole[idx]`` bit
+for bit at N = 2, 3 and 4; and within a rank every family's encoder
+outputs are the same bits from the shares as from whole tables.
 The MKGC cases are in ``test_torch_mesh_mkgc.py``.
 """
 
@@ -210,14 +216,38 @@ def two_ranks(data_root, step_pair, tmp_path_factory):
                                       mesh_shape="data:2", **STEP_FLAGS)))
     jobs += [(f"eval_{c}", "eval", dict(use_csls=c)) for c in (0, 1)]
     jobs += [(f"mine_{n}", "mine", dict(n_left=n)) for n in (512, 601)]
+    jobs += _table_jobs(data_root, 2)
     return _spawn(2, jobs, tmp_path_factory.mktemp("ranks2"))
+
+
+@pytest.fixture(scope="module")
+def three_ranks(tmp_path_factory):
+    return _spawn(3, [("take", "take", {})],
+                  tmp_path_factory.mktemp("ranks3"))
 
 
 @pytest.fixture(scope="module")
 def four_ranks(data_root, tmp_path_factory):
     jobs = [(case, "runner", _runner_kw(data_root, case, "data:4"))
             for case in RANKS[4]]
+    jobs += _table_jobs(data_root, 4)
     return _spawn(4, jobs, tmp_path_factory.mktemp("ranks4"))
+
+
+def _tables_kw(data_root, case, mesh_shape=""):
+    flags = {k: v for k, v in CASES[case].items()
+             if k not in ("epochs", "evaluate", "mine")}
+    return dict(data_root=data_root, batch_size=BATCH,
+                mesh_shape=mesh_shape, **flags)
+
+
+def _table_jobs(data_root, world):
+    """``take_rows``'s cases and the tables of every family of
+    ``RANKS[world]``."""
+    return [("take", "take", {})] + [
+        (f"tables_{case}", "tables",
+         _tables_kw(data_root, case, f"data:{world}"))
+        for case in RANKS[world]]
 
 
 _ONE_RANK = {}
@@ -358,6 +388,166 @@ def test_sharded_mining_matches_jax_mesh(n_left, two_ranks):
     for got_l, got_r in ranks.load(two_ranks, f"mine_{n_left}", 2):
         np.testing.assert_array_equal(got_l, np.asarray(want_l))
         np.testing.assert_array_equal(got_r, np.asarray(want_r))
+
+
+# -- the feature tables ----------------------------------------------------
+def _ranks_dir(world, two_ranks, three_ranks, four_ranks):
+    return {2: two_ranks, 3: three_ranks, 4: four_ranks}[world]
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_take_rows_is_whole_rows(world, two_ranks, three_ranks, four_ranks):
+    """Every case of ``take_cases`` on every rank, of both tables, one
+    call a case and every case in one call: bit for bit ``whole[idx]``,
+    its shape and dtype, contiguous; an id out of range on one rank
+    raises on all."""
+    wholes = ranks.take_wholes()
+    got = ranks.load(_ranks_dir(world, two_ranks, three_ranks, four_ranks),
+                     "take", world)
+    for r, rec in enumerate(got):
+        lo, hi, n = rec["span"]
+        assert (lo, hi) == mesh_mod.Mesh(r, world, torch.device("cpu"),
+                                         True).rows(n) and n == ranks.TAKE_N
+        for name, ids in ranks.take_cases(r, world).items():
+            for got in (rec[name], rec["each"][name]):
+                for (rows, contiguous), whole in zip(got, wholes, strict=True):
+                    want = whole[ids]
+                    assert contiguous, (r, name)
+                    assert (rows.shape == want.shape
+                            and rows.dtype == want.dtype)
+                    np.testing.assert_array_equal(rows, want,
+                                                  err_msg=f"{r} {name}")
+        assert rec["raised"], r
+
+
+def _one_rank_tables(data_root, case):
+    key = ("tables", case)
+    if key not in _ONE_RANK:
+        _ONE_RANK[key] = ranks.tables_job(**_tables_kw(data_root, case))
+    return _ONE_RANK[key]
+
+
+TABLE_CASES = [(w, c) for w in RANKS for c in RANKS[w]]
+
+
+def _tables(world, case, two_ranks, four_ranks):
+    return ranks.load(two_ranks if world == 2 else four_ranks,
+                      f"tables_{case}", world)
+
+
+@pytest.mark.parametrize("world,case", TABLE_CASES)
+def test_rank_holds_its_share_of_each_table(world, case, data_root,
+                                            two_ranks, four_ranks):
+    """Each rank holds rows ``Mesh.rows(n)`` of every table, the one-rank
+    run's bit for bit, and no whole table."""
+    want = _one_rank_tables(data_root, case)["tables"]
+    for r, rec in enumerate(_tables(world, case, two_ranks, four_ranks)):
+        assert rec["tables"].keys() == want.keys()
+        for name, w in want.items():
+            got = rec["tables"][name]
+            if w is None:
+                assert got is None, name
+                continue
+            kind, lo, hi, n, rows = got
+            assert w[0] == "whole" and kind == "shard", name
+            assert n == w[1].shape[0] and hi - lo < n
+            assert (lo, hi) == mesh_mod.Mesh(r, world, torch.device("cpu"),
+                                             True).rows(n)
+            np.testing.assert_array_equal(rows, w[1][lo:hi], err_msg=name)
+
+
+@pytest.mark.parametrize("world,case", TABLE_CASES)
+def test_rank_noise_is_rows_of_the_plain_noise(world, case, data_root,
+                                               two_ranks, four_ranks):
+    """The noise statistics are the whole tables' and epoch 0's noisy
+    shares are rows ``lo:hi`` of the one-rank run's noisy tables, bit for
+    bit."""
+    want = _one_rank_tables(data_root, case)
+    for rec in _tables(world, case, two_ranks, four_ranks):
+        for name, (mean, std) in want["stats"].items():
+            np.testing.assert_array_equal(rec["stats"][name][0], mean)
+            np.testing.assert_array_equal(rec["stats"][name][1], std)
+        for name, w in want["noisy"].items():
+            kind, lo, hi, _, rows = rec["noisy"][name]
+            assert kind == "shard"
+            np.testing.assert_array_equal(rows, w[1][lo:hi], err_msg=name)
+        # the noise moved some rows of this share
+        assert any((rec["noisy"][k][4] != rec["tables"][k][4]).any()
+                   for k in want["noisy"])
+
+
+@pytest.mark.parametrize("world,case", TABLE_CASES)
+def test_shares_encode_as_whole_tables(world, case, two_ranks, four_ranks):
+    """Within a rank, one batch's encoder outputs, those over every
+    entity and ``joint_emb`` are bit for bit the same from the rank's
+    shares as from whole tables given to the same model."""
+    for rec in _tables(world, case, two_ranks, four_ranks):
+        for label, same in rec["same"].items():
+            assert same and all(same), (label, same)
+
+
+def test_data1_holds_whole_tables(data_root):
+    """``data:1`` keeps every table whole, with the plain run's bits, its
+    statistics and its noise."""
+    want = _one_rank_tables(data_root, "snag")
+    got = ranks.tables_job(**_tables_kw(data_root, "snag", "data:1"))
+    for name, w in want["tables"].items():
+        assert (got["tables"][name] is None) == (w is None)
+        if w is not None:
+            assert got["tables"][name][0] == "whole"
+            np.testing.assert_array_equal(got["tables"][name][1], w[1])
+    for name, w in want["noisy"].items():
+        np.testing.assert_array_equal(got["noisy"][name][1], w[1])
+    for name, (mean, std) in want["stats"].items():
+        np.testing.assert_array_equal(got["stats"][name][0], mean)
+        np.testing.assert_array_equal(got["stats"][name][1], std)
+
+
+def test_a_share_is_no_tensor():
+    """A ``RowShard`` cannot be indexed as if it were whole, its own rows
+    are read only through its own span, and a forward without a mesh
+    refuses it."""
+    whole = torch.arange(30.0).reshape(10, 3)
+    mesh = mesh_mod.Mesh(1, 3, torch.device("cpu"), True)
+    shard = mesh_mod.shard_table(mesh, whole)
+    assert (shard.lo, shard.hi, shard.n) == (4, 8, 10)
+    assert shard.shape == (10, 3) and shard.dtype == whole.dtype
+    assert torch.equal(shard.local, whole[4:8])
+    assert mesh_mod.shard_table(None, whole) is whole
+    assert mesh_mod.shard_table(mesh_mod.Mesh(0, 1, torch.device("cpu"),
+                                              True), whole) is whole
+    with pytest.raises(TypeError):
+        shard[torch.tensor([0, 1])]
+    with pytest.raises(TypeError):
+        torch.nn.functional.linear(shard, torch.ones(2, 3))
+    own, absent, rows = mesh_mod.take(mesh, [shard, None, whole],
+                                      slice(4, 8))
+    assert own is shard.local and absent is None
+    assert torch.equal(rows, whole[4:8])
+    with pytest.raises(ValueError, match="rows 0:4"):
+        mesh_mod.take(mesh, [shard], slice(0, 4))
+    with pytest.raises(ValueError, match="no gradient"):
+        mesh_mod.shard_table(mesh, whole.requires_grad_())
+
+
+def test_noise_of_a_share_is_rows_of_the_whole_noise():
+    """``noise_mask_table`` of a share draws at the whole table's shapes:
+    its rows are those of the whole table's noise from the same seed."""
+    from snag_tpu_torch.ops import noise as noise_ops
+    whole = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(101, 6)).astype(np.float32))
+    st = noise_ops.table_stats(whole)
+    want = noise_ops.noise_mask_table(torch.Generator().manual_seed(9),
+                                      whole, st, 0.4, 0.5)
+    for r in range(3):
+        shard = mesh_mod.shard_table(
+            mesh_mod.Mesh(r, 3, torch.device("cpu"), True), whole)
+        got = noise_ops.noise_mask_table(torch.Generator().manual_seed(9),
+                                         shard, st, 0.4, 0.5)
+        assert isinstance(got, mesh_mod.RowShard)
+        assert (got.lo, got.hi, got.n) == (shard.lo, shard.hi, shard.n)
+        assert torch.equal(got.local, want[shard.lo:shard.hi])
+    assert not torch.equal(want, whole)
 
 
 # -- the CLI ---------------------------------------------------------------

@@ -7,7 +7,8 @@ down) batch size, epoch losses within rel 5e-3 (and the parameters
 within rtol 2e-3, atol 2e-5, but for the attention's key bias, whose
 gradient is rounding noise), in both negative branches; the sharded filtered
 ranks equal to the unsharded ones on > 0.99 of the triples.  ``data:1``
-through the CLI gives the plain run's bits.
+through the CLI gives the plain run's bits.  Each rank holds its share
+of both feature tables.
 """
 
 import numpy as np
@@ -73,6 +74,25 @@ def test_mkgc_sharded_filtered_ranks(branch, two_ranks):
     for got in ranks.load(two_ranks, branch, 2):
         assert got["ranks"].shape == got["ranks_one"].shape
         assert (got["ranks"] == got["ranks_one"]).mean() > 0.99
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_mkgc_ranks_hold_shares_of_the_tables(branch, two_ranks):
+    """Each rank holds its ``Mesh.rows`` share of ``visual`` and
+    ``textual``, not the whole table."""
+    for r, got in enumerate(ranks.load(two_ranks, branch, 2)):
+        for kind, lo, hi, n in got["tables"]:
+            assert kind == "shard" and n == 80
+            assert (lo, hi) == mesh_mod.Mesh(r, 2, torch.device("cpu"),
+                                             True).rows(n)
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_mkgc_step_loss_keeps_no_bucket(branch, two_ranks):
+    """A step's loss, which the epoch keeps, holds its own 4 bytes, not
+    the step's reduced gradient bucket that it was averaged in."""
+    for got in ranks.load(two_ranks, branch, 2):
+        assert got["loss_bytes"] == 4
 
 
 @pytest.mark.parametrize("branch", list(BRANCHES))

@@ -68,10 +68,9 @@ from snag_tpu_torch.mkgc.config import MKGCConfig, build_mkgc_argparser
 from snag_tpu_torch.mkgc.data import load_mkgc_data
 from snag_tpu_torch.mkgc.model import MKGCModel, avg_pool_features
 from snag_tpu_torch.mkgc.train import (MKGCRunner, MKGCStep, _padded_filters,
-                                       epoch_batches, feature_stats,
-                                       filtered_ranks, noisy_features,
-                                       param_group, prepare_mkgc_features,
-                                       summarize_lp)
+                                       epoch_batches, filtered_ranks,
+                                       noisy_features, param_group,
+                                       place_mkgc_features, summarize_lp)
 from snag_tpu_torch.ops.noise import generator
 from snag_tpu_torch.utils.checkpoint import save_mkgc_checkpoint
 from snag_tpu_torch.utils.import_reference import (_leaves, _ref_key_for,
@@ -281,7 +280,7 @@ def _jax_side(data, joint_way, num_proj):
 
 def _port_model(data, params, **kw):
     _, tc = _cfgs(**kw)
-    feats = prepare_mkgc_features(tc, data, "cpu")
+    feats, _ = place_mkgc_features(tc, data, "cpu")
     model = MKGCModel(tc, data.ent_num, data.rel_num,
                       int(feats.visual.shape[1]), int(feats.textual.shape[1]),
                       torch.Generator().manual_seed(0))
@@ -460,8 +459,7 @@ def test_noise_rows_follow_the_blend_formula(data):
         data, ent_num=e, ent_wo_visual=list(range(0, e, 10)),
         visual=rng.normal(2.0, 3.0, (e, 8)).astype(np.float32),
         textual=rng.normal(-1.0, 0.5, (e, 6)).astype(np.float32))
-    feats = prepare_mkgc_features(tc, big, "cpu")
-    stats = feature_stats(feats, big)
+    feats, stats = place_mkgc_features(tc, big, "cpu")
     # the visual statistics cover the entities with an image only
     w_vis = np.setdiff1d(np.arange(e), big.ent_wo_visual)
     jstats = jax_noise.table_stats(jnp.asarray(feats.visual.numpy()),

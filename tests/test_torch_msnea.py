@@ -38,7 +38,7 @@ from snag_tpu_torch.config import (build_argparser, config_from_args,
                                    finalize_config)
 from snag_tpu_torch.data.dataset import _generate_sup_triples, load_data
 from snag_tpu_torch.models import build_model
-from snag_tpu_torch.models.encoder import prepare_features
+from snag_tpu_torch.models.encoder import place_features
 from snag_tpu_torch.models.msnea import (MSNEA, TripleBank, contrastive_loss,
                                          sample_triple_batch)
 from snag_tpu_torch.ops.noise import generator
@@ -86,7 +86,7 @@ def _pair(root, use_surface):
     tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
     return dict(jcfg=jcfg, jdata=jdata, jmodel=jmodel, jfeats=jfeats,
                 params=params, tcfg=tcfg, tdata=tdata, tmodel=tmodel,
-                tfeats=prepare_features(tcfg, tdata, "cpu"),
+                tfeats=place_features(tcfg, tdata, "cpu")[0],
                 tgraph=tdata.graph.to_torch("cpu"),
                 jbank=JaxTripleBank.from_data(jdata),
                 tbank=TripleBank.from_data(tdata, "cpu"))

@@ -20,7 +20,7 @@ from snag_tpu.utils.import_reference import (export_reference_state_dict,
                                              import_reference_checkpoint)
 from snag_tpu_torch.data.dataset import load_data
 from snag_tpu_torch.models import build_model
-from snag_tpu_torch.models.encoder import prepare_features
+from snag_tpu_torch.models.encoder import place_features
 from snag_tpu_torch.utils.import_reference import (_leaves, _ref_key_for,
                                                    load_reference_checkpoint,
                                                    save_reference_checkpoint,
@@ -153,7 +153,7 @@ def test_pkl_roundtrip_and_jax_import(setups, case, tmp_path):
         method=type(jm).joint_emb))(imported)
     tcfg = s["tcfg"]
     with torch.no_grad():
-        got, _ = src.joint_emb(prepare_features(tcfg, s["data"], "cpu"),
+        got, _ = src.joint_emb(place_features(tcfg, s["data"], "cpu")[0],
                                s["data"].graph.to_torch("cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

@@ -87,7 +87,7 @@ def step_job(state_path, data_root, batches, total, warmup, mesh_shape="",
     ``state_path``, one on each (links, valid) of ``batches``."""
     from snag_tpu_torch.data.dataset import load_data
     from snag_tpu_torch.models import build_model
-    from snag_tpu_torch.models.encoder import prepare_features
+    from snag_tpu_torch.models.encoder import place_features
     from snag_tpu_torch.parallel import mesh as mesh_mod
     from snag_tpu_torch.train.step import TrainStep
     cfg = port_config(data_root, **overrides)
@@ -100,12 +100,149 @@ def step_job(state_path, data_root, batches, total, warmup, mesh_shape="",
         mesh = mesh_mod.make_mesh(n, "cpu")
         mesh_mod.attach(model, mesh)
     step = TrainStep(cfg, model, cfg.lr, total, warmup, mesh)
-    feats = prepare_features(cfg, data, "cpu")
+    feats = place_features(cfg, data, "cpu")[0]
     graph = data.graph.to_torch("cpu")
     losses = [step(torch.as_tensor(links), torch.as_tensor(valid), feats,
                    graph, 0, deterministic=True)[0].item()
               for links, valid in batches]
     return {"losses": losses, "params": _numpy_state(model)}
+
+
+# the feature tables' jobs: noise on, so that the statistics and the
+# epoch's noisy tables are taken
+TABLE_FLAGS = dict(add_noise=1, noise_ratio=0.3, mask_ratio=0.5)
+
+
+def _table_record(t):
+    """("shard", lo, hi, n, rows) of a ``RowShard``, ("whole", table) of a
+    tensor, None of an absent table."""
+    from snag_tpu_torch.parallel.mesh import RowShard
+    if t is None:
+        return None
+    if isinstance(t, RowShard):
+        return ("shard", t.lo, t.hi, t.n, t.local.numpy().copy())
+    return ("whole", t.numpy().copy())
+
+
+def _encode(model, feats, graph, rows, gen):
+    """The encoder outputs of ``model`` (any family) over entities
+    ``rows`` (None: every entity), dropout from ``gen``."""
+    name = model.cfg.model_name
+    if name == "MSNEA":
+        # every entity: this rank's share of them, as joint_emb reads it
+        return model._emb_generate(feats, slice(*model.mesh.rows(
+            model.ent_num)) if rows is None else rows)[0]
+    if name == "EVA":
+        return model._embs(feats, graph, None, gen, rows)
+    return tuple(model.multimodal_encoder(feats, graph, None, gen, rows=rows))
+
+
+def tables_job(data_root, mesh_shape="", **overrides):
+    """The runner's placement of the feature tables: each table (its
+    share or the whole), the noise statistics, epoch 0's noisy tables,
+    and, with a mesh, whether one batch's encoder outputs (and those over
+    every entity, and ``joint_emb``) are bit for bit equal from this
+    rank's shares and from whole tables given to the same model."""
+    from snag_tpu_torch.models.encoder import batch_rows, place_features
+    from snag_tpu_torch.train.runner import Runner
+    from snag_tpu_torch.train.step import make_noise_fn
+    from snag_tpu_torch.utils.logging import create_logger
+    cfg = port_config(data_root, mesh_shape=mesh_shape,
+                      **{**overrides, **TABLE_FLAGS})
+    runner = Runner(cfg, create_logger(name=f"tables_{mesh_shape or 'one'}"))
+    noisy = make_noise_fn(runner.cfg, runner.stats)(runner.feats, 0)
+    out = {"tables": {k: _table_record(t)
+                      for k, t in runner.feats._asdict().items()},
+           "noisy": {k: _table_record(getattr(noisy, k))
+                     for k in ("img", "rel", "att")},
+           "stats": {k: (st.mean.numpy().copy(), st.std.numpy().copy())
+                     for k, st in runner.stats._asdict().items()}}
+    if runner.mesh is None or runner.mesh.world == 1:
+        return out
+    whole = place_features(runner.cfg, runner.data, runner.device)[0]
+    links = torch.as_tensor(runner.train_ill[:BATCH_ROWS].astype(np.int64))
+    rows = batch_rows(links)[0]
+    same = {}
+    model = runner.model
+    with torch.no_grad():
+        for label, r in (("batch", rows), ("all", None)):
+            got, want = (_encode(model, f, runner.graph, r,
+                                 torch.Generator().manual_seed(5))
+                         for f in (runner.feats, whole))
+            same[label] = [a is None and b is None or torch.equal(a, b)
+                           for a, b in zip(got, want)]
+        got, want = (model.joint_emb(f, runner.graph) for f in
+                     (runner.feats, whole))
+        same["joint_emb"] = [a is None and b is None or torch.equal(a, b)
+                             for a, b in zip(got, want)]
+    out["same"] = same
+    return out
+
+
+# a batch of the tables job: 24 links, 48 rows
+BATCH_ROWS = 24
+# take_rows's whole tables: 1,001 rows, so that no N of 2, 3 or 4 divides
+# it and the last share is short
+TAKE_N = 1001
+
+
+def take_wholes():
+    """Two tables of one entity count, of other dtypes and shapes: their
+    rows cross in one exchange, as bytes."""
+    rng = np.random.default_rng(11)
+    return [rng.normal(size=(TAKE_N, 7)).astype(np.float32),
+            rng.normal(size=(TAKE_N, 2, 3))]
+
+
+def take_cases(rank, world):
+    """Each case's ids on ``rank``: repeated ids, int32 ids, a rank that
+    asks for nothing, every id on one owner (the first, and the last,
+    short share), ids of two dimensions, and every rank asking for
+    nothing."""
+    rng = np.random.default_rng(rank)
+    per = -(-TAKE_N // world)
+    last = (world - 1) * per
+    return {
+        "repeats": rng.integers(0, TAKE_N, 300),
+        "int32": np.array([5, 5, 1000, 0, 1000, 5], dtype=np.int32),
+        "one_empty": (np.zeros(0, np.int64) if rank == 1
+                      else rng.integers(0, TAKE_N, 40)),
+        "owner_first": rng.integers(0, per, 60),
+        "owner_last": rng.integers(last, TAKE_N, 60),
+        "two_dims": rng.integers(0, TAKE_N, (5, 8)),
+        "all_empty": np.zeros(0, np.int64),
+    }
+
+
+def take_job():
+    """``take_rows`` of both ``take_wholes`` tables on this rank's
+    ``take_cases``: each case's rows of each table and whether they were
+    contiguous, one call a case, then every case in one call (under
+    "each"), then whether an id out of range on rank 0 alone raised
+    here."""
+    from snag_tpu_torch.parallel import mesh as mesh_mod
+    import torch.distributed as dist
+    mesh = mesh_mod.make_mesh(dist.get_world_size(), "cpu")
+    shards = [mesh_mod.shard_table(mesh, torch.from_numpy(w))
+              for w in take_wholes()]
+    out = {"span": (shards[0].lo, shards[0].hi, shards[0].n), "each": {}}
+
+    def record(got):
+        return [(g.numpy().copy(), g.is_contiguous()) for g in got]
+    cases = take_cases(mesh.rank, mesh.world)
+    for name, ids in cases.items():
+        got, = mesh_mod.take_rows(mesh, shards, [torch.from_numpy(ids)])
+        out[name] = record(got)
+    every = mesh_mod.take_rows(mesh, shards,
+                               [torch.from_numpy(i) for i in cases.values()])
+    out["each"] = {name: record(got) for name, got in zip(cases, every)}
+    bad = torch.tensor([TAKE_N if mesh.rank == 0 else 3])
+    try:
+        mesh_mod.take_rows(mesh, shards, [bad])
+        out["raised"] = False
+    except IndexError:
+        out["raised"] = True
+    return out
 
 
 def eval_embs(n=601, d=48, seed=0):
@@ -184,9 +321,15 @@ def mkgc_job(data_path, epochs=2, mesh_shape="", batch_size=None,
                            score_fn=runner._score_fn)
     ranks1 = filtered_ranks(runner.model, runner.feats, runner.data, triples,
                             score_fn=make_score_fn(runner.model))
-    return {"losses": losses, "batch_size": runner.batch_size,
-            "params": _numpy_state(runner.model), "ranks": ranks,
-            "ranks_one": ranks1}
+    out = {"losses": losses, "batch_size": runner.batch_size,
+           "params": _numpy_state(runner.model), "ranks": ranks,
+           "ranks_one": ranks1,
+           "tables": [_table_record(t)[:4] for t in runner.feats]}
+    # one step more, after the record: the bytes its loss keeps alive
+    loss = runner.step(runner.train_triples[:runner.batch_size],
+                       runner.feats)[0]
+    out["loss_bytes"] = loss.untyped_storage().nbytes()
+    return out
 
 
 def cli_job(argv):
@@ -206,4 +349,5 @@ def fail_on_rank(rank):
 
 
 JOBS = {"runner": runner_job, "step": step_job, "eval": eval_job,
-        "mine": mine_job, "mkgc": mkgc_job, "cli": cli_job}
+        "mine": mine_job, "mkgc": mkgc_job, "cli": cli_job,
+        "tables": tables_job, "take": take_job}

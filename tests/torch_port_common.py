@@ -120,7 +120,7 @@ def model_pair(data_root: str, **overrides):
     from snag_tpu.models.encoder import prepare_features as jax_features
     from snag_tpu_torch.data.dataset import load_data
     from snag_tpu_torch.models import build_model
-    from snag_tpu_torch.models.encoder import prepare_features
+    from snag_tpu_torch.models.encoder import place_features
     from snag_tpu_torch.utils.import_reference import state_dict_from_flax
 
     jcfg, tcfg = configs(data_root, **overrides)
@@ -137,7 +137,7 @@ def model_pair(data_root: str, **overrides):
     tmodel.load_state_dict(state_dict_from_flax(params), strict=True)
     return dict(jcfg=jcfg, jmodel=jmodel, jdata=jdata, jfeats=jfeats,
                 params=params, tcfg=tcfg, tmodel=tmodel, tdata=tdata,
-                tfeats=prepare_features(tcfg, tdata, "cpu"),
+                tfeats=place_features(tcfg, tdata, "cpu")[0],
                 tgraph=tdata.graph.to_torch("cpu"))
 
 

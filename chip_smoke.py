@@ -30,10 +30,13 @@ the exit code is non-zero:
    kernel, ``csrc/gram_grad.cuh``) and both loss lse kernels (one kernel,
    ``csrc/gram_lse.cuh``) the executed and least TFLOP/s and a bitwise
    repeat, and the launch plans of NT-Xent's gradient and of both lse;
-   the f32 mixture gradient past one modality's fit in its shared
-   accumulator, in feature chunks (``MIXTURE_CHUNKED``: M = 4 at d =
-   1,600, M = 1 at the cap + 8), against its twin with its plan and
-   device ms; for the rank sweeps (``csrc/rank_tile.cuh``), each launch over both
+   both f32 gradients' wide body (``gram_grad_wide``, past what the
+   main-path body's accumulator holds: NT-Xent's GMI6 of
+   ``NTXENT_SHAPES``; the mixture's ``MIXTURE_WIDE``, M = 4 at d = 1,600,
+   M = 1 at the cap + 8), against its twin with its plan (chunks, blocks a cluster, splits,
+   blocks per SM), device ms, executed and least TFLOP/s, bound and
+   share, and a bitwise repeat; at every shape of both gradients the
+   sha256 of its outputs; for the rank sweeps (``csrc/rank_tile.cuh``), each launch over both
    directions as the evaluation runs it, the same, their registers and
    spills, and a column direction that must give the bits of the row
    direction of the launch on (y, x); for the two GAT kernels (a warp per
@@ -156,8 +159,9 @@ the exit code is non-zero:
    then the f32 model served with CSLS k = 20 under L2 (sweep A's list of
    32), its ranks on all 10,500 test pairs held against the CPU's dense
    twin (>= 99.9 %); then f32 SNAG with every active modality 1,600 wide,
-   2 epochs: the mixture gradient in feature chunks (counted apart,
-   ``mixture_grad_chunked``) and the GAT kernels' wide path launch, the
+   2 epochs: both f32 gradients' wide body (counted apart,
+   ``ntxent_grad_wide`` and ``mixture_grad_wide``) and the GAT kernels'
+   wide path launch, the
    losses finite and falling; (c) 10,500 against 12,000 rows of width
    1,200 ranked on the card and on the CPU.  The wide and long-list launches are
    counted apart (``WIDE_KERNELS``); the kernels line holds them with the
@@ -273,8 +277,10 @@ DEVICE_KERNELS = {
     "rank_counts": ("ranks_kernel", "ranks_merge_kernel"),
     "ntxent_lse": ("ntxent_lse",),
     "ntxent_grad": ("ntxent_grad",),
+    "ntxent_grad_wide": ("ntxent_grad_wide",),
     "mixture_lse": ("mixture_lse",),
     "mixture_grad": ("mixture_grad", "mixture_dbeta", "mixture_sum"),
+    "mixture_grad_wide": ("mixture_grad_wide",),
     "weighted_segment_sum": ("weighted_segment_sum",),
     # the bf16 entries (--dtype bfloat16), named apart: "<f32 name>_bf16"
     "weighted_segment_sum_bf16": ("weighted_segment_sum_bf16",),
@@ -286,8 +292,9 @@ DEVICE_KERNELS = {
     "mixture_grad_bf16": ("mixture_grad_bf16", "mixture_dbeta_bf16",
                           "mixture_sum_bf16", "mixture_kpos_bf16"),
     # the instantiations past the main path's shapes, counted apart: both
-    # GAT kernels' wide path (H > 4, or C past a warp's slices) and sweep
-    # A's lists in shared memory (CSLS k > 10)
+    # GAT kernels' wide path (H > 4, or C past a warp's slices), sweep A's
+    # lists in shared memory (CSLS k > 10) and both f32 gradients' wide
+    # body (above; a profile matches the longest name first)
     "gat_attention_fwd_wide": ("gat_attention_fwd_wide",),
     "gat_attention_fwd_bf16_wide": ("gat_attention_fwd_bf16_wide",),
     "gat_bwd_wide": ("gat_bwd_wide",),
@@ -298,8 +305,9 @@ SERVING_KERNELS = {"gat_attention_fwd", "rank_topk_mean", "rank_counts"}
 GAT_KERNELS = {"gat_attention_fwd", "gat_bwd"}
 GAT_WIDE_KERNELS = {"gat_attention_fwd_wide", "gat_bwd_wide"}
 GAT_BF16_WIDE_KERNELS = {"gat_attention_fwd_bf16_wide", "gat_bwd_bf16_wide"}
-WIDE_KERNELS = GAT_WIDE_KERNELS | GAT_BF16_WIDE_KERNELS | {
-    "rank_topk_mean_long", "mixture_grad_chunked"}
+GRAD_WIDE_KERNELS = {"ntxent_grad_wide", "mixture_grad_wide"}
+WIDE_KERNELS = GAT_WIDE_KERNELS | GAT_BF16_WIDE_KERNELS | GRAD_WIDE_KERNELS \
+    | {"rank_topk_mean_long"}
 SEGMENT_KERNEL = "weighted_segment_sum"
 SEGMENT_BF16 = "weighted_segment_sum_bf16"
 # the bf16 entries of the GAT configuration's path
@@ -335,10 +343,11 @@ ACCUM_DROPOUT_ARGS = ["--accumulation_steps", "2", "--attn_dropout", "0.1"]
 # the default fused loss runs IIR only (4 modalities' hidden rows); with
 # --fused_snag_loss 0 ECIA (shown with the padded last batch, 1,000 of 3,500
 # rows valid) and GMI (the two 1200-wide joint paths) run too, and GMI6
-# with --use_surface 1 (six modalities: 1800-wide joint rows, two feature
-# chunks of the gradient); MEAformer's joint loss (M = 1 at 1,200, the
-# gradient's one-chunk path at M = 1) and an MCLEA modality's loss with the
-# padded last batch (M = 1 at 300; MCLEA's joint loss has the same shape)
+# with --use_surface 1 (six modalities: 1800-wide joint rows); MEAformer's
+# joint loss (M = 1 at 1,200) and an MCLEA modality's loss with the padded
+# last batch (M = 1 at 300; MCLEA's joint loss has the same shape).  GMI6
+# alone is past the main-path gradient's accumulator (d > 1,504): it takes
+# the gradient's wide body.
 NTXENT_SHAPES = (("IIR", 4, 3500, 300, 3500), ("ECIA", 4, 3500, 300, 1000),
                  ("GMI", 2, 3500, 1200, 3500), ("GMI6", 2, 3500, 1800, 3500),
                  ("MEAformer joint", 1, 3500, 1200, 3500),
@@ -349,10 +358,10 @@ NTXENT_SHAPES = (("IIR", 4, 3500, 300, 3500), ("ECIA", 4, 3500, 300, 1000),
 MIXTURE_SHAPES = (("M4", 4, 3500, 300, 3500), ("M4 padded", 4, 3500, 300, 1000),
                   ("M6", 6, 3500, 300, 3500))
 # (name, M, B, d) of the f32 mixture gradient past one modality's fit in
-# its shared accumulator, in feature chunks: the bundle of a training
-# batch at width 1,600 (phase parity's SNAG_WIDE run), and one modality
-# just past the cap (d = None: the cap + 8, read on the card)
-MIXTURE_CHUNKED = (("M4 d1600", 4, 3500, 1600), ("M1 cap+8", 1, 3500, None))
+# its shared accumulator, on its wide body: the bundle of a training batch
+# at width 1,600 (phase parity's SNAG_WIDE run), and one modality just
+# past the cap (d = None: the cap + 8, read on the card)
+MIXTURE_WIDE = (("M4 d1600", 4, 3500, 1600), ("M1 cap+8", 1, 3500, None))
 
 
 def say(phase: str, msg: str) -> None:
@@ -1000,15 +1009,17 @@ def _ntxent_inputs(m, b, d, n_valid, seed):
 
 
 def phase_ntxent(tau=0.1):
-    """Both NT-Xent kernels against their dense twins at the four (M, B, d)
-    shapes of an unfused training step.  lse: atol 1e-5 (rtol 1e-5);
-    gradient: max |err| <= 1e-4 * max |twin|; two runs of either give the
-    same bits.  Prints the plans (lse: tile, tile pairs, blocks per SM;
-    gradient: feature chunks, ring depth, column splits, blocks per SM) and
-    the fp32-equivalent TFLOP/s, executed (lse: every tile pair's T^2
-    products; gradient: K once per feature chunk, then W z) and least (K
-    once per unordered pair of rows, then W z for the gradient).  The JSON
-    record has the IIR shape, the only one the default fused loss runs."""
+    """Both NT-Xent kernels against their dense twins at ``NTXENT_SHAPES``.
+    lse: atol 1e-5 (rtol 1e-5); gradient: max |err| <= 1e-4 * max |twin|;
+    two runs of either give the same bits.  Prints the plans (lse: tile,
+    tile pairs, blocks per SM; gradient: feature chunks, ring depth, column
+    splits, blocks per SM, and on the wide body its clusters), the
+    fp32-equivalent TFLOP/s, executed (lse: every tile pair's T^2
+    products; gradient: K once per feature chunk, or per cluster group on
+    the wide body, then W z) and least (K once per unordered pair of rows,
+    then W z for the gradient), the gradient's bound and share and the
+    sha256 of its dz.  The JSON records: IIR, the only shape the default
+    fused loss runs, and the wide body at GMI6."""
     import torch
     from snag_tpu_torch.ops.cuda import ntxent as nx
     err_lse = err_grad = 0.0
@@ -1047,15 +1058,20 @@ def phase_ntxent(tau=0.1):
                   z, want, coef, v, tau), DEVICE_KERNELS[nx.STATS_GRAD.name])}
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
-        executed = 2 * m * n2 * n2 * d * (plan["chunks"] + 1)
+        executed = 2 * m * n2 * n2 * d * (plan["groups"] + 1)
         lse_executed = lse_executed_flops(lp, m, d)
+        grad_bytes = 4 * (2 * m * n2 * d + 2 * m * n2 + n2)
+        grad_bound = bound(grad_bytes, k_flops + wz_flops,
+                           TF32X3_FLOP_PER_S)[0]
         if i == 0:
             first = [(nx.STATS_LSE.name, ms["lse"], ms["lse_dev"],
                       ms["lse_twin"], 4 * (m * n2 * d + n2 + m * n2), k_flops),
                      (nx.STATS_GRAD.name, ms["grad"], ms["grad_dev"],
-                      ms["grad_twin"],
-                      4 * (2 * m * n2 * d + 2 * m * n2 + n2),
-                      k_flops + wz_flops)]
+                      ms["grad_twin"], grad_bytes, k_flops + wz_flops)]
+        if plan["wide"]:
+            wide = row(nx.STATS_GRAD_WIDE.name, e_dz, ms["grad"],
+                       ms["grad_dev"], ms["grad_twin"], grad_bytes,
+                       k_flops + wz_flops, flop_per_s=TF32X3_FLOP_PER_S)
         err_lse = max(err_lse, e_lse)
         err_grad = max(err_grad, e_dz)
         say("ntxent", f"{label} (M={m}, B={b}, d={d}, {n_valid} valid): "
@@ -1069,13 +1085,26 @@ def phase_ntxent(tau=0.1):
             f"{ms['grad']:.3f} ms, device {ms['grad_dev']:.3f} ms "
             f"({executed / ms['grad_dev'] / 1e9:.1f} executed, "
             f"{(k_flops + wz_flops) / ms['grad_dev'] / 1e9:.1f} least "
-            f"TFLOP/s; {plan['chunks']} chunk(s), depth {plan['depth']}, "
-            f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM)"
-            f" twin {ms['grad_twin']:.3f} ms")
+            f"TFLOP/s; {f32_grad_plan_text(plan)}) bound {grad_bound:.3f} "
+            f"ms, share {grad_bound / ms['grad_dev']:.3f}, twin "
+            f"{ms['grad_twin']:.3f} ms | sha256 dz {sha256_of(dz)}")
         del z, v, coef, lse, lse_again, want, dz, again, want_dz
         torch.cuda.empty_cache()
     return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
-            for (name, *rest), err in zip(first, (err_lse, err_grad))]
+            for (name, *rest), err in zip(first, (err_lse, err_grad))] + [
+                wide]
+
+
+def f32_grad_plan_text(plan):
+    """An f32 gradient's launch plan (``ntxent.grad_plan``,
+    ``snag_loss.grad_plan``) for a log line."""
+    text = (f"{plan['chunks']} chunk(s), depth {plan['depth']}, "
+            f"{plan['splits']} split(s), {plan['blocks_per_sm']} block(s)/SM")
+    if plan["wide"]:
+        text = (f"wide body: {text}, clusters of {plan['cluster']} "
+                f"({plan['q']} depth slice(s) a modality), {plan['groups']} "
+                f"cluster group(s)")
+    return text
 
 
 def _mixture_inputs(m, b, d, n_valid, seed):
@@ -1107,9 +1136,9 @@ def phase_mixture(tau=0.1):
     fp32-equivalent TFLOP/s, executed (lse: every tile pair's T^2 products
     per modality; gradient: each group of modalities computes every K_m
     once, then its W z) and least (K_m once per unordered pair of rows, then
-    W z for the gradient).  The JSON record has the full M = 4 batch, the
-    main path's shape.  Then the gradient in feature chunks
-    (``_mixture_chunked``)."""
+    W z for the gradient), and the sha256 of the gradient's outputs.  The
+    JSON records: the full M = 4 batch, the main path's shape, and the
+    wide body at M = 4, d = 1,600 (``_mixture_wide``)."""
     import torch
     from snag_tpu_torch.ops.cuda import snag_loss as sl
     cap = sl._grad_cap(sl._library(), torch.device("cuda"))
@@ -1156,8 +1185,8 @@ def phase_mixture(tau=0.1):
                   DEVICE_KERNELS[sl.STATS_GRAD.name])}
         n2 = 2 * b
         k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
-        mg, chunks = sl.modality_group(m, d, cap)
-        executed = 2 * n2 * n2 * d * (-(-m // mg) * chunks * m + m)
+        mg, _ = sl.modality_group(m, d, cap)
+        executed = 2 * n2 * n2 * d * (-(-m // mg) * m + m)
         rates = (f"{executed / ms['grad_dev'] / 1e9:.1f} executed, "
                  f"{(k_flops + wz_flops) / ms['grad_dev'] / 1e9:.1f} least")
         lp = sl.lse_plan(m, n2, d, z.device)
@@ -1185,54 +1214,70 @@ def phase_mixture(tau=0.1):
             f"{lp['tile']}, {lp['pairs']} pairs, {lp['blocks_per_sm']} "
             f"block(s)/SM) twin {ms['lse_twin']:.3f} ms | grad kernel "
             f"{ms['grad']:.3f} ms, device {ms['grad_dev']:.3f} ms "
-            f"({rates} TFLOP/s) twin {ms['grad_twin']:.3f} ms")
+            f"({rates} TFLOP/s) twin {ms['grad_twin']:.3f} ms | sha256 "
+            f"(dz, dalpha, dbeta) {sha256_of(*got)}")
         del z, alpha, beta, v, coef, lse, lse_again, want, got, again, wants
         torch.cuda.empty_cache()
-    _mixture_chunked(cap, tau)
+    wide = _mixture_wide(cap, tau)
     return [row(name, err, *rest, flop_per_s=TF32X3_FLOP_PER_S)
-            for (name, *rest), err in zip(first, (err_lse, err_grad))]
+            for (name, *rest), err in zip(first, (err_lse, err_grad))] + [
+                wide]
 
 
-def _mixture_chunked(cap, tau):
-    """The f32 mixture gradient at ``MIXTURE_CHUNKED``, past one
-    modality's fit in its shared accumulator (``cap`` columns): its plan
-    must take feature chunks, dz, dalpha and dbeta lie within 1e-4 x max
-    |twin| of the twin's (fed the twin's lse), and two runs give the same
-    bits; with its device ms, executed TFLOP/s (each chunk recomputes every
-    K_m over the whole d) and the twin's ms on the card."""
+def _mixture_wide(cap, tau):
+    """The f32 mixture gradient at ``MIXTURE_WIDE``, past one modality's
+    fit in its shared accumulator (``cap`` columns): its plan must take the
+    wide body, dz, dalpha and dbeta lie within 1e-4 x max |twin| of the
+    twin's (fed the twin's lse), and two runs give the same bits; with its
+    plan, device ms, executed (each cluster group computes every K_m once)
+    and least TFLOP/s, bound and share, the twin's ms on the card and the
+    sha256 of its outputs.  Returns the kernels-line record of the first
+    shape."""
     import torch
     from snag_tpu_torch.ops.cuda import snag_loss as sl
-    for label, m, b, d in MIXTURE_CHUNKED:
+    records = []
+    for label, m, b, d in MIXTURE_WIDE:
         d = d or cap + 8
         z, alpha, beta, v, coef = _mixture_inputs(m, b, d, b, SEED + d)
         plan = sl.grad_plan(m, 2 * b, d, z.device)
-        if plan["chunks"] < 2:
-            raise AssertionError(f"mixture_grad {label}: no feature chunks "
-                                 f"at d = {d} ({plan})")
+        if not plan["wide"]:
+            raise AssertionError(f"mixture_grad {label}: not on the wide "
+                                 f"body at d = {d} ({plan})")
         lse = sl.mixture_lse_twin(z, alpha, beta, v, tau)
         fn = lambda: sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, tau)
         got = repeat_bitwise(fn, f"mixture_grad {label}")
         wants = sl.mixture_grad_twin(z, alpha, beta, lse, coef, v, tau)
-        errs = []
+        errs, worst = [], 0.0
         for part, a, w in zip(("dz", "dalpha", "dbeta"), got, wants):
             e, scale = (a - w).abs().max().item(), w.abs().max().item()
             if not (torch.isfinite(a).all() and e <= 1e-4 * scale):
                 raise AssertionError(f"mixture_grad {label} {part}: max|err| "
                                      f"{e} > 1e-4 * max|twin| {scale}")
             errs.append(f"{part} {e:.3e} of {scale:.6f}")
-        dev = device_ms(fn, DEVICE_KERNELS[sl.STATS_GRAD.name])
+            worst = max(worst, e)
+        ms = median_ms(fn)
+        dev = device_ms(fn, DEVICE_KERNELS[sl.STATS_GRAD_WIDE.name])
         twin = median_ms(lambda: sl.mixture_grad_twin(z, alpha, beta, lse,
                                                       coef, v, tau))
-        n2, groups = 2 * b, -(-m // plan["mg"])
-        executed = 2 * n2 * n2 * d * (groups * plan["chunks"] * m + m)
+        n2 = 2 * b
+        k_flops, wz_flops = symmetric_gram_flops(m, n2, d)
+        executed = 2 * n2 * n2 * d * m * (plan["groups"] + 1)
+        nbytes = 4 * (2 * m * n2 * d + 2 * n2 * m + 2 * m + n2
+                      + 2 * (m + 2) * n2)
+        least = bound(nbytes, k_flops + wz_flops, TF32X3_FLOP_PER_S)[0]
         say("mixture", f"{label} (M={m}, B={b}, d={d}, past the cap {cap}): "
-            f"{plan['mg']} modality(ies) a block in {plan['chunks']} feature "
-            f"chunks, {plan['splits']} split(s), ring {plan['depth']} | "
-            f"max|err| {', '.join(errs)} (<= 1e-4 x max|twin|), bitwise "
-            f"repeat | grad device {dev:.3f} ms ({executed / dev / 1e9:.1f} "
-            f"executed TFLOP/s) twin {twin:.3f} ms")
+            f"{f32_grad_plan_text(plan)} | max|err| {', '.join(errs)} (<= "
+            f"1e-4 x max|twin|), bitwise repeat | grad {ms:.3f} ms, device "
+            f"{dev:.3f} ms ({executed / dev / 1e9:.1f} executed, "
+            f"{(k_flops + wz_flops) / dev / 1e9:.1f} least TFLOP/s) bound "
+            f"{least:.3f} ms, share {least / dev:.3f}, twin {twin:.3f} ms | "
+            f"sha256 (dz, dalpha, dbeta) {sha256_of(*got)}")
+        records.append(row(sl.STATS_GRAD_WIDE.name, worst, ms, dev, twin,
+                           nbytes, k_flops + wz_flops,
+                           flop_per_s=TF32X3_FLOP_PER_S))
         del z, alpha, beta, v, coef, lse, got, wants
         torch.cuda.empty_cache()
+    return records[0]
 
 
 def plan_text(plan):
@@ -2389,9 +2434,9 @@ def phase_parity(data):
     served with ``--csls_k 20`` under L2 (``--only_test 1``), which runs
     sweep A's list of 32, its ranks held against the CPU's dense twin;
     then f32 SNAG with every active modality ``WIDE_WIDTH`` wide, 2 epochs
-    (``snag_wide``): the mixture gradient in feature chunks launches
-    (``mixture_grad_chunked``), the GAT kernels on their wide path, the
-    losses finite and falling.  (c) One evaluation with sides of unequal size (``PARITY_UNEQUAL``) on
+    (``snag_wide``): both f32 gradients' wide body launches
+    (``ntxent_grad_wide`` for IIR's 1,600-wide rows, ``mixture_grad_wide``),
+    the GAT kernels on their wide path, the losses finite and falling.  (c) One evaluation with sides of unequal size (``PARITY_UNEQUAL``) on
     the card against the CPU path.  Returns the launches of (b)'s runs and
     the kernels-line records of (a) at ``PARITY_GAT[0]`` and
     ``PARITY_K[0]``."""
@@ -2483,11 +2528,12 @@ def phase_parity(data):
                        held["pkl"], {"gat_attention_fwd_wide",
                                      "rank_topk_mean_long", "rank_counts"},
                        check=served))
-    # (d) f32 SNAG at width WIDE_WIDTH: the chunked mixture gradient
+    # (d) f32 SNAG at width WIDE_WIDTH: both gradients' wide body
     runs.append(_train(
         "snag_wide", wide_width_args() + SNAG_WIDE_ARGS,
-        (f32_kernels() - {SEGMENT_KERNEL} - GAT_KERNELS) | GAT_WIDE_KERNELS
-        | {"mixture_grad_chunked"}, promotion=False))
+        (f32_kernels() - {SEGMENT_KERNEL} - GAT_KERNELS
+         - {"ntxent_grad", "mixture_grad"}) | GAT_WIDE_KERNELS
+        | GRAD_WIDE_KERNELS, promotion=False))
     t_runs = time.perf_counter() - t0 - t_kernels
 
     nl, nr, d = PARITY_UNEQUAL

@@ -13,11 +13,14 @@ kernels there, and on ``chip_smoke.py``'s inputs runs
   the bytes of dz, dalpha and dbeta, and the median ms of 5 runs;
   ``mixture_lse_cuda`` there: the sha256 of lse and the median ms; and
   the f32 gradient past one modality's fit in its accumulator
-  (``chip_smoke.MIXTURE_CHUNKED``, section ``mixture_grad_chunked``), or
-  the error a checkout without feature chunks raised;
+  (``chip_smoke.MIXTURE_WIDE``, section ``mixture_grad_wide``: the wide
+  body, or a parent's feature chunks), or the error a checkout that
+  refused the shape raised;
 * ``ntxent_grad_cuda`` at ``chip_smoke.NTXENT_SHAPES``: the sha256 of dz
-  and the median ms, or the error the wrapper raised; ``streaming_lse_cuda``
-  there: the sha256 of lse and the median ms;
+  and the median ms, or the error the wrapper raised, in section
+  ``ntxent_grad``, or ``ntxent_grad_wide`` where the checkout's plan
+  takes the wide body (GMI6, past the main-path body's accumulator);
+  ``streaming_lse_cuda`` there: the sha256 of lse and the median ms;
 * the rank sweeps at ``chip_smoke._eval_inputs(10500, 1200)``:
   ``topk_mean_cuda`` (sha256 of mean and diag) for each direction at
   k = 3 and for l2r at k = 1; ``rank_counts_cuda`` (sha256 of counts and
@@ -193,7 +196,7 @@ LONG_KS = (11, 20, 33, 64, 128)
 SECTIONS = ("mixture_grad", "mixture_lse", "ntxent_lse", "ntxent_grad",
             "rank", "gat_fwd", "gat_bwd", "segment", "gat_fwd_wide")
 SECTIONS += tuple(f"{k}_bf16" for k in SECTIONS if k != "rank")
-SECTIONS += ("mixture_grad_chunked",)
+SECTIONS += ("ntxent_grad_wide", "mixture_grad_wide")
 
 
 def ptxas_records(rows):
@@ -354,7 +357,7 @@ def bf16_records(cs, nx, sl, graph):
 def loss_records(cs, nx, sl):
     import torch
     out = {"mixture_grad": {}, "ntxent_grad": {}, "mixture_lse": {},
-           "ntxent_lse": {}}
+           "ntxent_lse": {}, "ntxent_grad_wide": {}, "mixture_grad_wide": {}}
     for i, (label, m, b, d, n_valid) in enumerate(cs.MIXTURE_SHAPES):
         z, alpha, beta, v, coef = cs._mixture_inputs(m, b, d, n_valid,
                                                      cs.SEED + i)
@@ -370,9 +373,8 @@ def loss_records(cs, nx, sl):
         del z, alpha, beta, v, coef, lse, got
         torch.cuda.empty_cache()
 
-    out["mixture_grad_chunked"] = {}
     cap = sl._grad_cap(sl._library(), torch.device("cuda"))
-    for label, m, b, d in cs.MIXTURE_CHUNKED:
+    for label, m, b, d in cs.MIXTURE_WIDE:
         d = d or cap + 8
         z, alpha, beta, v, coef = cs._mixture_inputs(m, b, d, b, cs.SEED + d)
         lse = sl.mixture_lse_twin(z, alpha, beta, v, TAU)
@@ -381,9 +383,9 @@ def loss_records(cs, nx, sl):
         try:
             got = fn()
         except ValueError as e:
-            out["mixture_grad_chunked"][label] = {"error": str(e)}
+            out["mixture_grad_wide"][label] = {"error": str(e)}
         else:
-            out["mixture_grad_chunked"][label] = {
+            out["mixture_grad_wide"][label] = {
                 "sha256": digest(*got), **timed(cs, fn, sl.STATS_GRAD.name)}
             del got
         del z, alpha, beta, v, coef, lse
@@ -395,12 +397,14 @@ def loss_records(cs, nx, sl):
         out["ntxent_lse"][label] = {"sha256": digest(lse), **timed(
             cs, lambda: nx.streaming_lse_cuda(z, v, TAU), nx.STATS_LSE.name)}
         lse = nx.streaming_lse_twin(z, v, TAU)
+        wide = nx.grad_plan(m, 2 * b, d, z.device).get("wide")
+        kind = "ntxent_grad_wide" if wide else "ntxent_grad"
         try:
             dz = nx.ntxent_grad_cuda(z, lse, coef, v, TAU)
         except ValueError as e:
-            out["ntxent_grad"][label] = {"error": str(e)}
+            out[kind][label] = {"error": str(e)}
             continue
-        out["ntxent_grad"][label] = {"sha256": digest(dz), **timed(
+        out[kind][label] = {"sha256": digest(dz), **timed(
             cs, lambda: nx.ntxent_grad_cuda(z, lse, coef, v, TAU),
             nx.STATS_GRAD.name)}
         del z, v, coef, lse, dz

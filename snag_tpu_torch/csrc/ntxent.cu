@@ -39,12 +39,13 @@
 // with MIX = false, the mixture gradient without its mixtures.  One TF32
 // product misses the 1e-4 dz limit 4-16x, 3xTF32 holds it as fp32 products
 // do (tests/test_torch_tf32x3.py).  A block owns 32 rows of one batch and
-// one feature chunk: its accumulator (32 rows x the chunk's features, 38 KB
-// at d = 300) and a four-slot ring take 107 KB, so two blocks share an SM
-// and one block's loads run under the other's products.  d takes any
-// value: where the accumulator of all of d does not fit beside the
-// shallowest ring (d > 1,504 on the H100), blockIdx.y also walks balanced
-// feature chunks, each recomputing S over the whole d.
+// all of d: its accumulator (32 rows x d, 38 KB at d = 300) and a
+// four-slot ring take 107 KB, so two blocks share an SM and one block's
+// loads run under the other's products.  d takes any value: past what
+// that accumulator holds beside the shallowest ring (grad_fits: d > 1,504
+// on the H100), the plan is gram_grad.cuh's wide body, whose blocks of a
+// row tile's feature chunks form a thread-block cluster that computes S
+// and W once (ntxent_grad_plan says which body runs).
 //
 // ntxent_lse_bf16 and ntxent_grad_bf16: bf16 z (the JAX package's bf16
 // path casts the unit rows to bf16 before both Pallas kernels), the
@@ -130,6 +131,14 @@ ntxent_grad_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
   add_partials(out, part, n, parts);
 }
 
+// the same for the wide body's column splits (gram_grad.cuh), named apart
+__global__ void __launch_bounds__(REDUCE_THREADS)
+ntxent_grad_wide_sum_kernel(float* __restrict__ out,
+                            const float* __restrict__ part, size_t n,
+                            int parts) {
+  add_partials(out, part, n, parts);
+}
+
 __global__ void __launch_bounds__(REDUCE_THREADS)
 ntxent_grad_bf16_sum_kernel(float* __restrict__ out,
                             const float* __restrict__ part, size_t n,
@@ -149,6 +158,9 @@ struct Kernels<float> {
   static constexpr auto grad_vec = grad::ntxent_grad_mma_kernel<true>;
   static constexpr auto grad_scalar = grad::ntxent_grad_mma_kernel<false>;
   static constexpr auto grad_sum = ntxent_grad_sum_kernel;
+  static constexpr auto wide_vec = grad::ntxent_grad_wide_kernel<true>;
+  static constexpr auto wide_scalar = grad::ntxent_grad_wide_kernel<false>;
+  static constexpr auto wide_sum = ntxent_grad_wide_sum_kernel;
 };
 
 template <>
@@ -173,8 +185,8 @@ int lse_setup_bf16(int m, int n2, int d, lse16::Plan& plan) {
 }
 
 // Lets the kernels take all the shared memory a block may opt in to on the
-// current device.
-int opt_in(const void* const* kernels, int n) {
+// current device, and writes that to *optin_out if it is not null.
+int opt_in(const void* const* kernels, int n, int* optin_out = nullptr) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -182,17 +194,25 @@ int opt_in(const void* const* kernels, int n) {
   for (int i = 0; i < n && err == cudaSuccess; ++i)
     err = cudaFuncSetAttribute(kernels[i],
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (optin_out) *optin_out = optin;
   return static_cast<int>(err);
 }
 
-// Plans an fp32 gradient launch (gram_grad.cuh).
+// Plans an fp32 gradient launch (gram_grad.cuh): the main-path body where
+// its accumulator holds d (grad_fits), else the wide body.
 int ntxent_plan(int m, int n2, int d, GradPlan& plan) {
   const void* kernels[] = {
       reinterpret_cast<const void*>(Kernels<float>::grad_vec),
       reinterpret_cast<const void*>(Kernels<float>::grad_scalar)};
-  const int err = opt_in(kernels, 2);
+  int optin = 0;
+  const int err = opt_in(kernels, 2, &optin);
   if (err) return err;
-  return grad_plan<false>(kernels[0], m, 1, n2, d, plan);
+  if (grad_fits(1, d, optin))
+    return grad_plan<false>(kernels[0], m, 1, n2, d, plan);
+  const void* wide[] = {
+      reinterpret_cast<const void*>(Kernels<float>::wide_vec),
+      reinterpret_cast<const void*>(Kernels<float>::wide_scalar)};
+  return wide_plan<false>(wide, 2, m, n2, d, plan);
 }
 
 // Plans a bf16 gradient launch (gram_grad_bf16.cuh).
@@ -298,12 +318,7 @@ long grad_plan_entry(int m, int n2, int d, int* out) {
   GradPlan plan;
   const int err = ntxent_plan(m, n2, d, plan);
   if (err) return -static_cast<long>(err);
-  if (out) {
-    out[0] = plan.chunks;
-    out[1] = plan.depth;
-    out[2] = plan.splits;
-    out[3] = plan.per_sm;
-  }
+  if (out) report_plan(plan, out);
   return static_cast<long>(plan.scratch);
 }
 
@@ -314,19 +329,35 @@ int grad_entry(const float* z, const float* lse, const float* coef,
   GradPlan plan;
   int err = ntxent_plan(m, n2, d, plan);
   if (err) return err;
-  const dim3 grid((n2 + grad::ROWS - 1) / grad::ROWS, m * plan.chunks,
-                  plan.splits);
+  const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(z, d))
-    Kernels<float>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
-  else
-    Kernels<float>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, lse, coef, v, dz, part, m, plan.chunks, n2, d, inv_tau, plan.depth);
-  err = static_cast<int>(cudaGetLastError());
+  const bool vec = vec_ok(z, d);
+  if (plan.wide) {
+    // clusters of a row block's q depth slices of one batch and group
+    WideLaunch l(dim3(nb, m * plan.q * plan.groups, plan.splits), plan.q,
+                 plan.bytes, s);
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &l.cfg, vec ? Kernels<float>::wide_vec : Kernels<float>::wide_scalar,
+        z, lse, coef, v, dz, part, m, plan.q, plan.groups, n2, d, inv_tau,
+        plan.depth));
+    if (!err) err = static_cast<int>(cudaGetLastError());
+  } else {
+    const dim3 grid(nb, m, plan.splits);
+    if (vec)
+      Kernels<float>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
+          z, lse, coef, v, dz, part, m, n2, d, inv_tau, plan.depth);
+    else
+      Kernels<float>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
+          z, lse, coef, v, dz, part, m, n2, d, inv_tau, plan.depth);
+    err = static_cast<int>(cudaGetLastError());
+  }
   if (err || plan.splits == 1) return err;
-  Kernels<float>::grad_sum<<<1024, REDUCE_THREADS, 0, s>>>(
-      dz, part, (size_t)m * n2 * d, plan.splits - 1);
+  if (plan.wide)
+    Kernels<float>::wide_sum<<<1024, REDUCE_THREADS, 0, s>>>(
+        dz, part, (size_t)m * n2 * d, plan.splits - 1);
+  else
+    Kernels<float>::grad_sum<<<1024, REDUCE_THREADS, 0, s>>>(
+        dz, part, (size_t)m * n2 * d, plan.splits - 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -417,13 +448,18 @@ int ntxent_lse(const float* z, const float* v, float* part, float* lse, int m,
 // How ntxent_grad runs at this shape on the current device: returns the
 // floats of scratch it needs (the dz partials of the column splits past the
 // first), or a negative CUDA error; if out is not null, writes {feature
-// chunks, ring depth, column splits, blocks per SM} to it.
+// chunks, ring depth, column splits, blocks per SM, wide, blocks a
+// cluster, cluster groups, depth slices} to it (gram_grad.cuh GradPlan):
+// wide 0 on the main-path body, 1 past its accumulator on the wide body
+// (ntxent_grad_wide_kernel, clusters of q depth slices, `groups` clusters
+// of feature chunks a batch and row block).
 long ntxent_grad_plan(int m, int n2, int d, int* out) {
   return grad_plan_entry(m, n2, d, out);
 }
 
 // z (m, n2, d), lse and coef (m, n2), v (n2,); writes dz (m, n2, d) in
-// full, using part (ntxent_grad_plan floats) as scratch.
+// full, using part (ntxent_grad_plan floats) as scratch, on the body
+// ntxent_grad_plan names.
 int ntxent_grad(const float* z, const float* lse, const float* coef,
                 const float* v, float* dz, float* part, int m, int n2, int d,
                 float inv_tau, void* stream) {

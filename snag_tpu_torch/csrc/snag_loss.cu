@@ -64,9 +64,10 @@
 // M = 4, d = 300, one block (8 warps) per SM.  Where the accumulator of
 // every modality does not fit (M = 6 at d = 300), a block takes a group of
 // modalities (blockIdx.y, chosen by the wrapper); where one modality's
-// does not (d past ~1,500 columns), a block takes one modality's feature
-// chunk and recomputes its K tiles over the whole d, as NT-Xent's chunks
-// do, and chunk 0 alone writes dalpha and dbeta.  dbeta is summed per
+// does not (d past ~1,500 columns: grad_fits), the plan is gram_grad.cuh's
+// wide body: the blocks of a row tile's modalities and feature chunks form
+// a thread-block cluster in which each K_m and each weight is computed
+// once (mixture_grad_scratch says which body runs).  dbeta is summed per
 // block, written as per-block partials and reduced in a fixed order: no
 // atomics, two runs give the same bits.
 //
@@ -203,6 +204,21 @@ mixture_sum_kernel(float* __restrict__ out, const float* __restrict__ part,
   add_partials(out, part, n, parts);
 }
 
+// the same two for the wide body (gram_grad.cuh), named apart
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_grad_wide_dbeta_kernel(const float* __restrict__ part,
+                               float* __restrict__ dbeta, int n_blocks,
+                               int nm) {
+  mixture_dbeta(part, dbeta, n_blocks, nm);
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+mixture_grad_wide_sum_kernel(float* __restrict__ out,
+                             const float* __restrict__ part, size_t n,
+                             int parts) {
+  add_partials(out, part, n, parts);
+}
+
 __global__ void __launch_bounds__(REDUCE_THREADS)
 mixture_dbeta_bf16_kernel(const float* __restrict__ part,
                           float* __restrict__ dbeta, int n_blocks, int nm) {
@@ -228,6 +244,14 @@ struct Kernels<float> {
   static constexpr auto grad_scalar = grad::mixture_grad_kernel<false>;
   static constexpr auto dbeta = mixture_dbeta_kernel;
   static constexpr auto sum = mixture_sum_kernel;
+};
+
+// the wide body's kernels
+struct Wide {
+  static constexpr auto vec = grad::mixture_grad_wide_kernel<true>;
+  static constexpr auto scalar = grad::mixture_grad_wide_kernel<false>;
+  static constexpr auto dbeta = mixture_grad_wide_dbeta_kernel;
+  static constexpr auto sum = mixture_grad_wide_sum_kernel;
 };
 
 template <>
@@ -345,65 +369,90 @@ int lse_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   return static_cast<int>(cudaGetLastError());
 }
 
-int grad_plan_of(int m, int mg, int chunks, int n2, int d, GradPlan& plan) {
-  if (check_shape(m, n2, d) || mg < 1 || mg > m || chunks < 1)
+// Plans an fp32 gradient launch (gram_grad.cuh) of mg modalities a block:
+// the main-path body where its accumulator holds them (grad_fits), else,
+// at one modality a block, the wide body.  After mixture_grad_init.
+int grad_plan_of(int m, int mg, int n2, int d, GradPlan& plan) {
+  if (check_shape(m, n2, d) || mg < 1 || mg > m)
     return static_cast<int>(cudaErrorInvalidValue);
-  return grad_plan<true>(reinterpret_cast<const void*>(Kernels<float>::grad_vec),
-                         m, mg, n2, d, plan, chunks);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grad_fits(mg, d, optin))
+    return grad_plan<true>(
+        reinterpret_cast<const void*>(Kernels<float>::grad_vec), m, mg, n2, d,
+        plan);
+  if (mg > 1) return static_cast<int>(cudaErrorInvalidValue);
+  const void* wide[] = {reinterpret_cast<const void*>(Wide::vec),
+                        reinterpret_cast<const void*>(Wide::scalar)};
+  return wide_plan<true>(wide, 2, m, n2, d, plan);
 }
 
-long grad_scratch_entry(int m, int mg, int chunks, int n2, int d, int* out) {
+long grad_scratch_entry(int m, int mg, int n2, int d, int* out) {
   GradPlan plan;
-  const int err = grad_plan_of(m, mg, chunks, n2, d, plan);
+  const int err = grad_plan_of(m, mg, n2, d, plan);
   if (err) return -static_cast<long>(err);
-  if (out) {
-    out[0] = plan.chunks;
-    out[1] = plan.depth;
-    out[2] = plan.splits;
-    out[3] = plan.per_sm;
-  }
+  if (out) report_plan(plan, out);
   return static_cast<long>(plan.scratch);
 }
 
 // dalpha and dz += the column splits' partials, then dbeta from the
-// per-block partials (nb row blocks), each in a fixed order.
-template <typename Op>
+// per-block partials (`blocks` of them: splits x row blocks, and x the
+// cluster's ranks for the wide body), each in a fixed order.  K: the
+// Kernels or Wide set.
+template <typename K>
 int sum_splits(float* dz, float* dalpha, float* dbeta, float* part, int m,
-               int n2, int d, int nb, int splits, cudaStream_t s) {
+               int n2, int d, int blocks, int splits, cudaStream_t s) {
   if (splits > 1) {
-    const size_t parts = (size_t)splits * nb * m;
+    const size_t parts = (size_t)blocks * m;
     const size_t n_da = (size_t)n2 * m, n_dz = (size_t)m * n2 * d;
-    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
-        dalpha, part + parts, n_da, splits - 1);
-    Kernels<Op>::sum<<<1024, REDUCE_THREADS, 0, s>>>(
+    K::sum<<<1024, REDUCE_THREADS, 0, s>>>(dalpha, part + parts, n_da,
+                                           splits - 1);
+    K::sum<<<1024, REDUCE_THREADS, 0, s>>>(
         dz, part + parts + (splits - 1) * n_da, n_dz, splits - 1);
   }
-  Kernels<Op>::dbeta<<<m, REDUCE_THREADS, 0, s>>>(part, dbeta, splits * nb, m);
+  K::dbeta<<<m, REDUCE_THREADS, 0, s>>>(part, dbeta, blocks, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 int grad_entry(const float* z, const float* alpha, const float* beta,
                const float* lse, const float* coef, const float* v, float* dz,
-               float* dalpha, float* dbeta, float* part, int m, int mg,
-               int chunks, int n2, int d, float inv_tau, void* stream) {
+               float* dalpha, float* dbeta, float* part, int m, int mg, int n2,
+               int d, float inv_tau, void* stream) {
   GradPlan plan;
-  int err = grad_plan_of(m, mg, chunks, n2, d, plan);
+  int err = grad_plan_of(m, mg, n2, d, plan);
   if (err) return err;
   const int nb = (n2 + grad::ROWS - 1) / grad::ROWS;
-  const dim3 grid(nb, (m + mg - 1) / mg * chunks, plan.splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec_ok(z, d))
+  const bool vec = vec_ok(z, d);
+  if (plan.wide) {
+    // clusters of a row block's m modalities x q depth slices, a group
+    WideLaunch l(dim3(nb, plan.groups * plan.cluster, plan.splits),
+                 plan.cluster, plan.bytes, s);
+    err = static_cast<int>(cudaLaunchKernelEx(
+        &l.cfg, vec ? Wide::vec : Wide::scalar, z, alpha, beta, lse, coef, v,
+        dz, dalpha, part, m, plan.q, plan.groups, n2, d, inv_tau,
+        plan.depth));
+    if (!err) err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    return sum_splits<Wide>(dz, dalpha, dbeta, part, m, n2, d,
+                            plan.splits * nb * plan.cluster, plan.splits, s);
+  }
+  const dim3 grid(nb, (m + mg - 1) / mg, plan.splits);
+  if (vec)
     Kernels<float>::grad_vec<<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, chunks, n2, d,
-        inv_tau, plan.depth);
+        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
+        plan.depth);
   else
     Kernels<float>::grad_scalar<<<grid, grad::THREADS, plan.bytes, s>>>(
-        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, chunks, n2, d,
-        inv_tau, plan.depth);
+        z, alpha, beta, lse, coef, v, dz, dalpha, part, m, mg, n2, d, inv_tau,
+        plan.depth);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  return sum_splits<float>(dz, dalpha, dbeta, part, m, n2, d, nb, plan.splits,
-                           s);
+  return sum_splits<Kernels<float>>(dz, dalpha, dbeta, part, m, n2, d,
+                                    plan.splits * nb, plan.splits, s);
 }
 
 // Lets the bf16 gradient kernel take all the shared memory a block may opt
@@ -473,8 +522,9 @@ int grad_entry_bf16(const __nv_bfloat16* z, const float* alpha,
   if (err) return err;
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  return sum_splits<__nv_bfloat16>(dz, dalpha, dbeta, part, m, n2, d, nb,
-                                   plan.splits, s);
+  return sum_splits<Kernels<__nv_bfloat16>>(dz, dalpha, dbeta, part, m, n2,
+                                            d, plan.splits * nb, plan.splits,
+                                            s);
 }
 
 }  // namespace
@@ -504,9 +554,9 @@ int mixture_lse(const float* z, const float* alpha, const float* beta,
 
 // Once per device, before the first mixture_grad on it: lets the fp32
 // gradient kernels take all the shared memory a block may opt in to, and
-// returns the largest (modalities per block) x (columns of a feature
-// chunk, a multiple of 8) its row accumulator then holds, or a negative
-// CUDA error.
+// returns the largest (modalities per block) x d (a multiple of 8) its row
+// accumulator then holds (past it at one modality, the wide body runs), or
+// a negative CUDA error.
 int mixture_grad_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -520,35 +570,36 @@ int mixture_grad_init(void) {
       err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  optin);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const long room = (long)optin - (long)grad::smem_bytes(grad::MIN_DEPTH, 0, 0);
-  return room > 0 ? 8 * static_cast<int>(room / (sizeof(float) * grad::TILE_FLOATS)) : 0;
+  const long cap = grad_cap(1, optin);
+  return cap > 0 ? 8 * static_cast<int>(cap) : 0;
 }
 
 // The floats of scratch that mixture_grad needs at this shape, with mg
-// modalities a block in `chunks` feature chunks (per-block dbeta partials,
-// and the dalpha and dz partials of the column splits past the first), or
-// a negative CUDA error; if out is not null, writes {feature chunks, ring
-// depth, column splits, blocks per SM} to it.  Call after
-// mixture_grad_init.
-long mixture_grad_scratch(int m, int mg, int chunks, int n2, int d, int* out) {
-  return grad_scratch_entry(m, mg, chunks, n2, d, out);
+// modalities a block (per-block dbeta partials, and the dalpha and dz
+// partials of the column splits past the first), or a negative CUDA error;
+// if out is not null, writes {feature chunks, ring depth, column splits,
+// blocks per SM, wide, blocks a cluster, cluster groups, depth slices} to
+// it (gram_grad.cuh GradPlan): wide 0 on the main-path body, where mg x d
+// must not exceed what mixture_grad_init returned for this device; 1 past
+// it at mg = 1, on the wide body (mixture_grad_wide_kernel, clusters of
+// every modality x q depth slices, `groups` clusters of feature chunks a
+// row block).  Call after mixture_grad_init.
+long mixture_grad_scratch(int m, int mg, int n2, int d, int* out) {
+  return grad_scratch_entry(m, mg, n2, d, out);
 }
 
 // z, alpha, beta, v as for mixture_lse; lse and coef (m + 2, n2); writes
 // dz (m, n2, d), dalpha (n2, m) and dbeta (m,) in full, using part
-// (mixture_grad_scratch floats) as scratch.  Each block handles mg
-// modalities over one of `chunks` balanced shares of d's 8-column tiles,
-// each chunk recomputing K over the whole d; mg x a chunk's columns must
-// not exceed what mixture_grad_init returned for this device.  The
-// outputs' bits do not depend on mg or chunks at a fixed count of column
-// splits.
+// (mixture_grad_scratch floats) as scratch, on the body
+// mixture_grad_scratch names.  On the main-path body each block handles mg
+// modalities; the outputs' bits do not depend on mg at a fixed count of
+// column splits.
 int mixture_grad(const float* z, const float* alpha, const float* beta,
                  const float* lse, const float* coef, const float* v,
                  float* dz, float* dalpha, float* dbeta, float* part,
-                 int m, int mg, int chunks, int n2, int d, float inv_tau,
-                 void* stream) {
+                 int m, int mg, int n2, int d, float inv_tau, void* stream) {
   return grad_entry(z, alpha, beta, lse, coef, v, dz, dalpha, dbeta, part, m,
-                    mg, chunks, n2, d, inv_tau, stream);
+                    mg, n2, d, inv_tau, stream);
 }
 
 // The same on bf16 z; alpha, beta, v, lse, coef, every output and the

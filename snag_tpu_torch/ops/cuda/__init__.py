@@ -34,15 +34,15 @@ def bf16_stats():
 def wide_stats():
     """The launch counts of the instantiations past the main path's
     shapes, counted apart from their kernel's: both GAT kernels' wide path
-    (H > 4, or C past a warp's slices) and sweep A's lists in shared
-    memory (CSLS k > 10); and the f32 mixture gradient's launches in
-    feature chunks (d past its shared accumulator), which its own count
-    holds too."""
-    from snag_tpu_torch.ops.cuda import (gat_attention, gat_bwd, rank_eval,
-                                         snag_loss)
+    (H > 4, or C past a warp's slices), sweep A's lists in shared memory
+    (CSLS k > 10), and both f32 loss gradients' wide body (past the
+    main-path body's accumulator)."""
+    from snag_tpu_torch.ops.cuda import (gat_attention, gat_bwd, ntxent,
+                                         rank_eval, snag_loss)
     return (gat_attention.STATS_WIDE, gat_attention.STATS_BF16_WIDE,
             gat_bwd.STATS_WIDE, gat_bwd.STATS_BF16_WIDE,
-            rank_eval.STATS_TOPK_LONG, snag_loss.STATS_GRAD_CHUNKED)
+            rank_eval.STATS_TOPK_LONG, ntxent.STATS_GRAD_WIDE,
+            snag_loss.STATS_GRAD_WIDE)
 
 
 def reset_stats() -> None:

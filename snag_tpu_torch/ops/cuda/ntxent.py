@@ -22,10 +22,15 @@ shares with the mixture lse (``csrc/gram_lse.cuh``): a block takes one
 unordered pair of row tiles, so each element of the symmetric S is
 computed once, and its scratch (``lse_plan``) holds the row partials of
 every pair, added in a fixed order.  ``ntxent_grad`` is the gradient
-kernel it shares with the mixture gradient (``csrc/gram_grad.cuh``); it
-takes any d, in feature chunks where one accumulator of d columns would
-not fit, and its scratch (``ntxent_grad_plan``) holds the partials of
-blocks that share a row tile's columns.
+kernel it shares with the mixture gradient (``csrc/gram_grad.cuh``), and
+its scratch (``ntxent_grad_plan``) holds the partials of blocks that share
+a row tile's columns.  Past what that kernel's accumulator of d columns
+holds (d > 1,504 on the H100) the same function runs on the body's wide
+path, ``ntxent_grad_wide`` (counted apart, ``STATS_GRAD_WIDE``): the
+blocks of a row tile's feature chunks form a thread-block cluster that
+splits K's depth, so that K and W are computed once per tile pair and
+each block's accumulator leaves two blocks an SM.  The library plans
+both bodies (``grad_plan``'s ``wide`` says which one runs).
 
 Twins: ``streaming_lse_twin`` and ``ntxent_grad_twin``, the same formulas
 on the dense (M, 2B, 2B) matrix.
@@ -67,6 +72,8 @@ STATS_LSE = KernelStats("ntxent_lse")
 STATS_GRAD = KernelStats("ntxent_grad")
 STATS_LSE_BF16 = KernelStats("ntxent_lse_bf16")
 STATS_GRAD_BF16 = KernelStats("ntxent_grad_bf16")
+# the f32 gradient's launches on its wide path (``grad_plan``'s ``wide``)
+STATS_GRAD_WIDE = KernelStats("ntxent_grad_wide")
 LSE_EPS = 1e-30
 
 
@@ -198,6 +205,10 @@ GRAD_PLAN = ("chunks", "depth", "splits", "blocks_per_sm")
 # they stay resident in shared memory and how many blocks form a cluster
 # (csrc/gram_grad_bf16.cuh)
 GRAD_PLAN_BF16 = GRAD_PLAN + ("rows", "resident", "cluster")
+# the f32 gradients' (csrc/gram_grad.cuh GradPlan): whether the wide body
+# runs, and there its blocks a cluster, cluster groups and depth slices of
+# K (1, 1 and 1 on the main-path body)
+GRAD_PLAN_F32 = GRAD_PLAN + ("wide", "cluster", "groups", "q")
 
 
 def grad_plan(m: int, n2: int, d: int, device: torch.device,
@@ -205,10 +216,12 @@ def grad_plan(m: int, n2: int, d: int, device: torch.device,
     """How ``ntxent_grad`` (``ntxent_grad_bf16`` for a bf16 ``dtype``) runs
     at (m, n2, d) on ``device``: its feature chunks, ring depth, column
     splits, blocks per SM, floats of scratch and, for bf16, rows per block,
-    whether they stay resident and blocks a cluster."""
+    whether they stay resident and blocks a cluster; f32: ``wide`` (1 past
+    the main-path body's accumulator, where the wide body runs), and its
+    blocks a cluster, cluster groups and depth slices ``q``."""
     built = _library()
     name = f"ntxent_grad{_suffix(dtype)}_plan"
-    keys = GRAD_PLAN_BF16 if dtype == torch.bfloat16 else GRAD_PLAN
+    keys = GRAD_PLAN_BF16 if dtype == torch.bfloat16 else GRAD_PLAN_F32
     out = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         floats = getattr(built.lib, name)(m, n2, d, out)
@@ -254,24 +267,26 @@ def streaming_lse_cuda(z: torch.Tensor, v: torch.Tensor,
 
 def ntxent_grad_cuda(z: torch.Tensor, lse: torch.Tensor, coef: torch.Tensor,
                      v: torch.Tensor, tau: float) -> torch.Tensor:
-    """Launch ``ntxent_grad`` (f32 z) or ``ntxent_grad_bf16`` (bf16 z): dz
-    (M, 2B, d) f32."""
+    """Launch ``ntxent_grad`` (f32 z; counted as ``ntxent_grad_wide`` on the
+    wide body) or ``ntxent_grad_bf16`` (bf16 z): dz (M, 2B, d) f32."""
     m, n2, d = _check_z(z, v)
     require(lse, "lse", torch.float32, (m, n2), z.device)
     require(coef, "coef", torch.float32, (m, n2), z.device)
     built = _library()
-    stats = STATS_GRAD_BF16 if z.dtype == torch.bfloat16 else STATS_GRAD
+    name = f"ntxent_grad{_suffix(z.dtype)}"
     if z.dtype == torch.bfloat16:
         z = aligned16(z)
     plan = grad_plan(m, n2, d, z.device, z.dtype)
+    stats = STATS_GRAD_BF16 if z.dtype == torch.bfloat16 else (
+        STATS_GRAD_WIDE if plan["wide"] else STATS_GRAD)
     with torch.cuda.device(z.device):
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         part = torch.empty(plan["scratch"], dtype=torch.float32,
                            device=z.device)
-        err = getattr(built.lib, stats.name)(
+        err = getattr(built.lib, name)(
             ptr(z), ptr(lse), ptr(coef), ptr(v), ptr(dz), ptr(part), m, n2,
             d, 1.0 / tau, stream_of(z))
-    check(built, err, stats.name)
+    check(built, err, name)
     stats.launches += 1
     return dz
 

@@ -29,11 +29,16 @@ computed once, and its scratch (``lse_plan``) holds the row partials of
 every pair and channel, added in a fixed order.  ``mixture_grad`` computes
 each K tile once into registers, the (modalities x 32 rows x d) row
 accumulator lives in shared memory (``modality_group`` splits the
-modalities where it would not fit, and one modality's features into
-chunks, each recomputing K over the whole d, where one modality's would
-not), and its scratch
+modalities where it would not fit), and its scratch
 (``mixture_grad_scratch``) holds the partials of blocks that share a row
-tile's columns.
+tile's columns.  Past one modality's fit in that accumulator (d past
+~1,500) the same function runs on the body's wide path,
+``mixture_grad_wide`` (counted apart, ``STATS_GRAD_WIDE``): the blocks of
+a row tile's modalities and feature chunks form a thread-block cluster in
+which each block computes its own modality's share of K once and the
+weights of a share of the rows for every modality, read by the others
+from its shared memory (the library plans both bodies; ``grad_plan``'s
+``wide`` says which one runs).
 
 Twins: ``mixture_lse_twin`` and ``mixture_grad_twin``, the same formulas
 on the dense (M + 2, 2B, 2B) channels of ``_bundle_channels``
@@ -89,23 +94,23 @@ have no bf16 rounding point of W and read no ``positive_w``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from snag_tpu_torch.ops.cuda._lib import (KernelStats, aligned16, check,
                                           dtype_suffix, load_library, ptr,
                                           require, stream_of)
-from snag_tpu_torch.ops.cuda.ntxent import (GRAD_PLAN, GRAD_PLAN_BF16,
+from snag_tpu_torch.ops.cuda.ntxent import (GRAD_PLAN_BF16, GRAD_PLAN_F32,
                                             LSE_PLAN, LSE_PLAN_BF16, gram)
 
 STATS_LSE = KernelStats("mixture_lse")
 STATS_GRAD = KernelStats("mixture_grad")
 STATS_LSE_BF16 = KernelStats("mixture_lse_bf16")
 STATS_GRAD_BF16 = KernelStats("mixture_grad_bf16")
-# the f32 gradient's launches in feature chunks (``modality_group``), which
-# STATS_GRAD counts too
-STATS_GRAD_CHUNKED = KernelStats("mixture_grad_chunked")
+# the f32 gradient's launches on its wide path, past one modality's fit in
+# the accumulator (``grad_plan``'s ``wide``)
+STATS_GRAD_WIDE = KernelStats("mixture_grad_wide")
 LSE_EPS = 1e-30
 MAX_MOD = 6
 FEATURE_TILE = 8                    # the accumulator's n8 feature tiles
@@ -258,13 +263,13 @@ def _library():
             fn = getattr(lib, f"mixture_lse{sfx}_plan")
             fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_long
-            # the bf16 gradient takes no modality group and no chunks
+            # the bf16 gradient takes no modality group
             fn = getattr(lib, f"mixture_grad{sfx}")
             fn.argtypes = [ctypes.c_void_p] * 10 \
-                + [ctypes.c_int] * (3 if sfx else 5) \
+                + [ctypes.c_int] * (3 if sfx else 4) \
                 + [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 5 \
+        lib.mixture_grad_scratch.argtypes = [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         lib.mixture_grad_scratch.restype = ctypes.c_long
         lib.mixture_grad_bf16_plan.argtypes = [ctypes.c_int] * 3 \
@@ -325,35 +330,36 @@ def _grad_cap(built, device: torch.device) -> int:
     return _GRAD_CAP[index]
 
 
-def modality_group(m: int, d: int, cap: int) -> Tuple[int, int]:
-    """(modalities a block, feature chunks) of the fp32 gradient kernel,
-    whose shared accumulator holds ``cap`` columns: as few groups of
-    modalities as it allows, of balanced size, each of d's feature tiles
-    whole; where one modality's d does not fit, one modality a block in the
-    fewest balanced chunks of its feature tiles that do."""
+def modality_group(m: int, d: int, cap: int) -> Tuple[int, bool]:
+    """(modalities a block, past the cap) of the fp32 gradient kernel's
+    main-path body, whose shared accumulator holds ``cap`` columns: as few
+    groups of modalities as it allows, of balanced size, each of d's
+    feature tiles whole; where one modality's d does not fit, one modality
+    a block and True (the wide body runs)."""
     tiles, cap_tiles = -(-d // FEATURE_TILE), cap // FEATURE_TILE
     most = min(m, cap_tiles // tiles)
     if most < 1:
-        return 1, -(-tiles // cap_tiles)
+        return 1, True
     groups = -(-m // most)
-    return -(-m // groups), 1
+    return -(-m // groups), False
 
 
-def grad_plan(m: int, n2: int, d: int, device: torch.device,
-              chunks: Optional[int] = None) -> Dict[str, int]:
+def grad_plan(m: int, n2: int, d: int,
+              device: torch.device) -> Dict[str, int]:
     """How the f32 ``mixture_grad`` runs at (m, n2, d) on ``device``: its
-    modalities a block (``mg``), feature chunks (``modality_group``'s, or
-    ``chunks``), ring depth, column splits, blocks per SM and floats of
-    scratch."""
+    modalities a block (``mg``, ``modality_group``'s), feature chunks, ring
+    depth, column splits, blocks per SM, floats of scratch, and ``wide``: 1
+    past one modality's fit in the main-path body's accumulator, where the
+    wide body runs, with its blocks a cluster, cluster groups and depth
+    slices ``q``."""
     built = _library()
-    mg, planned = modality_group(m, d, _grad_cap(built, device))
-    out = (ctypes.c_int * len(GRAD_PLAN))()
+    mg, _ = modality_group(m, d, _grad_cap(built, device))
+    out = (ctypes.c_int * len(GRAD_PLAN_F32))()
     with torch.cuda.device(device):
-        floats = built.lib.mixture_grad_scratch(m, mg, chunks or planned, n2,
-                                                d, out)
+        floats = built.lib.mixture_grad_scratch(m, mg, n2, d, out)
     if floats < 0:
         check(built, -floats, "mixture_grad_scratch")
-    return dict(zip(GRAD_PLAN, out), mg=mg, scratch=floats)
+    return dict(zip(GRAD_PLAN_F32, out), mg=mg, scratch=floats)
 
 
 def _check(z, alpha, beta, v):
@@ -398,40 +404,39 @@ def mixture_lse_cuda(z: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 
 def mixture_grad_cuda(z: torch.Tensor, alpha: torch.Tensor,
                       beta: torch.Tensor, lse: torch.Tensor,
-                      coef: torch.Tensor, v: torch.Tensor, tau: float,
-                      chunks: Optional[int] = None
+                      coef: torch.Tensor, v: torch.Tensor, tau: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``mixture_grad`` (f32 z) or ``mixture_grad_bf16`` (bf16 z):
-    (dz (M, 2B, d), dalpha (2B, M), dbeta (M,)), all f32.  ``chunks``: the
-    f32 kernel's feature chunks, if not ``grad_plan``'s (at the same
-    column splits the bits do not depend on them)."""
+    """Launch ``mixture_grad`` (f32 z; counted as ``mixture_grad_wide`` on
+    the wide body) or ``mixture_grad_bf16`` (bf16 z): (dz (M, 2B, d),
+    dalpha (2B, M), dbeta (M,)), all f32."""
     m, n2, d = _check(z, alpha, beta, v)
     require(lse, "lse", torch.float32, (m + 2, n2), z.device)
     require(coef, "coef", torch.float32, (m + 2, n2), z.device)
     built = _library()
     bf16 = z.dtype == torch.bfloat16
     stats = STATS_GRAD_BF16 if bf16 else STATS_GRAD
+    name = f"mixture_grad{_suffix(z.dtype)}"
     with torch.cuda.device(z.device):
         if bf16:
             z = aligned16(z)
             floats = grad_plan_bf16(m, n2, d, z.device)["scratch"]
             shape = (m, n2, d)
         else:
-            plan = grad_plan(m, n2, d, z.device, chunks)
+            plan = grad_plan(m, n2, d, z.device)
             floats = plan["scratch"]
-            shape = (m, plan["mg"], plan["chunks"], n2, d)
+            if plan["wide"]:
+                stats = STATS_GRAD_WIDE
+            shape = (m, plan["mg"], n2, d)
         dz = torch.empty(m, n2, d, dtype=torch.float32, device=z.device)
         dalpha = torch.empty(n2, m, dtype=torch.float32, device=z.device)
         dbeta = torch.empty(m, dtype=torch.float32, device=z.device)
         part = torch.empty(floats, dtype=torch.float32, device=z.device)
-        err = getattr(built.lib, stats.name)(
+        err = getattr(built.lib, name)(
             ptr(z), ptr(alpha), ptr(beta), ptr(lse), ptr(coef), ptr(v),
             ptr(dz), ptr(dalpha), ptr(dbeta), ptr(part), *shape,
             1.0 / tau, stream_of(z))
-    check(built, err, stats.name)
+    check(built, err, name)
     stats.launches += 1
-    if not bf16 and plan["chunks"] > 1:
-        STATS_GRAD_CHUNKED.launches += 1
     return dz, dalpha, dbeta
 
 

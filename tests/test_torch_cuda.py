@@ -245,14 +245,40 @@ def test_ntxent_kernels_match_twins(dev, m, b, d, n_valid):
 
 
 def test_ntxent_grad_plan(dev):
-    """Two blocks per SM at the IIR shape; one feature chunk up to the
-    accumulator's 1,504 columns, balanced chunks past it."""
+    """Two blocks per SM and the main-path body at the IIR shape; the
+    main-path body, one chunk, up to the accumulator's 1,504 columns; past
+    it the wide body in one cluster of balanced chunks, two blocks an
+    SM."""
     iir = nx.grad_plan(4, 7000, 300, dev)
-    assert iir["chunks"] == 1 and iir["blocks_per_sm"] == 2, iir
-    assert nx.grad_plan(2, 7000, 1504, dev)["chunks"] == 1
-    assert nx.grad_plan(2, 7000, 1505, dev)["chunks"] == 2
-    assert nx.grad_plan(2, 7000, 1800, dev)["chunks"] == 2
-    assert nx.grad_plan(1, 600, 4000, dev)["chunks"] == 3
+    assert (iir["chunks"], iir["blocks_per_sm"], iir["wide"]) == (1, 2, 0)
+    p = nx.grad_plan(2, 7000, 1504, dev)
+    assert (p["wide"], p["chunks"], p["cluster"], p["groups"]) == \
+        (0, 1, 1, 1), p
+    for d, chunks in ((1505, 5), (1800, 6)):
+        p = nx.grad_plan(2, 7000, d, dev)
+        assert (p["wide"], p["chunks"], p["cluster"], p["groups"],
+                p["blocks_per_sm"]) == (1, chunks, chunks, 1, 2), p
+    assert nx.grad_plan(1, 600, 4000, dev)["wide"] == 1
+
+
+# (M, d, mixture, chunks, blocks a cluster, blocks an SM) of the wide
+# body's plan (csrc/gram_grad.cuh wide_plan) at n2 = 7,000: one cluster
+# group (K and W once a tile pair), two blocks an SM where a chunk's
+# accumulator allows it, clusters of up to 16
+@pytest.mark.parametrize("m,d,mix,chunks,cluster,per_sm", [
+    (2, 1800, False, 6, 6, 2), (1, 4000, False, 13, 13, 2),
+    (4, 1600, True, 4, 16, 2), (1, 1512, True, 5, 5, 2),
+    (6, 1600, True, 2, 12, 1)])
+def test_wide_plan_on_the_card(dev, m, d, mix, chunks, cluster, per_sm):
+    """The wide plan, and scratch for the splits' partials (and the
+    mixture's dalpha and per-block dbeta partials)."""
+    p = (sl if mix else nx).grad_plan(m, 7000, d, dev)
+    assert (p["wide"], p["chunks"], p["cluster"], p["groups"],
+            p["blocks_per_sm"]) == (1, chunks, cluster, 1, per_sm), p
+    assert p["q"] * (m if mix else 1) == p["cluster"] <= 16
+    nb, sp = -(-7000 // 32), p["splits"]
+    assert p["scratch"] == (sp - 1) * m * 7000 * d + (
+        sp * nb * p["cluster"] * m + (sp - 1) * 7000 * m if mix else 0)
 
 
 # the lse kernel's tiles (gram_lse.cuh): 128 rows for NT-Xent; ragged n2,
@@ -365,46 +391,104 @@ def _mixture_grad_against_twin(dev, m, b, d, **kw):
     z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, b, seed=d)
     lse = sl.mixture_lse_twin(*(t.cpu() for t in (z, alpha, beta, v)),
                               0.1).to(dev)
-    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1, **kw)
+    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
     torch.cuda.synchronize()
     want = on_cpu(sl.mixture_grad_twin, z, alpha, beta, lse, coef, v, 0.1)
     for a, w in zip(got, want):
         assert torch.isfinite(a).all()
         assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
-    return sl.grad_plan(m, 2 * b, d, dev, kw.get("chunks"))
+    return sl.grad_plan(m, 2 * b, d, dev)
 
 
 def test_mixture_grad_takes_any_width(dev):
     """Past one modality's fit in the f32 kernel's shared accumulator (at
-    least 1,486 columns) a block takes one modality's feature chunk: M = 4
-    at d = 4,000, and M = 1 at the cap and just past it (B = 500 at M = 1,
-    where dalpha is a difference of terms ~50x its size and a small batch
-    misses the limit with exact fp32 products: test_mixture_kernels_match_
-    twins)."""
+    least 1,486 columns) the wide body takes the gradient: M = 4 at d =
+    4,000, one cluster of every modality's chunks, and M = 1 at the cap
+    (the main-path body) and just past it (B = 500 at M = 1, where dalpha
+    is a difference of terms ~50x its size and a small batch misses the
+    limit with exact fp32 products: test_mixture_kernels_match_twins)."""
     cap = sl._grad_cap(sl._library(), dev)
     assert cap >= 1486
-    assert _mixture_grad_against_twin(dev, 4, 40, 4000)["chunks"] == 3
-    assert _mixture_grad_against_twin(dev, 1, 500, cap)["chunks"] == 1
-    assert _mixture_grad_against_twin(dev, 1, 500, cap + 1)["chunks"] == 2
+    p = _mixture_grad_against_twin(dev, 4, 40, 4000)
+    assert (p["wide"], p["groups"], p["cluster"]) == (1, 1, 4 * p["q"]), p
+    p = _mixture_grad_against_twin(dev, 1, 500, cap)
+    assert (p["wide"], p["chunks"]) == (0, 1), p
+    p = _mixture_grad_against_twin(dev, 1, 500, cap + 1)
+    assert p["wide"] == 1 and p["chunks"] >= 2, p
 
 
-def test_mixture_grad_chunks_keep_the_bits(dev):
-    """At d = 300 the main path's one chunk and forced chunks of 2 and 3
-    give the same bits at the same column splits: each feature tile's sums
-    do not depend on the chunk that holds it, and W, K, dalpha and dbeta on
-    none."""
-    z, alpha, beta, v, coef = _mixture_inputs(dev, 4, 130, 300, 100, seed=3)
-    lse = sl.mixture_lse_cuda(z, alpha, beta, v, 0.1)
-    one = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
-    plan = sl.grad_plan(4, 260, 300, dev)
-    assert (plan["mg"], plan["chunks"]) == (4, 1)
-    for chunks in (2, 3):
-        assert sl.grad_plan(4, 260, 300, dev, chunks)["splits"] == \
-            plan["splits"]
-        got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1,
-                                   chunks=chunks)
-        for a, w in zip(got, one):
-            assert torch.equal(a, w)
+# The f32 NT-Xent gradient at MEAformer's joint loss (1, 3500, 1200) and
+# the unfused GMI at d = 1,200 (M = 2), which keep the main-path body, and
+# the wide body (csrc/gram_grad.cuh gram_grad_wide) at the shapes past the
+# main-path body's accumulator: GMI6 (M = 2, d = 1,800), d = 2,000 and
+# 4,000, the cap and just past it; and the mixture at M = 4, d = 1,600
+# (SNAG with modalities 1,600 wide) and 4,000, M = 1 at d = 1,512 and
+# 4,000, M = 6 at d = 1,600 (a cluster of 12); against their twins on the
+# card within the limits above, with bitwise repeats and the launch counted
+# apart.
+def _main_path_cap():
+    """The widest d that the main-path body's accumulator holds at one
+    modality a block (1,504 on the H100)."""
+    return sl._grad_cap(sl._library(), torch.device("cuda"))
+
+
+@pytest.mark.parametrize("m,b,d", [(1, 3500, 1200), (2, 3500, 1200),
+                                   (2, 3500, 1800), (1, 300, 4000),
+                                   (1, 500, "cap"), (1, 500, "cap + 1"),
+                                   (3, 70, 2000)])
+def test_ntxent_grad_wide_matches_twin(dev, m, b, d):
+    if isinstance(d, str):
+        d = _main_path_cap() + (d == "cap + 1")
+    z, v, coef = _ntxent_inputs(dev, m, b, d, b, seed=d)
+    lse = nx.streaming_lse_twin(z, v, 0.1)
+    plan = nx.grad_plan(m, 2 * b, d, dev)
+    assert plan["wide"] == int(d > _main_path_cap()), plan
+    before = (nx.STATS_GRAD.launches, nx.STATS_GRAD_WIDE.launches)
+    dz = nx.ntxent_grad_cuda(z, lse, coef, v, 0.1)
+    again = nx.ntxent_grad_cuda(z, lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    want = nx.ntxent_grad_twin(z, lse, coef, v, 0.1)
+    assert torch.isfinite(dz).all()
+    assert (dz - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(dz, again)
+    wide = 2 * plan["wide"]
+    assert (nx.STATS_GRAD.launches, nx.STATS_GRAD_WIDE.launches) == \
+        (before[0] + 2 - wide, before[1] + wide)
+
+
+@pytest.mark.parametrize("m,b,d", [(4, 3500, 1600), (1, 3500, 1512),
+                                   (4, 40, 4000), (1, 500, 4000),
+                                   (6, 100, 1600), (2, 130, 2000)])
+def test_mixture_grad_wide_matches_twin(dev, m, b, d):
+    z, alpha, beta, v, coef = _mixture_inputs(dev, m, b, d, b, seed=d)
+    lse = sl.mixture_lse_twin(z, alpha, beta, v, 0.1)
+    plan = sl.grad_plan(m, 2 * b, d, dev)
+    assert plan["wide"] == 1 and plan["cluster"] == m * plan["q"], plan
+    before = sl.STATS_GRAD_WIDE.launches
+    got = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    again = sl.mixture_grad_cuda(z, alpha, beta, lse, coef, v, 0.1)
+    torch.cuda.synchronize()
+    want = sl.mixture_grad_twin(z, alpha, beta, lse, coef, v, 0.1)
+    for a, a2, w in zip(got, again, want):
+        assert torch.isfinite(a).all()
+        assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+        assert torch.equal(a, a2)
+    assert sl.STATS_GRAD_WIDE.launches == before + 2
+
+
+def test_main_path_gradients_keep_their_body(dev):
+    """At d = 300 (IIR, ECIA, MCLEA's modality loss; the mixture at M = 4
+    and 6) and NT-Xent's d = 1,200 (MEAformer's joint loss, GMI) both
+    gradients keep the main-path body: its plan, and no wide launch."""
+    for d in (300, 1200):
+        assert nx.grad_plan(1, 7000, d, dev)["wide"] == 0
+    for m in (4, 6):
+        p = sl.grad_plan(m, 7000, 300, dev)
+        assert (p["wide"], p["chunks"]) == (0, 1), p
+    z, v, coef = _ntxent_inputs(dev, 4, 130, 300, 130, seed=1)
+    before = nx.STATS_GRAD_WIDE.launches
+    nx.ntxent_grad_cuda(z, nx.streaming_lse_twin(z, v, 0.1), coef, v, 0.1)
+    assert nx.STATS_GRAD_WIDE.launches == before
 
 
 def _segment_inputs(dev, c, h, seed=0, n=300):
@@ -1128,9 +1212,10 @@ def test_mixture_bf16_grad_at_c6_seeds(dev, seed):
 
 
 def test_mixture_bf16_grad_has_no_cap(dev):
-    """The fp32 gradient holds (modalities per block) x a chunk's columns
-    within its shared accumulator's cap (test_mixture_grad_takes_any_
-    width); the bf16 one keeps one modality's dz in registers, in
+    """The fp32 gradient's main-path body holds (modalities per block) x a
+    chunk's columns within its shared accumulator's cap, its wide body
+    takes what lies past it (test_mixture_grad_takes_any_width); the bf16
+    one keeps one modality's dz in registers, in
     feature chunks, so it takes every M and d: past the fp32 cap at M = 1,
     and M = 6 at d = 1,800 in one group.  Its rows stay resident in one
     chunk, as NT-Xent's do (the cluster shares each modality's K)."""
@@ -1150,9 +1235,9 @@ def test_mixture_bf16_grad_has_no_cap(dev):
     torch.cuda.synchronize()
     assert_bf16_close(got, on_cpu(sl.mixture_grad_twin, z, alpha, beta, lse,
                                   coef, v, 0.1))
-    # the f32 kernel at the same width, in feature chunks (B = 500, as in
-    # test_mixture_grad_takes_any_width)
-    assert _mixture_grad_against_twin(dev, 1, 500, d)["chunks"] == 2
+    # the f32 kernel at the same width, on its wide body (B = 500, as in
+    # test_mixture_grad_takes_any_width; the main-path body took 2 chunks)
+    assert _mixture_grad_against_twin(dev, 1, 500, d)["wide"] == 1
 
 
 # ------------------------------------------- any head count, width and k

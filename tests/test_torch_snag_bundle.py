@@ -72,10 +72,10 @@ def test_bundle_twins_match_jax_pallas_interpret(m):
 
 def test_bundle_twins_match_jax_past_the_f32_accumulator():
     """d = 1,600: past the ~1,500 columns of the f32 gradient kernel's
-    shared accumulator on the card, where it takes one modality a block in
-    two feature chunks (``modality_group``), held there to the twins that
-    this test holds to the JAX package."""
-    assert tsl.modality_group(4, 1600, 1486) == (1, 2)
+    shared accumulator on the card, where it takes one modality a block on
+    its wide body (``modality_group``), held there to the twins that this
+    test holds to the JAX package."""
+    assert tsl.modality_group(4, 1600, 1486) == (1, True)
     _check_bundle_against_jax(4, 12, 1600, seed=16, rows=24)
 
 
@@ -151,12 +151,12 @@ def test_wrappers_dispatch_and_refuse():
         tsl.mixture_lse_cuda(z, torch.zeros(4, 7), torch.zeros(7),
                              torch.ones(4), 0.1)
     # past one modality's fit (250 feature tiles, 185 a block): one
-    # modality a block in two chunks of 125 tiles
-    assert tsl.modality_group(4, 2000, 1486) == (1, 2)
+    # modality a block, on the wide body
+    assert tsl.modality_group(4, 2000, 1486) == (1, True)
     # M = 4 at d = 300: one group; M = 6: two groups of three
-    assert tsl.modality_group(4, 300, 1486) == (4, 1)
-    assert tsl.modality_group(6, 300, 1486) == (3, 1)
-    assert tsl.modality_group(6, 1200, 1486) == (1, 1)
+    assert tsl.modality_group(4, 300, 1486) == (4, False)
+    assert tsl.modality_group(6, 300, 1486) == (3, False)
+    assert tsl.modality_group(6, 1200, 1486) == (1, False)
 
 
 @pytest.fixture(scope="module")
